@@ -1,0 +1,94 @@
+"""Inference CLI of the PyTorch port (single model, greedy):
+
+    python -m p4fr_tpu_torch.inference --checkpoint model.pth \\
+        --file_path input.txt --output_dir ./outputs \\
+        [--batch_size 32] [--max_sequence 230] [--decoding_manager true] \\
+        [--early_stop false]
+
+The arguments are those of the JAX package's ``inference.py``. Options the
+port does not run yet are rejected with the ROADMAP item that ports them;
+compatibility shims (``--tokens_path``, ``--max_cache``) are accepted and
+unused, as in the JAX CLI. The checkpoint is a reference-format ``.pth``
+(``p4fr_tpu.utils.convert_pth --export`` writes one from a native file).
+"""
+
+import argparse
+import sys
+
+# option -> (value the port supports, ROADMAP item that ports the rest)
+_NOT_YET = {
+    "inference_type": ("single", "Queue 1: ensemble"),
+    "decode_type": ("greedy", "Queue 1: beam search + kernel 4"),
+    "kernel": ("auto", "Queue 2: kernels 6-8"),
+    "kv_quant": ("none", "Queue 1: kv-quant int8"),
+    "beam_gather": ("auto", "Queue 1: beam search + kernel 4"),
+    "data_parallel": (False, "Queue 1: parallelism"),
+    "preprocess": ("device", "Queue 1: device resize"),
+}
+
+
+def str2bool(v):
+    if isinstance(v, bool):
+        return v
+    return str(v).lower() in ("yes", "true", "t", "1")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="p4fr_tpu_torch inference")
+    parser.add_argument("--inference_type", default="single",
+                        choices=["single", "ensemble"])
+    parser.add_argument("--checkpoint", nargs="*", default=[],
+                        help="checkpoint path (reference-format .pth)")
+    parser.add_argument("--max_sequence", type=int, default=230)
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--decode_type", default="greedy",
+                        choices=["greedy", "beam"])
+    parser.add_argument("--beam_width", type=int, default=3)
+    parser.add_argument("--decoding_manager", type=str2bool, default=True,
+                        help="grammar-constrained decoding")
+    parser.add_argument("--tokens_path", default="p4fr_tpu/configs/tokens.txt",
+                        help="compat shim: the vocab comes from the checkpoint")
+    parser.add_argument("--max_cache", type=int, default=50,
+                        help="compat shim: encoder outputs stay on the device")
+    parser.add_argument("--kernel", default="auto",
+                        choices=["auto", "jnp", "pallas_v2", "fused", "generic"])
+    parser.add_argument("--kv_quant", default="none",
+                        choices=["none", "int8", "int8_cache"])
+    parser.add_argument("--beam_gather", default="auto",
+                        choices=["auto", "pallas", "jnp"])
+    parser.add_argument("--early_stop", type=str2bool, default=False,
+                        help="exit the decode loop once every sequence "
+                        "emits <EOS> (output-equivalent)")
+    parser.add_argument("--data_parallel", type=str2bool, default=False)
+    parser.add_argument("--preprocess", default="device",
+                        choices=["device", "device_resize", "host"])
+    parser.add_argument("--file_path", required=True, help="input.txt TSV")
+    parser.add_argument("--output_dir", default="./outputs")
+    return parser
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not args.checkpoint:
+        parser.error("--checkpoint is required")
+    if len(args.checkpoint) > 1:
+        parser.error("single inference takes exactly one --checkpoint")
+    for name, (supported, item) in _NOT_YET.items():
+        value = getattr(args, name)
+        if value != supported:
+            parser.error(f"--{name} {value} is not ported to p4fr_tpu_torch "
+                         f"yet (ROADMAP.md {item})")
+
+    from p4fr_tpu_torch.infer.single import run_inference
+
+    return run_inference(
+        args.checkpoint[0], args.file_path, args.output_dir,
+        batch_size=args.batch_size, max_sequence=args.max_sequence,
+        decoding_manager=args.decoding_manager, early_stop=args.early_stop,
+    )
+
+
+if __name__ == "__main__":
+    out = main()
+    sys.exit(0 if out is not None else 1)

@@ -1,0 +1,33 @@
+"""Model registry: network name -> torch model, port of
+``p4fr_tpu/models/registry.py``. Only the EfficientSATRN family is ported;
+the other names raise and point at the ROADMAP item that ports them."""
+
+from __future__ import annotations
+
+import torch
+
+from p4fr_tpu.data.vocab import Vocab
+
+_NOT_YET = {
+    "LiteSATRN": "ROADMAP.md Queue 1: LiteSATRN (ShallowCNN)",
+    "EfficientASTER": "ROADMAP.md Queue 1: EfficientASTER",
+    "ASTER": "ROADMAP.md Queue 1: EfficientASTER",
+    "SWIN": "ROADMAP.md Queue 1: SwinTRN",
+    "SwinTRN": "ROADMAP.md Queue 1: SwinTRN",
+}
+
+
+def get_network(name: str, options, vocab: Vocab, dtype=torch.float32,
+                device="cpu"):
+    """An eval-mode model on ``device`` in ``dtype`` (random weights until
+    a state dict is loaded)."""
+    if name in ("EfficientSATRN", "MySATRN"):  # MySATRN: reference alias
+        from p4fr_tpu_torch.models.satrn import satrn_from_options
+
+        model = satrn_from_options(options, len(vocab), vocab.pad_id, vocab.sos_id)
+        return model.to(device=device, dtype=dtype).eval()
+    if name in _NOT_YET:
+        raise NotImplementedError(
+            f"network {name!r} is not ported to p4fr_tpu_torch yet "
+            f"({_NOT_YET[name]})")
+    raise NotImplementedError(f"Unknown network: {name}")

@@ -1,0 +1,174 @@
+"""EfficientSATRN, port of ``p4fr_tpu/models/satrn.py`` (EfficientNet
+backbone only; the LiteSATRN ``ShallowCNN`` stem comes later).
+
+An EfficientNetV2-S backbone at /32, a gated 2D positional encoding, N
+self-attention encoder layers with a convolutional feed-forward, and the
+transformer decoder of ``models.common``. Parameter names are the
+reference's (the backbone sits at ``encoder.shallow_cnn`` as in
+EfficientSATRN.py) so reference ``.pth`` files load with ``strict=True``.
+
+Reference-parity quirks kept:
+
+- one LayerNorm instance is applied both before the attention and after
+  its residual (LiteSATRN.py:217,247-250);
+- the conv feed-forward reads the [B, HW, C] attention output through a
+  raw ``reshape(b, c, h, w)`` (LiteSATRN.py:251) — torch's own NCHW
+  layout, so the scrambled view needs no transpose here;
+- encoder BatchNorm eps is 1e-5.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from p4fr_tpu_torch.models.common import TransformerDecoder
+from p4fr_tpu_torch.models.efficientnetv2 import EfficientNetV2Backbone
+from p4fr_tpu_torch.ops.attention import MultiHeadAttention
+from p4fr_tpu_torch.ops.posenc import sinusoid_concat
+
+ENC_BN_EPS = 1e-5
+LN_EPS = 1e-5
+
+
+class AdaptivePositionalEncoding2D(nn.Module):
+    """Gated per-axis sinusoidal 2D PE (LiteSATRN.py:72-136): a 2-way MLP
+    on the pooled features gates the H-axis and W-axis tables."""
+
+    def __init__(self, hidden_size: int, height: int, width: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.dense0 = nn.Linear(hidden_size, hidden_size // 2)
+        self.dense1 = nn.Linear(hidden_size // 2, hidden_size * 2)
+        self.register_buffer("h_pe", sinusoid_concat(height, hidden_size),
+                             persistent=False)
+        self.register_buffer("w_pe", sinusoid_concat(width, hidden_size),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, H, W, C] -> x + gated PE."""
+        g = torch.relu(self.dense0(x.mean(dim=(1, 2))))
+        g = torch.sigmoid(self.dense1(g)).reshape(-1, 2, self.hidden_size)
+        pe = (g[:, 0, None, None, :] * self.h_pe[None, :, None, :]
+              + g[:, 1, None, None, :] * self.w_pe[None, None, :, :])
+        return x + pe
+
+
+class SATRNEncoderLayer(nn.Module):
+    """Self-attention over flattened HxW tokens + convolutional FF
+    (LiteSATRN.py:213-263)."""
+
+    def __init__(self, hidden_dim: int, filter_dim: int, head_num: int,
+                 scrambled_ff: bool = True):
+        super().__init__()
+        self.scrambled_ff = scrambled_ff
+        self.norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)  # shared, see above
+        self.attention_layer = MultiHeadAttention(hidden_dim, hidden_dim, head_num)
+        self.conv0 = nn.Conv2d(hidden_dim, filter_dim, 1, bias=False)
+        self.norm0 = nn.BatchNorm2d(filter_dim, eps=ENC_BN_EPS)
+        self.depthwise = nn.Conv2d(filter_dim, filter_dim, 3, padding=1,
+                                   groups=filter_dim)
+        self.depthwise_norm = nn.BatchNorm2d(filter_dim, eps=ENC_BN_EPS)
+        self.conv1 = nn.Conv2d(filter_dim, hidden_dim, 1, bias=False)
+        self.norm1 = nn.BatchNorm2d(hidden_dim, eps=ENC_BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, H, W, C] -> [B, H, W, C]."""
+        b, h, w, c = x.shape
+        flat = x.reshape(b, h * w, c)
+        y = self.norm(flat)
+        y = self.attention_layer(y, y, y)
+        y = self.norm(y + flat)
+        if self.scrambled_ff:
+            y2d = y.reshape(b, c, h, w)  # the reference's raw reshape
+        else:
+            y2d = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        z = torch.relu(self.norm0(self.conv0(y2d)))
+        z = torch.relu(self.depthwise_norm(self.depthwise(z)))
+        z = torch.relu(self.norm1(self.conv1(z)))
+        return z.permute(0, 2, 3, 1) + x
+
+
+class SATRNEncoder(nn.Module):
+    """EfficientNet stem + adaptive 2D PE + N layers -> [B, HW, C] memory."""
+
+    def __init__(self, input_height: int, input_width: int, hidden_dim: int,
+                 filter_dim: int, head_num: int, layer_num: int,
+                 in_chans: int = 3, scrambled_ff: bool = True,
+                 backbone_stages: Any = None):
+        super().__init__()
+        self.shallow_cnn = EfficientNetV2Backbone(hidden_dim, in_chans,
+                                                  backbone_stages)
+        stride = 32
+        if backbone_stages is not None:
+            stride = 2  # stem
+            for row in backbone_stages:
+                stride *= row[2]
+        self.positional_encoding = AdaptivePositionalEncoding2D(
+            hidden_dim, input_height // stride, input_width // stride)
+        self.attention_layers = nn.ModuleList(
+            SATRNEncoderLayer(hidden_dim, filter_dim, head_num, scrambled_ff)
+            for _ in range(layer_num)
+        )
+
+    def forward(self, images: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """images [B, H, W, C] standardized -> [B, HW, C]."""
+        x = self.shallow_cnn(images.permute(0, 3, 1, 2).contiguous(), plain)
+        x = self.positional_encoding(x.permute(0, 2, 3, 1))
+        for layer in self.attention_layers:
+            x = layer(x)
+        b, h, w, c = x.shape
+        return x.reshape(b, h * w, c)
+
+
+class SATRN(nn.Module):
+    """Encoder-decoder SATRN on the EfficientNetV2 backbone (inference)."""
+
+    def __init__(self, num_classes: int, pad_id: int, sos_id: int,
+                 input_height: int, input_width: int, enc_hidden_dim: int,
+                 enc_filter_dim: int, enc_layer_num: int, enc_head_num: int,
+                 dec_src_dim: int, dec_hidden_dim: int, dec_filter_dim: int,
+                 dec_layer_num: int, dec_head_num: int, in_chans: int = 3,
+                 reference_parity: bool = True, backbone_stages: Any = None):
+        super().__init__()
+        self.num_classes, self.pad_id, self.sos_id = num_classes, pad_id, sos_id
+        self.reference_parity = reference_parity
+        self.encoder = SATRNEncoder(
+            input_height, input_width, enc_hidden_dim, enc_filter_dim,
+            enc_head_num, enc_layer_num, in_chans, reference_parity,
+            backbone_stages,
+        )
+        self.decoder = TransformerDecoder(
+            num_classes, dec_src_dim, dec_hidden_dim, dec_filter_dim,
+            dec_head_num, dec_layer_num, pad_id, sos_id,
+            cache_outputs=reference_parity,
+        )
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.decoder.generator.weight.dtype
+
+    def encode(self, images: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        return self.encoder(images, plain)
+
+
+def satrn_from_options(options, num_classes: int, pad_id: int, sos_id: int) -> SATRN:
+    """Build an EfficientSATRN from a reference-schema config dict."""
+    enc, dec = options["SATRN"]["encoder"], options["SATRN"]["decoder"]
+    tpu = options.get("tpu") or {}
+    stages = enc.get("backbone_stages")
+    return SATRN(
+        num_classes=num_classes, pad_id=pad_id, sos_id=sos_id,
+        input_height=options["input_size"]["height"],
+        input_width=options["input_size"]["width"],
+        enc_hidden_dim=enc["hidden_dim"], enc_filter_dim=enc["filter_dim"],
+        enc_layer_num=enc["layer_num"], enc_head_num=enc["head_num"],
+        dec_src_dim=dec["src_dim"], dec_hidden_dim=dec["hidden_dim"],
+        dec_filter_dim=dec["filter_dim"], dec_layer_num=dec["layer_num"],
+        dec_head_num=dec["head_num"],
+        in_chans=int((options.get("data") or {}).get("rgb", 3)),
+        reference_parity=bool(tpu.get("reference_parity", True)),
+        backbone_stages=None if stages is None else tuple(tuple(r) for r in stages),
+    )

@@ -1,0 +1,123 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` into ONE shared library with a
+plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds). The library lands in ``build/p4fr_tpu_torch/`` at
+the repository root, named by a hash of the sources, and is built on first
+use in a process, never at import time.
+
+Each kernel's C entry point returns ``cudaGetLastError()``; ``check``
+raises on a non-zero code. ``LAUNCHES`` counts, per kernel wrapper, the
+times it launched its kernel on the card (a CPU tensor takes the plain
+twin and counts nothing).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "p4fr_tpu_torch")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+LAUNCHES = {"standardize": 0, "mbconv": 0, "decoder_layer": 0}
+
+_lib = None
+_lock = threading.Lock()
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+# C signatures: name -> argtypes (restype is int = cudaError_t)
+_SIGNATURES = {
+    # (in u8, out, scale_shift f32[2C], n_bytes, channels, out_bf16, stream)
+    "p4fr_standardize": [P, P, P, ctypes.c_longlong, I, I, P],
+    # (x, pw_w, pw_s, pw_b, dw_w, dw_s, dw_b, h2 f32, partial f32,
+    #  B, H, W, Cin, Cmid, bf16, stream)
+    "p4fr_mbconv_expand_dw": [P] * 9 + [I] * 6 + [P],
+    # (H, W) -> spatial tiles per image of expand_dw (not a CUDA error code)
+    "p4fr_mbconv_tiles": [I, I],
+    # (partial, se_rw, se_rb, se_ew, se_eb, gate f32, B, tiles, S, Cmid,
+    #  rd, bf16, stream)
+    "p4fr_mbconv_se": [P] * 6 + [I] * 6 + [P],
+    # (h2, gate|null, pwl_w, pwl_s, pwl_b, x|null, out, B, S, Cmid, Cout,
+    #  bf16, stream)
+    "p4fr_mbconv_project": [P] * 7 + [I] * 5 + [P],
+    # (x, cache, src_kv, out, 18 weight pointers, B, H, heads, F, S, L,
+    #  pos, cache_outputs, bf16, stream)
+    "p4fr_decoder_layer": [P] * 22 + [I] * 9 + [P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set NVCC or put nvcc on PATH)")
+
+
+def _sources():
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library; compiles it on the first call."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = _sources()
+        digest = hashlib.sha256()
+        for path in srcs:
+            with open(path, "rb") as f:
+                digest.update(os.path.basename(path).encode() + f.read())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        so = os.path.join(BUILD_DIR, f"libp4fr_kernels_{digest.hexdigest()[:16]}.so")
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *[s for s in srcs if s.endswith(".cu")]]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

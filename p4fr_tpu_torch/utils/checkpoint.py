@@ -1,0 +1,45 @@
+"""The port's checkpoint: the reference-format ``.pth``.
+
+The file ``p4fr_tpu.utils.convert_pth.export_pth`` writes (and the original
+PyTorch code reads) is self-describing:
+
+    {"network": str, "epoch": int, "model": state_dict,
+     "configs": dict, "token_to_id": dict, "id_to_token": dict}
+
+``configs`` is a plain dict, so building the model needs no yaml.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from p4fr_tpu.data.vocab import Vocab
+from p4fr_tpu_torch.models.registry import get_network
+
+
+def save_checkpoint(path: str, model, *, network: str, configs: Dict,
+                    vocab: Vocab, epoch: int = 0) -> str:
+    payload = {
+        "network": network,
+        "epoch": int(epoch),
+        "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "configs": configs,
+        "token_to_id": dict(vocab.token_to_id),
+        "id_to_token": {int(k): v for k, v in vocab.id_to_token.items()},
+    }
+    torch.save(payload, path)
+    return path
+
+
+def load_model_from_checkpoint(path: str, device="cpu", dtype=torch.float32):
+    """(model, options, vocab, checkpoint) from a reference-format ``.pth``;
+    the weights load with ``strict=True``."""
+    ckpt: Dict[str, Any] = torch.load(path, map_location="cpu", weights_only=True)
+    options = ckpt["configs"]
+    network = ckpt.get("network") or options.get("network")
+    vocab = Vocab.from_maps(ckpt["token_to_id"], ckpt["id_to_token"])
+    model = get_network(network, options, vocab, dtype=dtype, device=device)
+    model.load_state_dict(ckpt["model"], strict=True)
+    return model, options, vocab, ckpt

@@ -1,0 +1,162 @@
+"""The port's CUDA kernels vs their plain PyTorch twins, on the card.
+
+This file imports neither jax nor tests/conftest.py's fixtures, so it also
+runs on the GPU host, where JAX is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+Without a card the ``cuda`` tests skip (a CUDA kernel has no CPU mode);
+the others check that a wrapper never falls back on a non-CPU tensor.
+Shapes are small and ragged (partial tiles); chip_smoke.py checks the main
+path's shapes. Tolerances: f32 with TF32 off 1e-4 (summation order). bf16
+against the twin computed in f32 on the same bf16 operands, rounding where
+the kernel rounds, element by element: |kernel - twin| <= atol + 2^-8
+|twin|, 2^-8 being the final cast's rounding and atol chip_smoke.py's."""
+
+import pytest
+import torch
+
+from p4fr_tpu_torch.models.efficientnetv2 import MBConv
+from p4fr_tpu_torch.ops.decoder_layer import (
+    LayerWeights,
+    decoder_layer_step,
+    layer_step_ref,
+)
+from p4fr_tpu_torch.ops.mbconv import fold_mbconv_params, fused_mbconv, mbconv_block_ref
+from p4fr_tpu_torch.ops.preprocess import standardize, standardize_ref
+
+BF16_RTOL = 2.0 ** -8
+BF16_ATOL = {"standardize": 1e-6, "mbconv": 1.5e-3, "decoder_layer": 2e-3}
+
+
+def assert_bf16_close(got, want, kernel):
+    """bf16 kernel output vs its twin's f32 value before the final cast."""
+    assert got.dtype == torch.bfloat16
+    excess = (got.float() - want).abs() - BF16_RTOL * want.abs()
+    assert bool(torch.isfinite(got).all())
+    assert excess.max().item() <= BF16_ATOL[kernel], excess.max().item()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def random_layer(gen, hidden, filter_dim, device="cpu", dtype=torch.float32):
+    shapes = {"w_qkv": (hidden, 3 * hidden), "w_out": (hidden, hidden),
+              "w_q2": (hidden, hidden), "w_out2": (hidden, hidden),
+              "w_ff0": (hidden, filter_dim), "w_ff1": (filter_dim, hidden),
+              "w_ck": (hidden, hidden), "w_cv": (hidden, hidden)}
+    w = {}
+    for name, (i, o) in shapes.items():
+        w[name] = torch.randn(i, o, generator=gen) / i ** 0.5
+        w["b" + name[1:]] = 0.1 * torch.randn(o, generator=gen)
+    for i in (1, 2, 3):
+        w[f"ln{i}_scale"] = 1 + 0.1 * torch.randn(hidden, generator=gen)
+        w[f"ln{i}_bias"] = 0.1 * torch.randn(hidden, generator=gen)
+    return LayerWeights(**{k: v.to(device, dtype) for k, v in w.items()})
+
+
+def test_wrappers_never_fall_back_off_cpu():
+    """A tensor on neither CPU nor CUDA raises; no twin is taken for it."""
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="device"):
+        standardize(torch.empty(1, 2, 2, 3, dtype=torch.uint8, device=meta))
+    block = MBConv(8, 8, 3, 1, 2, 0.25).eval()
+    folded = fold_mbconv_params(block, torch.float32)
+    with pytest.raises(ValueError, match="device"):
+        fused_mbconv(torch.empty(1, 4, 4, 8, device=meta), folded, residual=True)
+    w = random_layer(torch.Generator().manual_seed(0), 32, 64)
+    with pytest.raises(ValueError, match="device"):
+        decoder_layer_step(torch.empty(2, 32, device=meta), 0,
+                           torch.empty(2, 4, 64, device=meta),
+                           torch.empty(2, 3, 64, device=meta), w,
+                           head_num=1, cache_outputs=True)
+
+
+@pytest.mark.cuda
+def test_standardize_kernel(cuda):
+    gen = torch.Generator().manual_seed(0)
+    # 16-byte vector body plus a ragged scalar tail
+    for shape in ((3, 17, 33, 3), (2, 8, 8, 1)):
+        img = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(cuda)
+        want = standardize_ref(img, torch.float32)
+        got = standardize(img, torch.float32)
+        torch.cuda.synchronize()
+        assert torch.allclose(got, want, rtol=0, atol=1e-6)
+        assert_bf16_close(standardize(img, torch.bfloat16), want, "standardize")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,se", [(40, 40, 0.25), (24, 40, 0.25), (32, 32, 0.0)])
+def test_mbconv_kernel(cuda, cin, cout, se):
+    torch.manual_seed(0)
+    block = MBConv(cin, cout, 3, 1, 4, se).to(cuda).eval()
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_var.uniform_(0.5, 1.5)
+                m.running_mean.normal_(0, 0.1)
+    # 11x19: partial 8x16 tiles; Cout not a multiple of the 64-wide tile
+    # a per-image channel offset gives each image its own SE gate
+    x = torch.randn(3, 11, 19, cin, device=cuda) + torch.randn(3, 1, 1, cin, device=cuda)
+    res = cin == cout
+    folded = fold_mbconv_params(block, torch.float32)
+    got = fused_mbconv(x, folded, residual=res)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, mbconv_block_ref(x, folded, res), rtol=1e-4, atol=1e-4)
+    folded = fold_mbconv_params(block, torch.bfloat16)
+    xb = x.bfloat16()
+    assert_bf16_close(fused_mbconv(xb, folded, residual=res),
+                      mbconv_block_ref(xb, folded, res, out_dtype=torch.float32),
+                      "mbconv")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_outputs", [True, False])
+def test_decoder_layer_kernel(cuda, dtype, cache_outputs):
+    gen = torch.Generator().manual_seed(0)
+    hidden, heads, b, s_len, max_len = 64, 2, 6, 5, 40  # ragged batch tile
+    w = random_layer(gen, hidden, 128, cuda, dtype)
+    x = torch.randn(b, hidden, generator=gen).to(cuda, dtype)
+    src = torch.randn(b, s_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    c_k = torch.zeros(b, max_len, 2 * hidden, device=cuda, dtype=dtype)
+    # the twin in f32 on the same operands, k|v rounded as the kernel does
+    c_r = c_k.to(torch.float32, copy=True)
+    w_r = LayerWeights(*(t.float() for t in w))
+    for pos in range(36):  # past one warp's 32 positions
+        o_k, _ = decoder_layer_step(x, pos, c_k, src, w, head_num=heads,
+                                    cache_outputs=cache_outputs)
+        torch.cuda.synchronize()
+        o_r, _ = layer_step_ref(x.float(), pos, c_r, src.float(), w_r,
+                                head_num=heads, cache_outputs=cache_outputs,
+                                kv_dtype=dtype)
+        if dtype == torch.float32:
+            assert torch.allclose(o_k, o_r, rtol=1e-4, atol=1e-4), pos
+            assert torch.allclose(c_k, c_r, rtol=1e-4, atol=1e-4), pos
+        else:
+            assert_bf16_close(o_k, o_r, "decoder_layer")
+            assert_bf16_close(c_k, c_r, "decoder_layer")
+        # hold both to one history, so errors do not compound
+        x = o_r.to(dtype)
+        c_r = c_r.to(dtype).float()
+        c_k.copy_(c_r)
+
+
+def test_cpu_twins_count_no_launch():
+    from p4fr_tpu_torch.ops import _build
+
+    before = dict(_build.LAUNCHES)
+    standardize(torch.zeros(1, 2, 2, 3, dtype=torch.uint8))
+    block = MBConv(8, 8, 3, 1, 2, 0.25).eval()
+    fused_mbconv(torch.zeros(1, 4, 4, 8), fold_mbconv_params(block, torch.float32),
+                 residual=True)
+    w = random_layer(torch.Generator().manual_seed(0), 32, 64)
+    decoder_layer_step(torch.zeros(2, 32), 0, torch.zeros(2, 4, 64),
+                       torch.zeros(2, 3, 64), w, head_num=1, cache_outputs=True)
+    assert _build.LAUNCHES == before
