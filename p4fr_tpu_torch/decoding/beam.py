@@ -1,0 +1,200 @@
+"""Batched fixed-width beam search over the fast decoder, port of
+``p4fr_tpu/decoding/beam.py::make_beam_fn`` (its transformer fast-step
+branch).
+
+All B*W hypotheses advance in lockstep, one ``fast_decode_step`` per token
+(kernel 3 at B*W rows on the card), with
+
+- a per-step f32 ``log_softmax``; finished (post-``<EOS>``) beams may only
+  continue with ``<PAD>`` at zero cost, every other token at ``NEG_INF``;
+- top-W over the W*V candidates of each sample, ties to the lower flat
+  index as ``jax.lax.top_k`` breaks them (a stable descending sort: the
+  order of ``torch.topk``'s ties on the card is unspecified);
+- after the step that wrote slot ``t``, every layer's self cache reordered
+  by parent beam over slots ``0..t`` (``ops/beam_gather.py``: kernel 4 on
+  the card, its plain version with ``plain=True`` or on a CPU tensor);
+- the winner picked by length-normalised score ``scores / max(lengths, 1)``
+  and its tokens recovered by backtracking the recorded parents.
+
+``NEG_INF`` stays the finite float32 ``-1e9`` of the JAX package: the
+candidates built on it (``-1e9 + logp`` rounds to multiples of 64) are
+finite numbers that top-W orders among themselves, where ``-inf`` would
+make them all equal and hand a different set of ties to the sort.
+
+The DecodingManager does not apply to beam search, as in the JAX CLI. The
+ASTER and generic-step branches wait for their model families
+(ROADMAP.md Queue 1: EfficientASTER).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from p4fr_tpu_torch.decoding.fast_step import (
+    FastDecoder,
+    fast_decode_step,
+    init_fast_cache,
+    precompute_cross_kv,
+)
+from p4fr_tpu_torch.ops.beam_gather import beam_parent_gather, beam_parent_gather_ref
+
+NEG_INF = -1e9
+
+
+class BeamState(NamedTuple):
+    scores: torch.Tensor    # [B, W] f32 cumulative log-prob
+    lengths: torch.Tensor   # [B, W] f32 steps taken before finishing
+    finished: torch.Tensor  # [B, W] bool, <EOS> emitted
+
+
+class BeamTrace(NamedTuple):
+    """What a search recorded: each step's tokens and parent beams
+    ([T, B, W] int64; past an early stop, ``<PAD>`` and identity
+    parents, which is what frozen beams would have added) and the state
+    after the last step run."""
+
+    tokens: torch.Tensor
+    parents: torch.Tensor
+    state: BeamState
+
+
+def init_beam_state(batch: int, width: int, device) -> BeamState:
+    """Beam 0 live, the others at ``NEG_INF`` so step 0 does not repeat."""
+    scores = torch.full((batch, width), NEG_INF, dtype=torch.float32, device=device)
+    scores[:, 0] = 0.0
+    return BeamState(
+        scores=scores,
+        lengths=torch.zeros((batch, width), dtype=torch.float32, device=device),
+        finished=torch.zeros((batch, width), dtype=torch.bool, device=device),
+    )
+
+
+def candidates(state: BeamState, logp: torch.Tensor, pad_id: int) -> torch.Tensor:
+    """[B*W, V] log-probs -> [B, W*V] candidate scores; a finished beam
+    continues only with ``<PAD>``, at zero cost."""
+    batch, width = state.scores.shape
+    vocab = logp.shape[-1]
+    pad_only = torch.full((vocab,), NEG_INF, dtype=torch.float32, device=logp.device)
+    pad_only[pad_id] = 0.0
+    logp = torch.where(state.finished[..., None], pad_only,
+                       logp.view(batch, width, vocab))
+    return (state.scores[..., None] + logp).view(batch, width * vocab)
+
+
+def top_w(cand: torch.Tensor, width: int):
+    """The ``width`` best of each row, ties to the lower index."""
+    values, idx = torch.sort(cand, dim=1, descending=True, stable=True)
+    return values[:, :width], idx[:, :width]
+
+
+def advance(state: BeamState, scores: torch.Tensor, parent: torch.Tensor,
+            token: torch.Tensor, eos_id: int) -> BeamState:
+    """The state after choosing (parent, token) per beam; ``finished`` and
+    ``lengths`` follow the parent before they are updated."""
+    was_finished = state.finished.gather(1, parent)
+    return BeamState(
+        scores=scores,
+        lengths=state.lengths.gather(1, parent) + (~was_finished).float(),
+        finished=was_finished | (token == eos_id),
+    )
+
+
+def cache_gather(width: int, plain: bool):
+    """``fn(cache, parent_flat, pos)``: kernel 4's wrapper, or its plain
+    version for ``plain=True``."""
+    if plain:
+        return beam_parent_gather_ref
+    return functools.partial(beam_parent_gather, group=width)
+
+
+def beam_buffers(fast: FastDecoder, src: torch.Tensor, width: int, max_len: int):
+    """(cross K|V of ``src`` repeated per beam, zeroed self caches) for
+    the B*W hypotheses."""
+    cross_kv = precompute_cross_kv(
+        fast, src.repeat_interleave(width, dim=0).to(fast.w_gen.dtype))
+    return cross_kv, init_fast_cache(fast, src.shape[0] * width, max_len)
+
+
+def step_logp(fast: FastDecoder, token: torch.Tensor, t: int, cross_kv, cache,
+              plain: bool = False) -> torch.Tensor:
+    """Decode every hypothesis one step (writing slot ``t``) -> [B*W, V]
+    f32 log-probs."""
+    logits = fast_decode_step(fast, token, t, cross_kv, cache, plain=plain)
+    return torch.log_softmax(logits.float(), dim=-1)
+
+
+def pick(cand: torch.Tensor, width: int, vocab: int):
+    """Top-W of [B, W*V] candidates -> (scores, parent, token), each [B, W]."""
+    scores, idx = top_w(cand, width)
+    return scores, idx // vocab, idx % vocab
+
+
+def reorder_caches(cache, gather, parent: torch.Tensor, t: int) -> None:
+    """Every layer's cache over slots ``0..t`` to its parent beam, in place,
+    after the step that wrote slot ``t``."""
+    batch, width = parent.shape
+    offsets = torch.arange(batch, device=parent.device)[:, None] * width
+    parent_flat = (parent + offsets).reshape(-1)
+    for layer_cache in cache:
+        gather(layer_cache, parent_flat, t)
+
+
+@torch.no_grad()
+def beam_search(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
+                beam_width: int, sos_id: int, eos_id: int, pad_id: int,
+                early_stop: bool = False,
+                stop_override: Optional[torch.Tensor] = None,
+                plain: bool = False) -> BeamTrace:
+    """Beam search from encoder memory ``src`` [B, S, C].
+
+    ``early_stop``: leave the step loop once every beam of every sample has
+    finished; token-identical to the full run, since finished beams only
+    add ``<PAD>``, which is what the unfilled trace holds.
+    ``stop_override`` ([B], requires ``early_stop``): benchmarking hook;
+    every beam of sample i is forced finished once ``t >= stop_override[i]``,
+    so the early exit fires on a chosen length distribution even with
+    random weights. ``plain=True`` runs every kernel's plain version.
+    """
+    if stop_override is not None and not early_stop:
+        raise ValueError("stop_override requires early_stop=True (the "
+                         "fixed-length loop would ignore the stop steps)")
+    gather = cache_gather(beam_width, plain)
+    batch, width, dev = src.shape[0], beam_width, src.device
+    cross_kv, cache = beam_buffers(fast, src, width, max_steps)
+    token = torch.full((batch * width,), sos_id, dtype=torch.int64, device=dev)
+    state = init_beam_state(batch, width, dev)
+    tokens = torch.full((max_steps, batch, width), pad_id, dtype=torch.int64,
+                        device=dev)
+    parents = torch.arange(width, device=dev).expand(max_steps, batch, width).clone()
+    for t in range(max_steps):
+        logp = step_logp(fast, token, t, cross_kv, cache, plain)
+        scores, parent, new = pick(candidates(state, logp, pad_id), width,
+                                   logp.shape[-1])
+        reorder_caches(cache, gather, parent, t)
+        state = advance(state, scores, parent, new, eos_id)
+        tokens[t], parents[t] = new, parent
+        token = new.reshape(-1)
+        if early_stop:
+            if stop_override is not None:
+                state = state._replace(
+                    finished=state.finished | (t >= stop_override)[:, None])
+            if bool(state.finished.all()):
+                break
+    return BeamTrace(tokens, parents, state)
+
+
+def best_tokens(trace: BeamTrace) -> torch.Tensor:
+    """[B, T] tokens of each sample's best hypothesis by length-normalised
+    score (first beam on ties), recovered from the recorded parents."""
+    state = trace.state
+    beam = torch.argmax(state.scores / state.lengths.clamp(min=1.0), dim=1)[:, None]
+    steps, batch, _ = trace.tokens.shape
+    out = torch.empty((batch, steps), dtype=torch.int64, device=beam.device)
+    for t in range(steps - 1, -1, -1):
+        out[:, t] = trace.tokens[t].gather(1, beam)[:, 0]
+        beam = trace.parents[t].gather(1, beam)
+    return out
+

@@ -9,8 +9,8 @@ layer (kernel 3 on a CUDA tensor, its plain twin on a CPU tensor; or the
 twin itself with ``plain=True``), then the generator and, with rule
 tables, the DecodingManager's ``sift``.
 
-The int8 ``kv_quant`` paths, the tiled cache and ``stop_override`` are not
-ported yet (ROADMAP.md).
+The int8 ``kv_quant`` paths and the tiled cache are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -117,13 +117,20 @@ def fast_decode_step(fast: FastDecoder, token: torch.Tensor, pos: int,
 def greedy_decode(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
                   sos_id: int, tables: Optional[dm.RuleTables] = None,
                   early_stop_eos: Optional[int] = None,
+                  stop_override: Optional[torch.Tensor] = None,
                   plain: bool = False) -> torch.Tensor:
     """Greedy decode from encoder memory ``src`` [B, S, C] -> [B, max_steps]
     int64 tokens.
 
     ``early_stop_eos``: stop once every row has emitted it; the rest of the
     buffer holds that id (output-equivalent to the fixed-length decode).
+    ``stop_override`` ([B], requires ``early_stop_eos``): benchmarking hook;
+    row i also counts as done once ``t >= stop_override[i]``, so the early
+    exit fires on a chosen length distribution even with random weights.
     """
+    if stop_override is not None and early_stop_eos is None:
+        raise ValueError("stop_override requires early_stop_eos (the "
+                         "fixed-length loop would ignore the stop steps)")
     batch = src.shape[0]
     cross_kv = precompute_cross_kv(fast, src.to(fast.w_gen.dtype))
     cache = init_fast_cache(fast, batch, max_steps)
@@ -144,6 +151,8 @@ def greedy_decode(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
         else:
             out[:, t] = torch.where(done, torch.full_like(target, fill), target)
             done = done | (target == early_stop_eos)
+            if stop_override is not None:
+                done = done | (t >= stop_override)
             if bool(done.all()):
                 break
         token = target

@@ -12,7 +12,8 @@ is a few tensor ops on the card and decode never waits on the host:
 - otherwise ban the previous token once its run length reaches its
   repeat limit.
 
-Rule data is read by path from the JAX package's ``rules.json``.
+Rule data is the port's ``decoding/rules.json``, a byte-identical copy of
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,12 +26,9 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from p4fr_tpu.data.vocab import Vocab
+from p4fr_tpu_torch.data.vocab import Vocab
 
-RULES_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "p4fr_tpu", "decoding", "rules.json",
-)
+RULES_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rules.json")
 _NO_LIMIT = np.iinfo(np.int32).max
 
 

@@ -1,15 +1,23 @@
-"""Inference CLI of the PyTorch port (single model, greedy):
+"""Inference CLI of the PyTorch port (single model, greedy or beam):
 
     python -m p4fr_tpu_torch.inference --checkpoint model.pth \\
         --file_path input.txt --output_dir ./outputs \\
         [--batch_size 32] [--max_sequence 230] [--decoding_manager true] \\
-        [--early_stop false]
+        [--decode_type greedy|beam] [--beam_width 3] \\
+        [--beam_gather auto|pallas|jnp] [--early_stop false] \\
+        [--device cuda|cpu]
 
-The arguments are those of the JAX package's ``inference.py``. Options the
-port does not run yet are rejected with the ROADMAP item that ports them;
-compatibility shims (``--tokens_path``, ``--max_cache``) are accepted and
-unused, as in the JAX CLI. The checkpoint is a reference-format ``.pth``
-(``p4fr_tpu.utils.convert_pth --export`` writes one from a native file).
+The arguments are those of the JAX package's ``inference.py``, plus
+``--device``: the port runs on the CUDA card unless ``--device cpu`` is
+given, and exits with an error where CUDA is asked for and absent. The
+port has no Pallas: ``--beam_gather auto`` and ``pallas`` both take the
+CUDA kernels, and ``jnp`` runs a beam search on the kernels' plain PyTorch
+versions (``run_inference(plain=True)``). Options
+the port does not run yet are rejected with the ROADMAP item that ports
+them; compatibility shims (``--tokens_path``, ``--max_cache``) are
+accepted and unused, as in the JAX CLI. The checkpoint is a
+reference-format ``.pth`` (the JAX package's ``convert_pth --export``
+writes one from a native checkpoint).
 """
 
 import argparse
@@ -18,10 +26,8 @@ import sys
 # option -> (value the port supports, ROADMAP item that ports the rest)
 _NOT_YET = {
     "inference_type": ("single", "Queue 1: ensemble"),
-    "decode_type": ("greedy", "Queue 1: beam search + kernel 4"),
-    "kernel": ("auto", "Queue 2: kernels 6-8"),
+    "kernel": ("auto", "Queue 2 items 1, 3 and 4: kernels 6-8"),
     "kv_quant": ("none", "Queue 1: kv-quant int8"),
-    "beam_gather": ("auto", "Queue 1: beam search + kernel 4"),
     "data_parallel": (False, "Queue 1: parallelism"),
     "preprocess": ("device", "Queue 1: device resize"),
 }
@@ -46,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--beam_width", type=int, default=3)
     parser.add_argument("--decoding_manager", type=str2bool, default=True,
                         help="grammar-constrained decoding")
-    parser.add_argument("--tokens_path", default="p4fr_tpu/configs/tokens.txt",
+    parser.add_argument("--tokens_path", default="p4fr_tpu_torch/configs/tokens.txt",
                         help="compat shim: the vocab comes from the checkpoint")
     parser.add_argument("--max_cache", type=int, default=50,
                         help="compat shim: encoder outputs stay on the device")
@@ -55,13 +61,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--kv_quant", default="none",
                         choices=["none", "int8", "int8_cache"])
     parser.add_argument("--beam_gather", default="auto",
-                        choices=["auto", "pallas", "jnp"])
+                        choices=["auto", "pallas", "jnp"],
+                        help="beam only; jnp: the kernels' plain versions")
     parser.add_argument("--early_stop", type=str2bool, default=False,
                         help="exit the decode loop once every sequence "
                         "emits <EOS> (output-equivalent)")
     parser.add_argument("--data_parallel", type=str2bool, default=False)
     parser.add_argument("--preprocess", default="device",
                         choices=["device", "device_resize", "host"])
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="where to run; the CPU only when asked for")
     parser.add_argument("--file_path", required=True, help="input.txt TSV")
     parser.add_argument("--output_dir", default="./outputs")
     return parser
@@ -80,12 +89,21 @@ def main(argv=None):
             parser.error(f"--{name} {value} is not ported to p4fr_tpu_torch "
                          f"yet (ROADMAP.md {item})")
 
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        parser.error("no CUDA card is visible; pass --device cpu to run on "
+                     "the CPU")
+
     from p4fr_tpu_torch.infer.single import run_inference
 
     return run_inference(
         args.checkpoint[0], args.file_path, args.output_dir,
         batch_size=args.batch_size, max_sequence=args.max_sequence,
+        decode_type=args.decode_type, beam_width=args.beam_width,
         decoding_manager=args.decoding_manager, early_stop=args.early_stop,
+        plain=args.decode_type == "beam" and args.beam_gather == "jnp",
+        device=args.device,
     )
 
 

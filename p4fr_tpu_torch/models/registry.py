@@ -6,9 +6,9 @@ from __future__ import annotations
 
 import torch
 
-from p4fr_tpu.data.vocab import Vocab
+from p4fr_tpu_torch.data.vocab import Vocab
 
-_NOT_YET = {
+NOT_PORTED = {  # network -> the ROADMAP item that ports it
     "LiteSATRN": "ROADMAP.md Queue 1: LiteSATRN (ShallowCNN)",
     "EfficientASTER": "ROADMAP.md Queue 1: EfficientASTER",
     "ASTER": "ROADMAP.md Queue 1: EfficientASTER",
@@ -26,8 +26,8 @@ def get_network(name: str, options, vocab: Vocab, dtype=torch.float32,
 
         model = satrn_from_options(options, len(vocab), vocab.pad_id, vocab.sos_id)
         return model.to(device=device, dtype=dtype).eval()
-    if name in _NOT_YET:
+    if name in NOT_PORTED:
         raise NotImplementedError(
             f"network {name!r} is not ported to p4fr_tpu_torch yet "
-            f"({_NOT_YET[name]})")
+            f"({NOT_PORTED[name]})")
     raise NotImplementedError(f"Unknown network: {name}")

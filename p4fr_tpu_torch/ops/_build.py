@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into ONE shared library with a
-plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds). The library lands in ``build/p4fr_tpu_torch/`` at
-the repository root, named by a hash of the sources, and is built on first
-use in a process, never at import time.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into ONE shared library with a plain
+C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds). The library lands in ``build/p4fr_tpu_torch/`` at the repository
+root, named by a hash of the sources, and is built on first use in a
+process, never at import time.
 
 Each kernel's C entry point returns ``cudaGetLastError()``; ``check``
 raises on a non-zero code. ``LAUNCHES`` counts, per kernel wrapper, the
@@ -26,10 +27,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "p4fr_tpu_torch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
-LAUNCHES = {"standardize": 0, "mbconv": 0, "decoder_layer": 0}
+LAUNCHES = {"standardize": 0, "mbconv": 0, "decoder_layer": 0, "beam_gather": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -56,6 +57,9 @@ _SIGNATURES = {
     # (x, cache, src_kv, out, 18 weight pointers, B, H, heads, F, S, L,
     #  pos, cache_outputs, bf16, stream)
     "p4fr_decoder_layer": [P] * 22 + [I] * 9 + [P],
+    # (cache, parent i64, rows, group, row_vecs, prefix_vecs, stream)
+    "p4fr_beam_gather": [P, P, ctypes.c_longlong, I, ctypes.c_longlong,
+                         ctypes.c_longlong, P],
 }
 
 
@@ -75,6 +79,42 @@ def _sources():
     )
 
 
+def _compile(srcs, so: str) -> None:
+    """One nvcc per ``.cu``, all at once, then one link into ``so``."""
+    nvcc = _nvcc()
+    tmp = f"{so}.{os.getpid()}"
+    objs, procs = [], []
+    try:
+        for src in (s for s in srcs if s.endswith(".cu")):
+            obj = f"{tmp}.{os.path.basename(src)}.o"
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for src, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n"
+                              f"{err[-4000:]}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.so",
+                              *objs], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr[-4000:]}")
+        os.replace(f"{tmp}.so", so)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library; compiles it on the first call."""
     global _lib
@@ -90,14 +130,7 @@ def library() -> ctypes.CDLL:
         os.makedirs(BUILD_DIR, exist_ok=True)
         so = os.path.join(BUILD_DIR, f"libp4fr_kernels_{digest.hexdigest()[:16]}.so")
         if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[s for s in srcs if s.endswith(".cu")]]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-            os.replace(tmp, so)
+            _compile(srcs, so)
         lib = ctypes.CDLL(so)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,7 +1,7 @@
 """The port's checkpoint: the reference-format ``.pth``.
 
-The file ``p4fr_tpu.utils.convert_pth.export_pth`` writes (and the original
-PyTorch code reads) is self-describing:
+The file the original PyTorch code writes and reads (the JAX package's
+``convert_pth --export`` writes one too) is self-describing:
 
     {"network": str, "epoch": int, "model": state_dict,
      "configs": dict, "token_to_id": dict, "id_to_token": dict}
@@ -15,7 +15,7 @@ from typing import Any, Dict
 
 import torch
 
-from p4fr_tpu.data.vocab import Vocab
+from p4fr_tpu_torch.data.vocab import Vocab
 from p4fr_tpu_torch.models.registry import get_network
 
 

@@ -1,24 +1,281 @@
 """Weight bridge: JAX parameter trees -> a reference-named torch state dict.
 
-``p4fr_tpu.utils.convert_pth.export_state_dict`` (numpy-only at import)
-inverts the JAX package's converter rules, so the result is exactly the
-reference ``.pth`` layout that the port's modules use.
+The port's own copy of the export direction of
+``p4fr_tpu/utils/convert_pth.py``, reduced to the EfficientSATRN names.
+The rule tables map each reference torch key (regex) to a flax path
+template and a layout transform; ``export_state_dict`` inverts them, so the
+result is exactly the reference ``.pth`` layout the port's modules load:
+
+- Linear  weight [O,I]       <- kernel [I,O] (transpose)
+- Conv2d  weight [O,I,kh,kw] <- kernel [kh,kw,I,O]
+- depthwise conv [C,1,k,k]   <- kernel [k,k,1,C]
+- BatchNorm weight/bias      <- scale/bias; running stats <- batch_stats
+- LayerNorm weight           <- scale
+
+"drop" rules (``num_batches_tracked``) have no inverse: the modules rebuild
+those buffers themselves.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import re
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from p4fr_tpu_torch.models.registry import NOT_PORTED
+
+# ---------------------------------------------------------------------------
+# forward transforms (torch layout -> flax layout) and their inverses
+# ---------------------------------------------------------------------------
+
+
+def _t_linear(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.T)
+
+
+def _t_conv(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+def _t_depthwise(w: np.ndarray) -> np.ndarray:
+    # torch [C, 1, kh, kw] -> flax [kh, kw, 1, C]
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+def _identity(w: np.ndarray) -> np.ndarray:
+    # a copy: the input may be a view of live storage
+    return np.array(w, copy=True)
+
+
+def _inv_conv(w: np.ndarray) -> np.ndarray:
+    # flax [kh, kw, I, O] -> torch [O, I, kh, kw]
+    return np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))
+
+
+_INV_TRANSFORM = {
+    _identity: _identity,
+    _t_linear: _t_linear,  # transpose is its own inverse
+    _t_conv: _inv_conv,
+    _t_depthwise: _inv_conv,
+}
+
+# ---------------------------------------------------------------------------
+# rule tables: (regex on torch key) -> (flax path template, transform, coll)
+# coll: "params" | "batch_stats" | "drop"
+# ---------------------------------------------------------------------------
+
+Rule = Tuple[str, str, Callable[[np.ndarray], np.ndarray], str]
+
+
+def _norm_rules(torch_prefix: str, flax_prefix: str) -> List[Rule]:
+    """BatchNorm2d param/stat rules."""
+    return [
+        (rf"{torch_prefix}\.weight$", f"{flax_prefix}/scale", _identity, "params"),
+        (rf"{torch_prefix}\.bias$", f"{flax_prefix}/bias", _identity, "params"),
+        (rf"{torch_prefix}\.running_mean$", f"{flax_prefix}/mean", _identity,
+         "batch_stats"),
+        (rf"{torch_prefix}\.running_var$", f"{flax_prefix}/var", _identity,
+         "batch_stats"),
+        (rf"{torch_prefix}\.num_batches_tracked$", "", _identity, "drop"),
+    ]
+
+
+def _ln_rules(torch_prefix: str, flax_prefix: str) -> List[Rule]:
+    return [
+        (rf"{torch_prefix}\.weight$", f"{flax_prefix}/scale", _identity, "params"),
+        (rf"{torch_prefix}\.bias$", f"{flax_prefix}/bias", _identity, "params"),
+    ]
+
+
+def _linear_rules(torch_prefix: str, flax_prefix: str) -> List[Rule]:
+    return [
+        (rf"{torch_prefix}\.weight$", f"{flax_prefix}/kernel", _t_linear, "params"),
+        (rf"{torch_prefix}\.bias$", f"{flax_prefix}/bias", _identity, "params"),
+    ]
+
+
+def _conv_rules(torch_prefix: str, flax_prefix: str) -> List[Rule]:
+    return [
+        (rf"{torch_prefix}\.weight$", f"{flax_prefix}/kernel", _t_conv, "params"),
+        (rf"{torch_prefix}\.bias$", f"{flax_prefix}/bias", _identity, "params"),
+    ]
+
+
+def _mha_rules(torch_prefix: str, flax_prefix: str) -> List[Rule]:
+    rules: List[Rule] = []
+    for name in ("q_linear", "k_linear", "v_linear", "out_linear"):
+        rules += _linear_rules(rf"{torch_prefix}\.{name}", f"{flax_prefix}/{name}")
+    return rules
+
+
+def _transformer_decoder_rules() -> List[Rule]:
+    """decoder.* of the SATRN family; the Feedforward names its Linears
+    ``linear0``/``linear1``."""
+    p = r"decoder\.attention_layers\.(\d+)"
+    f = r"decoder/layer\1"
+    rules: List[Rule] = [
+        (r"decoder\.embedding\.weight$", "decoder/embedding/embedding",
+         _identity, "params"),
+    ]
+    rules += _mha_rules(rf"{p}\.self_attention_layer", rf"{f}/self_attention")
+    rules += _ln_rules(rf"{p}\.self_attention_norm", rf"{f}/self_attention_norm")
+    rules += _mha_rules(rf"{p}\.attention_layer", rf"{f}/cross_attention")
+    rules += _ln_rules(rf"{p}\.attention_norm", rf"{f}/cross_attention_norm")
+    rules += _linear_rules(rf"{p}\.feedforward_layer\.linear0",
+                           rf"{f}/feedforward/linear0")
+    rules += _linear_rules(rf"{p}\.feedforward_layer\.linear1",
+                           rf"{f}/feedforward/linear1")
+    rules += _ln_rules(rf"{p}\.feedforward_norm", rf"{f}/feedforward_norm")
+    rules += _linear_rules(r"decoder\.generator", "decoder/generator")
+    return rules
+
+
+def _efficientnet_rules(torch_root: str, flax_root: str) -> List[Rule]:
+    """timm ``blocks.{s}.{b}`` -> ``stage{s}_block{b}`` naming."""
+    rules: List[Rule] = []
+    b = rf"{torch_root}\.(\d+)\.(\d+)"
+    fb = rf"{flax_root}/stage\1_block\2"
+    rules += _conv_rules(rf"{b}\.conv", rf"{fb}/conv")  # ConvBnAct (stage 0)
+    rules += _conv_rules(rf"{b}\.conv_exp", rf"{fb}/conv_exp")  # stages 1-2
+    rules += _conv_rules(rf"{b}\.conv_pw", rf"{fb}/conv_pw")  # stages 3-5
+    rules += [
+        (rf"{b}\.conv_dw\.weight$", rf"{fb}/conv_dw/kernel", _t_depthwise,
+         "params"),
+    ]
+    rules += _conv_rules(rf"{b}\.se\.conv_reduce", rf"{fb}/se/conv_reduce")
+    rules += _conv_rules(rf"{b}\.se\.conv_expand", rf"{fb}/se/conv_expand")
+    rules += _conv_rules(rf"{b}\.conv_pwl", rf"{fb}/conv_pwl")
+    for bn in ("bn1", "bn2", "bn3"):
+        rules += _norm_rules(rf"{b}\.{bn}", rf"{fb}/{bn}")
+    return rules
+
+
+def satrn_rules() -> List[Rule]:
+    """EfficientSATRN: the EfficientNetV2 wrapper, the 2D PE, the SATRN
+    encoder layers and the transformer decoder."""
+    root = r"encoder\.shallow_cnn"
+    froot = "encoder/efficientnet"
+    rules: List[Rule] = []
+    rules += _conv_rules(rf"{root}\.conv_stem", rf"{froot}/conv_stem")
+    rules += _norm_rules(rf"{root}\.bn1", rf"{froot}/bn1")
+    rules += _efficientnet_rules(rf"{root}\.eff_block", rf"{froot}/blocks")
+    rules += _conv_rules(rf"{root}\.conv_last", rf"{froot}/conv_last")
+    rules += _norm_rules(rf"{root}\.bn2", rf"{froot}/bn2")
+
+    pe = r"encoder\.positional_encoding"
+    rules += _linear_rules(rf"{pe}\.dense0", "encoder/positional_encoding/dense0")
+    rules += _linear_rules(rf"{pe}\.dense1", "encoder/positional_encoding/dense1")
+
+    el = r"encoder\.attention_layers\.(\d+)"
+    fl = r"encoder/layer\1"
+    rules += _ln_rules(rf"{el}\.norm", rf"{fl}/norm")
+    rules += _mha_rules(rf"{el}\.attention_layer", rf"{fl}/attention")
+    rules += _conv_rules(rf"{el}\.conv0", rf"{fl}/conv0")
+    rules += _norm_rules(rf"{el}\.norm0", rf"{fl}/bn0")
+    rules += [
+        (rf"{el}\.depthwise\.weight$", rf"{fl}/depthwise/kernel",
+         _t_depthwise, "params"),
+        (rf"{el}\.depthwise\.bias$", rf"{fl}/depthwise/bias", _identity,
+         "params"),
+    ]
+    rules += _norm_rules(rf"{el}\.depthwise_norm", rf"{fl}/bn_depth")
+    rules += _conv_rules(rf"{el}\.conv1", rf"{fl}/conv1")
+    rules += _norm_rules(rf"{el}\.norm1", rf"{fl}/bn1")
+
+    rules += _transformer_decoder_rules()
+    return rules
+
+
+def rules_for(network: str) -> List[Rule]:
+    if network in ("EfficientSATRN", "MySATRN"):
+        return satrn_rules()
+    if network in NOT_PORTED:
+        raise NotImplementedError(
+            f"no weight-bridge rules for {network!r} in p4fr_tpu_torch yet "
+            f"({NOT_PORTED[network]})")
+    raise NotImplementedError(network)
+
+
+# ---------------------------------------------------------------------------
+# inverse direction: flax trees -> reference-named state dict
+# ---------------------------------------------------------------------------
+
+
+def _invert_rule(pattern: str, template: str):
+    """(torch_regex, flax_template) -> (flax_regex, backref_order).
+
+    flax templates contain only literals and ``\\N`` backrefs into the
+    torch pattern's ``(\\d+)`` groups; everything else in the rule tables
+    is literal."""
+    parts = re.split(r"(\\\d)", template)
+    flax_pat = "^"
+    order = []
+    for p in parts:
+        if re.fullmatch(r"\\\d", p):
+            order.append(int(p[1]))
+            flax_pat += r"(\d+)"
+        else:
+            flax_pat += re.escape(p)
+    return re.compile(flax_pat + "$"), order
+
+
+def _torch_key(pattern: str, groups: Dict[int, str]) -> str:
+    """Fill the torch regex's ``(\\d+)`` groups with captured values and
+    unescape the remaining literals."""
+    counter = [0]
+
+    def sub(_m):
+        counter[0] += 1
+        return groups[counter[0]]
+
+    s = re.sub(r"\(\\d\+\)", sub, pattern.rstrip("$"))
+    return re.sub(r"\\(.)", r"\1", s)
+
+
+def export_state_dict(
+    network: str, params: Dict, batch_stats: Optional[Dict] = None
+) -> Tuple[Dict[str, np.ndarray], List[str]]:
+    """flax (params, batch_stats) -> (reference-named numpy state dict,
+    unmatched flax paths)."""
+    inverted = []
+    for pat, repl, transform, coll in rules_for(network):
+        if coll == "drop" or not repl:
+            continue
+        flax_re, order = _invert_rule(pat, repl)
+        inverted.append((flax_re, order, pat, _INV_TRANSFORM[transform]))
+
+    def flatten(tree, prefix=""):
+        out = {}
+        for k, v in (tree or {}).items():
+            path = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                out.update(flatten(v, path))
+            else:
+                out[path] = np.asarray(v)
+        return out
+
+    flat = flatten(params)
+    flat.update(flatten(batch_stats))
+    sd: Dict[str, np.ndarray] = {}
+    unmatched: List[str] = []
+    for path, arr in flat.items():
+        for flax_re, order, pat, inv in inverted:
+            m = flax_re.match(path)
+            if m:
+                groups = {n: g for n, g in zip(order, m.groups())}
+                sd[_torch_key(pat, groups)] = inv(arr)
+                break
+        else:
+            unmatched.append(path)
+    return sd, unmatched
 
 
 def state_dict_from_jax(network: str, params, batch_stats: Optional[Dict] = None
                         ) -> Dict[str, torch.Tensor]:
     """Numpy (or array-like) ``params``/``batch_stats`` trees -> torch
     state dict. Raises if a JAX path has no rule."""
-    from p4fr_tpu.utils.convert_pth import export_state_dict
-
     sd, unmatched = export_state_dict(network, params, batch_stats or {})
     if unmatched:
         raise ValueError(f"{len(unmatched)} JAX paths have no rule: {unmatched[:8]}")

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from p4fr_tpu_torch.models.efficientnetv2 import MBConv
+from p4fr_tpu_torch.ops.beam_gather import beam_parent_gather, beam_parent_gather_ref
 from p4fr_tpu_torch.ops.decoder_layer import (
     LayerWeights,
     decoder_layer_step,
@@ -76,6 +77,10 @@ def test_wrappers_never_fall_back_off_cpu():
                            torch.empty(2, 4, 64, device=meta),
                            torch.empty(2, 3, 64, device=meta), w,
                            head_num=1, cache_outputs=True)
+    with pytest.raises(ValueError, match="device"):
+        beam_parent_gather(torch.empty(6, 4, 8, device=meta),
+                           torch.empty(6, dtype=torch.int64, device=meta), 0,
+                           group=3)
 
 
 @pytest.mark.cuda
@@ -148,6 +153,32 @@ def test_decoder_layer_kernel(cuda, dtype, cache_outputs):
         c_k.copy_(c_r)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_beam_gather_kernel(cuda, dtype):
+    """Exact (a copy), in place, slots past pos untouched; a prefix longer
+    than one CTA's 4 KB per row, ragged at its end."""
+    gen = torch.Generator().manual_seed(0)
+    b, w, slots, feat = 5, 3, 40, 72  # 72 f32 = 288 bytes a slot
+    base = torch.randn(b * w, slots, feat, generator=gen).to(cuda, dtype)
+    groups = torch.arange(b)[:, None] * w
+    parents = {
+        "identity": torch.arange(b * w),
+        "random": (torch.randint(0, w, (b, w), generator=gen) + groups).reshape(-1),
+        "one group": torch.arange(b * w).index_put_(
+            (torch.arange(w, 2 * w),), torch.tensor([w + 2, w + 2, w])),
+    }
+    for name, parent in parents.items():
+        parent = parent.to(cuda)
+        for pos in (0, 1, 17, slots - 1):
+            got, want = base.clone(), base.clone()
+            beam_parent_gather(got, parent, pos, group=w)
+            torch.cuda.synchronize()
+            beam_parent_gather_ref(want, parent, pos)
+            assert torch.equal(got, want), (name, pos)
+            assert torch.equal(got[:, pos + 1:], base[:, pos + 1:])
+
+
 def test_cpu_twins_count_no_launch():
     from p4fr_tpu_torch.ops import _build
 
@@ -159,4 +190,5 @@ def test_cpu_twins_count_no_launch():
     w = random_layer(torch.Generator().manual_seed(0), 32, 64)
     decoder_layer_step(torch.zeros(2, 32), 0, torch.zeros(2, 4, 64),
                        torch.zeros(2, 3, 64), w, head_num=1, cache_outputs=True)
+    beam_parent_gather(torch.zeros(6, 4, 8), torch.arange(6), 1, group=3)
     assert _build.LAUNCHES == before

@@ -8,12 +8,19 @@ package at f32 on the CPU (the port's kernel wrappers take their twins):
 - encoder memory, atol 1e-4;
 - 12 greedy steps with the DecodingManager: identical tokens, per-step
   logits atol 1e-4;
-- the CLIs: ``python -m p4fr_tpu_torch.inference`` on the exported
-  ``.pth`` and ``p4fr_tpu.infer.single.run_inference`` on the native
-  checkpoint write identical ``output.csv`` files.
+- ``stop_override``: the same forced stops give JAX's tokens;
+- the CLIs: ``python -m p4fr_tpu_torch.inference --device cpu`` on the
+  exported ``.pth`` and ``p4fr_tpu.infer.single.run_inference`` on the
+  native checkpoint write identical ``output.csv`` files;
+- the port stands alone: the weight bridge, ``tokens.txt`` and
+  ``rules.json`` equal the JAX package's, and a copy of ``p4fr_tpu_torch/``
+  and ``chip_smoke.py`` without ``p4fr_tpu/`` imports, saves and loads a
+  checkpoint and decodes, with jax, flax and ``p4fr_tpu`` refused;
+- the entry points run on CUDA unless asked for the CPU.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -36,7 +43,7 @@ from p4fr_tpu_torch.decoding.manager import RuleTables
 from p4fr_tpu_torch.decoding.replay import replay_logits
 from p4fr_tpu_torch.infer.single import decode_images, encode_images
 from p4fr_tpu_torch.models.registry import get_network
-from p4fr_tpu_torch.utils.convert import state_dict_from_jax
+from p4fr_tpu_torch.utils.convert import export_state_dict, state_dict_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEIGHT, WIDTH, B, STEPS = 64, 128, 2, 12
@@ -160,8 +167,25 @@ def test_greedy_tokens_and_logits_match(slice_models):
         assert (row_early[n:] == vocab.eos_id).all()
 
 
-def test_cli_output_matches_jax(slice_models, tmp_path):
-    from p4fr_tpu.infer.single import run_inference as jax_run_inference
+def test_greedy_stop_override_matches_jax(slice_models):
+    vocab, jmodel, variables, tmodel, images, _ = slice_models
+    stops = np.array([2, 5], np.int32)
+    jtables = jax_dm.RuleTables.build(vocab)
+    std = jax_standardize(jnp.asarray(images), out_dtype=jnp.float32)
+    want = np.asarray(jax.jit(jax_fast.make_fast_greedy_fn(
+        jmodel, variables, max_steps=STEPS, tables=jtables,
+        early_stop_eos=vocab.eos_id, stop_override="arg"))(
+            variables, std, jnp.asarray(stops)))
+    got = decode_images(tmodel, build_fast_decoder(tmodel), torch.from_numpy(images),
+                        RuleTables.build(vocab), STEPS, early_stop_eos=vocab.eos_id,
+                        stop_override=torch.from_numpy(stops)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[0, 3:] == vocab.eos_id).all()  # the forced stop after step 2
+
+
+def native_and_pth(slice_models, tmp_path):
+    """A synthetic dataset's input.txt, the tiny model as a native JAX
+    checkpoint and as the exported reference ``.pth``, and the image count."""
     from p4fr_tpu.utils.checkpoint import make_checkpoint, save_checkpoint
     from p4fr_tpu.utils.convert_pth import export_pth
 
@@ -176,19 +200,25 @@ def test_cli_output_matches_jax(slice_models, tmp_path):
         configs=CONFIGS, token_to_id=vocab.token_to_id,
         id_to_token=vocab.id_to_token), dir="ckpt", prefix=str(tmp_path))
     pth = export_pth(native, str(tmp_path / "model.pth"))
+    return inp, native, pth, len(names)
 
+
+def test_cli_output_matches_jax(slice_models, tmp_path):
+    from p4fr_tpu.infer.single import run_inference as jax_run_inference
+
+    inp, native, pth, n = native_and_pth(slice_models, tmp_path)
     jax_run_inference(native, str(inp), str(tmp_path / "out_jax"),
                       batch_size=4, max_sequence=6)
-    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     subprocess.run(
         [sys.executable, "-m", "p4fr_tpu_torch.inference", "--checkpoint", pth,
          "--file_path", str(inp), "--output_dir", str(tmp_path / "out_torch"),
-         "--batch_size", "4", "--max_sequence", "6"],
-        check=True, cwd=REPO, env=env, capture_output=True, text=True,
+         "--batch_size", "4", "--max_sequence", "6", "--device", "cpu"],
+        check=True, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True,
     )
     want = (tmp_path / "out_jax" / "output.csv").read_text()
     got = (tmp_path / "out_torch" / "output.csv").read_text()
-    assert len(got.splitlines()) == len(names)
+    assert len(got.splitlines()) == n
     assert any(line.split("\t")[1].strip() for line in got.splitlines())
     assert got == want
 
@@ -198,7 +228,25 @@ def test_cli_rejects_what_is_not_ported(tmp_path):
 
     with pytest.raises(SystemExit):
         inference.main(["--checkpoint", "x.pth", "--file_path", "in.txt",
-                        "--decode_type", "beam"])
+                        "--kernel", "fused", "--device", "cpu"])
+
+
+def test_entry_points_run_on_cuda_unless_asked(slice_models, tmp_path, monkeypatch):
+    """Without CUDA, ``run_inference`` and the CLI refuse unless told to use
+    the CPU; they never pick it themselves."""
+    from p4fr_tpu_torch import inference
+    from p4fr_tpu_torch.infer.single import run_inference
+    from p4fr_tpu_torch.utils.checkpoint import save_checkpoint
+
+    vocab, _, _, tmodel, _, _ = slice_models
+    pth = save_checkpoint(str(tmp_path / "m.pth"), tmodel,
+                          network="EfficientSATRN", configs=CONFIGS, vocab=vocab)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_inference(pth, str(tmp_path / "input.txt"), str(tmp_path / "out"))
+    with pytest.raises(SystemExit) as exc:
+        inference.main(["--checkpoint", pth, "--file_path", "input.txt"])
+    assert exc.value.code != 0
 
 
 def test_registry_names_the_roadmap_item(vocab):
@@ -206,16 +254,90 @@ def test_registry_names_the_roadmap_item(vocab):
         get_network("LiteSATRN", CONFIGS, vocab)
 
 
-def test_port_imports_no_jax():
-    code = (
-        "import sys, pkgutil, importlib, p4fr_tpu_torch\n"
-        "for m in pkgutil.walk_packages(p4fr_tpu_torch.__path__, 'p4fr_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'jaxlib'))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         env=dict(os.environ, PYTHONPATH=REPO),
+def test_export_state_dict_matches_jax(slice_models):
+    from p4fr_tpu.utils.convert_pth import export_state_dict as jax_export
+
+    _, _, variables, _, _, _ = slice_models
+    got, got_unmatched = export_state_dict(
+        "EfficientSATRN", variables["params"], variables["batch_stats"])
+    want, want_unmatched = jax_export(
+        "EfficientSATRN", variables["params"], variables["batch_stats"])
+    assert got_unmatched == want_unmatched == []
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        export_state_dict("SwinTRN", {})
+
+
+@pytest.mark.parametrize("port,jax_pkg", [
+    ("p4fr_tpu_torch/configs/tokens.txt", "p4fr_tpu/configs/tokens.txt"),
+    ("p4fr_tpu_torch/decoding/rules.json", "p4fr_tpu/decoding/rules.json"),
+])
+def test_port_data_files_equal_the_jax_packages(port, jax_pkg):
+    with open(os.path.join(REPO, port), "rb") as a, \
+            open(os.path.join(REPO, jax_pkg), "rb") as b:
+        assert a.read() == b.read()
+
+
+ISOLATED = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+REFUSED = ("jax", "jaxlib", "flax", "p4fr_tpu", "cv2", "PIL", "pandas")
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError(f"{name} is refused in the isolated port")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+
+import torch
+import p4fr_tpu_torch
+for m in pkgutil.walk_packages(p4fr_tpu_torch.__path__, "p4fr_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke  # noqa: F401
+
+from p4fr_tpu_torch.data.vocab import TOKENS_PATH, Vocab
+from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder
+from p4fr_tpu_torch.decoding.manager import RuleTables
+from p4fr_tpu_torch.infer.single import beam_decode_images, decode_images
+from p4fr_tpu_torch.models.registry import get_network
+from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint, save_checkpoint
+
+configs = %(configs)r
+vocab = Vocab.from_files([TOKENS_PATH])
+assert len(vocab) == 245
+tables = RuleTables.build(vocab)
+torch.manual_seed(0)
+model = get_network("EfficientSATRN", configs, vocab)
+path = save_checkpoint(%(pth)r, model, network="EfficientSATRN",
+                       configs=configs, vocab=vocab)
+model, _, vocab, _ = load_model_from_checkpoint(path, device="cpu")
+fast = build_fast_decoder(model)
+images = torch.randint(0, 256, (2, 64, 128, 3), dtype=torch.uint8)
+greedy = decode_images(model, fast, images, tables, 4)
+beam = beam_decode_images(model, fast, images, 4, beam_width=3, eos_id=vocab.eos_id)
+assert greedy.shape == beam.shape == (2, 4)
+assert not [k for k in sys.modules if k.split(".")[0] in REFUSED]
+print("ok")
+"""
+
+
+def test_port_imports_no_jax(tmp_path):
+    """The port runs from a copy of ``p4fr_tpu_torch/`` and ``chip_smoke.py``
+    alone, with jax, flax and ``p4fr_tpu`` refused (and cv2, PIL and
+    pandas, which the card's host lacks): every module and ``chip_smoke``
+    import, the manager's tables build from the port's vocab, a ``.pth``
+    saves and loads, and 4 greedy and 4 beam steps run on the CPU."""
+    shutil.copytree(os.path.join(REPO, "p4fr_tpu_torch"),
+                    tmp_path / "p4fr_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    code = ISOLATED % {"configs": CONFIGS, "pth": str(tmp_path / "m.pth")}
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=str(tmp_path)),
                          capture_output=True, text=True)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
