@@ -7,13 +7,16 @@ Needs one CUDA card and nvcc. In order, each phase failing ends the run
 with a non-zero exit and no result line:
 
 1. CUDA present; print the card's name and power limit (nvidia-smi).
-2. Build the five CUDA kernels from p4fr_tpu_torch/csrc (one nvcc per
+2. Build the six CUDA kernels from p4fr_tpu_torch/csrc (one nvcc per
    source, all at once) and hold each against its plain PyTorch twin on
    the card at the main paths' shapes: first f32 with TF32 off, then bf16
    (against the twin computed in f32 on the same bf16 operands), each
    against a stated tolerance; the beam gather, a copy, exactly; the fused
    greedy step's picks and manager state exactly where its twin's top two
-   allowed logits are further apart than the tolerance.
+   allowed logits are further apart than the tolerance. The window
+   attention runs at each Swin-B stage's shape at B=32, with and without
+   the shift mask; the decoder-layer and fused steps also at SwinTRN's
+   decoder shape (hidden 512, heads of 64, 4 layers, 144 source tokens).
 3. EfficientSATRN greedy inference at full width (256x512 u8 images, 231
    steps, DecodingManager on), with seeded random weights: save a
    reference-format .pth, load it back, decode a B=32 batch through the
@@ -27,10 +30,20 @@ with a non-zero exit and no result line:
    kernels (counters as above), then a replay gate: the kernel path,
    forced along its own record of tokens and parents, must pick them
    again, and its per-step log-probs meet the plain path's.
+3b. SwinTRN greedy at full width and depth (SWIN.yaml: Swin-B/384, 384x384
+   u8 images, the 4-layer 512-wide decoder, 231 steps, manager on), f32,
+   seeded random weights saved as a reference-format .pth and loaded
+   back with strict=True: B=32 decoded through the kernels, counters as
+   above (24 window-attention launches, 4 x 231 decoder-layer launches);
+   the encoder memory and every step's replayed logits of the kernel path
+   meet the plain path's.
 5. Timing in bf16 (printed only): each kernel vs its twin and, where one
    PyTorch call computes the same function, that call; images/s of the
    kernel, fused and plain greedy paths at B=256, in turns, and of beam
-   W=3 at B=256.
+   W=3 at B=256; the window attention per Swin-B stage (SDPA with the
+   float bias and mask as its library call), the decoder-layer step at
+   SwinTRN's shape, and SwinTRN greedy images/s at B=32 with the split of
+   its stream time between encode and decode.
 6. One JSON line of per-kernel results (with each kernel's least time on
    the card, from this run's shapes), then the device line.
 """
@@ -47,6 +60,8 @@ SEED = 0
 STEPS = 231  # max_sequence 230 + 1, the reference's dummy-GT decode length
 E2E_CHECK_BATCH, E2E_TIME_BATCH = 32, 256
 KERNEL_BATCH = 256  # batch of the kernel-vs-twin checks
+SWIN_BATCH = 32  # SwinTRN's batch: its checks, its path and its timing
+SWIN_SIZE = 384  # SwinTRN's input, square
 BEAM_WIDTH = 3
 GATHER_POS = (0, 1, 115, 230)
 
@@ -72,6 +87,36 @@ CONFIGS = {
     "tpu": {"compute_dtype": "bfloat16", "reference_parity": True},
 }
 
+# SWIN.yaml's model values, written out; the encoder is Swin-B/384 (the
+# model's defaults: patch 4, embed 128, depths 2/2/18/2, heads 4/8/16/32,
+# window 12, learned absolute position embedding)
+SWIN_CONFIGS = {
+    "network": "SWIN",
+    "input_size": {"height": SWIN_SIZE, "width": SWIN_SIZE},
+    "SATRN": {
+        "encoder": {"hidden_dim": 300, "filter_dim": 600, "layer_num": 6,
+                    "head_num": 8},
+        "decoder": {"src_dim": 1024, "hidden_dim": 512, "filter_dim": 512,
+                    "layer_num": 4, "head_num": 8},
+    },
+    "data": {"rgb": 3},
+    "dropout_rate": 0.1,
+    "tpu": {"compute_dtype": "bfloat16", "reference_parity": True},
+}
+# the window attention on the SwinTRN path at B=32, 144 tokens a window:
+# (stage, blocks, shifted blocks, windows per image, C, heads); a stage's
+# resolution is 96 >> stage, and a shifted block shifts by 6
+SWIN_STAGES = [(0, 2, 1, 64, 128, 4), (1, 2, 1, 16, 256, 8),
+               (2, 18, 9, 4, 512, 16), (3, 2, 0, 1, 1024, 32)]
+SWIN_WINDOW = 12
+# decoder shapes of the checks (EfficientSATRN's at B=256; SwinTRN's, heads
+# of 64, at B=32): batch, hidden, heads, FF, layers, source
+# tokens, and the key of kernel 6's bf16 gates at that shape (tolerances below)
+SATRN_DECODER = dict(b=KERNEL_BATCH, hidden=256, heads=8, filter_dim=1024,
+                     layers=3, s_len=128, fused_gate="fused_greedy_step")
+SWIN_DECODER = dict(b=SWIN_BATCH, hidden=512, heads=8, filter_dim=512,
+                    layers=4, s_len=144, fused_gate="fused_greedy_step_swin")
+
 # stride-1 MBConv shapes of the main path at B=256:
 # (name, H, W, Cin, Cout, expand, blocks on the path)
 MBCONV_SHAPES = [
@@ -92,14 +137,23 @@ TOL_STD_F32 = dict(atol=1e-6, rtol=0)  # one FMA per element
 # (PERF.md, Findings).
 BF16_RTOL = 2.0 ** -8
 BF16_ATOL = {"standardize": 1e-6, "mbconv": 1.5e-3, "decoder_layer": 2e-3,
-             "fused_greedy_step": 1.5e-2}
+             "fused_greedy_step": 1.5e-2, "swin_attention": 1e-3,
+             "fused_greedy_step_swin": 2e-2}
 # kernel 6's logits, written in f32, are also held by their mean |kernel -
 # twin|: a sound kernel's excess is a few one-ulp flips at the activation's
 # roundings, compounding through the layers in the rows they hit, while a
-# rounding left out or misplaced moves every row (PERF.md, Findings)
-BF16_MEAN_ATOL = {"fused_greedy_step": 5e-4}
+# rounding left out or misplaced moves every row (PERF.md, Findings). At
+# SwinTRN's decoder shape (4 layers of 512, 32 rows) the flips compound
+# further, so that shape has its own pair of gates ("_swin"), set the same
+# way.
+BF16_MEAN_ATOL = {"fused_greedy_step": 5e-4, "fused_greedy_step_swin": 1.2e-3}
 TOL_LOGITS_F32 = 1e-3  # e2e logits, f32, 28 blocks + 3 x 231 layer steps
 TOL_LOGP_F32 = 1e-3  # beam log-probs, f32, the same chain at B*W rows
+# SwinTRN, f32: the encoder memory after 24 blocks (each output a LayerNorm
+# of sums over 128-4096 terms, in another order on each path), then the
+# logits of 4 x 231 layer steps fed from it; a wrong kernel is off by O(1)
+TOL_SWIN_MEMORY_F32 = 1e-3
+TOL_SWIN_LOGITS_F32 = 1e-3
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -262,27 +316,87 @@ def check_kernels(dev, dtype, errors, seed=SEED):
               got, mbconv_block_ref(x, folded, res, out_dtype=torch.float32))
         del x, got
 
-    for pos in (0, 1, 115, 230):
-        x, cache, src, weights = decoder_inputs(dtype, gen, dev, pos, b=KERNEL_BATCH)
-        # the twin in f32 on the same operands, the current k|v rounded
-        # through the cache type as the kernel stores it
-        cache_ref = cache.to(torch.float32, copy=True)
-        out_ref, _ = layer_step_ref(
-            x.float(), pos, cache_ref, src.float(),
-            LayerWeights(*(t.float() for t in weights)), head_num=8,
-            cache_outputs=True, kv_dtype=dtype)
-        out, _ = decoder_layer_step(x, pos, cache, src, weights, head_num=8,
-                                    cache_outputs=True)
-        torch.cuda.synchronize()
-        tag = f"B={KERNEL_BATCH} pos={pos}"
-        check("decoder_layer", f"decoder_layer out {tag}", out, out_ref)
-        check("decoder_layer", f"decoder_layer cache {tag}", cache, cache_ref)
-    del x, cache, src, cache_ref
+    for shape in (SATRN_DECODER, SWIN_DECODER):
+        for pos in (0, 1, 115, 230):
+            x, cache, src, weights = decoder_inputs(
+                dtype, gen, dev, pos, b=shape["b"], hidden=shape["hidden"],
+                s_len=shape["s_len"], filter_dim=shape["filter_dim"])
+            # the twin in f32 on the same operands, the current k|v rounded
+            # through the cache type as the kernel stores it
+            cache_ref = cache.to(torch.float32, copy=True)
+            out_ref, _ = layer_step_ref(
+                x.float(), pos, cache_ref, src.float(),
+                LayerWeights(*(t.float() for t in weights)), head_num=shape["heads"],
+                cache_outputs=True, kv_dtype=dtype)
+            out, _ = decoder_layer_step(x, pos, cache, src, weights,
+                                        head_num=shape["heads"], cache_outputs=True)
+            torch.cuda.synchronize()
+            tag = (f"B={shape['b']} H={shape['hidden']}/{shape['heads']} heads "
+                   f"pos={pos}")
+            check("decoder_layer", f"decoder_layer out {tag}", out, out_ref)
+            check("decoder_layer", f"decoder_layer cache {tag}", cache, cache_ref)
+        del x, cache, src, cache_ref
 
     check_beam_gather(dev, dtype, errors, misses, seed)
-    check_fused_step(dev, dtype, errors, misses, seed)
+    for shape in (SATRN_DECODER, SWIN_DECODER):
+        check_fused_step(dev, dtype, errors, misses, seed, shape)
+    check_swin_attention(dev, dtype, errors, misses, seed)
     if misses:
         raise AssertionError("kernels disagree with their twins: " + "; ".join(misses))
+
+
+def swin_stage_inputs(dtype, gen, dev, stage, b=SWIN_BATCH):
+    """Kernel 5's operands at a Swin-B stage's shape: qkv [N, 144, 3C]
+    (N = b x windows), a bias [heads, 144, 144] of the size a learned table
+    gives, and the stage's shift mask [nW, 144, 144] (-100 across the
+    shifted image's regions)."""
+    from p4fr_tpu_torch.models.swin import shift_attn_mask
+
+    _, _, _, n_win, c, heads = stage
+    n = SWIN_WINDOW * SWIN_WINDOW
+    res = 96 >> stage[0]
+    qkv = torch.randn(b * n_win, n, 3 * c, generator=gen).to(dev, dtype)
+    bias = (0.5 * torch.randn(heads, n, n, generator=gen)).to(dev)
+    mask = torch.from_numpy(shift_attn_mask(res, res, SWIN_WINDOW,
+                                            SWIN_WINDOW // 2)).to(dev)
+    return qkv, bias, mask
+
+
+def check_swin_attention(dev, dtype, errors, misses, seed):
+    """Kernel 5 vs its twin at each Swin-B stage's shape at B=32, with the
+    shift mask and without. bf16 returns the largest readings: the excess
+    over the cast and the mean abs error (``compare_bf16``)."""
+    from p4fr_tpu_torch.ops.swin_attention import (
+        fused_window_attention,
+        fused_window_attention_ref,
+    )
+
+    f32 = dtype == torch.float32
+    gen = torch.Generator().manual_seed(seed + 30)
+    worst = 0.0
+    readings = {"excess": -float("inf"), "mean": 0.0}
+    for stage in SWIN_STAGES:
+        qkv, bias, mask = swin_stage_inputs(dtype, gen, dev, stage)
+        heads = stage[5]
+        scale = (stage[4] // heads) ** -0.5
+        for m in (mask, None):
+            got = fused_window_attention(qkv, bias, m, heads=heads, scale=scale)
+            torch.cuda.synchronize()
+            want = fused_window_attention_ref(qkv.float(), bias, m, heads=heads,
+                                              scale=scale, round_to=dtype)
+            tag = (f"swin_attention stage {stage[0]} {list(qkv.shape)} {heads} heads "
+                   f"{'shift mask' if m is not None else 'no mask'}")
+            if f32:
+                worst = max(worst, compare(tag, got, want, TOL_F32, misses))
+            else:
+                excess, mean = compare_bf16(tag, got, want, BF16_ATOL["swin_attention"],
+                                            misses)
+                readings = {"excess": max(readings["excess"], excess),
+                            "mean": max(readings["mean"], mean)}
+        del qkv, bias, mask, got, want
+    if f32:
+        errors["swin_attention"] = worst
+    return readings
 
 
 def gather_parents(kind, rows, dev, gen=None):
@@ -337,11 +451,11 @@ def check_beam_gather(dev, dtype, errors, misses, seed):
 FUSED_BOOST = {"}": 6.0, "\\downarrow": 4.0, "\\cdot": 2.0}
 
 
-def fused_params(dtype, gen, dev, layers=3, hidden=256, filter_dim=1024):
-    """Kernel 6's FusedDecodeParams at the flagship decoder's width (245
-    tokens, padded to 256) with seeded random weights (the generator bias
-    raised by FUSED_BOOST) and the port's manager tables; and the
-    tables."""
+def fused_params(dtype, gen, dev, layers=3, hidden=256, filter_dim=1024, heads=8):
+    """Kernel 6's FusedDecodeParams at a decoder's width (the flagship's by
+    default; 245 tokens, padded to 256) with seeded random weights (the
+    generator bias raised by FUSED_BOOST) and the port's manager tables;
+    and the tables."""
     from p4fr_tpu_torch.data.vocab import TOKENS_PATH, Vocab
     from p4fr_tpu_torch.decoding.fast_step import FastDecoder
     from p4fr_tpu_torch.decoding.manager import RuleTables
@@ -358,7 +472,7 @@ def fused_params(dtype, gen, dev, layers=3, hidden=256, filter_dim=1024):
                      for _ in range(layers)),
         embed_scaled=rnd(v + 1, hidden), pos_encoding=rnd(STEPS, hidden),
         w_gen=rnd(hidden, v, scale=hidden ** -0.5), b_gen=rnd(v, scale=0.1),
-        head_num=hidden // 32, cache_outputs=True)
+        head_num=heads, cache_outputs=True)
     for tok, raise_by in FUSED_BOOST.items():
         fast.b_gen[vocab.token_to_id[tok]] += raise_by
     tables = RuleTables.build(vocab, dev)
@@ -382,9 +496,11 @@ def random_mstate(gen, b, params, dev):
     return state.int().to(dev)
 
 
-def check_fused_step(dev, dtype, errors, misses, seed):
-    """Kernel 6 vs its plain version at the main path's shapes (B=256, 3
-    layers, caches [3, 231, 256, 512], cross [3, 256, 128, 512]), random
+def check_fused_step(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
+    """Kernel 6 vs its plain version at a decoder ``shape`` (the main
+    path's: B=256, 3 layers, caches [3, 231, 256, 512], cross [3, 256, 128,
+    512]; SwinTRN's: B=32, 4 layers, heads of 64, caches [4, 231, 32,
+    1024], cross [4, 32, 144, 1024]), random
     caches in every slot and random manager states, pos 0, 1, 115 and 230,
     manager on and off: logits and slot ``pos`` within tolerance, the other
     slots untouched, the state advanced by the kernel's own pick, no banned
@@ -402,10 +518,11 @@ def check_fused_step(dev, dtype, errors, misses, seed):
 
     f32 = dtype == torch.float32
     gen = torch.Generator().manual_seed(seed + 20)
-    params, _ = fused_params(dtype, gen, dev)
+    params, _ = fused_params(dtype, gen, dev, shape["layers"], shape["hidden"],
+                             shape["filter_dim"], shape["heads"])
     ref = params._replace(**{f: getattr(params, f).float()
                              for f in params._fields[:N_TENSORS]})
-    b, nl, hid, s_len = KERNEL_BATCH, params.w_qkv.shape[0], 256, 128
+    b, nl, hid, s_len = shape["b"], shape["layers"], shape["hidden"], shape["s_len"]
     cross = (torch.randn(nl, b, s_len, 2 * hid, generator=gen)).to(dev, dtype)
     base = torch.randn(nl, STEPS, b, 2 * hid, generator=torch.Generator(
         device=dev).manual_seed(seed + 21), device=dev).to(dtype)
@@ -422,7 +539,8 @@ def check_fused_step(dev, dtype, errors, misses, seed):
             t_r, _, _, l_r = fused_greedy_step_ref(
                 token, pos, caches_ref, cross.float(), mstate, ref,
                 use_manager=use_manager, kv_dtype=dtype)
-            tag = f"B={b} pos={pos} manager {'on' if use_manager else 'off'}"
+            tag = (f"B={b} H={hid} {nl} layers pos={pos} manager "
+                   f"{'on' if use_manager else 'off'}")
             # the pad lanes hold b_gen's NEG_INF exactly; the rest is compared
             v = params.vocab_size
             pads = torch.equal(l_k[:, v:], l_r[:, v:])
@@ -434,10 +552,9 @@ def check_fused_step(dev, dtype, errors, misses, seed):
                                     caches_ref[:, pos], TOL_F32, misses))
                 tol = 2 * (TOL_F32["atol"] + TOL_F32["rtol"] * l_r.abs().max())
             else:
-                atol = BF16_ATOL["fused_greedy_step"]
+                atol = BF16_ATOL[shape["fused_gate"]]
                 ex_l, mean = compare_bf16(f"fused_greedy_step logits {tag}", l_k, l_r,
-                                          atol, misses,
-                                          BF16_MEAN_ATOL["fused_greedy_step"])
+                                          atol, misses, BF16_MEAN_ATOL[shape["fused_gate"]])
                 ex_s, _ = compare_bf16(f"fused_greedy_step slot pos {tag}",
                                        caches[:, pos], caches_ref[:, pos], atol, misses)
                 readings = {k: max(readings[k], r) for k, r in
@@ -461,7 +578,7 @@ def check_fused_step(dev, dtype, errors, misses, seed):
             if not (untouched and state_ok and pads and banned == 0 and same == n_dec):
                 misses.append(f"fused_greedy_step picks/state/slots {tag}")
     if f32:
-        errors["fused_greedy_step"] = worst
+        errors["fused_greedy_step"] = max(errors.get("fused_greedy_step", 0.0), worst)
     return readings
 
 
@@ -507,7 +624,7 @@ def main_path(ckpt, dev):
     print(f"  launches {json.dumps(launches)}")
     check_launches(launches, {"standardize": 1, "mbconv": 28,
                               "decoder_layer": 3 * STEPS, "beam_gather": 0,
-                              "fused_greedy_step": 0})
+                              "fused_greedy_step": 0, "swin_attention": 0})
     v = len(vocab)
     if tokens.shape != (E2E_CHECK_BATCH, STEPS) or not bool(
             ((tokens >= 0) & (tokens < v)).all()):
@@ -566,7 +683,8 @@ def fused_path(ckpt, dev):
     launches = dict(_build.LAUNCHES)
     print(f"  launches {json.dumps(launches)}")
     check_launches(launches, {"standardize": 1, "mbconv": 28, "decoder_layer": 0,
-                              "beam_gather": 0, "fused_greedy_step": STEPS})
+                              "beam_gather": 0, "fused_greedy_step": STEPS,
+                              "swin_attention": 0})
     v = len(vocab)
     if tokens.shape != (E2E_CHECK_BATCH, STEPS) or not bool(
             ((tokens >= 0) & (tokens < v)).all()):
@@ -598,11 +716,15 @@ def fused_path(ckpt, dev):
 
 # ---------------------------------------------------------------- phase 4
 
-def check_launches(launches, want):
-    """Each kernel exactly its count (mbconv at least: the backbone may run
-    more stride-1 blocks than the 28 it takes)."""
+def check_launches(launches, want, at_least=("mbconv",)):
+    """Each kernel exactly its count; those in ``at_least`` at least (the
+    EfficientNet backbone may run more stride-1 blocks than the 28 it
+    takes)."""
+    if set(want) != set(launches):
+        raise AssertionError(f"launch counts {sorted(launches)} are not the "
+                             f"kernels expected, {sorted(want)}")
     for k, n in want.items():
-        if launches[k] < n or (k != "mbconv" and launches[k] != n):
+        if launches[k] < n or (k not in at_least and launches[k] != n):
             raise AssertionError(f"kernel {k} launched {launches[k]} times on "
                                  f"the path, expected {n}")
 
@@ -630,7 +752,8 @@ def beam_path(ckpt, dev):
     print(f"  launches {json.dumps(launches)}")
     check_launches(launches, {"standardize": 1, "mbconv": 28,
                               "decoder_layer": 3 * STEPS,
-                              "beam_gather": 3 * STEPS, "fused_greedy_step": 0})
+                              "beam_gather": 3 * STEPS, "fused_greedy_step": 0,
+                              "swin_attention": 0})
     v = len(vocab)
     if tokens.shape != (E2E_CHECK_BATCH, STEPS) or not bool(
             ((tokens >= 0) & (tokens < v)).all()):
@@ -660,6 +783,96 @@ def beam_path(ckpt, dev):
           f"max_abs_err {worst:.3e} at step {step} (bound {TOL_LOGP_F32:.1e})")
     if not worst <= TOL_LOGP_F32:
         raise AssertionError("beam log-probs disagree with the plain path")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 3b
+
+def build_swin_checkpoint():
+    """SwinTRN at SWIN.yaml's full size, seeded random weights, as a
+    reference-format .pth (the modules' own initialisation: truncated-normal
+    position embedding and bias tables, PyTorch's default Linear and conv
+    weights)."""
+    from p4fr_tpu_torch.data.vocab import TOKENS_PATH, Vocab
+    from p4fr_tpu_torch.models.registry import get_network
+    from p4fr_tpu_torch.utils.checkpoint import save_checkpoint
+
+    vocab = Vocab.from_files([TOKENS_PATH])
+    torch.manual_seed(SEED + 5)
+    model = get_network("SWIN", SWIN_CONFIGS, vocab)
+    path_dir = os.path.join(REPO, "build", "p4fr_tpu_torch", "smoke")
+    os.makedirs(path_dir, exist_ok=True)
+    path = os.path.join(path_dir, "SWIN_seed5.pth")
+    save_checkpoint(path, model, network="SWIN", configs=SWIN_CONFIGS, vocab=vocab)
+    return path
+
+
+def swin_path(ckpt, dev):
+    """SwinTRN greedy at B=32, f32, manager on: launch counts, then the
+    encoder memory and a replay gate against the plain path."""
+    from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder
+    from p4fr_tpu_torch.decoding.manager import RuleTables
+    from p4fr_tpu_torch.decoding.replay import replay_logits
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
+    from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
+
+    model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, torch.float32)
+    fast = build_fast_decoder(model)
+    tables = RuleTables.build(vocab, dev)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    images = torch.randint(0, 256, (SWIN_BATCH, SWIN_SIZE, SWIN_SIZE, 3), generator=gen,
+                           dtype=torch.uint8).to(dev)
+    print(f"[SwinTRN path: greedy, B={SWIN_BATCH}, {SWIN_SIZE}x{SWIN_SIZE} u8, Swin-B/384 encoder, "
+          f"4-layer 512-wide decoder (heads of 64), {STEPS} steps, manager on, f32, "
+          f"TF32 off]")
+    _build.reset_launches()
+    tokens = decode_images(model, fast, images, tables, STEPS)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches {json.dumps(launches)}")
+    blocks = sum(st[1] for st in SWIN_STAGES)
+    check_launches(launches, {"standardize": 1, "mbconv": 0, "decoder_layer": 4 * STEPS,
+                              "beam_gather": 0, "fused_greedy_step": 0,
+                              "swin_attention": blocks}, at_least=())
+    v = len(vocab)
+    if tokens.shape != (SWIN_BATCH, STEPS) or not bool(
+            ((tokens >= 0) & (tokens < v)).all()):
+        raise AssertionError(f"bad SwinTRN tokens {tuple(tokens.shape)}")
+
+    mem_k, mem_p = (encode_images(model, images, plain=plain) for plain in (False, True))
+    torch.cuda.synchronize()
+    want = (SWIN_BATCH, (SWIN_SIZE // 32) ** 2, SWIN_CONFIGS["SATRN"]["decoder"]["src_dim"])
+    if mem_k.shape != want or not bool(torch.isfinite(mem_k).all()):
+        raise AssertionError(f"bad SwinTRN memory {tuple(mem_k.shape)}")
+    err = (mem_k - mem_p).abs().max().item()
+    print(f"  encoder memory {list(mem_k.shape)} kernel vs plain: max_abs_err "
+          f"{err:.3e} (bound {TOL_SWIN_MEMORY_F32:.1e}); max |memory| "
+          f"{mem_p.abs().max().item():.3e}")
+    if not err <= TOL_SWIN_MEMORY_F32:
+        raise AssertionError("SwinTRN encoder memory disagrees with the plain path")
+
+    k_logits, k_picks = replay_logits(fast, mem_k, tokens, sos_id=model.sos_id,
+                                      tables=tables)
+    p_logits, _ = replay_logits(fast, mem_p, tokens, sos_id=model.sos_id,
+                                tables=tables, plain=True)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(k_logits).all()):
+        raise AssertionError("non-finite logits on the SwinTRN kernel path")
+    if not torch.equal(k_picks, tokens):
+        raise AssertionError("replaying the SwinTRN kernel path does not pick its tokens")
+    errs = (k_logits - p_logits).abs().amax(dim=(1, 2))
+    worst, step = errs.max().item(), int(errs.argmax())
+    print(f"  logits kernel vs plain (the path's tokens fed), {STEPS} steps: "
+          f"max_abs_err {worst:.3e} at step {step} (bound {TOL_SWIN_LOGITS_F32:.1e}); "
+          f"max |logit| {p_logits.abs().max().item():.3e}")
+    if not worst <= TOL_SWIN_LOGITS_F32:
+        raise AssertionError("SwinTRN logits disagree with the plain path")
+    distinct = len(torch.unique(tokens))
+    agree = (decode_images(model, fast, images, tables, STEPS, plain=True)
+             == tokens).float().mean().item()
+    print(f"  {distinct} distinct tokens; free-running token agreement kernel vs "
+          f"plain: {agree:.4f} (not gated: near-ties of random weights)")
     return launches
 
 
@@ -838,6 +1051,116 @@ def timing(ckpt, dev, card):
     return times
 
 
+def sdpa_operands(qkv, bias, mask, heads):
+    """The library's inputs for kernel 5's function: q, k, v [B, nW*heads,
+    n, d] and one float attn_mask [1, nW*heads, n, n] (the bias, plus the
+    shift mask of each window's row), in qkv's type."""
+    n_all, n, c3 = qkv.shape
+    n_w = 1 if mask is None else mask.shape[0]
+    d = c3 // 3 // heads
+    x = qkv.reshape(n_all // n_w, n_w, n, 3, heads, d).permute(3, 0, 1, 4, 2, 5)
+    q, k, v = (t.reshape(n_all // n_w, n_w * heads, n, d).contiguous() for t in x)
+    am = bias[None] if mask is None else bias[None] + mask[:, None]
+    return q, k, v, am.reshape(1, n_w * heads, n, n).to(qkv.dtype).contiguous()
+
+
+def swin_timing(ckpt, dev, card, times):
+    """bf16: kernel 5 at each Swin-B stage (its twin, SDPA as its library
+    call, its bound), summed over one B=32 encode into ``times``; kernel 3
+    at SwinTRN's decoder shape; SwinTRN greedy images/s at B=32 (kernel-3
+    steps, fused steps and plain, in turns) with each call's stream time
+    split at the end of the encode (CUDA events)."""
+    from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder, greedy_decode
+    from p4fr_tpu_torch.decoding.manager import RuleTables
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops.decoder_layer import decoder_layer_step, layer_step_ref
+    from p4fr_tpu_torch.ops.swin_attention import (
+        fused_window_attention,
+        fused_window_attention_ref,
+    )
+    from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
+
+    bf = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator().manual_seed(SEED + 7)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
+    for stage in SWIN_STAGES:
+        _, blocks, shifted, _, c, heads = stage
+        qkv, bias, mask = swin_stage_inputs(bf, gen, dev, stage)
+        scale = (c // heads) ** -0.5
+        n_all, n = qkv.shape[:2]
+        for m, count in ((mask, shifted), (None, blocks - shifted)):
+            out = fused_window_attention(qkv, bias, m, heads=heads, scale=scale)
+            k = cuda_ms(lambda: fused_window_attention(qkv, bias, m, heads=heads,
+                                                       scale=scale), iters=10)
+            p = cuda_ms(lambda: fused_window_attention_ref(qkv, bias, m, heads=heads,
+                                                           scale=scale), iters=5)
+            q4, k4, v4, am = sdpa_operands(qkv, bias, m, heads)
+            lib = cuda_ms(lambda: sdpa(q4, k4, v4, attn_mask=am, scale=scale), iters=10)
+            # qkv in, out written, the f32 bias and mask read once
+            nb = nbytes(qkv, out) + 4 * (bias.numel() + (0 if m is None else m.numel()))
+            ops = 4 * n_all * heads * n * n * (c // heads)
+            b, by = bound(nb, ops, BF16_TENSOR_OPS_PER_S)
+            print(f"  swin_attention stage {stage[0]} {list(qkv.shape)} {heads} heads "
+                  f"{'shift mask' if m is not None else 'no mask'}: kernel {k:.4f} ms, "
+                  f"plain {p:.4f} ms, library (SDPA) {lib:.4f} ms, bound {b:.4f} ms by "
+                  f"{by}; x{count} a B={SWIN_BATCH} encode ({card})")
+            for key, val in (("ms", k), ("plain_ms", p), ("library_ms", lib),
+                             ("nbytes", nb), ("ops", ops)):
+                tot[key] += count * val
+        del qkv, bias, mask, out, q4, k4, v4, am
+    b, by = bound(tot.pop("nbytes"), tot.pop("ops"), BF16_TENSOR_OPS_PER_S)
+    times["swin_attention"] = dict(**tot, bound_ms=b, bound_by=by)
+    print(f"  swin_attention, all {sum(st[1] for st in SWIN_STAGES)} launches of one "
+          f"B={SWIN_BATCH} encode: kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library (SDPA) "
+          f"{tot['library_ms']:.4f} ms, bound {b:.4f} ms by {by} ({card})")
+
+    shape, pos = SWIN_DECODER, 115
+    x, cache, src, weights = decoder_inputs(bf, gen, dev, pos, b=shape["b"],
+                                            hidden=shape["hidden"], s_len=shape["s_len"],
+                                            filter_dim=shape["filter_dim"])
+    k = cuda_ms(lambda: decoder_layer_step(x, pos, cache, src, weights,
+                                           head_num=shape["heads"], cache_outputs=True),
+                iters=50)
+    p = cuda_ms(lambda: layer_step_ref(x, pos, cache, src, weights,
+                                       head_num=shape["heads"], cache_outputs=True),
+                iters=50)
+    hid, ff = shape["hidden"], shape["filter_dim"]
+    b, by = bound(2 * nbytes(x) + nbytes(cache[:, :pos + 1]) + nbytes(cache[:, pos])
+                  + nbytes(src) + nbytes(*weights[:18]),
+                  2 * x.shape[0] * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
+                  + 4 * x.shape[0] * hid * (pos + 1 + shape["s_len"]),
+                  BF16_TENSOR_OPS_PER_S)
+    print(f"  decoder_layer SwinTRN shape B={x.shape[0]} H={hid} (heads of "
+          f"{hid // shape['heads']}) F={ff} pos={pos} L={STEPS} S={shape['s_len']} per "
+          f"layer step: kernel {k:.4f} ms, plain {p:.4f} ms, bound {b:.4f} ms by {by} "
+          f"({card})")
+    del x, cache, src
+
+    model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, bf)
+    fast = build_fast_decoder(model)
+    tables = RuleTables.build(vocab, dev)
+    images = torch.randint(0, 256, (SWIN_BATCH, SWIN_SIZE, SWIN_SIZE, 3), generator=gen,
+                           dtype=torch.uint8).to(dev)
+    paths = {"kernel": {}, "fused": dict(kernel="fused"), "plain": dict(plain=True)}
+    for label in ("kernel", "fused", "plain", "kernel", "fused", "plain"):
+        e2e(label, lambda n: decode_images(model, fast, images, tables, n, **paths[label]),
+            SWIN_BATCH, card, "SwinTRN greedy, manager on,")
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        memory = encode_images(model, images)
+        ev[1].record()
+        greedy_decode(fast, memory, max_steps=STEPS, sos_id=model.sos_id, tables=tables)
+        ev[2].record()
+        torch.cuda.synchronize()
+        print(f"  SwinTRN kernel path B={SWIN_BATCH} stream time: encode "
+              f"{ev[0].elapsed_time(ev[1]):.3f} ms, decode {STEPS} steps "
+              f"{ev[1].elapsed_time(ev[2]):.3f} ms ({card})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -867,8 +1190,12 @@ def main():
         fused_launches = fused_path(ckpt, dev)
         launches = beam_path(ckpt, dev)
         launches["fused_greedy_step"] = fused_launches["fused_greedy_step"]
+        swin_ckpt = build_swin_checkpoint()
+        launches["swin_attention"] = swin_path(swin_ckpt, dev)["swin_attention"]
         torch.cuda.empty_cache()
         times = timing(ckpt, dev, card)
+        torch.cuda.empty_cache()
+        swin_timing(swin_ckpt, dev, card, times)
 
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax"))
     if bad:
@@ -884,9 +1211,12 @@ def main():
                         "p4fr_tpu/ops/pallas/beam_gather.py:154"),
         "fused_greedy_step": ("p4fr_tpu_torch/csrc/fused_decode.cu",
                               "p4fr_tpu/ops/pallas/fused_decode.py:454"),
+        "swin_attention": ("p4fr_tpu_torch/csrc/swin_attention.cu",
+                           "p4fr_tpu/ops/pallas/swin_attention.py:109"),
     }
-    # launches: the beam path's run, which goes through kernels 1-4, and
-    # the fused path's, which goes through kernel 6
+    # launches: the beam path's run, which goes through kernels 1-4, the
+    # fused path's, which goes through kernel 6, and the SwinTRN path's,
+    # which goes through kernel 5
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errors[name],

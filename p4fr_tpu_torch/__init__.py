@@ -2,13 +2,14 @@
 
 The JAX package ``p4fr_tpu`` stays the reference; this package runs the
 same system on an NVIDIA Hopper card (sm_90a). It covers EfficientSATRN
-inference, greedy and beam:
+inference, greedy and beam, and SwinTRN greedy inference:
 
-- ``ops``       standardize, MBConv+SE, decoder-layer and beam-gather
-                kernels (CUDA C++ in ``csrc/``, each with a plain PyTorch
-                twin), attention and positional encodings;
-- ``models``    EfficientNetV2 backbone, SATRN encoder, decoder parameter
-                tree, registry;
+- ``ops``       standardize, MBConv+SE, decoder-layer, beam-gather, fused
+                greedy-step and Swin window-attention kernels (CUDA C++ in
+                ``csrc/``, each with a plain PyTorch twin), attention and
+                positional encodings;
+- ``models``    EfficientNetV2 backbone, SATRN encoder, Swin encoder,
+                decoder parameter tree, registry;
 - ``decoding``  grammar DecodingManager, the fast greedy decode loop and
                 lockstep beam search;
 - ``infer``     ``decode_images`` / ``beam_decode_images`` (pure torch)

@@ -2,7 +2,9 @@
 // shared by csrc/decoder_layer.cu (one layer per launch, batch-major cache)
 // and csrc/fused_decode.cu (every layer of the greedy step in one launch,
 // time-major cache). Contract: p4fr_tpu/decoding/fast_step.py::
-// jnp_layer_step. Per batch row, with hidden H, `heads` heads of 32, FF F:
+// jnp_layer_step. Per batch row, with hidden H, `heads` heads of D = 32 or
+// 64 (a template parameter; EfficientSATRN's decoder has 32, SwinTRN's 64),
+// FF F:
 //   q,k,v = x @ w_qkv + b_qkv; the current k|v belongs in slot `pos`
 //   self-attention of q over cache slots 0..pos (slots > pos banned),
 //     scores / sqrt(H); out-proj; LN1(att + x)
@@ -30,7 +32,6 @@ namespace {
 constexpr int TB = 4;         // batch rows per CTA
 constexpr int NT = 512;       // threads per CTA
 constexpr int NWARP = NT / 32;
-constexpr int D = 32;         // head dim (one lane per dim when merging)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -84,6 +85,33 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
     v[2 * j + 1] = f.y;
   }
 }
+
+// One cache position's value dims that a lane owns in attend (D / 32 of
+// them, adjacent), as held between their load and their use: one f32 for
+// heads of 32; for heads of 64 one 8-byte f32 pair, or one packed bf16 pair
+// (32 bits, so a chunk's 32 positions take 32 registers as at D = 32).
+template <typename T, int VPL> struct ValueReg;
+template <typename T> struct ValueReg<T, 1> {
+  float v;
+  __device__ __forceinline__ void load(const T* p) { v = to_f(*p); }
+  __device__ __forceinline__ float get(int) const { return v; }
+};
+template <> struct ValueReg<float, 2> {
+  float2 v;
+  __device__ __forceinline__ void load(const float* p) {
+    v = *reinterpret_cast<const float2*>(p);
+  }
+  __device__ __forceinline__ float get(int i) const { return i ? v.y : v.x; }
+};
+template <> struct ValueReg<__nv_bfloat16, 2> {
+  __nv_bfloat162 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  }
+  __device__ __forceinline__ float get(int i) const {
+    return i ? __high2float(v) : __low2float(v);
+  }
+};
 
 constexpr int CPT = 8;              // output columns per thread (one vector load)
 constexpr int KB = 8;               // weight rows loaded per batch
@@ -188,9 +216,10 @@ __device__ void add_ln(const float* a, const float* res, int H,
 
 // One warp per (row, head), flash-decode style: the positions held in
 // memory go in chunks of 32; in a chunk each lane scores one position (q
-// from shared memory, its key row as 16-byte loads), the chunk's max and
-// sum update the running f32 softmax statistics, then each lane owns one
-// of the 32 head dims and accumulates the chunk's values, all 32 value
+// from shared memory, its key row as 16-byte loads: one load32 for heads
+// of 32, two for heads of 64), the chunk's max and sum update the running
+// f32 softmax statistics, then each lane owns VPL = D / 32 adjacent head
+// dims (lane*VPL ..) and accumulates the chunk's values, all 32 value
 // loads issued before the first is used (latency, not bandwidth, bounds
 // this loop). q at qbuf[r*qld + h*D]; kv holds 2H values per (row b,
 // position l), keys at + h*D, values at + H + h*D, at
@@ -204,11 +233,13 @@ __device__ void add_ln(const float* a, const float* res, int H,
 // cur[r*cur_ld + h*D] and value at cur[r*cur_ld + H + h*D] (shared memory)
 // and it is folded in last. Writes the [TB][H] attention output (before the
 // out-projection).
-template <typename T, bool PACKED_SLOTS>
+template <typename T, bool PACKED_SLOTS, int D>
 __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
                        int row, int slot_stride, int b0, int nrows,
                        int n_pos, int H, int heads, float temp,
                        const float* cur, int cur_ld, float* out) {
+  static_assert(D == 32 || D == 64, "heads of 32 or 64");
+  constexpr int VPL = D / 32;  // value dims per lane
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_mem = cur != nullptr ? n_pos - 1 : n_pos;
   for (int pair = warp; pair < TB * heads; pair += NWARP) {
@@ -217,19 +248,26 @@ __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
     const float* q = qbuf + r * qld + h * D;
     const T* base = PACKED_SLOTS ? kv + static_cast<long long>(b0 + r) * row * 2 * H
                                  : kv + static_cast<long long>(b0 + r) * row;
-    const T* vcol = base + H + h * D + lane;  // value dim `lane` of position 0
-    float m = -INFINITY, ssum = 0.f, acc = 0.f;  // acc: head dim `lane`
+    // value dims VPL*lane .. of position 0
+    const T* vcol = base + H + h * D + VPL * lane;
+    float m = -INFINITY, ssum = 0.f, acc[VPL];  // acc: head dims VPL*lane ..
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) acc[i] = 0.f;
     for (int l0 = 0; l0 < n_mem; l0 += 32) {
       const int l = l0 + lane;
       // positions past the end load the last row (an address that exists)
       // and get probability 0, so no load is predicated or branched around
-      float kk[D], vbuf[32];
+      float kk[D];
+      ValueReg<T, VPL> vbuf[32];
       const long long lc = min(l, n_mem - 1);
-      load32(base + (PACKED_SLOTS ? lc * 2 * H : lc * slot_stride) + h * D, kk);
+#pragma unroll
+      for (int c = 0; c < VPL; ++c)
+        load32(base + (PACKED_SLOTS ? lc * 2 * H : lc * slot_stride) + h * D + 32 * c,
+               kk + 32 * c);
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const long long lj = min(l0 + j, n_mem - 1);
-        vbuf[j] = to_f(vcol[PACKED_SLOTS ? lj * 2 * H : lj * slot_stride]);
+        vbuf[j].load(vcol + (PACKED_SLOTS ? lj * 2 * H : lj * slot_stride));
       }
       float dot = 0.f;
 #pragma unroll
@@ -246,15 +284,22 @@ __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
       ssum = ssum * corr + psum;
-      acc *= corr;
 #pragma unroll
-      for (int j = 0; j < 32; ++j)
-        acc = fmaf(__shfl_sync(0xffffffffu, p, j), vbuf[j], acc);
+      for (int i = 0; i < VPL; ++i) acc[i] *= corr;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, j);
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) acc[i] = fmaf(pj, vbuf[j].get(i), acc[i]);
+      }
       m = mn;
     }
     if (cur != nullptr) {  // the current token, from shared memory
       const float* cr = cur + r * cur_ld;
-      float dot = q[lane] * cr[h * D + lane];
+      float dot = q[VPL * lane] * cr[h * D + VPL * lane];
+#pragma unroll
+      for (int i = 1; i < VPL; ++i)
+        dot = fmaf(q[VPL * lane + i], cr[h * D + VPL * lane + i], dot);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
       const float sc = dot / temp;
@@ -262,9 +307,12 @@ __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
       const float corr = expf(m - mn);
       const float p = expf(sc - mn);
       ssum = ssum * corr + p;
-      acc = fmaf(p, cr[H + h * D + lane], acc * corr);
+#pragma unroll
+      for (int i = 0; i < VPL; ++i)
+        acc[i] = fmaf(p, cr[H + h * D + VPL * lane + i], acc[i] * corr);
     }
-    out[r * H + h * D + lane] = acc / ssum;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) out[r * H + h * D + VPL * lane + i] = acc[i] / ssum;
   }
 }
 
@@ -303,7 +351,7 @@ __device__ __forceinline__ LayerSmem carve_layer_smem(float* sm, int H, int F) {
 // holds the layer's output in f32 (not yet rounded to T) and s.Q the
 // current k|v. The caches are addressed as attend's `kv` (c_row, c_slot and
 // s_row are its `row` and `slot_stride`). write_slot then stores slot `pos`.
-template <typename T, bool PACKED_SLOTS>
+template <typename T, bool PACKED_SLOTS, int D>
 __device__ void layer_body(const LayerSmem& s, const Weights& wt,
                            const T* __restrict__ cache, int c_row, int c_slot,
                            const T* __restrict__ src, int s_row, int b0,
@@ -322,7 +370,7 @@ __device__ void layer_body(const LayerSmem& s, const Weights& wt,
   __syncthreads();
 
   // masked self-attention over slots 0..pos
-  attend<T, PACKED_SLOTS>(Q, 3 * H, cache, c_row, c_slot, b0, nrows, pos + 1,
+  attend<T, PACKED_SLOTS, D>(Q, 3 * H, cache, c_row, c_slot, b0, nrows, pos + 1,
                           H, heads, temp, Q + H, 3 * H, C);
   __syncthreads();
   rowmm<T>(C, H, static_cast<const T*>(wt.w_out), H,
@@ -338,7 +386,7 @@ __device__ void layer_body(const LayerSmem& s, const Weights& wt,
   rowmm<T>(A, H, static_cast<const T*>(wt.w_q2), H,
            static_cast<const T*>(wt.b_q2), H, C, H, false, R);
   __syncthreads();
-  attend<T, PACKED_SLOTS>(C, H, src, s_row, 2 * H, b0, nrows, S, H, heads,
+  attend<T, PACKED_SLOTS, D>(C, H, src, s_row, 2 * H, b0, nrows, S, H, heads,
                           temp, nullptr, 0, Dd);
   __syncthreads();
   rowmm<T>(Dd, H, static_cast<const T*>(wt.w_out2), H,

@@ -27,6 +27,8 @@
 // launches and ~40 small ops, and the host issues one call per step. With
 // TB = 4 a B=256 step fills 64 of the 132 SMs: more CTAs per batch (fewer
 // rows each, or the layers' products split across a cluster) is later work.
+#include <type_traits>
+
 #include "decoder_common.cuh"
 
 namespace {
@@ -67,7 +69,7 @@ __device__ Weights layer_weights(const FusedParams& p, int l, int H, int F) {
       at(p.ln3, l2), at(p.ln3, l2 + H)};
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT) fused_greedy_kernel(
     const int* __restrict__ token, T* __restrict__ caches,
     const T* __restrict__ cross, const int* __restrict__ mstate,
@@ -101,7 +103,7 @@ __global__ void __launch_bounds__(NT) fused_greedy_kernel(
   for (int l = 0; l < a.NL; ++l) {
     const Weights w = layer_weights<T>(p, l, H, F);
     T* cache = caches + static_cast<long long>(l) * a.L * a.B * slot;
-    layer_body<T, false>(s, w, cache, slot, a.B * slot,
+    layer_body<T, false, D>(s, w, cache, slot, a.B * slot,
                          cross + static_cast<long long>(l) * a.B * a.S * slot,
                          a.S * slot, b0, nrows, H, a.heads, F, a.S, a.pos);
     write_slot<T, false>(s, w, cache, slot, a.B * slot, b0, nrows, H, a.pos,
@@ -151,7 +153,7 @@ __global__ void __launch_bounds__(NT) fused_greedy_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch(const void* token, void* caches, const void* cross,
            const void* mstate, const FusedParams& p, void* tok_out,
            void* mstate_out, void* logits, const StepArgs& a,
@@ -159,11 +161,11 @@ int launch(const void* token, void* caches, const void* cross,
   size_t smem = (layer_smem_floats(a.H, a.F) + static_cast<size_t>(TB) * a.Vp)
                 * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_greedy_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_greedy_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.B + TB - 1) / TB);
-  fused_greedy_kernel<T><<<grid, NT, smem, stream>>>(
+  fused_greedy_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const int*>(token), static_cast<T*>(caches),
       static_cast<const T*>(cross), static_cast<const int*>(mstate), p,
       static_cast<int*>(tok_out), static_cast<int*>(mstate_out),
@@ -184,7 +186,8 @@ extern "C" int p4fr_fused_greedy_step(
     int F, int S, int L, int NL, int Vp, int pos, int cache_outputs,
     int use_manager, int sos, int eos, int lbrace, int rbrace, int vocab,
     int bf16, void* stream) {
-  if (H != heads * D || F % CPT || Vp % CPT || Vp < 32)
+  const int d = heads > 0 ? H / heads : 0;
+  if (H != heads * d || (d != 32 && d != 64) || F % CPT || Vp % CPT || Vp < 32)
     return static_cast<int>(cudaErrorInvalidValue);
   FusedParams p{w_qkv, b_qkv, w_out, b_out, ln1, w_q2, b_q2, w_out2, b_out2,
                 ln2, w_ff0, b_ff0, w_ff1, b_ff1, ln3, embed, pe, w_gen,
@@ -192,9 +195,15 @@ extern "C" int p4fr_fused_greedy_step(
   StepArgs a{B, H, heads, F, S, L, NL, Vp, pos, cache_outputs, use_manager,
              sos, eos, lbrace, rbrace, vocab};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(token, caches, cross, mstate, p, tok_out,
-                                 mstate_out, logits, a, s);
-  return launch<float>(token, caches, cross, mstate, p, tok_out, mstate_out,
-                       logits, a, s);
+  // the instance by head width: 32 (EfficientSATRN), 64 (SwinTRN)
+  auto run = [&](auto head) {
+    constexpr int D = decltype(head)::value;
+    if (bf16)
+      return launch<__nv_bfloat16, D>(token, caches, cross, mstate, p, tok_out,
+                                      mstate_out, logits, a, s);
+    return launch<float, D>(token, caches, cross, mstate, p, tok_out,
+                            mstate_out, logits, a, s);
+  };
+  return d == 32 ? run(std::integral_constant<int, 32>{})
+                 : run(std::integral_constant<int, 64>{});
 }

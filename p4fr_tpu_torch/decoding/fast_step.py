@@ -49,7 +49,7 @@ def build_fast_decoder(model) -> FastDecoder:
     layers: List[LayerWeights] = []
     for lp in dec.attention_layers:
         sa, ca = lp.self_attention_layer, lp.attention_layer
-        ff = lp.feedforward_layer
+        ff0, ff1 = lp.feedforward_layer.linears
         layers.append(LayerWeights(
             w_qkv=torch.cat([_kernel(sa.q_linear), _kernel(sa.k_linear),
                              _kernel(sa.v_linear)], dim=1).contiguous(),
@@ -62,8 +62,8 @@ def build_fast_decoder(model) -> FastDecoder:
             w_out2=_kernel(ca.out_linear), b_out2=ca.out_linear.bias.clone(),
             ln2_scale=lp.attention_norm.weight.clone(),
             ln2_bias=lp.attention_norm.bias.clone(),
-            w_ff0=_kernel(ff.linear0), b_ff0=ff.linear0.bias.clone(),
-            w_ff1=_kernel(ff.linear1), b_ff1=ff.linear1.bias.clone(),
+            w_ff0=_kernel(ff0), b_ff0=ff0.bias.clone(),
+            w_ff1=_kernel(ff1), b_ff1=ff1.bias.clone(),
             ln3_scale=lp.feedforward_norm.weight.clone(),
             ln3_bias=lp.feedforward_norm.bias.clone(),
             w_ck=_kernel(ca.k_linear), b_ck=ca.k_linear.bias.clone(),

@@ -19,8 +19,9 @@ runs the same search for both, as in the JAX CLI). Options the port does
 not run yet are rejected with the ROADMAP item that ports them;
 compatibility shims (``--tokens_path``, ``--max_cache``) are accepted and
 unused, as in the JAX CLI. The checkpoint is a
-reference-format ``.pth`` (the JAX package's ``convert_pth --export``
-writes one from a native checkpoint).
+reference-format ``.pth`` of an EfficientSATRN or a SwinTRN (``network``
+``SWIN``); the JAX package's ``convert_pth --export`` writes one from a
+native checkpoint.
 """
 
 import argparse

@@ -1,6 +1,7 @@
 """Model registry: network name -> torch model, port of
-``p4fr_tpu/models/registry.py``. Only the EfficientSATRN family is ported;
-the other names raise and point at the ROADMAP item that ports them."""
+``p4fr_tpu/models/registry.py``. The EfficientSATRN and SwinTRN families
+are ported; the other names raise and point at the ROADMAP item that ports
+them."""
 
 from __future__ import annotations
 
@@ -12,8 +13,6 @@ NOT_PORTED = {  # network -> the ROADMAP item that ports it
     "LiteSATRN": "ROADMAP.md Queue 1: LiteSATRN (ShallowCNN)",
     "EfficientASTER": "ROADMAP.md Queue 1: EfficientASTER",
     "ASTER": "ROADMAP.md Queue 1: EfficientASTER",
-    "SWIN": "ROADMAP.md Queue 1: SwinTRN",
-    "SwinTRN": "ROADMAP.md Queue 1: SwinTRN",
 }
 
 
@@ -25,6 +24,11 @@ def get_network(name: str, options, vocab: Vocab, dtype=torch.float32,
         from p4fr_tpu_torch.models.satrn import satrn_from_options
 
         model = satrn_from_options(options, len(vocab), vocab.pad_id, vocab.sos_id)
+        return model.to(device=device, dtype=dtype).eval()
+    if name in ("SWIN", "SwinTRN"):
+        from p4fr_tpu_torch.models.swin import swin_from_options
+
+        model = swin_from_options(options, len(vocab), vocab.pad_id, vocab.sos_id)
         return model.to(device=device, dtype=dtype).eval()
     if name in NOT_PORTED:
         raise NotImplementedError(

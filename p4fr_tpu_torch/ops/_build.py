@@ -31,7 +31,7 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES = {"standardize": 0, "mbconv": 0, "decoder_layer": 0, "beam_gather": 0,
-            "fused_greedy_step": 0}
+            "fused_greedy_step": 0, "swin_attention": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -66,6 +66,9 @@ _SIGNATURES = {
     #  Vp, pos, cache_outputs, use_manager, sos, eos, lbrace, rbrace,
     #  vocab, bf16, stream)
     "p4fr_fused_greedy_step": [P] * 27 + [I] * 17 + [P],
+    # (qkv, bias f32, mask f32|null, out, N, n, C, heads, nW, scale, bf16,
+    #  stream)
+    "p4fr_window_attention": [P] * 4 + [I] * 5 + [F, I, P],
 }
 
 

@@ -25,7 +25,7 @@ from p4fr_tpu_torch.ops import _build
 from p4fr_tpu_torch.ops.attention import NEG_INF
 
 LN_EPS = 1e-5
-HEAD_DIM = 32  # the kernel's head width (the flagship decoder: 256 / 8)
+HEAD_DIMS = (32, 64)  # the kernel's head widths: EfficientSATRN 256 / 8, SwinTRN 512 / 8
 
 
 class LayerWeights(NamedTuple):
@@ -62,6 +62,14 @@ def _ln(x, scale, bias):
     mean = x.mean(dim=-1, keepdim=True)
     var = (x - mean).square().mean(dim=-1, keepdim=True)
     return (x - mean) * torch.rsqrt(var + LN_EPS) * scale + bias
+
+
+def check_head_width(what: str, hidden: int, head_num: int) -> None:
+    """Raise unless ``hidden`` splits into ``head_num`` heads of a width
+    the decoder kernels are built for."""
+    if head_num <= 0 or hidden % head_num or hidden // head_num not in HEAD_DIMS:
+        raise ValueError(f"{what}: the kernel takes heads of {HEAD_DIMS}, "
+                         f"got hidden {hidden} / {head_num} heads")
 
 
 def layer_step_ref(x: torch.Tensor, pos: int, cache: torch.Tensor,
@@ -111,8 +119,8 @@ def decoder_layer_step(x: torch.Tensor, pos: int, cache: torch.Tensor,
     """One layer step -> (out [B, H], cache updated in place at ``pos``).
 
     CUDA tensor: one launch of ``csrc/decoder_layer.cu`` (replaces the TPU
-    kernel ``ops/pallas/decoder_layer_v2.py::decoder_layer_step_v2``). It
-    is bound by streaming the layer's weights from L2 for each CTA and the
+    kernel ``ops/pallas/decoder_layer_v2.py::decoder_layer_step_v2``), for
+    heads of 32 or 64. It is bound by streaming the layer's weights from L2 for each CTA and the
     cache prefix and src K/V from device memory; one CTA holds 4 batch rows
     and keeps every activation in shared memory, so each weight is read
     once per 4 rows, as 16-byte vectors with the K range split over the
@@ -127,9 +135,7 @@ def decoder_layer_step(x: torch.Tensor, pos: int, cache: torch.Tensor,
     max_len, s_len = cache.shape[1], src_kv.shape[1]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"decoder_layer_step: dtype {x.dtype} unsupported")
-    if hidden != head_num * HEAD_DIM:
-        raise ValueError(f"decoder_layer_step: the kernel takes heads of "
-                         f"{HEAD_DIM}, got hidden {hidden} / {head_num}")
+    check_head_width("decoder_layer_step", hidden, head_num)
     if cache.shape != (batch, max_len, 2 * hidden) or src_kv.shape != (
             batch, s_len, 2 * hidden):
         raise ValueError(f"decoder_layer_step: cache {tuple(cache.shape)} / "

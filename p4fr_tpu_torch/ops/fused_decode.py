@@ -26,7 +26,7 @@ import torch
 
 from p4fr_tpu_torch.ops import _build
 from p4fr_tpu_torch.ops.attention import NEG_INF
-from p4fr_tpu_torch.ops.decoder_layer import HEAD_DIM, LayerWeights, layer_step_ref
+from p4fr_tpu_torch.ops.decoder_layer import LayerWeights, check_head_width, layer_step_ref
 
 
 class FusedDecodeParams(NamedTuple):
@@ -224,9 +224,7 @@ def fused_greedy_step(token: torch.Tensor, pos: int, caches: torch.Tensor,
     vp, lp = p.embed.shape[0], p.pe.shape[0]
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_greedy_step: dtype {dt} unsupported")
-    if hidden != p.head_num * HEAD_DIM:
-        raise ValueError(f"fused_greedy_step: the kernel takes heads of "
-                         f"{HEAD_DIM}, got hidden {hidden} / {p.head_num}")
+    check_head_width("fused_greedy_step", hidden, p.head_num)
     if (cross.shape != (nl, batch, s_len, two_h) or token.shape != (batch,)
             or mstate.shape != (batch, 4) or p.w_qkv.shape[0] != nl
             or p.w_gen.shape != (hidden, vp)):

@@ -7,6 +7,12 @@ The file the original PyTorch code writes and reads (the JAX package's
      "configs": dict, "token_to_id": dict, "id_to_token": dict}
 
 ``configs`` is a plain dict, so building the model needs no yaml.
+
+A SWIN file the reference trained also carries buffers that the port
+derives from the shapes (each block's ``attn.relative_position_index``, a
+shifted block's ``attn_mask``) and the encoder's unused classification
+head; the Swin modules drop those keys on load (``models/swin.py``), so
+such a file loads with ``strict=True`` too.
 """
 
 from __future__ import annotations

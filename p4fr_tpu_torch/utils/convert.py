@@ -1,7 +1,8 @@
 """Weight bridge: JAX parameter trees -> a reference-named torch state dict.
 
 The port's own copy of the export direction of
-``p4fr_tpu/utils/convert_pth.py``, reduced to the EfficientSATRN names.
+``p4fr_tpu/utils/convert_pth.py``, reduced to the EfficientSATRN and SwinTRN
+names (the Swin hub-weight rules are not copied).
 The rule tables map each reference torch key (regex) to a flax path
 template and a layout transform; ``export_state_dict`` inverts them, so the
 result is exactly the reference ``.pth`` layout the port's modules load:
@@ -110,9 +111,11 @@ def _mha_rules(torch_prefix: str, flax_prefix: str) -> List[Rule]:
     return rules
 
 
-def _transformer_decoder_rules() -> List[Rule]:
-    """decoder.* of the SATRN family; the Feedforward names its Linears
-    ``linear0``/``linear1``."""
+def _transformer_decoder_rules(ff_naming: str = "linear") -> List[Rule]:
+    """decoder.* of the SATRN and SWIN families. ``ff_naming``: the SATRN
+    Feedforward names its Linears ``linear0``/``linear1``; SWIN.py's is an
+    ``nn.Sequential`` with its Linears at ``layers.0``/``layers.3``
+    ("sequential")."""
     p = r"decoder\.attention_layers\.(\d+)"
     f = r"decoder/layer\1"
     rules: List[Rule] = [
@@ -123,9 +126,11 @@ def _transformer_decoder_rules() -> List[Rule]:
     rules += _ln_rules(rf"{p}\.self_attention_norm", rf"{f}/self_attention_norm")
     rules += _mha_rules(rf"{p}\.attention_layer", rf"{f}/cross_attention")
     rules += _ln_rules(rf"{p}\.attention_norm", rf"{f}/cross_attention_norm")
-    rules += _linear_rules(rf"{p}\.feedforward_layer\.linear0",
+    first, second = (("layers\\.0", "layers\\.3") if ff_naming == "sequential"
+                     else ("linear0", "linear1"))
+    rules += _linear_rules(rf"{p}\.feedforward_layer\.{first}",
                            rf"{f}/feedforward/linear0")
-    rules += _linear_rules(rf"{p}\.feedforward_layer\.linear1",
+    rules += _linear_rules(rf"{p}\.feedforward_layer\.{second}",
                            rf"{f}/feedforward/linear1")
     rules += _ln_rules(rf"{p}\.feedforward_norm", rf"{f}/feedforward_norm")
     rules += _linear_rules(r"decoder\.generator", "decoder/generator")
@@ -188,9 +193,48 @@ def satrn_rules() -> List[Rule]:
     return rules
 
 
+def swin_rules() -> List[Rule]:
+    """SwinTRN: the Swin encoder (with its learned ``absolute_pos_embed``)
+    and the transformer decoder with the sequential feed-forward. The
+    reference's ``relative_position_index`` and ``attn_mask`` buffers and its
+    unused head are "drop" rules: the modules drop them on load."""
+    rules: List[Rule] = []
+    rules += _conv_rules(r"encoder\.patch_embed\.proj", "encoder/patch_embed")
+    rules += _ln_rules(r"encoder\.patch_embed\.norm", "encoder/patch_norm")
+    rules += [(r"encoder\.absolute_pos_embed$", "encoder/absolute_pos_embed",
+               _identity, "params")]
+    blk = r"encoder\.layers\.(\d+)\.blocks\.(\d+)"
+    fb = r"encoder/stage\1_block\2"
+    rules += _ln_rules(rf"{blk}\.norm1", rf"{fb}/norm1")
+    rules += _linear_rules(rf"{blk}\.attn\.qkv", rf"{fb}/attn/qkv")
+    rules += _linear_rules(rf"{blk}\.attn\.proj", rf"{fb}/attn/proj")
+    rules += [
+        (rf"{blk}\.attn\.relative_position_bias_table$",
+         rf"{fb}/attn/relative_position_bias_table", _identity, "params"),
+        (rf"{blk}\.attn\.relative_position_index$", "", _identity, "drop"),
+        (rf"{blk}\.attn_mask$", "", _identity, "drop"),
+    ]
+    rules += _ln_rules(rf"{blk}\.norm2", rf"{fb}/norm2")
+    rules += _linear_rules(rf"{blk}\.mlp\.fc1", rf"{fb}/mlp_fc1")
+    rules += _linear_rules(rf"{blk}\.mlp\.fc2", rf"{fb}/mlp_fc2")
+    ds = r"encoder\.layers\.(\d+)\.downsample"
+    rules += _ln_rules(rf"{ds}\.norm", r"encoder/stage\1_merge/norm")
+    rules += [(rf"{ds}\.reduction\.weight$", r"encoder/stage\1_merge/reduction/kernel",
+               _t_linear, "params")]
+    rules += _ln_rules(r"encoder\.norm", "encoder/norm")
+    rules += [
+        (r"encoder\.head\..*$", "", _identity, "drop"),
+        (r"encoder\.avgpool.*$", "", _identity, "drop"),
+    ]
+    rules += _transformer_decoder_rules(ff_naming="sequential")
+    return rules
+
+
 def rules_for(network: str) -> List[Rule]:
     if network in ("EfficientSATRN", "MySATRN"):
         return satrn_rules()
+    if network in ("SWIN", "SwinTRN"):
+        return swin_rules()
     if network in NOT_PORTED:
         raise NotImplementedError(
             f"no weight-bridge rules for {network!r} in p4fr_tpu_torch yet "

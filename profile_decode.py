@@ -2,9 +2,11 @@
 """Where the time of one decode call goes on the card.
 
     python3 profile_decode.py [--decode_type greedy|fused|beam]
+        [--network EfficientSATRN|SWIN]
 
 Loads chip_smoke.py's seeded EfficientSATRN at full width in bf16 (B=256
-256x512 u8 images, 231 steps; greedy with the DecodingManager, through
+256x512 u8 images; with ``--network SWIN`` its SwinTRN, B=32 384x384),
+231 steps; greedy with the DecodingManager, through
 kernel 3 per layer or, with ``fused``, the whole step in one launch as
 ``--kernel fused`` runs it; beam W=3 without the manager, as the CLI runs
 them), times two unprofiled calls with
@@ -29,6 +31,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--decode_type", default="beam",
                         choices=["greedy", "fused", "beam"])
+    parser.add_argument("--network", default="EfficientSATRN",
+                        choices=["EfficientSATRN", "SWIN"])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
@@ -45,23 +49,26 @@ def main(argv=None):
     card = cs.card_line()
     dev = torch.device("cuda", 0)
     with torch.no_grad():
-        ckpt = cs.build_checkpoint(dev)
+        if args.network == "SWIN":
+            ckpt, batch = cs.build_swin_checkpoint(), cs.SWIN_BATCH
+            size = (cs.SWIN_SIZE, cs.SWIN_SIZE)
+        else:
+            ckpt, batch, size = cs.build_checkpoint(dev), cs.E2E_TIME_BATCH, (256, 512)
         model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, torch.bfloat16)
         fast = build_fast_decoder(model)
         tables = RuleTables.build(vocab, dev)
-        batch = cs.E2E_TIME_BATCH
-        images = torch.randint(0, 256, (batch, 256, 512, 3),
+        images = torch.randint(0, 256, (batch, *size, 3),
                                generator=torch.Generator().manual_seed(cs.SEED + 5),
                                dtype=torch.uint8).to(dev)
         if args.decode_type in ("greedy", "fused"):
             kernel = "fused" if args.decode_type == "fused" else "auto"
-            what = f"greedy --kernel {kernel}, manager on,"
+            what = f"{args.network} greedy --kernel {kernel}, manager on,"
 
             def run(steps):
                 return decode_images(model, fast, images, tables, steps,
                                      kernel=kernel)
         else:
-            what = f"beam W={cs.BEAM_WIDTH},"
+            what = f"{args.network} beam W={cs.BEAM_WIDTH},"
 
             def run(steps):
                 return beam_decode_images(model, fast, images, steps,

@@ -36,10 +36,14 @@ from p4fr_tpu_torch.ops.fused_decode import (
 )
 from p4fr_tpu_torch.ops.mbconv import fold_mbconv_params, fused_mbconv, mbconv_block_ref
 from p4fr_tpu_torch.ops.preprocess import standardize, standardize_ref
+from p4fr_tpu_torch.ops.swin_attention import (
+    fused_window_attention,
+    fused_window_attention_ref,
+)
 
 BF16_RTOL = 2.0 ** -8
 BF16_ATOL = {"standardize": 1e-6, "mbconv": 1.5e-3, "decoder_layer": 2e-3,
-             "fused_greedy_step": 1.5e-2}
+             "fused_greedy_step": 1.5e-2, "swin_attention": 1e-3}
 
 
 def assert_bf16_close(got, want, kernel):
@@ -93,6 +97,10 @@ def test_wrappers_never_fall_back_off_cpu():
         beam_parent_gather(torch.empty(6, 4, 8, device=meta),
                            torch.empty(6, dtype=torch.int64, device=meta), 0,
                            group=3)
+    with pytest.raises(ValueError, match="device"):
+        fused_window_attention(torch.empty(2, 16, 96, device=meta),
+                               torch.empty(1, 16, 16, device=meta), None,
+                               heads=1, scale=1.0)
     params, tables = random_fused(torch.Generator().manual_seed(0), 32, 64, 2, 4)
     with pytest.raises(ValueError, match="device"):
         fused_greedy_step(torch.zeros(2, dtype=torch.int32, device=meta), 0,
@@ -103,7 +111,7 @@ def test_wrappers_never_fall_back_off_cpu():
 
 
 def random_fused(gen, hidden, filter_dim, layers, max_len, device="cpu",
-                 dtype=torch.float32, cache_outputs=True):
+                 dtype=torch.float32, cache_outputs=True, head_dim=32):
     """(FusedDecodeParams of random weights over the port's 245-token
     vocabulary with its manager's tables, the tables)."""
     vocab = Vocab.from_files([TOKENS_PATH])
@@ -116,7 +124,7 @@ def random_fused(gen, hidden, filter_dim, layers, max_len, device="cpu",
         layers=tuple(random_layer(gen, hidden, filter_dim, device, dtype)
                      for _ in range(layers)),
         w_gen=rnd(hidden, v, scale=hidden ** -0.5), b_gen=rnd(v, scale=0.1),
-        head_num=hidden // 32, cache_outputs=cache_outputs)
+        head_num=hidden // head_dim, cache_outputs=cache_outputs)
     tables = RuleTables.build(vocab, device)
     return build_fused_params(fast, tables, max_steps=max_len, vocab_size=v,
                               sos_id=vocab.sos_id, eos_id=vocab.eos_id), tables
@@ -170,12 +178,9 @@ def test_mbconv_kernel(cuda, cin, cout, se):
                       "mbconv")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cache_outputs", [True, False])
-def test_decoder_layer_kernel(cuda, dtype, cache_outputs):
+def check_decoder_layer_kernel(cuda, dtype, cache_outputs, hidden, heads):
     gen = torch.Generator().manual_seed(0)
-    hidden, heads, b, s_len, max_len = 64, 2, 6, 5, 40  # ragged batch tile
+    b, s_len, max_len = 6, 5, 40  # ragged batch tile
     w = random_layer(gen, hidden, 128, cuda, dtype)
     x = torch.randn(b, hidden, generator=gen).to(cuda, dtype)
     src = torch.randn(b, s_len, 2 * hidden, generator=gen).to(cuda, dtype)
@@ -205,6 +210,52 @@ def test_decoder_layer_kernel(cuda, dtype, cache_outputs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cache_outputs", [True, False])
+def test_decoder_layer_kernel(cuda, dtype, cache_outputs):
+    check_decoder_layer_kernel(cuda, dtype, cache_outputs, hidden=64, heads=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_outputs", [True, False])
+def test_decoder_layer_kernel_heads_of_64(cuda, dtype, cache_outputs):
+    """SwinTRN's decoder width: each lane holds two value dims."""
+    check_decoder_layer_kernel(cuda, dtype, cache_outputs, hidden=128, heads=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_win,window,heads,shifted", [
+    (6, 4, 2, False),     # one partial 32-position chunk
+    (12, 4, 2, True),     # shift mask [4, 16, 16], 3 images: window % nW
+    (4, 7, 3, True),      # 49 tokens: a full chunk and a ragged one
+    (3, 12, 4, False),    # the Swin-B window: 144 tokens, 5 chunks
+])
+def test_swin_attention_kernel(cuda, dtype, n_win, window, heads, shifted):
+    from p4fr_tpu_torch.models.swin import shift_attn_mask
+
+    gen = torch.Generator().manual_seed(0)
+    n, c = window * window, 32 * heads
+    qkv = torch.randn(n_win, n, 3 * c, generator=gen).to(cuda, dtype)
+    bias = torch.randn(heads, n, n, generator=gen).to(cuda)
+    mask = None
+    if shifted:
+        side = 2 * window
+        mask = torch.from_numpy(shift_attn_mask(side, side, window, window // 2)).to(cuda)
+    scale = 32 ** -0.5
+    got = fused_window_attention(qkv, bias, mask, heads=heads, scale=scale)
+    torch.cuda.synchronize()
+    want = fused_window_attention_ref(qkv.float(), bias, mask, heads=heads,
+                                      scale=scale, round_to=dtype)
+    assert got.shape == (n_win, n, c) and got.dtype == dtype
+    if dtype == torch.float32:
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert_bf16_close(got, want, "swin_attention")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_outputs", [True, False])
 @pytest.mark.parametrize("use_manager", [True, False])
 def test_fused_greedy_step_kernel(cuda, dtype, cache_outputs, use_manager):
     """Kernel 6 vs its twin over 36 steps of one history (the twin's), a
@@ -212,10 +263,25 @@ def test_fused_greedy_step_kernel(cuda, dtype, cache_outputs, use_manager):
     tolerance, the other slots untouched, the state advanced by the pick,
     no banned pick, and the twin's pick wherever its top two allowed
     logits are further apart than the tolerance."""
+    check_fused_greedy_step_kernel(cuda, dtype, cache_outputs, use_manager,
+                                   hidden=64, head_dim=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_manager", [True, False])
+def test_fused_greedy_step_kernel_heads_of_64(cuda, dtype, use_manager):
+    """SwinTRN's decoder width through the fused step."""
+    check_fused_greedy_step_kernel(cuda, dtype, True, use_manager, hidden=128,
+                                   head_dim=64)
+
+
+def check_fused_greedy_step_kernel(cuda, dtype, cache_outputs, use_manager,
+                                   hidden, head_dim):
     gen = torch.Generator().manual_seed(0)
-    hidden, b, s_len, max_len, layers = 64, 6, 5, 40, 2
+    b, s_len, max_len, layers = 6, 5, 40, 2
     params, _ = random_fused(gen, hidden, 128, layers, max_len, cuda, dtype,
-                             cache_outputs)
+                             cache_outputs, head_dim)
     ref = params._replace(**{f: getattr(params, f).float()
                              for f in params._fields[:N_TENSORS]})
     cross = torch.randn(layers, b, s_len, 2 * hidden, generator=gen).to(cuda, dtype)
@@ -300,4 +366,6 @@ def test_cpu_twins_count_no_launch():
     fused_greedy_step(torch.zeros(2, dtype=torch.int32), 1, torch.zeros(2, 4, 2, 64),
                       torch.zeros(2, 2, 3, 64), torch.ones(2, 4, dtype=torch.int32),
                       params, use_manager=True)
+    fused_window_attention(torch.zeros(2, 16, 96), torch.zeros(1, 16, 16),
+                           torch.zeros(2, 16, 16), heads=1, scale=1.0)
     assert _build.LAUNCHES == before

@@ -250,9 +250,11 @@ def test_entry_points_run_on_cuda_unless_asked(slice_models, tmp_path, monkeypat
     assert exc.value.code != 0
 
 
-def test_registry_names_the_roadmap_item(vocab):
+@pytest.mark.parametrize("network", ["LiteSATRN", "EfficientASTER", "ASTER"])
+def test_registry_names_the_roadmap_item(vocab, network):
+    """The families still unported raise with their ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_network("LiteSATRN", CONFIGS, vocab)
+        get_network(network, CONFIGS, vocab)
 
 
 def test_export_state_dict_matches_jax(slice_models):
@@ -269,7 +271,7 @@ def test_export_state_dict_matches_jax(slice_models):
         assert got[key].dtype == want[key].dtype, key
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export_state_dict("SwinTRN", {})
+        export_state_dict("EfficientASTER", {})
 
 
 @pytest.mark.parametrize("port,jax_pkg", [
@@ -323,6 +325,17 @@ greedy = decode_images(model, fast, images, tables, 4)
 fused = decode_images(model, fast, images, tables, 4, kernel="fused")
 beam = beam_decode_images(model, fast, images, 4, beam_width=3, eos_id=vocab.eos_id)
 assert greedy.shape == fused.shape == beam.shape == (2, 4)
+
+swin_configs = %(swin_configs)r
+model = get_network("SWIN", swin_configs, vocab)
+path = save_checkpoint(%(swin_pth)r, model, network="SWIN", configs=swin_configs,
+                       vocab=vocab)
+model, _, vocab, _ = load_model_from_checkpoint(path, device="cpu")
+fast = build_fast_decoder(model)
+images = torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8)
+greedy = decode_images(model, fast, images, tables, 4)
+fused = decode_images(model, fast, images, tables, 4, kernel="fused")
+assert greedy.shape == fused.shape == (2, 4)
 assert not [k for k in sys.modules if k.split(".")[0] in REFUSED]
 print("ok")
 """
@@ -334,12 +347,17 @@ def test_port_imports_no_jax(tmp_path):
     pandas, which the card's host lacks): every module and ``chip_smoke``
     import, the manager's tables build from the port's vocab, a ``.pth``
     saves and loads, and 4 greedy (kernel 3's path and the fused step's)
-    and 4 beam steps run on the CPU."""
+    and 4 beam steps run on the CPU; then a tiny SwinTRN (heads of 64 in its
+    decoder) saves, loads and decodes 4 greedy steps both ways."""
     shutil.copytree(os.path.join(REPO, "p4fr_tpu_torch"),
                     tmp_path / "p4fr_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
-    code = ISOLATED % {"configs": CONFIGS, "pth": str(tmp_path / "m.pth")}
+    from test_torch_swin import CONFIGS as SWIN_CONFIGS
+
+    code = ISOLATED % {"configs": CONFIGS, "pth": str(tmp_path / "m.pth"),
+                       "swin_configs": SWIN_CONFIGS,
+                       "swin_pth": str(tmp_path / "swin.pth")}
     res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          env=dict(os.environ, PYTHONPATH=str(tmp_path)),
                          capture_output=True, text=True)

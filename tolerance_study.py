@@ -1,10 +1,19 @@
 #!/usr/bin/env python3
-"""Kernel 6's bf16 tolerance on the card: the readings it is set between,
-and where the sound kernel's error comes from.
+"""A kernel's bf16 tolerance on the card: the readings it is set between,
+and (kernel 6) where the sound kernel's error comes from.
 
-    python3 tolerance_study.py [--seeds 0 1 2 3 4] [--faults]
+    python3 tolerance_study.py [--kernel fused_greedy_step|swin_attention]
+        [--shape satrn|swin] [--seeds 0 1 2 3 4] [--faults]
 
 Needs one CUDA card; the kernels build from the checkout on first use.
+``--shape swin`` runs kernel 6's part 1 (and the faults' copies) at
+SwinTRN's decoder shape (``chip_smoke.SWIN_DECODER``: B=32, hidden 512,
+heads of 64, 4 layers) instead of the flagship's; part 2 stays at the
+flagship's. With ``--kernel swin_attention`` (kernel 5) part 1 runs
+``chip_smoke.check_swin_attention`` (each Swin-B stage at B=32, shift mask
+on and off, 8 checks) and prints per seed the bf16 check's largest excess
+over the cast and largest mean abs error; part 2 is kernel 6's only; part
+3 plants ``FAULTS["swin_attention"]`` in ``csrc/swin_attention.cu``.
 
 1. ``chip_smoke.check_fused_step`` (B=256, full width, pos 0/1/115/230,
    manager on and off, 24 checks) on each seed, in f32 and in bf16: per
@@ -40,24 +49,49 @@ import torch
 import chip_smoke as cs
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FAULTS = {  # name: (text in csrc/fused_decode.cu, its replacement)
-    "layer0_ff1": ("at(p.w_ff1, static_cast<long long>(l) * F * H)", "at(p.w_ff1, 0)"),
-    "cross_layer0": ("cross + static_cast<long long>(l) * a.B * a.S * slot", "cross"),
-    "batch_major_slot": (", a.B * slot,", ", slot,"),
-    "pe_next": ("static_cast<long long>(a.pos) * H;",
-                "static_cast<long long>(a.pos + 1) * H;"),
-    "no_round": ("s.A[i] = round_t<T>(s.Dd[i]);", "s.A[i] = s.Dd[i];"),
-    "limit_gt": ("static_cast<float>(run) >= limit", "static_cast<float>(run) > limit"),
+FAULTS = {  # kernel: (its source in csrc/, {name: (text, its replacement)})
+    "fused_greedy_step": ("fused_decode.cu", {
+        "layer0_ff1": ("at(p.w_ff1, static_cast<long long>(l) * F * H)", "at(p.w_ff1, 0)"),
+        "cross_layer0": ("cross + static_cast<long long>(l) * a.B * a.S * slot", "cross"),
+        "batch_major_slot": (", a.B * slot,", ", slot,"),
+        "pe_next": ("static_cast<long long>(a.pos) * H;",
+                    "static_cast<long long>(a.pos + 1) * H;"),
+        "no_round": ("s.A[i] = round_t<T>(s.Dd[i]);", "s.A[i] = s.Dd[i];"),
+        "limit_gt": ("static_cast<float>(run) >= limit", "static_cast<float>(run) > limit"),
+    }),
+    "swin_attention": ("swin_attention.cu", {
+        "mask_next_row": ("(w % nW) * n * n", "((w + 1) % nW) * n * n"),
+        "no_prob_round": ("s[c] = round_t<T>(s[c] / sum);", "s[c] = s[c] / sum;"),
+        "scale_after_bias": ("__fmul_rn(dot, scale) + brow[j]",
+                             "__fmul_rn(dot + brow[j], scale)"),
+        "last_key_dropped": ("if (c < nc && j < n) {", "if (c < nc && j < n - 1) {"),
+    }),
 }
 N_CHECKS = 3 * 2 * len(cs.GATHER_POS)  # logits, slot, picks x manager x pos
 
 
-def readings(dev, seeds):
+def swin_readings(dev, seeds):
     for seed in seeds:
         missed = {}
         for dt in (torch.float32, torch.bfloat16):
             misses = []
-            r = cs.check_fused_step(dev, dt, {}, misses, seed)
+            r = cs.check_swin_attention(dev, dt, {}, misses, seed)
+            missed[dt] = len(misses)
+        print(f"READING seed {seed}: bf16 beyond the cast {r['excess']:.3e}; mean abs "
+              f"{r['mean']:.3e}; missed {missed[torch.bfloat16]} bf16 and "
+              f"{missed[torch.float32]} f32 of {2 * len(cs.SWIN_STAGES)} checks each",
+              flush=True)
+
+
+SHAPES = {"satrn": cs.SATRN_DECODER, "swin": cs.SWIN_DECODER}
+
+
+def readings(dev, seeds, shape):
+    for seed in seeds:
+        missed = {}
+        for dt in (torch.float32, torch.bfloat16):
+            misses = []
+            r = cs.check_fused_step(dev, dt, {}, misses, seed, shape)
             missed[dt] = len({m.split(":")[0] for m in misses})  # one per check
         print(f"READING seed {seed}: bf16 beyond the cast: logits {r['logits']:.3e}, "
               f"slot {r['slot']:.3e}; logits mean abs {r['mean']:.3e}; missed "
@@ -160,10 +194,11 @@ def cause(dev, seed, pos=115):
              step(one, f32, bf, which, rows))
 
 
-def plant_and_run(seeds):
+def plant_and_run(seeds, kernel, shape):
     """Each fault in its own copy, all copies at once; their READING lines."""
     procs = []
-    for name, (old, new) in FAULTS.items():
+    source, faults = FAULTS[kernel]
+    for name, (old, new) in faults.items():
         dst = os.path.join(ROOT, "build", "tolerance_study", name)
         shutil.rmtree(dst, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "p4fr_tpu_torch"),
@@ -171,17 +206,17 @@ def plant_and_run(seeds):
                         ignore=shutil.ignore_patterns("__pycache__"))
         for f in ("chip_smoke.py", "tolerance_study.py"):
             shutil.copy(os.path.join(ROOT, f), dst)
-        src = os.path.join(dst, "p4fr_tpu_torch", "csrc", "fused_decode.cu")
+        src = os.path.join(dst, "p4fr_tpu_torch", "csrc", source)
         with open(src) as f:
             text = f.read()
         if old not in text:
-            raise RuntimeError(f"fault {name}: {old!r} is not in fused_decode.cu")
+            raise RuntimeError(f"fault {name}: {old!r} is not in {source}")
         with open(src, "w") as f:
             f.write(text.replace(old, new))
         out = open(os.path.join(dst, "out.txt"), "w")
         procs.append((name, out, subprocess.Popen(
-            [sys.executable, "tolerance_study.py", "--readings_only", "--seeds",
-             *map(str, seeds)], cwd=dst, stdout=out, stderr=subprocess.STDOUT,
+            [sys.executable, "tolerance_study.py", "--readings_only", "--kernel",
+             kernel, "--shape", shape, "--seeds", *map(str, seeds)], cwd=dst, stdout=out, stderr=subprocess.STDOUT,
             env=dict(os.environ, PYTHONPATH=dst))))
     for name, out, proc in procs:
         proc.wait()
@@ -195,6 +230,8 @@ def plant_and_run(seeds):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", default="fused_greedy_step", choices=sorted(FAULTS))
+    parser.add_argument("--shape", default="satrn", choices=sorted(SHAPES))
     parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3, 4])
     parser.add_argument("--faults", action="store_true")
     parser.add_argument("--readings_only", action="store_true",
@@ -207,12 +244,14 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
     with torch.no_grad():
-        readings(dev, args.seeds)
-        if args.readings_only:
-            return 0
-        cause(dev, args.seeds[0])
-    if args.faults:
-        plant_and_run(args.seeds)
+        if args.kernel == "swin_attention":
+            swin_readings(dev, args.seeds)
+        else:
+            readings(dev, args.seeds, SHAPES[args.shape])
+            if not args.readings_only:
+                cause(dev, args.seeds[0])
+    if args.faults and not args.readings_only:
+        plant_and_run(args.seeds, args.kernel, args.shape)
     return 0
 
 
