@@ -7,7 +7,7 @@ Needs one CUDA card and nvcc. In order, each phase failing ends the run
 with a non-zero exit and no result line:
 
 1. CUDA present; print the card's name and power limit (nvidia-smi).
-2. Build the six CUDA kernels from p4fr_tpu_torch/csrc (one nvcc per
+2. Build the eight CUDA kernels from p4fr_tpu_torch/csrc (one nvcc per
    source, all at once) and hold each against its plain PyTorch twin on
    the card at the main paths' shapes: first f32 with TF32 off, then bf16
    (against the twin computed in f32 on the same bf16 operands), each
@@ -17,6 +17,10 @@ with a non-zero exit and no result line:
    attention runs at each Swin-B stage's shape at B=32, with and without
    the shift mask; the decoder-layer and fused steps also at SwinTRN's
    decoder shape (hidden 512, heads of 64, 4 layers, 144 source tokens).
+   The v1 layer step (kernel 8) and the one-launch decoder stack (kernel
+   7) at both decoder shapes, pos 0, 115 and 230, random values in every
+   cache slot: out and slot ``pos`` within tolerance, the other slots
+   untouched.
 3. EfficientSATRN greedy inference at full width (256x512 u8 images, 231
    steps, DecodingManager on), with seeded random weights: save a
    reference-format .pth, load it back, decode a B=32 batch through the
@@ -37,13 +41,23 @@ with a non-zero exit and no result line:
    above (24 window-attention launches, 4 x 231 decoder-layer launches);
    the encoder memory and every step's replayed logits of the kernel path
    meet the plain path's.
+3c. EfficientSATRN greedy through the v1 step (``make_fast_greedy_fn(
+   use_v1=True)``: kernel 8 per layer, 693 launches, no kernel 3), B=32,
+   f32, manager on: replayed on its own tokens it picks them again, and
+   every step's logits meet the plain path's.
+3d. The same through ``make_v3_step`` (kernel 7, every layer in one
+   launch, 231 launches, no kernel 3 or 6) in a greedy loop with the
+   manager's ``sift``: its recorded logits meet the plain path's replay on
+   its tokens, and ``replay_v3`` picks them again.
 5. Timing in bf16 (printed only): each kernel vs its twin and, where one
    PyTorch call computes the same function, that call; images/s of the
    kernel, fused and plain greedy paths at B=256, in turns, and of beam
    W=3 at B=256; the window attention per Swin-B stage (SDPA with the
    float bias and mask as its library call), the decoder-layer step at
    SwinTRN's shape, and SwinTRN greedy images/s at B=32 with the split of
-   its stream time between encode and decode.
+   its stream time between encode and decode. Kernel 8 beside kernel 3,
+   kernel 7 beside three kernel-3 launches and one kernel-6 launch, and
+   the v1 and v3 greedy paths' images/s in turns with the others.
 6. One JSON line of per-kernel results (with each kernel's least time on
    the card, from this run's shapes), then the device line.
 """
@@ -64,6 +78,7 @@ SWIN_BATCH = 32  # SwinTRN's batch: its checks, its path and its timing
 SWIN_SIZE = 384  # SwinTRN's input, square
 BEAM_WIDTH = 3
 GATHER_POS = (0, 1, 115, 230)
+LAYER_POS = (0, 115, 230)  # positions of the v1 and v3 checks
 
 # the card's published peaks (H100 SXM, dense): a kernel's bound is the
 # larger of its bytes over the memory rate and its operations over the
@@ -138,7 +153,8 @@ TOL_STD_F32 = dict(atol=1e-6, rtol=0)  # one FMA per element
 BF16_RTOL = 2.0 ** -8
 BF16_ATOL = {"standardize": 1e-6, "mbconv": 1.5e-3, "decoder_layer": 2e-3,
              "fused_greedy_step": 1.5e-2, "swin_attention": 1e-3,
-             "fused_greedy_step_swin": 2e-2}
+             "fused_greedy_step_swin": 2e-2, "decoder_layer_v1": 2e-3,
+             "decoder_stack_v3": 2e-2}
 # kernel 6's logits, written in f32, are also held by their mean |kernel -
 # twin|: a sound kernel's excess is a few one-ulp flips at the activation's
 # roundings, compounding through the layers in the rows they hit, while a
@@ -146,7 +162,11 @@ BF16_ATOL = {"standardize": 1e-6, "mbconv": 1.5e-3, "decoder_layer": 2e-3,
 # SwinTRN's decoder shape (4 layers of 512, 32 rows) the flips compound
 # further, so that shape has its own pair of gates ("_swin"), set the same
 # way.
-BF16_MEAN_ATOL = {"fused_greedy_step": 5e-4, "fused_greedy_step_swin": 1.2e-3}
+# Kernel 7's out, written in its type, is held the same way for the same
+# reason; its mean also holds the final cast's rounding (~1.1e-3), and one
+# pair of gates serves both decoder shapes.
+BF16_MEAN_ATOL = {"fused_greedy_step": 5e-4, "fused_greedy_step_swin": 1.2e-3,
+                  "decoder_stack_v3": 2e-3}
 TOL_LOGITS_F32 = 1e-3  # e2e logits, f32, 28 blocks + 3 x 231 layer steps
 TOL_LOGP_F32 = 1e-3  # beam log-probs, f32, the same chain at B*W rows
 # SwinTRN, f32: the encoder memory after 24 blocks (each output a LayerNorm
@@ -341,6 +361,9 @@ def check_kernels(dev, dtype, errors, seed=SEED):
     for shape in (SATRN_DECODER, SWIN_DECODER):
         check_fused_step(dev, dtype, errors, misses, seed, shape)
     check_swin_attention(dev, dtype, errors, misses, seed)
+    for shape in (SATRN_DECODER, SWIN_DECODER):
+        check_layer_v1(dev, dtype, errors, misses, seed, shape)
+        check_stack_v3(dev, dtype, errors, misses, seed, shape)
     if misses:
         raise AssertionError("kernels disagree with their twins: " + "; ".join(misses))
 
@@ -582,6 +605,127 @@ def check_fused_step(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
     return readings
 
 
+def check_layer_v1(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
+    """Kernel 8 vs its plain version (kernel 3's, ``layer_step_ref``: the
+    same contract) at a decoder ``shape`` (the flagship's: B=256, cache
+    [256, 231, 512], src [256, 128, 512]; SwinTRN's: B=32, heads of 64,
+    cache [32, 231, 1024], src [32, 144, 1024]), random values in every
+    cache slot (those past ``pos`` are banned), pos 0, 115 and 230: out and
+    slot ``pos`` within tolerance, the other slots untouched. bf16 returns
+    the largest readings: the out's and the slot's excess over the cast and
+    the out's mean abs error (``compare_bf16``)."""
+    from p4fr_tpu_torch.ops.decoder_layer import LayerWeights
+    from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1, layer_step_ref
+
+    f32 = dtype == torch.float32
+    gen = torch.Generator().manual_seed(seed + 40)
+    b, hid, s_len = shape["b"], shape["hidden"], shape["s_len"]
+    weights = random_layer_weights(dtype, gen, dev, hid, shape["filter_dim"])
+    w_ref = LayerWeights(*(t.float() for t in weights))
+    worst = 0.0
+    readings = {"out": 0.0, "slot": 0.0, "mean": 0.0}
+    for pos in LAYER_POS:
+        x = torch.randn(b, hid, generator=gen).to(dev, dtype)
+        src = torch.randn(b, s_len, 2 * hid, generator=gen).to(dev, dtype)
+        base = torch.randn(b, STEPS, 2 * hid, generator=torch.Generator(
+            device=dev).manual_seed(seed + 41 + pos), device=dev).to(dtype)
+        cache, cache_ref = base.clone(), base.to(torch.float32, copy=True)
+        out, _ = decoder_layer_step_v1(x, pos, cache, src, weights,
+                                       head_num=shape["heads"], cache_outputs=True)
+        torch.cuda.synchronize()
+        out_ref, _ = layer_step_ref(x.float(), pos, cache_ref, src.float(), w_ref,
+                                    head_num=shape["heads"], cache_outputs=True,
+                                    kv_dtype=dtype)
+        tag = f"B={b} H={hid}/{shape['heads']} heads pos={pos}"
+        if f32:
+            worst = max(worst,
+                        compare(f"decoder_layer_v1 out {tag}", out, out_ref, TOL_F32,
+                                misses),
+                        compare(f"decoder_layer_v1 slot pos {tag}", cache[:, pos],
+                                cache_ref[:, pos], TOL_F32, misses))
+        else:
+            atol = BF16_ATOL["decoder_layer_v1"]
+            ex_o, mean = compare_bf16(f"decoder_layer_v1 out {tag}", out, out_ref,
+                                      atol, misses)
+            ex_s, _ = compare_bf16(f"decoder_layer_v1 slot pos {tag}", cache[:, pos],
+                                   cache_ref[:, pos], atol, misses)
+            readings = {k: max(readings[k], r) for k, r in
+                        (("out", ex_o), ("slot", ex_s), ("mean", mean))}
+        others = torch.arange(STEPS, device=dev) != pos
+        untouched = torch.equal(cache[:, others], base[:, others])
+        print(f"  decoder_layer_v1 {tag}: other slots untouched {untouched}")
+        if not untouched:
+            misses.append(f"decoder_layer_v1 other slots {tag}")
+        del x, src, base, cache, cache_ref
+    if f32:
+        errors["decoder_layer_v1"] = max(errors.get("decoder_layer_v1", 0.0), worst)
+    return readings
+
+
+def check_stack_v3(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
+    """Kernel 7 vs its plain version at a decoder ``shape`` (the flagship's:
+    B=256, 3 layers, caches [3, 256, 231, 512], src [3, 256, 128, 512];
+    SwinTRN's: B=32, 4 layers, heads of 64, caches [4, 32, 231, 1024], src
+    [4, 32, 144, 1024]), random values in every slot of every layer's cache,
+    pos 0, 115 and 230: out and every layer's slot ``pos`` within
+    tolerance, the other slots untouched. bf16: with a mean gate on out;
+    returns the largest
+    readings: the out's and the slots' excess over the cast and the out's
+    mean abs error (``compare_bf16``)."""
+    from p4fr_tpu_torch.ops.decoder_stack_v3 import (
+        decoder_stack_step_v3,
+        decoder_stack_step_v3_ref,
+        stack_fast_layers,
+    )
+
+    f32 = dtype == torch.float32
+    gen = torch.Generator().manual_seed(seed + 50)
+    b, nl, hid, s_len = shape["b"], shape["layers"], shape["hidden"], shape["s_len"]
+    stacked = stack_fast_layers([random_layer_weights(dtype, gen, dev, hid,
+                                                      shape["filter_dim"])
+                                 for _ in range(nl)])
+    ref = type(stacked)(*(t.float() for t in stacked))
+    src = torch.randn(nl, b, s_len, 2 * hid, generator=gen).to(dev, dtype)
+    base = torch.randn(nl, b, STEPS, 2 * hid, generator=torch.Generator(
+        device=dev).manual_seed(seed + 51), device=dev).to(dtype)
+    worst = 0.0
+    readings = {"out": 0.0, "slot": 0.0, "mean": 0.0}
+    for pos in LAYER_POS:
+        x = torch.randn(b, hid, generator=gen).to(dev, dtype)
+        caches, caches_ref = base.clone(), base.to(torch.float32, copy=True)
+        out, _ = decoder_stack_step_v3(x, pos, caches, src, stacked,
+                                       head_num=shape["heads"], cache_outputs=True)
+        torch.cuda.synchronize()
+        out_ref, _ = decoder_stack_step_v3_ref(
+            x.float(), pos, caches_ref, src.float(), ref, head_num=shape["heads"],
+            cache_outputs=True, kv_dtype=dtype)
+        tag = f"B={b} H={hid} {nl} layers pos={pos}"
+        if f32:
+            worst = max(worst,
+                        compare(f"decoder_stack_v3 out {tag}", out, out_ref, TOL_F32,
+                                misses),
+                        compare(f"decoder_stack_v3 slot pos {tag}", caches[:, :, pos],
+                                caches_ref[:, :, pos], TOL_F32, misses))
+        else:
+            atol = BF16_ATOL["decoder_stack_v3"]
+            ex_o, mean = compare_bf16(f"decoder_stack_v3 out {tag}", out, out_ref,
+                                      atol, misses, BF16_MEAN_ATOL["decoder_stack_v3"])
+            ex_s, _ = compare_bf16(f"decoder_stack_v3 slot pos {tag}",
+                                   caches[:, :, pos], caches_ref[:, :, pos], atol,
+                                   misses)
+            readings = {k: max(readings[k], r) for k, r in
+                        (("out", ex_o), ("slot", ex_s), ("mean", mean))}
+        others = torch.arange(STEPS, device=dev) != pos
+        untouched = torch.equal(caches[:, :, others], base[:, :, others])
+        print(f"  decoder_stack_v3 {tag}: other slots untouched {untouched}")
+        if not untouched:
+            misses.append(f"decoder_stack_v3 other slots {tag}")
+        del x, caches, caches_ref
+    if f32:
+        errors["decoder_stack_v3"] = max(errors.get("decoder_stack_v3", 0.0), worst)
+    return readings
+
+
 # ---------------------------------------------------------------- phase 3
 
 def build_checkpoint(dev):
@@ -601,20 +745,26 @@ def build_checkpoint(dev):
     return path
 
 
-def main_path(ckpt, dev):
+def path_images(ckpt, dev):
+    """The model in f32, its fast decoder, the manager's tables and the
+    main path's B=32 images."""
     from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder
     from p4fr_tpu_torch.decoding.manager import RuleTables
-    from p4fr_tpu_torch.decoding.replay import replay_logits
-    from p4fr_tpu_torch.infer.single import decode_images, encode_images
-    from p4fr_tpu_torch.ops import _build
     from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
     model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, torch.float32)
-    fast = build_fast_decoder(model)
-    tables = RuleTables.build(vocab, dev)
     gen = torch.Generator().manual_seed(SEED + 2)
     images = torch.randint(0, 256, (E2E_CHECK_BATCH, 256, 512, 3), generator=gen,
                            dtype=torch.uint8).to(dev)
+    return model, build_fast_decoder(model), RuleTables.build(vocab, dev), images
+
+
+def main_path(ckpt, dev):
+    from p4fr_tpu_torch.decoding.replay import replay_logits
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
+
+    model, fast, tables, images = path_images(ckpt, dev)
     print(f"[main path: EfficientSATRN greedy, B={E2E_CHECK_BATCH}, 256x512 u8, "
           f"{STEPS} steps, manager on, f32, TF32 off]")
     _build.reset_launches()
@@ -624,8 +774,9 @@ def main_path(ckpt, dev):
     print(f"  launches {json.dumps(launches)}")
     check_launches(launches, {"standardize": 1, "mbconv": 28,
                               "decoder_layer": 3 * STEPS, "beam_gather": 0,
-                              "fused_greedy_step": 0, "swin_attention": 0})
-    v = len(vocab)
+                              "fused_greedy_step": 0, "swin_attention": 0,
+                              "decoder_layer_v1": 0, "decoder_stack_v3": 0})
+    v = model.num_classes
     if tokens.shape != (E2E_CHECK_BATCH, STEPS) or not bool(
             ((tokens >= 0) & (tokens < v)).all()):
         raise AssertionError(f"bad tokens {tuple(tokens.shape)}")
@@ -659,22 +810,30 @@ def main_path(ckpt, dev):
     return launches
 
 
+def replay_gate(label, k_logits, k_picks, tokens, p_logits):
+    """The path replayed on its own tokens picks them again, and its logits
+    meet the plain path's replay on the same tokens within 1e-3."""
+    if not bool(torch.isfinite(k_logits).all()):
+        raise AssertionError(f"non-finite logits on the {label} path")
+    if not torch.equal(k_picks, tokens):
+        raise AssertionError(f"replaying the {label} path does not pick its tokens")
+    errs = (k_logits - p_logits).abs().amax(dim=(1, 2))
+    worst, step = errs.max().item(), int(errs.argmax())
+    print(f"  replay: the {label} path picks its own {STEPS}-step tokens again; "
+          f"logits {label} vs plain: max_abs_err {worst:.3e} at step {step} "
+          f"(bound {TOL_LOGITS_F32:.1e}); max |logit| {p_logits.abs().max().item():.3e}")
+    if not worst <= TOL_LOGITS_F32:
+        raise AssertionError(f"{label}-path logits disagree with the plain path")
+
+
 def fused_path(ckpt, dev):
     """Fused greedy (kernel 6 per step) at B=32, f32: launch counts, then
     a replay gate against the plain kernel-3 path on the decoded tokens."""
-    from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder
-    from p4fr_tpu_torch.decoding.manager import RuleTables
     from p4fr_tpu_torch.decoding.replay import replay_fused, replay_logits
     from p4fr_tpu_torch.infer.single import decode_images, encode_images
     from p4fr_tpu_torch.ops import _build
-    from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
-    model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, torch.float32)
-    fast = build_fast_decoder(model)
-    tables = RuleTables.build(vocab, dev)
-    gen = torch.Generator().manual_seed(SEED + 2)  # the main path's images
-    images = torch.randint(0, 256, (E2E_CHECK_BATCH, 256, 512, 3), generator=gen,
-                           dtype=torch.uint8).to(dev)
+    model, fast, tables, images = path_images(ckpt, dev)
     print(f"[fused path: EfficientSATRN greedy --kernel fused, B={E2E_CHECK_BATCH}, "
           f"256x512 u8, {STEPS} steps, manager on, f32, TF32 off]")
     _build.reset_launches()
@@ -684,8 +843,9 @@ def fused_path(ckpt, dev):
     print(f"  launches {json.dumps(launches)}")
     check_launches(launches, {"standardize": 1, "mbconv": 28, "decoder_layer": 0,
                               "beam_gather": 0, "fused_greedy_step": STEPS,
-                              "swin_attention": 0})
-    v = len(vocab)
+                              "swin_attention": 0,
+                              "decoder_layer_v1": 0, "decoder_stack_v3": 0})
+    v = model.num_classes
     if tokens.shape != (E2E_CHECK_BATCH, STEPS) or not bool(
             ((tokens >= 0) & (tokens < v)).all()):
         raise AssertionError(f"bad fused tokens {tuple(tokens.shape)}")
@@ -697,17 +857,7 @@ def fused_path(ckpt, dev):
     p_logits, _ = replay_logits(fast, encode_images(model, images, plain=True), tokens,
                                 sos_id=model.sos_id, tables=tables, plain=True)
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(k_logits).all()):
-        raise AssertionError("non-finite logits on the fused path")
-    if not torch.equal(k_picks, tokens):
-        raise AssertionError("replaying the fused step does not pick its tokens")
-    errs = (k_logits - p_logits).abs().amax(dim=(1, 2))
-    worst, step = errs.max().item(), int(errs.argmax())
-    print(f"  replay: the fused step picks its own {STEPS}-step tokens again; logits "
-          f"fused vs plain kernel-3 path: max_abs_err {worst:.3e} at step {step} "
-          f"(bound {TOL_LOGITS_F32:.1e})")
-    if not worst <= TOL_LOGITS_F32:
-        raise AssertionError("fused-path logits disagree with the plain path")
+    replay_gate("fused", k_logits, k_picks, tokens, p_logits)
     agree = (decode_images(model, fast, images, tables, STEPS) == tokens).float().mean()
     print(f"  free-running token agreement fused vs kernel-3 path: {agree.item():.4f} "
           f"(not gated: near-ties, and sift's softmax against the ban on logits)")
@@ -753,7 +903,8 @@ def beam_path(ckpt, dev):
     check_launches(launches, {"standardize": 1, "mbconv": 28,
                               "decoder_layer": 3 * STEPS,
                               "beam_gather": 3 * STEPS, "fused_greedy_step": 0,
-                              "swin_attention": 0})
+                              "swin_attention": 0,
+                              "decoder_layer_v1": 0, "decoder_stack_v3": 0})
     v = len(vocab)
     if tokens.shape != (E2E_CHECK_BATCH, STEPS) or not bool(
             ((tokens >= 0) & (tokens < v)).all()):
@@ -834,7 +985,8 @@ def swin_path(ckpt, dev):
     blocks = sum(st[1] for st in SWIN_STAGES)
     check_launches(launches, {"standardize": 1, "mbconv": 0, "decoder_layer": 4 * STEPS,
                               "beam_gather": 0, "fused_greedy_step": 0,
-                              "swin_attention": blocks}, at_least=())
+                              "swin_attention": blocks,
+                              "decoder_layer_v1": 0, "decoder_stack_v3": 0}, at_least=())
     v = len(vocab)
     if tokens.shape != (SWIN_BATCH, STEPS) or not bool(
             ((tokens >= 0) & (tokens < v)).all()):
@@ -876,6 +1028,101 @@ def swin_path(ckpt, dev):
     return launches
 
 
+# ---------------------------------------------------------------- phases 3c, 3d
+
+def v1_path(ckpt, dev):
+    """Greedy through the v1 step (kernel 8 per layer) at B=32, f32, from
+    ``make_fast_greedy_fn(use_v1=True)``: launch counts, then a replay
+    gate against the plain path."""
+    from p4fr_tpu_torch.decoding.fast_step import make_fast_greedy_fn
+    from p4fr_tpu_torch.decoding.replay import replay_logits
+    from p4fr_tpu_torch.infer.single import encode_images
+    from p4fr_tpu_torch.ops import _build
+    from p4fr_tpu_torch.ops.preprocess import standardize
+
+    model, fast, tables, images = path_images(ckpt, dev)
+    fn = make_fast_greedy_fn(model, max_steps=STEPS, tables=tables, use_v1=True)
+    print(f"[v1 path: EfficientSATRN greedy, make_fast_greedy_fn(use_v1=True), "
+          f"B={E2E_CHECK_BATCH}, 256x512 u8, {STEPS} steps, manager on, f32, TF32 off]")
+    _build.reset_launches()
+    tokens = fn(standardize(images, torch.float32))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches {json.dumps(launches)}")
+    check_launches(launches, {"standardize": 1, "mbconv": 28, "decoder_layer": 0,
+                              "beam_gather": 0, "fused_greedy_step": 0,
+                              "swin_attention": 0, "decoder_layer_v1": 3 * STEPS,
+                              "decoder_stack_v3": 0})
+    if tokens.shape != (E2E_CHECK_BATCH, STEPS) or not bool(
+            ((tokens >= 0) & (tokens < model.num_classes)).all()):
+        raise AssertionError(f"bad v1 tokens {tuple(tokens.shape)}")
+    k_logits, k_picks = replay_logits(fast, encode_images(model, images), tokens,
+                                      sos_id=model.sos_id, tables=tables, use_v1=True)
+    p_logits, _ = replay_logits(fast, encode_images(model, images, plain=True), tokens,
+                                sos_id=model.sos_id, tables=tables, plain=True)
+    torch.cuda.synchronize()
+    replay_gate("v1", k_logits, k_picks, tokens, p_logits)
+    return launches
+
+
+def v3_greedy(fast, src, tables, steps, logits=None):
+    """Greedy decode of ``src`` [B, S, C] over ``make_v3_step`` (every
+    layer in one launch of kernel 7) with the manager's ``sift``, as the
+    JAX test drives the v3 step (tests/test_pallas_decoder_layer.py) ->
+    [B, steps] int64 tokens; each step's logits are appended to ``logits``
+    if it is given."""
+    from p4fr_tpu_torch.decoding import manager as dm
+    from p4fr_tpu_torch.decoding.fast_step import make_v3_step, precompute_cross_kv
+
+    step, stack_cross_kv, init_cache = make_v3_step(fast)
+    batch = src.shape[0]
+    cross = stack_cross_kv(precompute_cross_kv(fast, src.to(fast.w_gen.dtype)))
+    cache = init_cache(batch, steps)
+    token = torch.full((batch,), tables.sos_id, dtype=torch.int64, device=src.device)
+    mstate = dm.init_state(batch, tables)
+    out = []
+    for t in range(steps):
+        step_logits, cache = step(token, t, cross, cache)
+        token, _, mstate = dm.sift(mstate, step_logits, tables)
+        out.append(token)
+        if logits is not None:
+            logits.append(step_logits)
+    return torch.stack(out, dim=1)
+
+
+def v3_path(ckpt, dev):
+    """Greedy over ``make_v3_step`` (kernel 7 per step) at B=32, f32:
+    launch counts, then its recorded logits against the plain path's
+    replay on its tokens, and ``replay_v3`` picks them again."""
+    from p4fr_tpu_torch.decoding.replay import replay_logits, replay_v3
+    from p4fr_tpu_torch.infer.single import encode_images
+    from p4fr_tpu_torch.ops import _build
+
+    model, fast, tables, images = path_images(ckpt, dev)
+    print(f"[v3 path: EfficientSATRN greedy over make_v3_step, B={E2E_CHECK_BATCH}, "
+          f"256x512 u8, {STEPS} steps, manager on, f32, TF32 off]")
+    recorded = []
+    _build.reset_launches()
+    tokens = v3_greedy(fast, encode_images(model, images), tables, STEPS, recorded)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches {json.dumps(launches)}")
+    check_launches(launches, {"standardize": 1, "mbconv": 28, "decoder_layer": 0,
+                              "beam_gather": 0, "fused_greedy_step": 0,
+                              "swin_attention": 0, "decoder_layer_v1": 0,
+                              "decoder_stack_v3": STEPS})
+    if tokens.shape != (E2E_CHECK_BATCH, STEPS) or not bool(
+            ((tokens >= 0) & (tokens < model.num_classes)).all()):
+        raise AssertionError(f"bad v3 tokens {tuple(tokens.shape)}")
+    _, k_picks = replay_v3(fast, encode_images(model, images), tokens,
+                           sos_id=model.sos_id, tables=tables)
+    p_logits, _ = replay_logits(fast, encode_images(model, images, plain=True), tokens,
+                                sos_id=model.sos_id, tables=tables, plain=True)
+    torch.cuda.synchronize()
+    replay_gate("v3", torch.stack(recorded), k_picks, tokens, p_logits)
+    return launches
+
+
 # ---------------------------------------------------------------- phase 5
 
 def bound(nbytes, ops, ops_per_s):
@@ -911,7 +1158,15 @@ def timing(ckpt, dev, card):
     from p4fr_tpu_torch.decoding.manager import RuleTables
     from p4fr_tpu_torch.infer.single import beam_decode_images, decode_images
     from p4fr_tpu_torch.ops.beam_gather import beam_parent_gather, beam_parent_gather_ref
+    from p4fr_tpu_torch.decoding.fast_step import greedy_decode
+    from p4fr_tpu_torch.infer.single import encode_images
     from p4fr_tpu_torch.ops.decoder_layer import decoder_layer_step, layer_step_ref
+    from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
+    from p4fr_tpu_torch.ops.decoder_stack_v3 import (
+        StackedLayers,
+        decoder_stack_step_v3,
+        decoder_stack_step_v3_ref,
+    )
     from p4fr_tpu_torch.ops.fused_decode import fused_greedy_step, fused_greedy_step_ref
     from p4fr_tpu_torch.ops.mbconv import fold_mbconv_params, fused_mbconv, mbconv_block_ref
     from p4fr_tpu_torch.ops.preprocess import scale_shift, standardize, standardize_ref
@@ -963,18 +1218,27 @@ def timing(ckpt, dev, card):
     pos, hid, ff, s_len = 115, 256, 1024, 128
     x, cache, src, weights = decoder_inputs(bf, gen, dev, pos, b=KERNEL_BATCH)
     b = x.shape[0]
+    # one layer step: x in, out, the cache prefix read, slot pos written, src
+    # K|V, weights
+    layer_bytes = (2 * nbytes(x) + nbytes(cache[:, :pos + 1]) + nbytes(cache[:, pos])
+                   + nbytes(src) + nbytes(*weights[:18]))
+    layer_ops = (2 * b * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
+                 + 4 * b * hid * (pos + 1 + s_len))
     report("decoder_layer", f"B={b} pos={pos} L={STEPS} S={s_len} per layer step",
            cuda_ms(lambda: decoder_layer_step(x, pos, cache, src, weights, head_num=8,
                                               cache_outputs=True), iters=50),
            cuda_ms(lambda: layer_step_ref(x, pos, cache, src, weights, head_num=8,
                                           cache_outputs=True), iters=50),
-           None,
-           # x in, out, the cache prefix read, slot pos written, src K|V, weights
-           2 * nbytes(x) + nbytes(cache[:, :pos + 1]) + nbytes(cache[:, pos])
-           + nbytes(src) + nbytes(*weights[:18]),
-           2 * b * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
-           + 4 * b * hid * (pos + 1 + s_len),
-           BF16_TENSOR_OPS_PER_S)
+           None, layer_bytes, layer_ops, BF16_TENSOR_OPS_PER_S)
+    # kernel 8 on the same operands (its plain version is kernel 3's)
+    report("decoder_layer_v1", f"B={b} pos={pos} L={STEPS} S={s_len} per layer step",
+           cuda_ms(lambda: decoder_layer_step_v1(x, pos, cache, src, weights, head_num=8,
+                                                 cache_outputs=True), iters=50),
+           cuda_ms(lambda: layer_step_ref(x, pos, cache, src, weights, head_num=8,
+                                          cache_outputs=True), iters=50),
+           None, layer_bytes, layer_ops, BF16_TENSOR_OPS_PER_S)
+    print(f"  decoder_layer_v1 B={b} pos={pos}: {times['decoder_layer_v1']['ms']:.4f} ms "
+          f"beside kernel 3's {times['decoder_layer']['ms']:.4f} ms in this call ({card})")
 
     rows = E2E_TIME_BATCH * BEAM_WIDTH
     gather_cache = torch.randn(rows, STEPS, 512, generator=torch.Generator(
@@ -1028,19 +1292,46 @@ def timing(ckpt, dev, card):
                                                 cache_outputs=True), iters=50)
         print(f"  fused_greedy_step B={b} pos={at}: {k6:.4f} ms; three kernel-3 "
               f"launches {3 * k3:.4f} ms ({card})")
-    del cross, caches, x, cache, src
+
+    # kernel 7 over the same stacked weights and a batch-major copy of the
+    # caches, beside three kernel-3 launches and one kernel-6 launch
+    stacked = StackedLayers(*params[:15])
+    stack_caches = caches.transpose(1, 2).contiguous()
+    cross_v3 = cross.contiguous()
+    report("decoder_stack_v3", f"B={b} pos={pos} L={STEPS} S={s_len} {nl} layers "
+           "per step",
+           cuda_ms(lambda: decoder_stack_step_v3(x, pos, stack_caches, cross_v3, stacked,
+                                                 head_num=8, cache_outputs=True),
+                   iters=50),
+           cuda_ms(lambda: decoder_stack_step_v3_ref(x, pos, stack_caches, cross_v3,
+                                                     stacked, head_num=8,
+                                                     cache_outputs=True), iters=50),
+           None,
+           # x in, out, every layer's cache prefix read and slot pos written,
+           # the cross K|V, every weight
+           2 * nbytes(x) + nbytes(stack_caches[:, :, :pos + 1])
+           + nbytes(stack_caches[:, :, pos]) + nbytes(cross_v3) + nbytes(*stacked),
+           nl * layer_ops, BF16_TENSOR_OPS_PER_S)
+    print(f"  decoder_stack_v3 B={b} pos={pos}: {times['decoder_stack_v3']['ms']:.4f} ms; "
+          f"three kernel-3 launches {3 * times['decoder_layer']['ms']:.4f} ms; one "
+          f"kernel-6 launch {times['fused_greedy_step']['ms']:.4f} ms ({card})")
+    del cross, caches, x, cache, src, stack_caches, cross_v3
 
     model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, bf)
     fast = build_fast_decoder(model)
     tables = RuleTables.build(vocab, dev)
     images = torch.randint(0, 256, (E2E_TIME_BATCH, 256, 512, 3), generator=gen,
                            dtype=torch.uint8).to(dev)
-    greedy = {"kernel": dict(plain=False), "fused": dict(kernel="fused"),
-              "plain": dict(plain=True)}
-    for label in ("kernel", "fused", "plain", "kernel", "fused", "plain"):
-        e2e(label, lambda n: decode_images(model, fast, images, tables, n,
-                                           **greedy[label]),
-            E2E_TIME_BATCH, card, "greedy, manager on,")
+    greedy = {
+        "kernel": lambda n: decode_images(model, fast, images, tables, n),
+        "fused": lambda n: decode_images(model, fast, images, tables, n, kernel="fused"),
+        "v1": lambda n: greedy_decode(fast, encode_images(model, images), max_steps=n,
+                                      sos_id=model.sos_id, tables=tables, use_v1=True),
+        "v3": lambda n: v3_greedy(fast, encode_images(model, images), tables, n),
+        "plain": lambda n: decode_images(model, fast, images, tables, n, plain=True),
+    }
+    for label in list(greedy) * 2:
+        e2e(label, greedy[label], E2E_TIME_BATCH, card, "greedy, manager on,")
     for label, plain in (("kernel", False), ("plain", True), ("kernel", False),
                          ("plain", True)):
         e2e(label, lambda n: beam_decode_images(
@@ -1192,6 +1483,8 @@ def main():
         launches["fused_greedy_step"] = fused_launches["fused_greedy_step"]
         swin_ckpt = build_swin_checkpoint()
         launches["swin_attention"] = swin_path(swin_ckpt, dev)["swin_attention"]
+        launches["decoder_layer_v1"] = v1_path(ckpt, dev)["decoder_layer_v1"]
+        launches["decoder_stack_v3"] = v3_path(ckpt, dev)["decoder_stack_v3"]
         torch.cuda.empty_cache()
         times = timing(ckpt, dev, card)
         torch.cuda.empty_cache()
@@ -1213,10 +1506,15 @@ def main():
                               "p4fr_tpu/ops/pallas/fused_decode.py:454"),
         "swin_attention": ("p4fr_tpu_torch/csrc/swin_attention.cu",
                            "p4fr_tpu/ops/pallas/swin_attention.py:109"),
+        "decoder_stack_v3": ("p4fr_tpu_torch/csrc/decoder_stack.cu",
+                             "p4fr_tpu/ops/pallas/decoder_stack_v3.py:279"),
+        "decoder_layer_v1": ("p4fr_tpu_torch/csrc/decoder_layer_v1.cu",
+                             "p4fr_tpu/ops/pallas/decoder_layer.py:198"),
     }
     # launches: the beam path's run, which goes through kernels 1-4, the
-    # fused path's, which goes through kernel 6, and the SwinTRN path's,
-    # which goes through kernel 5
+    # fused path's, which goes through kernel 6, the SwinTRN path's, which
+    # goes through kernel 5, and the v3 and v1 paths', which go through
+    # kernels 7 and 8
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errors[name],

@@ -1,8 +1,10 @@
 // One transformer-decoder layer's autoregressive step for TB batch rows,
-// shared by csrc/decoder_layer.cu (one layer per launch, batch-major cache)
-// and csrc/fused_decode.cu (every layer of the greedy step in one launch,
-// time-major cache). Contract: p4fr_tpu/decoding/fast_step.py::
-// jnp_layer_step. Per batch row, with hidden H, `heads` heads of D = 32 or
+// shared by csrc/decoder_layer.cu (kernel 3: one layer per launch,
+// batch-major cache), csrc/decoder_layer_v1.cu (kernel 8: the same with the
+// whole-prefix softmax), csrc/decoder_stack.cu (kernel 7: every layer in one
+// launch, batch-major stacked caches) and csrc/fused_decode.cu (kernel 6:
+// the whole greedy step, time-major caches). Contract: p4fr_tpu/decoding/
+// fast_step.py::jnp_layer_step. Per batch row, with hidden H, `heads` heads of D = 32 or
 // 64 (a template parameter; EfficientSATRN's decoder has 32, SwinTRN's 64),
 // FF F:
 //   q,k,v = x @ w_qkv + b_qkv; the current k|v belongs in slot `pos`
@@ -12,20 +14,26 @@
 //     LN2(att2 + out1)
 //   FF: ReLU after BOTH linears; LN3(ff + out2); LayerNorm eps 1e-5
 //   slot `pos` := cache_outputs ? out @ w_qkv[:, H:] + b_qkv[H:] : k|v
-// The cache is updated IN PLACE at slot `pos` only, after the attention:
-// the attention reads slots < pos from the cache and the current k|v from
-// shared memory, so no block reads what another writes.
+// The cache is updated IN PLACE at slot `pos` only. In the online form
+// (kernels 3, 6, 7) that happens after the attention, which reads slots
+// < pos from the cache and the current k|v from shared memory; in the full
+// form (kernel 8) the current k|v goes into slot `pos` first and the
+// attention reads slots 0..pos back from the cache. A CTA reads and writes
+// only its own rows, so no block reads what another writes.
 //
 // Design: one CTA of 512 threads (16 warps) per TB = 4 batch rows; every
 // activation of the step stays in shared memory (f32); a product splits K
 // over the warps and gives each lane 8 adjacent output columns for all TB
 // rows (16-byte weight loads); attention gives one warp per (row, head) and
-// walks the positions in chunks of 32 with an online softmax in f32.
+// walks the positions in chunks of 32 with an online softmax in f32 (or,
+// in the full form, computes every score first and then the exact softmax).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -316,6 +324,80 @@ __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
   }
 }
 
+// The full form of the attention (kernel 8, the TPU kernel's own): one
+// warp per (row, head) over a batch-major [B, row, 2H] K|V (the cache with
+// row = L, or the cross K|V with row = S), positions 0..n_pos-1, every one
+// held in memory. Pass 1: each lane scores its positions (its key row as
+// 16-byte loads) into the warp's row of `scores` (n_pos floats of shared
+// memory a warp) and the warp reduces their max; pass 2 makes them
+// exp(score - max) and reduces their sum; pass 3 divides them by it; pass 4
+// accumulates the values with those probabilities, each lane owning
+// VPL = D / 32 adjacent head dims, VB value loads issued before the first
+// is used. q at qbuf[r*qld + h*D]; writes the [TB][H] attention output.
+// `kv` is not __restrict__: kernel 8 writes slot `pos` of the cache in the
+// same launch before it reads it back here, so its loads must not take the
+// read-only path.
+template <typename T, int D>
+__device__ void attend_full(const float* qbuf, int qld, const T* kv, int row,
+                            int b0, int nrows, int n_pos, int H, int heads,
+                            float temp, float* out, float* scores) {
+  static_assert(D == 32 || D == 64, "heads of 32 or 64");
+  constexpr int VPL = D / 32;
+  constexpr int VB = 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* sc = scores + warp * n_pos;
+  for (int pair = warp; pair < TB * heads; pair += NWARP) {
+    const int r = pair / heads, h = pair % heads;
+    if (r >= nrows) continue;
+    const float* q = qbuf + r * qld + h * D;
+    const T* base = kv + static_cast<long long>(b0 + r) * row * 2 * H;
+    float m = -INFINITY;
+    for (int l = lane; l < n_pos; l += 32) {
+      float kk[D];
+#pragma unroll
+      for (int c = 0; c < VPL; ++c)
+        load32(base + static_cast<long long>(l) * 2 * H + h * D + 32 * c, kk + 32 * c);
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dot = fmaf(q[d], kk[d], dot);
+      sc[l] = dot / temp;
+      m = fmaxf(m, sc[l]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float ssum = 0.f;
+    for (int l = lane; l < n_pos; l += 32) {
+      const float e = expf(sc[l] - m);
+      sc[l] = e;
+      ssum += e;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ssum += __shfl_xor_sync(0xffffffffu, ssum, o);
+    for (int l = lane; l < n_pos; l += 32) sc[l] = sc[l] / ssum;
+    __syncwarp();
+    const T* vcol = base + H + h * D + VPL * lane;
+    float acc[VPL];
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) acc[i] = 0.f;
+    for (int l0 = 0; l0 < n_pos; l0 += VB) {
+      // positions past the end load the last row and get probability 0
+      ValueReg<T, VPL> vb[VB];
+#pragma unroll
+      for (int j = 0; j < VB; ++j)
+        vb[j].load(vcol + static_cast<long long>(min(l0 + j, n_pos - 1)) * 2 * H);
+#pragma unroll
+      for (int j = 0; j < VB; ++j) {
+        const float p = l0 + j < n_pos ? sc[min(l0 + j, n_pos - 1)] : 0.f;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) acc[i] = fmaf(p, vb[j].get(i), acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) out[r * H + h * D + VPL * lane + i] = acc[i];
+    __syncwarp();  // the warp's next pair overwrites its scores
+  }
+}
+
 // One layer's weights, [in, out] matrices; each vector of a LayerNorm's
 // scale or bias has H values.
 struct Weights {
@@ -323,6 +405,35 @@ struct Weights {
       *w_out2, *b_out2, *ln2_s, *ln2_b, *w_ff0, *b_ff0, *w_ff1, *b_ff1,
       *ln3_s, *ln3_b;
 };
+
+// Every layer's weights stacked [NL, ...], in the order of
+// p4fr_tpu_torch/ops/decoder_stack_v3.py::stack_fast_layers: biases
+// [NL, 1, D], LayerNorms [NL, 2, H] (scale; bias).
+struct StackedWeights {
+  const void *w_qkv, *b_qkv, *w_out, *b_out, *ln1, *w_q2, *b_q2, *w_out2,
+      *b_out2, *ln2, *w_ff0, *b_ff0, *w_ff1, *b_ff1, *ln3;
+};
+
+// layer l's weights inside the stacked tensors
+template <typename T>
+__device__ Weights layer_weights(const StackedWeights& p, int l, int H, int F) {
+  auto at = [](const void* base, long long off) -> const void* {
+    return static_cast<const T*>(base) + off;
+  };
+  const long long hh = static_cast<long long>(H) * H, l2 = 2LL * l * H;
+  return Weights{
+      at(p.w_qkv, l * 3 * hh), at(p.b_qkv, 3LL * l * H),
+      at(p.w_out, l * hh), at(p.b_out, static_cast<long long>(l) * H),
+      at(p.ln1, l2), at(p.ln1, l2 + H),
+      at(p.w_q2, l * hh), at(p.b_q2, static_cast<long long>(l) * H),
+      at(p.w_out2, l * hh), at(p.b_out2, static_cast<long long>(l) * H),
+      at(p.ln2, l2), at(p.ln2, l2 + H),
+      at(p.w_ff0, static_cast<long long>(l) * H * F),
+      at(p.b_ff0, static_cast<long long>(l) * F),
+      at(p.w_ff1, static_cast<long long>(l) * F * H),
+      at(p.b_ff1, static_cast<long long>(l) * H),
+      at(p.ln3, l2), at(p.ln3, l2 + H)};
+}
 
 // A CTA's shared memory for layer_body, carved from one dynamic block:
 // A [TB][H] the layer's input (x, then out1, out2), Q [TB][3H] q|k|v (later
@@ -346,70 +457,6 @@ __device__ __forceinline__ LayerSmem carve_layer_smem(float* sm, int H, int F) {
   return s;
 }
 
-// One layer's step for the CTA's rows b0..b0+nrows-1, up to its output:
-// on entry s.A holds the input rows (f32, synchronised); on return s.Dd
-// holds the layer's output in f32 (not yet rounded to T) and s.Q the
-// current k|v. The caches are addressed as attend's `kv` (c_row, c_slot and
-// s_row are its `row` and `slot_stride`). write_slot then stores slot `pos`.
-template <typename T, bool PACKED_SLOTS, int D>
-__device__ void layer_body(const LayerSmem& s, const Weights& wt,
-                           const T* __restrict__ cache, int c_row, int c_slot,
-                           const T* __restrict__ src, int s_row, int b0,
-                           int nrows, int H, int heads, int F, int S, int pos) {
-  const float temp = sqrtf(static_cast<float>(H));
-  float *A = s.A, *Q = s.Q, *C = s.C, *Dd = s.Dd, *Fb = s.Fb, *R = s.R;
-
-  // fused q|k|v of the current token; k|v rounded to the cache type
-  rowmm<T>(A, H, static_cast<const T*>(wt.w_qkv), 3 * H,
-           static_cast<const T*>(wt.b_qkv), 3 * H, Q, 3 * H, false, R);
-  __syncthreads();
-  for (int i = threadIdx.x; i < TB * 2 * H; i += NT) {
-    int r = i / (2 * H), j = i % (2 * H);
-    Q[r * 3 * H + H + j] = round_t<T>(Q[r * 3 * H + H + j]);
-  }
-  __syncthreads();
-
-  // masked self-attention over slots 0..pos
-  attend<T, PACKED_SLOTS, D>(Q, 3 * H, cache, c_row, c_slot, b0, nrows, pos + 1,
-                          H, heads, temp, Q + H, 3 * H, C);
-  __syncthreads();
-  rowmm<T>(C, H, static_cast<const T*>(wt.w_out), H,
-           static_cast<const T*>(wt.b_out), H, Dd, H, false, R);
-  __syncthreads();
-  add_ln<T>(Dd, A, H, static_cast<const T*>(wt.ln1_s),
-            static_cast<const T*>(wt.ln1_b), C);
-  __syncthreads();
-  for (int i = threadIdx.x; i < TB * H; i += NT) A[i] = C[i];  // out1
-  __syncthreads();
-
-  // cross-attention over src K|V, no mask
-  rowmm<T>(A, H, static_cast<const T*>(wt.w_q2), H,
-           static_cast<const T*>(wt.b_q2), H, C, H, false, R);
-  __syncthreads();
-  attend<T, PACKED_SLOTS, D>(C, H, src, s_row, 2 * H, b0, nrows, S, H, heads,
-                          temp, nullptr, 0, Dd);
-  __syncthreads();
-  rowmm<T>(Dd, H, static_cast<const T*>(wt.w_out2), H,
-           static_cast<const T*>(wt.b_out2), H, C, H, false, R);
-  __syncthreads();
-  add_ln<T>(C, A, H, static_cast<const T*>(wt.ln2_s),
-            static_cast<const T*>(wt.ln2_b), Dd);
-  __syncthreads();
-  for (int i = threadIdx.x; i < TB * H; i += NT) A[i] = Dd[i];  // out2
-  __syncthreads();
-
-  // feed-forward, ReLU after both linears
-  rowmm<T>(A, H, static_cast<const T*>(wt.w_ff0), F,
-           static_cast<const T*>(wt.b_ff0), F, Fb, F, true, R);
-  __syncthreads();
-  rowmm<T>(Fb, F, static_cast<const T*>(wt.w_ff1), H,
-           static_cast<const T*>(wt.b_ff1), H, C, H, true, R);
-  __syncthreads();
-  add_ln<T>(C, A, H, static_cast<const T*>(wt.ln3_s),
-            static_cast<const T*>(wt.ln3_b), Dd);
-  __syncthreads();
-}
-
 // Slot `pos` of the rows' cache := the current k|v, or with cache_outputs
 // (reference parity) the layer OUTPUT's k|v, out @ w_qkv[:, H:] + b_qkv[H:].
 template <typename T, bool PACKED_SLOTS>
@@ -430,6 +477,87 @@ __device__ void write_slot(const LayerSmem& s, const Weights& wt,
         : static_cast<long long>(b0 + r) * c_row + static_cast<long long>(pos) * c_slot + j;
     cache[at] = from_f<T>(s.Q[r * 3 * H + H + j]);
   }
+}
+
+// One layer's step for the CTA's rows b0..b0+nrows-1, up to its output:
+// on entry s.A holds the input rows (f32, synchronised); on return s.Dd
+// holds the layer's output in f32 (not yet rounded to T) and s.Q the
+// current k|v. The caches are addressed as attend's `kv` (c_row, c_slot and
+// s_row are its `row` and `slot_stride`). write_slot then stores slot `pos`.
+// FULL (kernel 8; batch-major caches only) stores the current k|v into slot
+// `pos` before the attention and runs attend_full over the cache and the
+// cross K|V, so its cache is written here; the online form (kernels 3, 6,
+// 7) only reads it.
+template <typename T, bool PACKED_SLOTS, int D, bool FULL = false>
+__device__ void layer_body(const LayerSmem& s, const Weights& wt,
+                           std::conditional_t<FULL, T, const T>* __restrict__ cache,
+                           int c_row, int c_slot,
+                           const T* __restrict__ src, int s_row, int b0,
+                           int nrows, int H, int heads, int F, int S, int pos) {
+  static_assert(!FULL || PACKED_SLOTS, "the full form reads a batch-major cache");
+  const float temp = sqrtf(static_cast<float>(H));
+  float *A = s.A, *Q = s.Q, *C = s.C, *Dd = s.Dd, *Fb = s.Fb, *R = s.R;
+
+  // fused q|k|v of the current token; k|v rounded to the cache type
+  rowmm<T>(A, H, static_cast<const T*>(wt.w_qkv), 3 * H,
+           static_cast<const T*>(wt.b_qkv), 3 * H, Q, 3 * H, false, R);
+  __syncthreads();
+  for (int i = threadIdx.x; i < TB * 2 * H; i += NT) {
+    int r = i / (2 * H), j = i % (2 * H);
+    Q[r * 3 * H + H + j] = round_t<T>(Q[r * 3 * H + H + j]);
+  }
+  __syncthreads();
+
+  // masked self-attention over slots 0..pos
+  if constexpr (FULL) {
+    write_slot<T, PACKED_SLOTS>(s, wt, cache, c_row, c_slot, b0, nrows, H, pos, 0);
+    __syncthreads();
+    attend_full<T, D>(Q, 3 * H, cache, c_row, b0, nrows, pos + 1, H, heads, temp,
+                      C, R);
+  } else {
+    attend<T, PACKED_SLOTS, D>(Q, 3 * H, cache, c_row, c_slot, b0, nrows, pos + 1,
+                            H, heads, temp, Q + H, 3 * H, C);
+  }
+  __syncthreads();
+  rowmm<T>(C, H, static_cast<const T*>(wt.w_out), H,
+           static_cast<const T*>(wt.b_out), H, Dd, H, false, R);
+  __syncthreads();
+  add_ln<T>(Dd, A, H, static_cast<const T*>(wt.ln1_s),
+            static_cast<const T*>(wt.ln1_b), C);
+  __syncthreads();
+  for (int i = threadIdx.x; i < TB * H; i += NT) A[i] = C[i];  // out1
+  __syncthreads();
+
+  // cross-attention over src K|V, no mask
+  rowmm<T>(A, H, static_cast<const T*>(wt.w_q2), H,
+           static_cast<const T*>(wt.b_q2), H, C, H, false, R);
+  __syncthreads();
+  if constexpr (FULL) {
+    attend_full<T, D>(C, H, src, s_row, b0, nrows, S, H, heads, temp, Dd, R);
+  } else {
+    attend<T, PACKED_SLOTS, D>(C, H, src, s_row, 2 * H, b0, nrows, S, H, heads,
+                            temp, nullptr, 0, Dd);
+  }
+  __syncthreads();
+  rowmm<T>(Dd, H, static_cast<const T*>(wt.w_out2), H,
+           static_cast<const T*>(wt.b_out2), H, C, H, false, R);
+  __syncthreads();
+  add_ln<T>(C, A, H, static_cast<const T*>(wt.ln2_s),
+            static_cast<const T*>(wt.ln2_b), Dd);
+  __syncthreads();
+  for (int i = threadIdx.x; i < TB * H; i += NT) A[i] = Dd[i];  // out2
+  __syncthreads();
+
+  // feed-forward, ReLU after both linears
+  rowmm<T>(A, H, static_cast<const T*>(wt.w_ff0), F,
+           static_cast<const T*>(wt.b_ff0), F, Fb, F, true, R);
+  __syncthreads();
+  rowmm<T>(Fb, F, static_cast<const T*>(wt.w_ff1), H,
+           static_cast<const T*>(wt.b_ff1), H, C, H, true, R);
+  __syncthreads();
+  add_ln<T>(C, A, H, static_cast<const T*>(wt.ln3_s),
+            static_cast<const T*>(wt.ln3_b), Dd);
+  __syncthreads();
 }
 
 }  // namespace

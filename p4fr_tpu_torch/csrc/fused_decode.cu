@@ -35,11 +35,11 @@ namespace {
 
 constexpr float NEG_INF = -1e9f;
 
-// The stacked [NL, ...] weights of FusedDecodeParams (ops/fused_decode.py).
+// The stacked [NL, ...] weights and the tables of FusedDecodeParams
+// (ops/fused_decode.py).
 struct FusedParams {
-  const void *w_qkv, *b_qkv, *w_out, *b_out, *ln1, *w_q2, *b_q2, *w_out2,
-      *b_out2, *ln2, *w_ff0, *b_ff0, *w_ff1, *b_ff1, *ln3, *embed, *pe,
-      *w_gen;
+  StackedWeights layers;
+  const void *embed, *pe, *w_gen;
   const float *b_gen, *man;
 };
 
@@ -47,27 +47,6 @@ struct StepArgs {
   int B, H, heads, F, S, L, NL, Vp, pos, cache_outputs, use_manager, sos, eos,
       lbrace, rbrace, vocab;
 };
-
-// layer l's weights inside the stacked tensors
-template <typename T>
-__device__ Weights layer_weights(const FusedParams& p, int l, int H, int F) {
-  auto at = [](const void* base, long long off) -> const void* {
-    return static_cast<const T*>(base) + off;
-  };
-  const long long hh = static_cast<long long>(H) * H, l2 = 2LL * l * H;
-  return Weights{
-      at(p.w_qkv, l * 3 * hh), at(p.b_qkv, 3LL * l * H),
-      at(p.w_out, l * hh), at(p.b_out, static_cast<long long>(l) * H),
-      at(p.ln1, l2), at(p.ln1, l2 + H),
-      at(p.w_q2, l * hh), at(p.b_q2, static_cast<long long>(l) * H),
-      at(p.w_out2, l * hh), at(p.b_out2, static_cast<long long>(l) * H),
-      at(p.ln2, l2), at(p.ln2, l2 + H),
-      at(p.w_ff0, static_cast<long long>(l) * H * F),
-      at(p.b_ff0, static_cast<long long>(l) * F),
-      at(p.w_ff1, static_cast<long long>(l) * F * H),
-      at(p.b_ff1, static_cast<long long>(l) * H),
-      at(p.ln3, l2), at(p.ln3, l2 + H)};
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) fused_greedy_kernel(
@@ -101,7 +80,7 @@ __global__ void __launch_bounds__(NT) fused_greedy_kernel(
 
   const int slot = 2 * H;
   for (int l = 0; l < a.NL; ++l) {
-    const Weights w = layer_weights<T>(p, l, H, F);
+    const Weights w = layer_weights<T>(p.layers, l, H, F);
     T* cache = caches + static_cast<long long>(l) * a.L * a.B * slot;
     layer_body<T, false, D>(s, w, cache, slot, a.B * slot,
                          cross + static_cast<long long>(l) * a.B * a.S * slot,
@@ -189,8 +168,8 @@ extern "C" int p4fr_fused_greedy_step(
   const int d = heads > 0 ? H / heads : 0;
   if (H != heads * d || (d != 32 && d != 64) || F % CPT || Vp % CPT || Vp < 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  FusedParams p{w_qkv, b_qkv, w_out, b_out, ln1, w_q2, b_q2, w_out2, b_out2,
-                ln2, w_ff0, b_ff0, w_ff1, b_ff1, ln3, embed, pe, w_gen,
+  FusedParams p{{w_qkv, b_qkv, w_out, b_out, ln1, w_q2, b_q2, w_out2, b_out2,
+                 ln2, w_ff0, b_ff0, w_ff1, b_ff1, ln3}, embed, pe, w_gen,
                 static_cast<const float*>(b_gen), static_cast<const float*>(man)};
   StepArgs a{B, H, heads, F, S, L, NL, Vp, pos, cache_outputs, use_manager,
              sos, eos, lbrace, rbrace, vocab};

@@ -9,6 +9,12 @@ layer (kernel 3 on a CUDA tensor, its plain twin on a CPU tensor; or the
 twin itself with ``plain=True``), then the generator and, with rule
 tables, the DecodingManager's ``sift``.
 
+Two more steps of the JAX package, which no CLI flag reaches:
+``decode_step_v1`` (``use_v1=True``, JAX's ``use_pallas=True``) runs
+``ops.decoder_layer_v1`` per layer (kernel 8), and ``make_v3_step`` runs
+every layer in one launch of ``ops.decoder_stack_v3`` (kernel 7) over
+stacked caches.
+
 The int8 ``kv_quant`` paths and the tiled cache are not ported yet
 (ROADMAP.md).
 """
@@ -25,6 +31,8 @@ from p4fr_tpu_torch.ops.decoder_layer import (
     decoder_layer_step,
     layer_step_ref,
 )
+from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
+from p4fr_tpu_torch.ops.decoder_stack_v3 import decoder_stack_step_v3, stack_fast_layers
 
 
 class FastDecoder(NamedTuple):
@@ -102,10 +110,8 @@ def init_fast_cache(fast: FastDecoder, batch: int, max_len: int):
     )
 
 
-def fast_decode_step(fast: FastDecoder, token: torch.Tensor, pos: int,
-                     cross_kv, cache, *, plain: bool = False):
-    """One AR step -> logits [B, V] f32; ``cache`` is updated in place."""
-    step = layer_step_ref if plain else decoder_layer_step
+def _layer_by_layer(fast: FastDecoder, token: torch.Tensor, pos: int, cross_kv,
+                    cache, step):
     x = fast.embed_scaled[token] + fast.pos_encoding[pos][None, :]
     for layer, kv_cache, ckv in zip(fast.layers, cache, cross_kv):
         x, _ = step(x, pos, kv_cache, ckv, layer, head_num=fast.head_num,
@@ -113,14 +119,62 @@ def fast_decode_step(fast: FastDecoder, token: torch.Tensor, pos: int,
     return (x @ fast.w_gen + fast.b_gen).float()
 
 
+def fast_decode_step(fast: FastDecoder, token: torch.Tensor, pos: int,
+                     cross_kv, cache, *, plain: bool = False):
+    """One AR step -> logits [B, V] f32; ``cache`` is updated in place."""
+    return _layer_by_layer(fast, token, pos, cross_kv, cache,
+                           layer_step_ref if plain else decoder_layer_step)
+
+
+def decode_step_v1(fast: FastDecoder, token: torch.Tensor, pos: int, cross_kv,
+                   cache):
+    """``fast_decode_step`` through kernel 8 (``ops/decoder_layer_v1.py``),
+    one launch per layer; the counterpart of JAX's ``pallas_decode_step``."""
+    return _layer_by_layer(fast, token, pos, cross_kv, cache, decoder_layer_step_v1)
+
+
+def make_v3_step(fast: FastDecoder):
+    """The one-launch stacked-layer step (kernel 7), as JAX's
+    ``make_v3_step`` -> ``(step, stack_cross_kv, init_cache)``:
+
+    - ``step(token, pos, cross_kv_stacked, cache_stacked)`` -> ``(logits
+      [B, V] f32, cache_stacked)``: embedding and PE, one launch of
+      ``ops.decoder_stack_v3.decoder_stack_step_v3`` (its plain version on
+      a CPU tensor), the generator; the caches are updated in place;
+    - ``stack_cross_kv(tuple)`` -> [NL, B, S, 2H];
+    - ``init_cache(batch, max_len)`` -> zeros [NL, B, L, 2H].
+
+    The stacked weights are built once, here.
+    """
+    stacked = stack_fast_layers(fast.layers)
+    hidden = fast.w_gen.shape[0]
+
+    def stack_cross_kv(cross_kv):
+        return torch.stack(cross_kv)
+
+    def init_cache(batch: int, max_len: int):
+        return torch.zeros((len(fast.layers), batch, max_len, 2 * hidden),
+                           dtype=fast.w_gen.dtype, device=fast.w_gen.device)
+
+    def step(token, pos, cross_kv_stacked, cache_stacked):
+        x = fast.embed_scaled[token] + fast.pos_encoding[pos][None, :]
+        out, cache_stacked = decoder_stack_step_v3(
+            x, pos, cache_stacked, cross_kv_stacked, stacked,
+            head_num=fast.head_num, cache_outputs=fast.cache_outputs)
+        return (out @ fast.w_gen + fast.b_gen).float(), cache_stacked
+
+    return step, stack_cross_kv, init_cache
+
+
 @torch.no_grad()
 def greedy_decode(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
                   sos_id: int, tables: Optional[dm.RuleTables] = None,
                   early_stop_eos: Optional[int] = None,
                   stop_override: Optional[torch.Tensor] = None,
-                  plain: bool = False) -> torch.Tensor:
+                  plain: bool = False, use_v1: bool = False) -> torch.Tensor:
     """Greedy decode from encoder memory ``src`` [B, S, C] -> [B, max_steps]
-    int64 tokens.
+    int64 tokens. Each step runs ``fast_decode_step`` (``plain`` as
+    there) or, with ``use_v1``, ``decode_step_v1``.
 
     ``early_stop_eos``: stop once every row has emitted it; the rest of the
     buffer holds that id (output-equivalent to the fixed-length decode).
@@ -131,6 +185,8 @@ def greedy_decode(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
     if stop_override is not None and early_stop_eos is None:
         raise ValueError("stop_override requires early_stop_eos (the "
                          "fixed-length loop would ignore the stop steps)")
+    if use_v1 and plain:
+        raise ValueError("use_v1 picks a kernel; plain runs none")
     batch = src.shape[0]
     cross_kv = precompute_cross_kv(fast, src.to(fast.w_gen.dtype))
     cache = init_fast_cache(fast, batch, max_steps)
@@ -141,7 +197,10 @@ def greedy_decode(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
     out = torch.full((batch, max_steps), fill, dtype=torch.int64, device=dev)
     done = torch.zeros(batch, dtype=torch.bool, device=dev)
     for t in range(max_steps):
-        logits = fast_decode_step(fast, token, t, cross_kv, cache, plain=plain)
+        if use_v1:
+            logits = decode_step_v1(fast, token, t, cross_kv, cache)
+        else:
+            logits = fast_decode_step(fast, token, t, cross_kv, cache, plain=plain)
         if tables is not None:
             target, _, mstate = dm.sift(mstate, logits, tables)
         else:
@@ -161,9 +220,10 @@ def greedy_decode(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
 
 def make_fast_greedy_fn(model, *, max_steps: int, tables=None,
                         early_stop_eos: Optional[int] = None,
-                        plain: bool = False):
+                        plain: bool = False, use_v1: bool = False):
     """``fn(images)`` -> tokens: encode standardized [B, H, W, C] images and
-    greedy-decode ``max_steps`` steps over the fused decoder."""
+    greedy-decode ``max_steps`` steps over the fused decoder (each layer
+    through kernel 3, or with ``use_v1`` kernel 8)."""
     fast = build_fast_decoder(model)
 
     @torch.no_grad()
@@ -171,6 +231,7 @@ def make_fast_greedy_fn(model, *, max_steps: int, tables=None,
         src = model.encode(images, plain=plain)
         return greedy_decode(fast, src, max_steps=max_steps,
                              sos_id=model.sos_id, tables=tables,
-                             early_stop_eos=early_stop_eos, plain=plain)
+                             early_stop_eos=early_stop_eos, plain=plain,
+                             use_v1=use_v1)
 
     return fn

@@ -8,7 +8,9 @@ hypothesis with the recorded tokens and parents, and returns every step's
 log-probs with the (token, parent) that top-W would pick from them.
 ``replay_fused`` feeds a greedy decode's tokens through the fused step
 (``ops/fused_decode.py::fused_greedy_step``) and returns its logits and
-picks. Two
+picks; ``replay_logits(use_v1=True)`` and ``replay_v3`` do the same
+through the v1 step (kernel 8 per layer) and the v3 step (kernel 7, every
+layer in one launch). Two
 decode paths replayed on the same record can then be compared value by
 value, with no divergence from near-ties; replaying the path that made the
 record must pick it again. ``chip_smoke.py`` and the tests use them;
@@ -26,8 +28,10 @@ from p4fr_tpu_torch.decoding import beam as bs
 from p4fr_tpu_torch.decoding import manager as dm
 from p4fr_tpu_torch.decoding.fast_step import (
     FastDecoder,
+    decode_step_v1,
     fast_decode_step,
     init_fast_cache,
+    make_v3_step,
     precompute_cross_kv,
 )
 from p4fr_tpu_torch.decoding.fused_greedy import fused_buffers
@@ -38,22 +42,15 @@ from p4fr_tpu_torch.ops.fused_decode import (
 )
 
 
-@torch.no_grad()
-def replay_logits(fast: FastDecoder, src: torch.Tensor, tokens: torch.Tensor,
-                  *, sos_id: int, tables: Optional[dm.RuleTables] = None,
-                  plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decode ``src`` [B, S, C] feeding ``tokens`` [B, T] -> (logits
-    [T, B, V] f32, picks [B, T]): step t's logits and the token chosen
-    from them (``sift`` with the manager's state after tokens[:, :t], or
-    argmax without tables)."""
+def _replay(step, tokens, sos_id, tables):
+    """``step(token, t)`` -> logits, fed ``tokens`` [B, T] -> (logits
+    [T, B, V] f32, picks [B, T])."""
     batch, steps = tokens.shape
-    cross_kv = precompute_cross_kv(fast, src.to(fast.w_gen.dtype))
-    cache = init_fast_cache(fast, batch, steps)
-    token = torch.full((batch,), sos_id, dtype=torch.int64, device=src.device)
+    token = torch.full((batch,), sos_id, dtype=torch.int64, device=tokens.device)
     mstate = dm.init_state(batch, tables) if tables is not None else None
     logits_all, picks = [], []
     for t in range(steps):
-        logits = fast_decode_step(fast, token, t, cross_kv, cache, plain=plain)
+        logits = step(token, t)
         token = tokens[:, t]
         if tables is not None:
             pick, _, _ = dm.sift(mstate, logits, tables)
@@ -63,6 +60,46 @@ def replay_logits(fast: FastDecoder, src: torch.Tensor, tokens: torch.Tensor,
         logits_all.append(logits)
         picks.append(pick)
     return torch.stack(logits_all), torch.stack(picks, dim=1)
+
+
+@torch.no_grad()
+def replay_logits(fast: FastDecoder, src: torch.Tensor, tokens: torch.Tensor,
+                  *, sos_id: int, tables: Optional[dm.RuleTables] = None,
+                  plain: bool = False, use_v1: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode ``src`` [B, S, C] feeding ``tokens`` [B, T] -> (logits
+    [T, B, V] f32, picks [B, T]): step t's logits and the token chosen
+    from them (``sift`` with the manager's state after tokens[:, :t], or
+    argmax without tables). Each step is ``fast_decode_step`` (``plain``
+    as there) or, with ``use_v1``, ``decode_step_v1``."""
+    batch, steps = tokens.shape
+    cross_kv = precompute_cross_kv(fast, src.to(fast.w_gen.dtype))
+    cache = init_fast_cache(fast, batch, steps)
+
+    def step(token, t):
+        if use_v1:
+            return decode_step_v1(fast, token, t, cross_kv, cache)
+        return fast_decode_step(fast, token, t, cross_kv, cache, plain=plain)
+
+    return _replay(step, tokens, sos_id, tables)
+
+
+@torch.no_grad()
+def replay_v3(fast: FastDecoder, src: torch.Tensor, tokens: torch.Tensor, *,
+              sos_id: int, tables: Optional[dm.RuleTables] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``replay_logits`` through ``fast_step.make_v3_step``'s step (every
+    layer in one launch of kernel 7, over stacked caches)."""
+    batch, steps = tokens.shape
+    v3_step, stack_cross_kv, init_cache = make_v3_step(fast)
+    cross = stack_cross_kv(precompute_cross_kv(fast, src.to(fast.w_gen.dtype)))
+    cache = init_cache(batch, steps)
+
+    def step(token, t):
+        logits, _ = v3_step(token, t, cross, cache)
+        return logits
+
+    return _replay(step, tokens, sos_id, tables)
 
 
 @torch.no_grad()

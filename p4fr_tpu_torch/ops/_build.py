@@ -31,7 +31,8 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES = {"standardize": 0, "mbconv": 0, "decoder_layer": 0, "beam_gather": 0,
-            "fused_greedy_step": 0, "swin_attention": 0}
+            "fused_greedy_step": 0, "swin_attention": 0, "decoder_layer_v1": 0,
+            "decoder_stack_v3": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -58,6 +59,11 @@ _SIGNATURES = {
     # (x, cache, src_kv, out, 18 weight pointers, B, H, heads, F, S, L,
     #  pos, cache_outputs, bf16, stream)
     "p4fr_decoder_layer": [P] * 22 + [I] * 9 + [P],
+    # kernel 8: the same arguments as p4fr_decoder_layer
+    "p4fr_decoder_layer_v1": [P] * 22 + [I] * 9 + [P],
+    # (x, caches, src_kv, out, the 15 stacked weights, B, H, heads, F, S, L,
+    #  NL, pos, cache_outputs, bf16, stream)
+    "p4fr_decoder_stack_v3": [P] * 19 + [I] * 10 + [P],
     # (cache, parent i64, rows, group, row_vecs, prefix_vecs, stream)
     "p4fr_beam_gather": [P, P, ctypes.c_longlong, I, ctypes.c_longlong,
                          ctypes.c_longlong, P],

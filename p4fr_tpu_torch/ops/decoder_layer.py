@@ -1,6 +1,8 @@
 """One decoder layer's autoregressive step over a packed ``[B, L, 2H]`` cache.
 
-Port of ``p4fr_tpu/ops/pallas/decoder_layer_v2.py``; the contract is
+Port of ``p4fr_tpu/ops/pallas/decoder_layer_v2.py`` (kernel 3, "v2"); the
+JAX package's ``ops/pallas/decoder_layer.py`` is another kernel (kernel 8,
+"v1"), whose port is ``ops/decoder_layer_v1.py``. The contract is
 ``p4fr_tpu/decoding/fast_step.py::jnp_layer_step``:
 
 - the current token's k|v goes into slot ``pos`` BEFORE the attention, and
@@ -129,40 +131,54 @@ def decoder_layer_step(x: torch.Tensor, pos: int, cache: torch.Tensor,
     if x.device.type == "cpu":
         return layer_step_ref(x, pos, cache, src_kv, weights,
                               head_num=head_num, cache_outputs=cache_outputs)
+    return launch_layer_step("decoder_layer_step", "p4fr_decoder_layer",
+                             "decoder_layer", x, pos, cache, src_kv, weights,
+                             head_num=head_num, cache_outputs=cache_outputs)
+
+
+def check_operands(what: str, tensors, dtype, device) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte aligned ``dtype``
+    tensor on ``device``."""
+    for t in tensors:
+        if (t.device != device or t.dtype != dtype or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{what}: every operand must be a contiguous, "
+                             f"16-byte aligned {dtype} tensor on {device}")
+
+
+def launch_layer_step(what: str, entry: str, counter: str, x, pos, cache,
+                      src_kv, weights: LayerWeights, *, head_num: int,
+                      cache_outputs: bool):
+    """One launch of a one-layer step kernel (``entry`` in the library,
+    kernel 3's arguments; kernel 8 takes the same) on CUDA tensors, after
+    checking them; counts it under ``LAUNCHES[counter]``."""
     if x.device.type != "cuda":
-        raise ValueError(f"decoder_layer_step: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     batch, hidden = x.shape
     max_len, s_len = cache.shape[1], src_kv.shape[1]
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"decoder_layer_step: dtype {x.dtype} unsupported")
-    check_head_width("decoder_layer_step", hidden, head_num)
+        raise ValueError(f"{what}: dtype {x.dtype} unsupported")
+    check_head_width(what, hidden, head_num)
     if cache.shape != (batch, max_len, 2 * hidden) or src_kv.shape != (
             batch, s_len, 2 * hidden):
-        raise ValueError(f"decoder_layer_step: cache {tuple(cache.shape)} / "
-                         f"src_kv {tuple(src_kv.shape)} do not fit x "
-                         f"{tuple(x.shape)}")
+        raise ValueError(f"{what}: cache {tuple(cache.shape)} / src_kv "
+                         f"{tuple(src_kv.shape)} do not fit x {tuple(x.shape)}")
     if not 0 <= pos < max_len:
-        raise ValueError(f"decoder_layer_step: pos {pos} outside [0, {max_len})")
-    tensors = [x, cache, src_kv] + [getattr(weights, f) for f in _KERNEL_FIELDS]
-    for t in tensors:
-        if (t.device != x.device or t.dtype != x.dtype or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError("decoder_layer_step: every operand must be a "
-                             f"contiguous, 16-byte aligned {x.dtype} tensor "
-                             f"on {x.device}")
+        raise ValueError(f"{what}: pos {pos} outside [0, {max_len})")
+    check_operands(what, [x, cache, src_kv]
+                   + [getattr(weights, f) for f in _KERNEL_FIELDS], x.dtype, x.device)
     filter_dim = weights.w_ff0.shape[1]
     if filter_dim % 8:
-        raise ValueError(f"decoder_layer_step: filter dim {filter_dim} is not "
-                         "a multiple of 8 (the kernel's vector width)")
-    lib = _build.library()
+        raise ValueError(f"{what}: filter dim {filter_dim} is not a multiple "
+                         "of 8 (the kernel's vector width)")
     out = torch.empty_like(x)
-    code = lib.p4fr_decoder_layer(
+    code = getattr(_build.library(), entry)(
         x.data_ptr(), cache.data_ptr(), src_kv.data_ptr(), out.data_ptr(),
         *[getattr(weights, f).data_ptr() for f in _KERNEL_FIELDS],
         batch, hidden, head_num, filter_dim, s_len, max_len, int(pos),
         int(cache_outputs), int(x.dtype == torch.bfloat16),
         _build.stream_ptr(x.device),
     )
-    _build.check(code, "decoder_layer_step")
-    _build.LAUNCHES["decoder_layer"] += 1
+    _build.check(code, what)
+    _build.LAUNCHES[counter] += 1
     return out, cache

@@ -26,7 +26,8 @@ import torch
 
 from p4fr_tpu_torch.ops import _build
 from p4fr_tpu_torch.ops.attention import NEG_INF
-from p4fr_tpu_torch.ops.decoder_layer import LayerWeights, check_head_width, layer_step_ref
+from p4fr_tpu_torch.ops.decoder_layer import check_head_width, layer_step_ref
+from p4fr_tpu_torch.ops.decoder_stack_v3 import layer_weights, stack_fast_layers
 
 
 class FusedDecodeParams(NamedTuple):
@@ -80,22 +81,7 @@ def build_fused_params(fast, tables=None, *, max_steps: int, vocab_size: int,
     vp = max(256, math.ceil((vocab_size + 1) / 128) * 128)
     lp = math.ceil(max(max_steps, 1) / 8) * 8
 
-    def stack(field):
-        return torch.stack([getattr(layer, field) for layer in layers]).contiguous()
-
-    def bias(field):
-        return stack(field)[:, None, :].contiguous()
-
-    def ln(i):
-        return torch.stack([torch.stack([getattr(layer, f"ln{i}_scale"),
-                                         getattr(layer, f"ln{i}_bias")])
-                            for layer in layers]).contiguous()
-
-    stacked = [
-        stack("w_qkv"), bias("b_qkv"), stack("w_out"), bias("b_out"), ln(1),
-        stack("w_q2"), bias("b_q2"), stack("w_out2"), bias("b_out2"), ln(2),
-        stack("w_ff0"), bias("b_ff0"), stack("w_ff1"), bias("b_ff1"), ln(3),
-    ]
+    stacked = stack_fast_layers(layers)
     embed = torch.zeros((vp, hidden), dtype=dt, device=dev)
     embed[: fast.embed_scaled.shape[0]] = fast.embed_scaled
     pe = fast.pos_encoding[:lp].to(dev, dt)
@@ -115,19 +101,6 @@ def build_fused_params(fast, tables=None, *, max_steps: int, vocab_size: int,
         head_num=fast.head_num, cache_outputs=fast.cache_outputs,
         vocab_size=vocab_size, sos_id=sos_id, eos_id=eos_id,
         lbrace_id=lbrace, rbrace_id=rbrace,
-    )
-
-
-def layer_weights(params: FusedDecodeParams, layer: int) -> LayerWeights:
-    """Layer ``layer``'s weights out of the stacked tensors (the cross k/v
-    projections are already in the stacked cross K|V)."""
-    p = params
-    return LayerWeights(
-        p.w_qkv[layer], p.b_qkv[layer, 0], p.w_out[layer], p.b_out[layer, 0],
-        p.ln1[layer, 0], p.ln1[layer, 1], p.w_q2[layer], p.b_q2[layer, 0],
-        p.w_out2[layer], p.b_out2[layer, 0], p.ln2[layer, 0], p.ln2[layer, 1],
-        p.w_ff0[layer], p.b_ff0[layer, 0], p.w_ff1[layer], p.b_ff1[layer, 0],
-        p.ln3[layer, 0], p.ln3[layer, 1], None, None, None, None,
     )
 
 

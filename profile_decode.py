@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of one decode call goes on the card.
 
-    python3 profile_decode.py [--decode_type greedy|fused|beam]
+    python3 profile_decode.py [--decode_type greedy|fused|v1|v3|beam]
         [--network EfficientSATRN|SWIN]
 
 Loads chip_smoke.py's seeded EfficientSATRN at full width in bf16 (B=256
 256x512 u8 images; with ``--network SWIN`` its SwinTRN, B=32 384x384),
 231 steps; greedy with the DecodingManager, through
 kernel 3 per layer or, with ``fused``, the whole step in one launch as
-``--kernel fused`` runs it; beam W=3 without the manager, as the CLI runs
-them), times two unprofiled calls with
+``--kernel fused`` runs it, with ``v1`` kernel 8 per layer
+(``greedy_decode(use_v1=True)``), with ``v3`` kernel 7 per step
+(``chip_smoke.v3_greedy`` over ``make_v3_step``); beam W=3 without the
+manager, as the CLI runs them), times two unprofiled calls with
 chip_smoke's ``e2e``, then records one call with ``torch.profiler`` (CPU
 and CUDA activities) and prints: the profiled call's wall time, the device
 kernel time summed over all kernels, the device's busy share of the call,
@@ -30,7 +32,7 @@ TOP = 16  # rows of each table
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--decode_type", default="beam",
-                        choices=["greedy", "fused", "beam"])
+                        choices=["greedy", "fused", "v1", "v3", "beam"])
     parser.add_argument("--network", default="EfficientSATRN",
                         choices=["EfficientSATRN", "SWIN"])
     args = parser.parse_args(argv)
@@ -41,9 +43,9 @@ def main(argv=None):
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
 
-    from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder
+    from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder, greedy_decode
     from p4fr_tpu_torch.decoding.manager import RuleTables
-    from p4fr_tpu_torch.infer.single import beam_decode_images, decode_images
+    from p4fr_tpu_torch.infer.single import beam_decode_images, decode_images, encode_images
     from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
     card = cs.card_line()
@@ -67,6 +69,17 @@ def main(argv=None):
             def run(steps):
                 return decode_images(model, fast, images, tables, steps,
                                      kernel=kernel)
+        elif args.decode_type == "v1":
+            what = f"{args.network} greedy through kernel 8 (v1), manager on,"
+
+            def run(steps):
+                return greedy_decode(fast, encode_images(model, images), max_steps=steps,
+                                     sos_id=model.sos_id, tables=tables, use_v1=True)
+        elif args.decode_type == "v3":
+            what = f"{args.network} greedy through kernel 7 (v3), manager on,"
+
+            def run(steps):
+                return cs.v3_greedy(fast, encode_images(model, images), tables, steps)
         else:
             what = f"{args.network} beam W={cs.BEAM_WIDTH},"
 

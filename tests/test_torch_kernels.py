@@ -26,6 +26,12 @@ from p4fr_tpu_torch.ops.decoder_layer import (
     decoder_layer_step,
     layer_step_ref,
 )
+from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
+from p4fr_tpu_torch.ops.decoder_stack_v3 import (
+    decoder_stack_step_v3,
+    decoder_stack_step_v3_ref,
+    stack_fast_layers,
+)
 from p4fr_tpu_torch.ops.fused_decode import (
     N_TENSORS,
     advance_state,
@@ -43,7 +49,8 @@ from p4fr_tpu_torch.ops.swin_attention import (
 
 BF16_RTOL = 2.0 ** -8
 BF16_ATOL = {"standardize": 1e-6, "mbconv": 1.5e-3, "decoder_layer": 2e-3,
-             "fused_greedy_step": 1.5e-2, "swin_attention": 1e-3}
+             "fused_greedy_step": 1.5e-2, "swin_attention": 1e-3,
+             "decoder_layer_v1": 2e-3, "decoder_stack_v3": 2e-2}
 
 
 def assert_bf16_close(got, want, kernel):
@@ -101,6 +108,17 @@ def test_wrappers_never_fall_back_off_cpu():
         fused_window_attention(torch.empty(2, 16, 96, device=meta),
                                torch.empty(1, 16, 16, device=meta), None,
                                heads=1, scale=1.0)
+    with pytest.raises(ValueError, match="device"):
+        decoder_layer_step_v1(torch.empty(2, 32, device=meta), 0,
+                              torch.empty(2, 4, 64, device=meta),
+                              torch.empty(2, 3, 64, device=meta), w,
+                              head_num=1, cache_outputs=True)
+    with pytest.raises(ValueError, match="device"):
+        decoder_stack_step_v3(torch.empty(2, 32, device=meta), 0,
+                              torch.empty(1, 2, 4, 64, device=meta),
+                              torch.empty(1, 2, 3, 64, device=meta),
+                              stack_fast_layers([w]), head_num=1,
+                              cache_outputs=True)
     params, tables = random_fused(torch.Generator().manual_seed(0), 32, 64, 2, 4)
     with pytest.raises(ValueError, match="device"):
         fused_greedy_step(torch.zeros(2, dtype=torch.int32, device=meta), 0,
@@ -220,6 +238,120 @@ def test_decoder_layer_kernel(cuda, dtype, cache_outputs):
 def test_decoder_layer_kernel_heads_of_64(cuda, dtype, cache_outputs):
     """SwinTRN's decoder width: each lane holds two value dims."""
     check_decoder_layer_kernel(cuda, dtype, cache_outputs, hidden=128, heads=2)
+
+
+def check_layer_v1_kernel(cuda, dtype, cache_outputs, hidden, heads):
+    """Kernel 8 vs kernel 3's plain version over 36 steps of one history,
+    a ragged batch tile and random values in every cache slot (those past
+    ``pos`` are banned): out and slot ``pos`` within tolerance, the other
+    slots untouched."""
+    gen = torch.Generator().manual_seed(1)
+    b, s_len, max_len = 6, 5, 40
+    w = random_layer(gen, hidden, 128, cuda, dtype)
+    w_r = LayerWeights(*(t.float() for t in w))
+    x = torch.randn(b, hidden, generator=gen).to(cuda, dtype)
+    src = torch.randn(b, s_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    c_k = torch.randn(b, max_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    for pos in range(36):  # past one warp's 32 positions
+        c_r, before = c_k.float(), c_k.clone()
+        o_k, _ = decoder_layer_step_v1(x, pos, c_k, src, w, head_num=heads,
+                                       cache_outputs=cache_outputs)
+        torch.cuda.synchronize()
+        o_r, _ = layer_step_ref(x.float(), pos, c_r, src.float(), w_r,
+                                head_num=heads, cache_outputs=cache_outputs,
+                                kv_dtype=dtype)
+        others = torch.arange(max_len, device=cuda) != pos
+        assert torch.equal(c_k[:, others], before[:, others]), pos
+        if dtype == torch.float32:
+            assert torch.allclose(o_k, o_r, rtol=1e-4, atol=1e-4), pos
+            assert torch.allclose(c_k[:, pos], c_r[:, pos], rtol=1e-4, atol=1e-4), pos
+        else:
+            assert_bf16_close(o_k, o_r, "decoder_layer_v1")
+            assert_bf16_close(c_k[:, pos], c_r[:, pos], "decoder_layer_v1")
+        x = o_r.to(dtype)  # one history, so errors do not compound
+        c_k[:, pos] = c_r[:, pos].to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_outputs", [True, False])
+@pytest.mark.parametrize("hidden", [64, 128], ids=["heads_of_32", "heads_of_64"])
+def test_decoder_layer_v1_kernel(cuda, dtype, cache_outputs, hidden):
+    check_layer_v1_kernel(cuda, dtype, cache_outputs, hidden=hidden, heads=2)
+
+
+def check_stack_v3_kernel(cuda, dtype, cache_outputs, hidden, heads):
+    """Kernel 7 vs its plain version over 36 steps of one history, a ragged
+    batch tile, 3 layers, random values in every slot: out and every
+    layer's slot ``pos`` within tolerance, the other slots untouched."""
+    gen = torch.Generator().manual_seed(2)
+    b, s_len, max_len, nl = 6, 5, 40, 3
+    stacked = stack_fast_layers([random_layer(gen, hidden, 128, cuda, dtype)
+                                 for _ in range(nl)])
+    ref = type(stacked)(*(t.float() for t in stacked))
+    src = torch.randn(nl, b, s_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    c_k = torch.randn(nl, b, max_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    x = torch.randn(b, hidden, generator=gen).to(cuda, dtype)
+    for pos in range(36):
+        c_r, before = c_k.float(), c_k.clone()
+        o_k, _ = decoder_stack_step_v3(x, pos, c_k, src, stacked, head_num=heads,
+                                       cache_outputs=cache_outputs)
+        torch.cuda.synchronize()
+        o_r, _ = decoder_stack_step_v3_ref(x.float(), pos, c_r, src.float(), ref,
+                                           head_num=heads, cache_outputs=cache_outputs,
+                                           kv_dtype=dtype)
+        others = torch.arange(max_len, device=cuda) != pos
+        assert torch.equal(c_k[:, :, others], before[:, :, others]), pos
+        if dtype == torch.float32:
+            assert torch.allclose(o_k, o_r, rtol=1e-4, atol=1e-4), pos
+            assert torch.allclose(c_k[:, :, pos], c_r[:, :, pos], rtol=1e-4,
+                                  atol=1e-4), pos
+        else:
+            assert_bf16_close(o_k, o_r, "decoder_stack_v3")
+            assert_bf16_close(c_k[:, :, pos], c_r[:, :, pos], "decoder_stack_v3")
+        x = o_r.to(dtype)
+        c_k[:, :, pos] = c_r[:, :, pos].to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_outputs", [True, False])
+@pytest.mark.parametrize("hidden", [64, 128], ids=["heads_of_32", "heads_of_64"])
+def test_decoder_stack_v3_kernel(cuda, dtype, cache_outputs, hidden):
+    check_stack_v3_kernel(cuda, dtype, cache_outputs, hidden=hidden, heads=2)
+
+
+@pytest.mark.cuda
+def test_v1_and_v3_refuse_what_their_kernels_do_not_take(cuda):
+    """A dtype, head width or cache length the kernel is not built for
+    raises before any launch; nothing is computed some other way."""
+    from p4fr_tpu_torch.ops import _build
+
+    gen = torch.Generator().manual_seed(0)
+    w = random_layer(gen, 64, 128, cuda)
+    before = dict(_build.LAUNCHES)
+
+    def v1(x, cache, src, weights=w, heads=2):
+        decoder_layer_step_v1(x, 0, cache, src, weights, head_num=heads,
+                              cache_outputs=True)
+
+    def v3(x, caches, src, weights=w, heads=2):
+        decoder_stack_step_v3(x, 0, caches, src, stack_fast_layers([weights]),
+                              head_num=heads, cache_outputs=True)
+
+    x = torch.zeros(2, 64, device=cuda)
+    for step, cache, src in ((v1, torch.zeros(2, 4, 128, device=cuda),
+                              torch.zeros(2, 3, 128, device=cuda)),
+                             (v3, torch.zeros(1, 2, 4, 128, device=cuda),
+                              torch.zeros(1, 2, 3, 128, device=cuda))):
+        with pytest.raises(ValueError, match="dtype"):
+            step(x.half(), cache.half(), src.half(),
+                 LayerWeights(*(t.half() for t in w)))
+        with pytest.raises(ValueError, match="heads"):
+            step(x, cache, src, heads=4)  # heads of 16
+    with pytest.raises(ValueError, match="scores"):
+        v1(x, torch.zeros(2, 1025, 128, device=cuda), torch.zeros(2, 3, 128, device=cuda))
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -361,6 +493,11 @@ def test_cpu_twins_count_no_launch():
     w = random_layer(torch.Generator().manual_seed(0), 32, 64)
     decoder_layer_step(torch.zeros(2, 32), 0, torch.zeros(2, 4, 64),
                        torch.zeros(2, 3, 64), w, head_num=1, cache_outputs=True)
+    decoder_layer_step_v1(torch.zeros(2, 32), 0, torch.zeros(2, 4, 64),
+                          torch.zeros(2, 3, 64), w, head_num=1, cache_outputs=True)
+    decoder_stack_step_v3(torch.zeros(2, 32), 0, torch.zeros(1, 2, 4, 64),
+                          torch.zeros(1, 2, 3, 64), stack_fast_layers([w]),
+                          head_num=1, cache_outputs=True)
     beam_parent_gather(torch.zeros(6, 4, 8), torch.arange(6), 1, group=3)
     params, _ = random_fused(torch.Generator().manual_seed(0), 32, 64, 2, 4)
     fused_greedy_step(torch.zeros(2, dtype=torch.int32), 1, torch.zeros(2, 4, 2, 64),

@@ -304,9 +304,10 @@ for m in pkgutil.walk_packages(p4fr_tpu_torch.__path__, "p4fr_tpu_torch."):
 import chip_smoke  # noqa: F401
 
 from p4fr_tpu_torch.data.vocab import TOKENS_PATH, Vocab
-from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder
+from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder, greedy_decode
 from p4fr_tpu_torch.decoding.manager import RuleTables
-from p4fr_tpu_torch.infer.single import beam_decode_images, decode_images
+from p4fr_tpu_torch.decoding.replay import replay_v3
+from p4fr_tpu_torch.infer.single import beam_decode_images, decode_images, encode_images
 from p4fr_tpu_torch.models.registry import get_network
 from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint, save_checkpoint
 
@@ -325,6 +326,11 @@ greedy = decode_images(model, fast, images, tables, 4)
 fused = decode_images(model, fast, images, tables, 4, kernel="fused")
 beam = beam_decode_images(model, fast, images, 4, beam_width=3, eos_id=vocab.eos_id)
 assert greedy.shape == fused.shape == beam.shape == (2, 4)
+src = encode_images(model, images)
+v1 = greedy_decode(fast, src, max_steps=4, sos_id=model.sos_id, tables=tables,
+                   use_v1=True)
+_, v3 = replay_v3(fast, src, greedy, sos_id=model.sos_id, tables=tables)
+assert torch.equal(v1, greedy) and torch.equal(v3, greedy)
 
 swin_configs = %(swin_configs)r
 model = get_network("SWIN", swin_configs, vocab)
@@ -347,8 +353,10 @@ def test_port_imports_no_jax(tmp_path):
     pandas, which the card's host lacks): every module and ``chip_smoke``
     import, the manager's tables build from the port's vocab, a ``.pth``
     saves and loads, and 4 greedy (kernel 3's path and the fused step's)
-    and 4 beam steps run on the CPU; then a tiny SwinTRN (heads of 64 in its
-    decoder) saves, loads and decodes 4 greedy steps both ways."""
+    and 4 beam steps run on the CPU, and the v1 greedy path and the v3
+    step's replay pick kernel 3's path's tokens; then a tiny SwinTRN (heads
+    of 64 in its decoder) saves, loads and decodes 4 greedy steps both
+    ways."""
     shutil.copytree(os.path.join(REPO, "p4fr_tpu_torch"),
                     tmp_path / "p4fr_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))

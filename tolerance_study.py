@@ -2,8 +2,9 @@
 """A kernel's bf16 tolerance on the card: the readings it is set between,
 and (kernel 6) where the sound kernel's error comes from.
 
-    python3 tolerance_study.py [--kernel fused_greedy_step|swin_attention]
-        [--shape satrn|swin] [--seeds 0 1 2 3 4] [--faults]
+    python3 tolerance_study.py [--kernel fused_greedy_step|swin_attention|
+        decoder_layer_v1|decoder_stack_v3] [--shape satrn|swin]
+        [--seeds 0 1 2 3 4] [--faults]
 
 Needs one CUDA card; the kernels build from the checkout on first use.
 ``--shape swin`` runs kernel 6's part 1 (and the faults' copies) at
@@ -13,7 +14,13 @@ flagship's. With ``--kernel swin_attention`` (kernel 5) part 1 runs
 ``chip_smoke.check_swin_attention`` (each Swin-B stage at B=32, shift mask
 on and off, 8 checks) and prints per seed the bf16 check's largest excess
 over the cast and largest mean abs error; part 2 is kernel 6's only; part
-3 plants ``FAULTS["swin_attention"]`` in ``csrc/swin_attention.cu``.
+3 plants ``FAULTS["swin_attention"]`` in ``csrc/swin_attention.cu``. With
+``--kernel decoder_layer_v1`` (kernel 8) or ``decoder_stack_v3`` (kernel 7)
+part 1 runs ``chip_smoke.check_layer_v1`` or ``check_stack_v3`` at the
+``--shape`` (pos 0, 115 and 230, 6 checks) and prints per seed the bf16
+check's largest excess over the cast of the out and of slot ``pos``, the
+out's largest mean abs error and each dtype's missed checks; part 3
+plants that kernel's faults.
 
 1. ``chip_smoke.check_fused_step`` (B=256, full width, pos 0/1/115/230,
    manager on and off, 24 checks) on each seed, in f32 and in bf16: per
@@ -32,10 +39,11 @@ over the cast and largest mean abs error; part 2 is kernel 6's only; part
      rounding where the kernel rounds, then neither rounding; and how
      many values of each layer's rounded output the two round to
      different bf16 values.
-3. ``--faults``: each fault of ``FAULTS`` planted in a copy of the
-   checkout under ``build/tolerance_study/<name>`` (one text replacement
-   in ``csrc/fused_decode.cu``), each copy run through part 1 in its own
-   process, all at once; their READING lines are printed at the end.
+3. ``--faults``: each fault of the kernel's ``FAULTS`` planted in a copy
+   of the checkout under ``build/tolerance_study/<name>`` (one text
+   replacement in a file of ``csrc/``), each copy run through part 1 in
+   its own process, all at once; their READING lines are printed at the
+   end.
 """
 
 import argparse
@@ -49,23 +57,45 @@ import torch
 import chip_smoke as cs
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FAULTS = {  # kernel: (its source in csrc/, {name: (text, its replacement)})
-    "fused_greedy_step": ("fused_decode.cu", {
-        "layer0_ff1": ("at(p.w_ff1, static_cast<long long>(l) * F * H)", "at(p.w_ff1, 0)"),
-        "cross_layer0": ("cross + static_cast<long long>(l) * a.B * a.S * slot", "cross"),
-        "batch_major_slot": (", a.B * slot,", ", slot,"),
-        "pe_next": ("static_cast<long long>(a.pos) * H;",
+FAULTS = {  # kernel: {name: (its file in csrc/, text, its replacement)}
+    "fused_greedy_step": {
+        "layer0_ff1": ("decoder_common.cuh",
+                       "at(p.w_ff1, static_cast<long long>(l) * F * H)", "at(p.w_ff1, 0)"),
+        "cross_layer0": ("fused_decode.cu",
+                         "cross + static_cast<long long>(l) * a.B * a.S * slot", "cross"),
+        "batch_major_slot": ("fused_decode.cu", ", a.B * slot,", ", slot,"),
+        "pe_next": ("fused_decode.cu", "static_cast<long long>(a.pos) * H;",
                     "static_cast<long long>(a.pos + 1) * H;"),
-        "no_round": ("s.A[i] = round_t<T>(s.Dd[i]);", "s.A[i] = s.Dd[i];"),
-        "limit_gt": ("static_cast<float>(run) >= limit", "static_cast<float>(run) > limit"),
-    }),
-    "swin_attention": ("swin_attention.cu", {
-        "mask_next_row": ("(w % nW) * n * n", "((w + 1) % nW) * n * n"),
-        "no_prob_round": ("s[c] = round_t<T>(s[c] / sum);", "s[c] = s[c] / sum;"),
-        "scale_after_bias": ("__fmul_rn(dot, scale) + brow[j]",
+        "no_round": ("fused_decode.cu", "s.A[i] = round_t<T>(s.Dd[i]);", "s.A[i] = s.Dd[i];"),
+        "limit_gt": ("fused_decode.cu", "static_cast<float>(run) >= limit",
+                     "static_cast<float>(run) > limit"),
+    },
+    "swin_attention": {
+        "mask_next_row": ("swin_attention.cu", "(w % nW) * n * n", "((w + 1) % nW) * n * n"),
+        "no_prob_round": ("swin_attention.cu", "s[c] = round_t<T>(s[c] / sum);",
+                          "s[c] = s[c] / sum;"),
+        "scale_after_bias": ("swin_attention.cu", "__fmul_rn(dot, scale) + brow[j]",
                              "__fmul_rn(dot + brow[j], scale)"),
-        "last_key_dropped": ("if (c < nc && j < n) {", "if (c < nc && j < n - 1) {"),
-    }),
+        "last_key_dropped": ("swin_attention.cu", "if (c < nc && j < n) {",
+                             "if (c < nc && j < n - 1) {"),
+    },
+    "decoder_layer_v1": {
+        # the ban off by one: slots >= pos banned, the current one too
+        "ban_ge_pos": ("decoder_common.cuh",
+                       "attend_full<T, D>(Q, 3 * H, cache, c_row, b0, nrows, pos + 1,",
+                       "attend_full<T, D>(Q, 3 * H, cache, c_row, b0, nrows, pos,"),
+        "no_store_before": ("decoder_common.cuh",
+                            "write_slot<T, PACKED_SLOTS>(s, wt, cache, c_row, c_slot, b0, "
+                            "nrows, H, pos, 0);", ""),
+        "cache_outputs_ignored": ("decoder_layer_v1.cu", "  if (cache_outputs)\n",
+                                  "  if (false)\n"),
+    },
+    "decoder_stack_v3": {
+        "previous_layer_weights": ("decoder_stack.cu", "layer_weights<T>(p, l, H, F)",
+                                   "layer_weights<T>(p, l > 0 ? l - 1 : 0, H, F)"),
+        "no_round": ("decoder_stack.cu", "s.A[i] = round_t<T>(s.Dd[i]);",
+                     "s.A[i] = s.Dd[i];"),
+    },
 }
 N_CHECKS = 3 * 2 * len(cs.GATHER_POS)  # logits, slot, picks x manager x pos
 
@@ -84,6 +114,22 @@ def swin_readings(dev, seeds):
 
 
 SHAPES = {"satrn": cs.SATRN_DECODER, "swin": cs.SWIN_DECODER}
+LAYER_CHECKS = {"decoder_layer_v1": cs.check_layer_v1,
+                "decoder_stack_v3": cs.check_stack_v3}
+
+
+def layer_readings(dev, seeds, kernel, shape):
+    """Kernel 8 or 7: per seed the bf16 check's readings and misses."""
+    for seed in seeds:
+        missed = {}
+        for dt in (torch.float32, torch.bfloat16):
+            misses = []
+            r = LAYER_CHECKS[kernel](dev, dt, {}, misses, seed, shape)
+            missed[dt] = len({m.split(":")[0] for m in misses})  # one per check
+        print(f"READING seed {seed}: bf16 beyond the cast: out {r['out']:.3e}, slot "
+              f"{r['slot']:.3e}; out mean abs {r['mean']:.3e}; missed "
+              f"{missed[torch.bfloat16]} bf16 and {missed[torch.float32]} f32 of "
+              f"{3 * len(cs.LAYER_POS)} checks each", flush=True)
 
 
 def readings(dev, seeds, shape):
@@ -197,8 +243,7 @@ def cause(dev, seed, pos=115):
 def plant_and_run(seeds, kernel, shape):
     """Each fault in its own copy, all copies at once; their READING lines."""
     procs = []
-    source, faults = FAULTS[kernel]
-    for name, (old, new) in faults.items():
+    for name, (source, old, new) in FAULTS[kernel].items():
         dst = os.path.join(ROOT, "build", "tolerance_study", name)
         shutil.rmtree(dst, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "p4fr_tpu_torch"),
@@ -246,6 +291,8 @@ def main(argv=None):
     with torch.no_grad():
         if args.kernel == "swin_attention":
             swin_readings(dev, args.seeds)
+        elif args.kernel in LAYER_CHECKS:
+            layer_readings(dev, args.seeds, args.kernel, SHAPES[args.shape])
         else:
             readings(dev, args.seeds, SHAPES[args.shape])
             if not args.readings_only:
