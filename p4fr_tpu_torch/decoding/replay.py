@@ -28,9 +28,9 @@ from p4fr_tpu_torch.decoding import beam as bs
 from p4fr_tpu_torch.decoding import manager as dm
 from p4fr_tpu_torch.decoding.fast_step import (
     FastDecoder,
+    decode_buffers,
     decode_step_v1,
     fast_decode_step,
-    init_fast_cache,
     make_v3_step,
     precompute_cross_kv,
 )
@@ -65,16 +65,18 @@ def _replay(step, tokens, sos_id, tables):
 @torch.no_grad()
 def replay_logits(fast: FastDecoder, src: torch.Tensor, tokens: torch.Tensor,
                   *, sos_id: int, tables: Optional[dm.RuleTables] = None,
-                  plain: bool = False, use_v1: bool = False
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  plain: bool = False, use_v1: bool = False,
+                  kv_quant: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode ``src`` [B, S, C] feeding ``tokens`` [B, T] -> (logits
     [T, B, V] f32, picks [B, T]): step t's logits and the token chosen
     from them (``sift`` with the manager's state after tokens[:, :t], or
     argmax without tables). Each step is ``fast_decode_step`` (``plain``
-    as there) or, with ``use_v1``, ``decode_step_v1``."""
-    batch, steps = tokens.shape
-    cross_kv = precompute_cross_kv(fast, src.to(fast.w_gen.dtype))
-    cache = init_fast_cache(fast, batch, steps)
+    as there) or, with ``use_v1``, ``decode_step_v1``, over the cross K|V
+    and cache that ``greedy_decode`` builds for that step and ``kv_quant``
+    (``fast_step.decode_buffers``)."""
+    steps = tokens.shape[1]
+    cross_kv, cache = decode_buffers(fast, src, steps, kv_quant=kv_quant,
+                                     dequantize=use_v1)
 
     def step(token, t):
         if use_v1:

@@ -4,7 +4,8 @@
 Two halves:
 
 - ``decode_images`` (greedy, kernel 3 per layer or, with
-  ``kernel="fused"``, kernel 6 per step) and ``beam_decode_images``: u8
+  ``kernel="fused"``, kernel 6 per step; ``kv_quant`` int8 operands for
+  kernel 3) and ``beam_decode_images``: u8
   [B, H, W, C] images -> tokens, in pure torch (standardize on the card,
   encode, decode). They need nothing beyond torch and numpy.
 - ``run_inference``: the file-driven CLI path. It runs the port's eval
@@ -28,11 +29,14 @@ import torch
 
 from p4fr_tpu_torch.data.vocab import id_to_string
 from p4fr_tpu_torch.decoding.beam import beam_search, best_tokens
-from p4fr_tpu_torch.decoding.fast_step import greedy_decode
+from p4fr_tpu_torch.decoding.fast_step import KV_QUANT, greedy_decode
 from p4fr_tpu_torch.decoding.fused_greedy import fused_greedy_decode
 from p4fr_tpu_torch.decoding.manager import RuleTables
 from p4fr_tpu_torch.ops.preprocess import standardize, standardize_ref
 from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
+
+
+KERNELS = ("auto", "pallas_v2", "jnp", "fused")  # greedy's --kernel choices
 
 
 def encode_images(model, images: torch.Tensor, *, plain: bool = False
@@ -48,26 +52,33 @@ def decode_images(model, fast, images: torch.Tensor,
                   tables: Optional[RuleTables], steps: int, *,
                   early_stop_eos: Optional[int] = None,
                   stop_override: Optional[torch.Tensor] = None,
-                  plain: bool = False, kernel: str = "auto") -> torch.Tensor:
+                  plain: bool = False, kernel: str = "auto",
+                  kv_quant: str = "none") -> torch.Tensor:
     """Greedy: u8 [B, H, W, C] on the model's device -> [B, steps] int64
     tokens.
 
     ``fast`` is ``decoding.fast_step.build_fast_decoder(model)``.
-    ``kernel``: "auto" runs each layer's step (kernel 3) and the manager's
-    ``sift`` as separate ops; "fused" runs the whole step in one launch
-    (kernel 6, ``decoding/fused_greedy.py``). With ``plain=True`` every
+    ``kernel``: "auto" (and "pallas_v2", JAX's name for the same kernel)
+    runs each layer's step (kernel 3) and the manager's ``sift`` as
+    separate ops; "jnp" runs each layer's plain step instead
+    (``greedy_decode(use_jnp=True)``), the encoder keeping its kernels;
+    "fused" runs the whole step in one launch (kernel 6,
+    ``decoding/fused_greedy.py``). ``kv_quant`` ("int8", "int8_cache"; not
+    with "fused") as ``greedy_decode`` takes it. With ``plain=True`` every
     kernel's plain twin (and the composed MBConv modules) runs instead, on
     whatever device the tensors are on.
     """
-    if kernel not in ("auto", "fused"):
+    if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r}")
+    if kernel == "fused" and kv_quant != "none":
+        raise ValueError("kv_quant runs on the non-fused greedy step")
     src = encode_images(model, images, plain=plain)
     kw = dict(max_steps=steps, sos_id=model.sos_id, tables=tables,
               early_stop_eos=early_stop_eos, stop_override=stop_override,
               plain=plain)
     if kernel == "fused":
         return fused_greedy_decode(fast, src, vocab_size=model.num_classes, **kw)
-    return greedy_decode(fast, src, **kw)
+    return greedy_decode(fast, src, use_jnp=kernel == "jnp", kv_quant=kv_quant, **kw)
 
 
 @torch.no_grad()
@@ -113,7 +124,8 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
                   batch_size: int = 32, max_sequence: int = 230,
                   decode_type: str = "greedy", beam_width: int = 3,
                   decoding_manager: bool = True, early_stop: bool = False,
-                  plain: bool = False, kernel: str = "auto", device="cuda"
+                  plain: bool = False, kernel: str = "auto",
+                  kv_quant: str = "none", device="cuda"
                   ) -> List[Tuple[str, str]]:
     """Inference over an ``input.txt`` of image names; writes
     ``output.csv``. Runs on the CUDA card in bf16 unless the caller passes
@@ -121,10 +133,14 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
 
     ``decode_type``: "greedy" (with the DecodingManager unless
     ``decoding_manager=False``) or "beam" (``beam_width`` hypotheses, no
-    manager). ``kernel``: greedy's step, "auto" or "fused" (see
-    ``decode_images``); beam runs the same search for both, as the JAX
-    CLI does. ``plain=True`` runs every kernel's plain version instead
-    (the CLI's ``--beam_gather jnp``). ``early_stop``
+    manager). ``kernel``: greedy's step, "auto", "pallas_v2", "jnp" or
+    "fused" (see ``decode_images``); beam runs the same search for all
+    four, as the JAX CLI does, except that "jnp" runs it on every kernel's
+    plain version (as ``plain=True``). ``kv_quant`` ("none", "int8",
+    "int8_cache") runs only on the greedy step and not with "fused", as in
+    the JAX package (every family the port loads has that step).
+    ``plain=True`` runs every kernel's plain version instead (the CLI's
+    ``--beam_gather jnp``). ``early_stop``
     leaves the decode loop once every sequence (every beam) has finished;
     for greedy it also sorts the input by image aspect ratio so that
     similar lengths share a batch, and the output keeps the input's order.
@@ -133,8 +149,13 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
 
     if decode_type not in ("greedy", "beam"):
         raise ValueError(f"decode_type {decode_type!r}")
-    if kernel not in ("auto", "fused"):
+    if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r}")
+    if kv_quant not in KV_QUANT:
+        raise ValueError(f"kv_quant {kv_quant!r}")
+    if kv_quant != "none" and (decode_type != "greedy" or kernel == "fused"):
+        raise ValueError("kv_quant runs only on the fast greedy decode path "
+                         "(greedy, non-fused kernel), as in the JAX package")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_inference: CUDA was asked for and no CUDA card "
@@ -159,11 +180,12 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
             tokens = decode_images(
                 model, fast, images, tables, num_steps,
                 early_stop_eos=vocab.eos_id if early_stop else None, plain=plain,
-                kernel=kernel)
+                kernel=kernel, kv_quant=kv_quant)
         else:
             tokens = beam_decode_images(
                 model, fast, images, num_steps, beam_width=beam_width,
-                eos_id=vocab.eos_id, early_stop=early_stop, plain=plain)
+                eos_id=vocab.eos_id, early_stop=early_stop,
+                plain=plain or kernel == "jnp")
         tokens = tokens.cpu().numpy()
         count = batch["count"]
         strs = id_to_string(tokens[:count], vocab.id_to_token,

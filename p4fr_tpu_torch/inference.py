@@ -4,19 +4,34 @@
         --file_path input.txt --output_dir ./outputs \\
         [--batch_size 32] [--max_sequence 230] [--decoding_manager true] \\
         [--decode_type greedy|beam] [--beam_width 3] \\
-        [--beam_gather auto|pallas|jnp] [--kernel auto|fused] \\
-        [--early_stop false] [--device cuda|cpu]
+        [--beam_gather auto|pallas|jnp] [--kernel auto|pallas_v2|jnp|fused] \\
+        [--kv_quant none|int8|int8_cache] [--early_stop false] \\
+        [--device cuda|cpu]
 
 The arguments are those of the JAX package's ``inference.py``, plus
 ``--device``: the port runs on the CUDA card unless ``--device cpu`` is
 given, and exits with an error where CUDA is asked for and absent. The
 port has no Pallas: ``--beam_gather auto`` and ``pallas`` both take the
 CUDA kernels, and ``jnp`` runs a beam search on the kernels' plain PyTorch
-versions (``run_inference(plain=True)``). ``--kernel auto`` decodes greedy
-with one layer-step kernel per layer and the manager as separate ops;
-``--kernel fused`` runs the whole greedy step in one CUDA launch (beam
-runs the same search for both, as in the JAX CLI). Options the port does
-not run yet are rejected with the ROADMAP item that ports them;
+versions (``run_inference(plain=True)``). Greedy's ``--kernel``:
+
+- ``auto`` and ``pallas_v2`` (JAX's name for the same kernel): one
+  layer-step kernel launch per layer, the manager as separate ops;
+- ``jnp``: the JAX package's plain fast step, each layer through the
+  kernel's plain PyTorch version on whatever device runs (the encoder
+  keeps its kernels); also the way to run a decoder whose head width the
+  kernels refuse;
+- ``fused``: the whole greedy step in one CUDA launch.
+
+Beam runs the same search for each, as in the JAX CLI, ``jnp`` on the
+kernels' plain versions. ``--kv_quant`` (greedy, not ``fused``, never the
+default): ``int8`` makes each layer's cross K/V int8 with per-(row,
+position) scales, ``int8_cache`` the self-attention cache too; with
+``auto``/``pallas_v2`` the layer-step kernel's int8 forms read them (on
+the CPU its plain version). Under ``jnp`` the cross K/V is dequantized
+once and the self cache stays in the model's type, as in the JAX package,
+so ``int8_cache`` there quantizes the cross K/V alone. Options the port
+does not run yet are rejected with the ROADMAP item that ports them;
 compatibility shims (``--tokens_path``, ``--max_cache``) are accepted and
 unused, as in the JAX CLI. The checkpoint is a
 reference-format ``.pth`` of an EfficientSATRN or a SwinTRN (``network``
@@ -30,9 +45,8 @@ import sys
 # option -> (values the port supports, ROADMAP item that ports the rest)
 _NOT_YET = {
     "inference_type": (("single",), "Queue 1: ensemble"),
-    "kernel": (("auto", "fused"),
-               "Queue 1: the generic step; Queue 2: kernels 7 and 8"),
-    "kv_quant": (("none",), "Queue 1: kv-quant int8"),
+    "kernel": (("auto", "pallas_v2", "jnp", "fused"),
+               "Queue 1 item 4: the generic step"),
     "data_parallel": ((False,), "Queue 1: parallelism"),
     "preprocess": (("device",), "Queue 1: device resize"),
 }
@@ -88,7 +102,8 @@ def main(argv=None):
         parser.error("--checkpoint is required")
     if len(args.checkpoint) > 1:
         parser.error("single inference takes exactly one --checkpoint")
-    if args.kernel == "fused" and args.kv_quant != "none":
+    if args.kv_quant != "none" and (args.kernel == "fused"
+                                    or args.decode_type != "greedy"):
         parser.error("--kv_quant runs only on the non-fused greedy path "
                      "(as in the JAX CLI)")
     for name, (supported, item) in _NOT_YET.items():
@@ -111,7 +126,7 @@ def main(argv=None):
         decode_type=args.decode_type, beam_width=args.beam_width,
         decoding_manager=args.decoding_manager, early_stop=args.early_stop,
         plain=args.decode_type == "beam" and args.beam_gather == "jnp",
-        kernel=args.kernel, device=args.device,
+        kernel=args.kernel, kv_quant=args.kv_quant, device=args.device,
     )
 
 

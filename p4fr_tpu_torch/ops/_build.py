@@ -32,7 +32,8 @@ NVCC_FLAGS = [
 
 LAUNCHES = {"standardize": 0, "mbconv": 0, "decoder_layer": 0, "beam_gather": 0,
             "fused_greedy_step": 0, "swin_attention": 0, "decoder_layer_v1": 0,
-            "decoder_stack_v3": 0}
+            "decoder_stack_v3": 0, "decoder_layer_int8": 0,
+            "decoder_layer_int8_cache": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -59,6 +60,13 @@ _SIGNATURES = {
     # (x, cache, src_kv, out, 18 weight pointers, B, H, heads, F, S, L,
     #  pos, cache_outputs, bf16, stream)
     "p4fr_decoder_layer": [P] * 22 + [I] * 9 + [P],
+    # (x, cache, src_kv i8, src_scale f32, out, 18 weight pointers, B, H,
+    #  heads, F, S, L, pos, cache_outputs, bf16, stream)
+    "p4fr_decoder_layer_int8": [P] * 23 + [I] * 9 + [P],
+    # (x, cache i8, cache_scale f32, src_kv i8, src_scale f32, out, 18
+    #  weight pointers, B, H, heads, F, S, L, pos, cache_outputs, bf16,
+    #  stream)
+    "p4fr_decoder_layer_int8_cache": [P] * 24 + [I] * 9 + [P],
     # kernel 8: the same arguments as p4fr_decoder_layer
     "p4fr_decoder_layer_v1": [P] * 22 + [I] * 9 + [P],
     # (x, caches, src_kv, out, the 15 stacked weights, B, H, heads, F, S, L,

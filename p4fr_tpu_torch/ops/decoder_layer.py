@@ -15,6 +15,12 @@ JAX package's ``ops/pallas/decoder_layer.py`` is another kernel (kernel 8,
 
 Unlike the functional JAX version, both the kernel and its plain twin
 update ``cache`` IN PLACE at slot ``pos`` and return it.
+
+The TPU kernel's int8 operands (``kv_quant``) come in two forms, each its
+own CUDA entry point: the cross K|V as int8 codes with f32 ``src_scale``
+[B, 2, S] (``int8``), and with them the self cache as a pair (int8 codes
+[B, L, 2H], f32 scales [B, L, 2]) (``int8_cache``; the flat layout, not
+the TPU's tiled one). ``layer_step_ref`` is the plain version of both.
 """
 
 from __future__ import annotations
@@ -71,28 +77,66 @@ def check_head_width(what: str, hidden: int, head_num: int) -> None:
     the decoder kernels are built for."""
     if head_num <= 0 or hidden % head_num or hidden // head_num not in HEAD_DIMS:
         raise ValueError(f"{what}: the kernel takes heads of {HEAD_DIMS}, "
-                         f"got hidden {hidden} / {head_num} heads")
+                         f"got hidden {hidden} / {head_num} heads; greedy "
+                         "decodes such a decoder with --kernel jnp (the plain "
+                         "step, greedy_decode(use_jnp=True))")
 
 
-def layer_step_ref(x: torch.Tensor, pos: int, cache: torch.Tensor,
-                   src_kv: torch.Tensor, weights: LayerWeights, *,
-                   head_num: int, cache_outputs: bool, kv_dtype=None):
+def quantize_rows(x: torch.Tensor, eps: float = 1e-8):
+    """Symmetric per-row int8: x [..., D] -> (int8 [..., D], f32 scale
+    [...]), scale = max(max|x|, eps) / 127 and codes x / scale rounded half
+    to even, clipped to +-127, in f32 (the JAX package's
+    ``fast_step.quantize_rows``)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(eps) / 127.0
+    codes = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return codes, scale
+
+
+def dequantize_kv(codes: torch.Tensor, k_scale: torch.Tensor,
+                  v_scale: torch.Tensor) -> torch.Tensor:
+    """int8 k|v codes [..., 2H] with per-row scales [...] -> f32 [..., 2H],
+    ``code.float() * scale`` per half."""
+    hidden = codes.shape[-1] // 2
+    return torch.cat([codes[..., :hidden].float() * k_scale[..., None],
+                      codes[..., hidden:].float() * v_scale[..., None]], dim=-1)
+
+
+def layer_step_ref(x: torch.Tensor, pos: int, cache, src_kv: torch.Tensor,
+                   weights: LayerWeights, src_scale=None, *, head_num: int,
+                   cache_outputs: bool, kv_dtype=None):
     """Plain twin: x [B, H], cache [B, L, 2H], src_kv [B, S, 2H]
     -> (out [B, H], cache updated in place).
 
     ``kv_dtype`` rounds the current token's k|v through that type before
     the attention, as the kernel does when its cache is that type; with it,
-    f32 operands give the kernel's bf16 result before its final cast."""
+    f32 operands give the kernel's bf16 result before its final cast.
+
+    The int8 forms (module docstring): with ``src_scale``, ``src_kv`` is
+    int8 codes; ``cache`` may then be the pair (int8 codes, f32 scales
+    [B, L, 2]). Codes dequantize as ``code.float() * scale``, in x's type;
+    slots < pos come from the cache, the current k|v unquantized, and
+    slot ``pos`` is then quantized with ``quantize_rows``."""
     w = weights
     batch, hidden = x.shape
     d = hidden // head_num
     temp = float(hidden) ** 0.5
-    max_len = cache.shape[1]
     q, k_cur, v_cur = (x @ w.w_qkv + w.b_qkv).split(hidden, dim=-1)
     kv = torch.cat([k_cur, v_cur], dim=-1)
-    cache[:, pos] = kv if kv_dtype is None else kv.to(kv_dtype).to(kv.dtype)
-    k_all = cache[..., :hidden].reshape(batch, max_len, head_num, d)
-    v_all = cache[..., hidden:].reshape(batch, max_len, head_num, d)
+    if kv_dtype is not None:
+        kv = kv.to(kv_dtype).to(kv.dtype)
+    if isinstance(cache, tuple):
+        codes, scales = cache
+        kv_all = dequantize_kv(codes, scales[..., 0], scales[..., 1]).to(x.dtype)
+        kv_all[:, pos] = kv
+    else:
+        cache[:, pos] = kv
+        kv_all = cache
+    if src_scale is not None:
+        src_kv = dequantize_kv(src_kv, src_scale[:, 0], src_scale[:, 1]).to(x.dtype)
+    max_len = kv_all.shape[1]
+    k_all = kv_all[..., :hidden].reshape(batch, max_len, head_num, d)
+    v_all = kv_all[..., hidden:].reshape(batch, max_len, head_num, d)
     scores = torch.einsum("bhd,blhd->bhl", q.reshape(batch, head_num, d), k_all) / temp
     ban = torch.arange(max_len, device=x.device) > pos
     probs = torch.softmax(scores.masked_fill(ban, NEG_INF), dim=-1)
@@ -109,15 +153,22 @@ def layer_step_ref(x: torch.Tensor, pos: int, cache: torch.Tensor,
     ffo = torch.relu(out @ w.w_ff0 + w.b_ff0)
     ffo = torch.relu(ffo @ w.w_ff1 + w.b_ff1)
     out = _ln(ffo + out, w.ln3_scale, w.ln3_bias)
-    if cache_outputs:
-        # reference parity: the layer OUTPUT becomes future K/V
-        cache[:, pos] = out @ w.w_qkv[:, hidden:] + w.b_qkv[hidden:]
+    # reference parity: with cache_outputs the layer OUTPUT becomes future K/V
+    slot = out @ w.w_qkv[:, hidden:] + w.b_qkv[hidden:] if cache_outputs else None
+    if isinstance(cache, tuple):
+        slot = kv if slot is None else slot
+        k8, sk = quantize_rows(slot[:, :hidden])
+        v8, sv = quantize_rows(slot[:, hidden:])
+        codes[:, pos] = torch.cat([k8, v8], dim=-1)
+        scales[:, pos] = torch.stack([sk, sv], dim=-1)
+    elif slot is not None:
+        cache[:, pos] = slot
     return out, cache
 
 
-def decoder_layer_step(x: torch.Tensor, pos: int, cache: torch.Tensor,
-                       src_kv: torch.Tensor, weights: LayerWeights, *,
-                       head_num: int, cache_outputs: bool):
+def decoder_layer_step(x: torch.Tensor, pos: int, cache, src_kv: torch.Tensor,
+                       weights: LayerWeights, src_scale=None, *, head_num: int,
+                       cache_outputs: bool):
     """One layer step -> (out [B, H], cache updated in place at ``pos``).
 
     CUDA tensor: one launch of ``csrc/decoder_layer.cu`` (replaces the TPU
@@ -126,14 +177,27 @@ def decoder_layer_step(x: torch.Tensor, pos: int, cache: torch.Tensor,
     cache prefix and src K/V from device memory; one CTA holds 4 batch rows
     and keeps every activation in shared memory, so each weight is read
     once per 4 rows, as 16-byte vectors with the K range split over the
-    warps. CPU tensor: ``layer_step_ref``.
+    warps. The operands pick the entry point: int8 ``src_kv`` with its
+    ``src_scale`` launches ``p4fr_decoder_layer_int8`` (counted as
+    ``decoder_layer_int8``), and with an int8 cache pair too
+    ``p4fr_decoder_layer_int8_cache`` (``decoder_layer_int8_cache``).
+    CPU tensor: ``layer_step_ref``.
     """
+    if isinstance(cache, tuple) and src_scale is None:
+        raise ValueError("decoder_layer_step: an int8 cache comes with an int8 "
+                         "src_kv and its src_scale (kv_quant int8_cache)")
     if x.device.type == "cpu":
-        return layer_step_ref(x, pos, cache, src_kv, weights,
+        return layer_step_ref(x, pos, cache, src_kv, weights, src_scale,
                               head_num=head_num, cache_outputs=cache_outputs)
-    return launch_layer_step("decoder_layer_step", "p4fr_decoder_layer",
-                             "decoder_layer", x, pos, cache, src_kv, weights,
-                             head_num=head_num, cache_outputs=cache_outputs)
+    if src_scale is None:
+        entry, counter = "p4fr_decoder_layer", "decoder_layer"
+    elif isinstance(cache, tuple):
+        entry, counter = "p4fr_decoder_layer_int8_cache", "decoder_layer_int8_cache"
+    else:
+        entry, counter = "p4fr_decoder_layer_int8", "decoder_layer_int8"
+    return launch_layer_step("decoder_layer_step", entry, counter, x, pos, cache,
+                             src_kv, weights, head_num=head_num,
+                             cache_outputs=cache_outputs, src_scale=src_scale)
 
 
 def check_operands(what: str, tensors, dtype, device) -> None:
@@ -148,12 +212,16 @@ def check_operands(what: str, tensors, dtype, device) -> None:
 
 def launch_layer_step(what: str, entry: str, counter: str, x, pos, cache,
                       src_kv, weights: LayerWeights, *, head_num: int,
-                      cache_outputs: bool):
+                      cache_outputs: bool, src_scale=None):
     """One launch of a one-layer step kernel (``entry`` in the library,
     kernel 3's arguments; kernel 8 takes the same) on CUDA tensors, after
-    checking them; counts it under ``LAUNCHES[counter]``."""
+    checking them; counts it under ``LAUNCHES[counter]``. The int8 entries
+    take ``src_scale`` after ``src_kv`` and, for a cache pair, its scales
+    after the codes."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
+    given = cache
+    cache, cache_scale = cache if isinstance(cache, tuple) else (cache, None)
     batch, hidden = x.shape
     max_len, s_len = cache.shape[1], src_kv.shape[1]
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -163,17 +231,29 @@ def launch_layer_step(what: str, entry: str, counter: str, x, pos, cache,
             batch, s_len, 2 * hidden):
         raise ValueError(f"{what}: cache {tuple(cache.shape)} / src_kv "
                          f"{tuple(src_kv.shape)} do not fit x {tuple(x.shape)}")
+    if (cache_scale is not None and cache_scale.shape != (batch, max_len, 2)) or (
+            src_scale is not None and src_scale.shape != (batch, 2, s_len)):
+        raise ValueError(f"{what}: the scales do not fit the int8 operands: cache "
+                         f"[{batch}, {max_len}, 2], src_scale [{batch}, 2, {s_len}]")
     if not 0 <= pos < max_len:
         raise ValueError(f"{what}: pos {pos} outside [0, {max_len})")
-    check_operands(what, [x, cache, src_kv]
-                   + [getattr(weights, f) for f in _KERNEL_FIELDS], x.dtype, x.device)
+    check_operands(what, [x] + [getattr(weights, f) for f in _KERNEL_FIELDS],
+                   x.dtype, x.device)
+    check_operands(what, [cache], x.dtype if cache_scale is None else torch.int8,
+                   x.device)
+    check_operands(what, [src_kv], x.dtype if src_scale is None else torch.int8,
+                   x.device)
+    check_operands(what, [t for t in (cache_scale, src_scale) if t is not None],
+                   torch.float32, x.device)
     filter_dim = weights.w_ff0.shape[1]
     if filter_dim % 8:
         raise ValueError(f"{what}: filter dim {filter_dim} is not a multiple "
                          "of 8 (the kernel's vector width)")
     out = torch.empty_like(x)
+    operands = [t for t in (x, cache, cache_scale, src_kv, src_scale, out)
+                if t is not None]
     code = getattr(_build.library(), entry)(
-        x.data_ptr(), cache.data_ptr(), src_kv.data_ptr(), out.data_ptr(),
+        *[t.data_ptr() for t in operands],
         *[getattr(weights, f).data_ptr() for f in _KERNEL_FIELDS],
         batch, hidden, head_num, filter_dim, s_len, max_len, int(pos),
         int(cache_outputs), int(x.dtype == torch.bfloat16),
@@ -181,4 +261,4 @@ def launch_layer_step(what: str, entry: str, counter: str, x, pos, cache,
     )
     _build.check(code, what)
     _build.LAUNCHES[counter] += 1
-    return out, cache
+    return out, given

@@ -2,7 +2,7 @@
 """Where the time of one decode call goes on the card.
 
     python3 profile_decode.py [--decode_type greedy|fused|v1|v3|beam]
-        [--network EfficientSATRN|SWIN]
+        [--network EfficientSATRN|SWIN] [--kv_quant none|int8|int8_cache]
 
 Loads chip_smoke.py's seeded EfficientSATRN at full width in bf16 (B=256
 256x512 u8 images; with ``--network SWIN`` its SwinTRN, B=32 384x384),
@@ -11,7 +11,8 @@ kernel 3 per layer or, with ``fused``, the whole step in one launch as
 ``--kernel fused`` runs it, with ``v1`` kernel 8 per layer
 (``greedy_decode(use_v1=True)``), with ``v3`` kernel 7 per step
 (``chip_smoke.v3_greedy`` over ``make_v3_step``); beam W=3 without the
-manager, as the CLI runs them), times two unprofiled calls with
+manager, as the CLI runs them; ``--kv_quant`` with ``greedy``: kernel 3's
+int8 forms, as ``--kernel auto --kv_quant`` runs them), times two unprofiled calls with
 chip_smoke's ``e2e``, then records one call with ``torch.profiler`` (CPU
 and CUDA activities) and prints: the profiled call's wall time, the device
 kernel time summed over all kernels, the device's busy share of the call,
@@ -35,7 +36,11 @@ def main(argv=None):
                         choices=["greedy", "fused", "v1", "v3", "beam"])
     parser.add_argument("--network", default="EfficientSATRN",
                         choices=["EfficientSATRN", "SWIN"])
+    parser.add_argument("--kv_quant", default="none",
+                        choices=["none", "int8", "int8_cache"])
     args = parser.parse_args(argv)
+    if args.kv_quant != "none" and args.decode_type != "greedy":
+        parser.error("--kv_quant runs on --decode_type greedy only")
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
         return 2
@@ -64,11 +69,12 @@ def main(argv=None):
                                dtype=torch.uint8).to(dev)
         if args.decode_type in ("greedy", "fused"):
             kernel = "fused" if args.decode_type == "fused" else "auto"
-            what = f"{args.network} greedy --kernel {kernel}, manager on,"
+            what = (f"{args.network} greedy --kernel {kernel} --kv_quant "
+                    f"{args.kv_quant}, manager on,")
 
             def run(steps):
                 return decode_images(model, fast, images, tables, steps,
-                                     kernel=kernel)
+                                     kernel=kernel, kv_quant=args.kv_quant)
         elif args.decode_type == "v1":
             what = f"{args.network} greedy through kernel 8 (v1), manager on,"
 

@@ -249,14 +249,37 @@ def test_cli_fused_output_matches_jax(slice_models, tmp_path):
     ["--kernel", "pallas_v2"], ["--kernel", "jnp"], ["--kernel", "generic"],
     ["--kernel", "fused", "--kv_quant", "int8"],
 ], ids=["pallas_v2", "jnp", "generic", "fused_kv_quant"])
-def test_cli_rejects_kernels_not_ported(argv, capsys):
+def test_cli_rejects_kernels_not_ported(argv, slice_models, tmp_path, capsys,
+                                        monkeypatch):
+    """``generic`` (ROADMAP Queue 1 item 4) and ``--kv_quant`` with ``fused``
+    are refused; ``pallas_v2`` runs kernel 3's step, as ``auto`` does, and
+    ``jnp`` each layer's plain step (``greedy_decode(use_jnp=True)``), each
+    writing ``--kernel auto``'s ``output.csv``."""
     from p4fr_tpu_torch import inference
+    from p4fr_tpu_torch.infer import single
 
-    with pytest.raises(SystemExit):
-        inference.main(["--checkpoint", "x.pth", "--file_path", "in.txt",
-                        "--device", "cpu", *argv])
-    err = capsys.readouterr().err
-    assert ("ROADMAP" in err) or ("non-fused" in err)
+    inp, _, pth, _ = native_and_pth(slice_models, tmp_path, n=3)
+    base = ["--checkpoint", pth, "--file_path", str(inp), "--batch_size", "4",
+            "--max_sequence", "4", "--device", "cpu"]
+    if argv[1] in ("generic", "fused"):
+        with pytest.raises(SystemExit):
+            inference.main(base + argv)
+        err = capsys.readouterr().err
+        assert ("ROADMAP.md Queue 1 item 4" in err) or ("non-fused" in err)
+        return
+    inference.main(base + ["--output_dir", str(tmp_path / "auto")])
+    calls = []
+
+    def greedy_decode(*args, **kw):
+        calls.append(kw["use_jnp"])
+        return single_greedy(*args, **kw)
+
+    single_greedy = single.greedy_decode
+    monkeypatch.setattr(single, "greedy_decode", greedy_decode)
+    inference.main(base + argv + ["--output_dir", str(tmp_path / "k")])
+    assert calls and set(calls) == {argv[1] == "jnp"}
+    assert ((tmp_path / "k" / "output.csv").read_text()
+            == (tmp_path / "auto" / "output.csv").read_text())
 
 
 def test_plain_twin_is_the_cpu_path(slice_models):

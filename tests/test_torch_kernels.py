@@ -20,11 +20,13 @@ from p4fr_tpu_torch.data.vocab import TOKENS_PATH, Vocab
 from p4fr_tpu_torch.decoding.fast_step import FastDecoder
 from p4fr_tpu_torch.decoding.manager import RuleTables
 from p4fr_tpu_torch.models.efficientnetv2 import MBConv
+from p4fr_tpu_torch.ops import _build
 from p4fr_tpu_torch.ops.beam_gather import beam_parent_gather, beam_parent_gather_ref
 from p4fr_tpu_torch.ops.decoder_layer import (
     LayerWeights,
     decoder_layer_step,
     layer_step_ref,
+    quantize_rows,
 )
 from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
 from p4fr_tpu_torch.ops.decoder_stack_v3 import (
@@ -50,7 +52,8 @@ from p4fr_tpu_torch.ops.swin_attention import (
 BF16_RTOL = 2.0 ** -8
 BF16_ATOL = {"standardize": 1e-6, "mbconv": 1.5e-3, "decoder_layer": 2e-3,
              "fused_greedy_step": 1.5e-2, "swin_attention": 1e-3,
-             "decoder_layer_v1": 2e-3, "decoder_stack_v3": 2e-2}
+             "decoder_layer_v1": 2e-3, "decoder_stack_v3": 2e-2,
+             "decoder_layer_int8": 2e-3, "decoder_layer_int8_cache": 2e-3}
 
 
 def assert_bf16_close(got, want, kernel):
@@ -108,6 +111,13 @@ def test_wrappers_never_fall_back_off_cpu():
         fused_window_attention(torch.empty(2, 16, 96, device=meta),
                                torch.empty(1, 16, 16, device=meta), None,
                                heads=1, scale=1.0)
+    with pytest.raises(ValueError, match="device"):
+        decoder_layer_step(torch.empty(2, 32, device=meta), 0,
+                           (torch.empty(2, 4, 64, dtype=torch.int8, device=meta),
+                            torch.empty(2, 4, 2, device=meta)),
+                           torch.empty(2, 3, 64, dtype=torch.int8, device=meta), w,
+                           torch.empty(2, 2, 3, device=meta), head_num=1,
+                           cache_outputs=True)
     with pytest.raises(ValueError, match="device"):
         decoder_layer_step_v1(torch.empty(2, 32, device=meta), 0,
                               torch.empty(2, 4, 64, device=meta),
@@ -238,6 +248,76 @@ def test_decoder_layer_kernel(cuda, dtype, cache_outputs):
 def test_decoder_layer_kernel_heads_of_64(cuda, dtype, cache_outputs):
     """SwinTRN's decoder width: each lane holds two value dims."""
     check_decoder_layer_kernel(cuda, dtype, cache_outputs, hidden=128, heads=2)
+
+
+def int8_kv(gen, rows, n, hidden):
+    """Seeded int8 k|v codes [rows, n, 2H] and their scales [rows, n, 2]."""
+    kv = torch.randn(rows, n, 2 * hidden, generator=gen)
+    k8, sk = quantize_rows(kv[..., :hidden])
+    v8, sv = quantize_rows(kv[..., hidden:])
+    return torch.cat([k8, v8], dim=-1), torch.stack([sk, sv], dim=-1)
+
+
+def check_int8_layer_kernel(cuda, dtype, form, cache_outputs, hidden, heads):
+    """Kernel 3's int8 forms vs ``layer_step_ref`` on the same operands
+    over 36 steps of one history, a ragged batch tile: int8 src K|V with
+    its scales; with ``form`` "int8_cache" the cache pair too, random codes
+    and scales in every slot. The out as kernel 3's; the int8 slot's codes
+    within one of the twin's (rounding ties) and its scales within 1e-5
+    relative, the other slots untouched."""
+    gen = torch.Generator().manual_seed(0)
+    b, s_len, max_len = 6, 5, 40
+    w = random_layer(gen, hidden, 128, cuda, dtype)
+    w_r = LayerWeights(*(t.float() for t in w))
+    codes, scales = int8_kv(gen, b, s_len, hidden)
+    src, src_scale = codes.to(cuda), scales.transpose(1, 2).contiguous().to(cuda)
+    x = torch.randn(b, hidden, generator=gen).to(cuda, dtype)
+    if form == "int8_cache":
+        c_k = tuple(t.to(cuda) for t in int8_kv(gen, b, max_len, hidden))
+    else:
+        c_k = torch.zeros(b, max_len, 2 * hidden, device=cuda, dtype=dtype)
+    before = dict(_build.LAUNCHES)
+    for pos in range(36):  # past one warp's 32 positions
+        c_r = (tuple(t.clone() for t in c_k) if form == "int8_cache"
+               else c_k.to(torch.float32, copy=True))
+        c_was = tuple(t.clone() for t in c_k) if form == "int8_cache" else None
+        o_k, _ = decoder_layer_step(x, pos, c_k, src, w, src_scale, head_num=heads,
+                                    cache_outputs=cache_outputs)
+        torch.cuda.synchronize()
+        o_r, _ = layer_step_ref(x.float(), pos, c_r, src, w_r, src_scale,
+                                head_num=heads, cache_outputs=cache_outputs,
+                                kv_dtype=dtype)
+        if dtype == torch.float32:
+            assert torch.allclose(o_k, o_r, rtol=1e-4, atol=1e-4), pos
+        else:
+            assert_bf16_close(o_k, o_r, f"decoder_layer_{form}")
+        if form == "int8_cache":
+            flips = (c_k[0][:, pos].int() - c_r[0][:, pos].int()).abs()
+            assert flips.max().item() <= 1, pos
+            assert torch.allclose(c_k[1][:, pos], c_r[1][:, pos], rtol=1e-5, atol=0)
+            others = torch.arange(max_len, device=cuda) != pos
+            for got, was in zip(c_k, c_was):
+                assert torch.equal(got[:, others], was[:, others]), pos
+            for got, want in zip(c_k, c_r):  # one history
+                got.copy_(want)
+        else:
+            if dtype == torch.float32:
+                assert torch.allclose(c_k, c_r, rtol=1e-4, atol=1e-4), pos
+            else:
+                assert_bf16_close(c_k, c_r, "decoder_layer_int8")
+            c_k.copy_(c_r.to(dtype))
+        x = o_r.to(dtype)
+    assert _build.LAUNCHES[f"decoder_layer_{form}"] == before[f"decoder_layer_{form}"] + 36
+    assert _build.LAUNCHES["decoder_layer"] == before["decoder_layer"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["int8", "int8_cache"])
+@pytest.mark.parametrize("cache_outputs", [True, False])
+@pytest.mark.parametrize("hidden", [64, 128], ids=["heads_of_32", "heads_of_64"])
+def test_decoder_layer_int8_kernels(cuda, dtype, form, cache_outputs, hidden):
+    check_int8_layer_kernel(cuda, dtype, form, cache_outputs, hidden, heads=2)
 
 
 def check_layer_v1_kernel(cuda, dtype, cache_outputs, hidden, heads):
@@ -483,8 +563,6 @@ def test_beam_gather_kernel(cuda, dtype):
 
 
 def test_cpu_twins_count_no_launch():
-    from p4fr_tpu_torch.ops import _build
-
     before = dict(_build.LAUNCHES)
     standardize(torch.zeros(1, 2, 2, 3, dtype=torch.uint8))
     block = MBConv(8, 8, 3, 1, 2, 0.25).eval()
@@ -493,6 +571,13 @@ def test_cpu_twins_count_no_launch():
     w = random_layer(torch.Generator().manual_seed(0), 32, 64)
     decoder_layer_step(torch.zeros(2, 32), 0, torch.zeros(2, 4, 64),
                        torch.zeros(2, 3, 64), w, head_num=1, cache_outputs=True)
+    decoder_layer_step(torch.zeros(2, 32), 0, torch.zeros(2, 4, 64),
+                       torch.zeros(2, 3, 64, dtype=torch.int8), w, torch.ones(2, 2, 3),
+                       head_num=1, cache_outputs=True)
+    decoder_layer_step(torch.zeros(2, 32), 0,
+                       (torch.zeros(2, 4, 64, dtype=torch.int8), torch.zeros(2, 4, 2)),
+                       torch.zeros(2, 3, 64, dtype=torch.int8), w, torch.ones(2, 2, 3),
+                       head_num=1, cache_outputs=True)
     decoder_layer_step_v1(torch.zeros(2, 32), 0, torch.zeros(2, 4, 64),
                           torch.zeros(2, 3, 64), w, head_num=1, cache_outputs=True)
     decoder_stack_step_v3(torch.zeros(2, 32), 0, torch.zeros(1, 2, 4, 64),

@@ -224,12 +224,16 @@ def test_cli_output_matches_jax(slice_models, tmp_path):
     assert got == want
 
 
-def test_cli_rejects_what_is_not_ported(tmp_path):
+def test_cli_rejects_what_is_not_ported(tmp_path, capsys):
+    """Ensembles are still to port: the CLI refuses them with the ROADMAP
+    item."""
     from p4fr_tpu_torch import inference
 
-    with pytest.raises(SystemExit):
-        inference.main(["--checkpoint", "x.pth", "--file_path", "in.txt",
-                        "--kv_quant", "int8", "--device", "cpu"])
+    with pytest.raises(SystemExit) as exc:
+        inference.main(["--inference_type", "ensemble", "--checkpoint", "x.pth",
+                        "--file_path", "in.txt", "--device", "cpu"])
+    assert exc.value.code != 0
+    assert "ROADMAP.md Queue 1: ensemble" in capsys.readouterr().err
 
 
 def test_entry_points_run_on_cuda_unless_asked(slice_models, tmp_path, monkeypatch):
@@ -325,7 +329,8 @@ images = torch.randint(0, 256, (2, 64, 128, 3), dtype=torch.uint8)
 greedy = decode_images(model, fast, images, tables, 4)
 fused = decode_images(model, fast, images, tables, 4, kernel="fused")
 beam = beam_decode_images(model, fast, images, 4, beam_width=3, eos_id=vocab.eos_id)
-assert greedy.shape == fused.shape == beam.shape == (2, 4)
+int8 = decode_images(model, fast, images, tables, 4, kv_quant="int8_cache")
+assert greedy.shape == fused.shape == beam.shape == int8.shape == (2, 4)
 src = encode_images(model, images)
 v1 = greedy_decode(fast, src, max_steps=4, sos_id=model.sos_id, tables=tables,
                    use_v1=True)
@@ -352,8 +357,9 @@ def test_port_imports_no_jax(tmp_path):
     alone, with jax, flax and ``p4fr_tpu`` refused (and cv2, PIL and
     pandas, which the card's host lacks): every module and ``chip_smoke``
     import, the manager's tables build from the port's vocab, a ``.pth``
-    saves and loads, and 4 greedy (kernel 3's path and the fused step's)
-    and 4 beam steps run on the CPU, and the v1 greedy path and the v3
+    saves and loads, and 4 greedy (kernel 3's path, the fused step's and
+    ``kv_quant="int8_cache"``) and 4 beam steps run on the CPU, and the v1
+    greedy path and the v3
     step's replay pick kernel 3's path's tokens; then a tiny SwinTRN (heads
     of 64 in its decoder) saves, loads and decodes 4 greedy steps both
     ways."""

@@ -3,8 +3,8 @@
 and (kernel 6) where the sound kernel's error comes from.
 
     python3 tolerance_study.py [--kernel fused_greedy_step|swin_attention|
-        decoder_layer_v1|decoder_stack_v3] [--shape satrn|swin]
-        [--seeds 0 1 2 3 4] [--faults]
+        decoder_layer_v1|decoder_stack_v3|decoder_layer_int8]
+        [--shape satrn|swin] [--seeds 0 1 2 3 4] [--faults]
 
 Needs one CUDA card; the kernels build from the checkout on first use.
 ``--shape swin`` runs kernel 6's part 1 (and the faults' copies) at
@@ -20,7 +20,16 @@ part 1 runs ``chip_smoke.check_layer_v1`` or ``check_stack_v3`` at the
 ``--shape`` (pos 0, 115 and 230, 6 checks) and prints per seed the bf16
 check's largest excess over the cast of the out and of slot ``pos``, the
 out's largest mean abs error and each dtype's missed checks; part 3
-plants that kernel's faults.
+plants that kernel's faults. With ``--kernel decoder_layer_int8`` (kernel
+3's int8 forms) part 1 runs ``chip_smoke.check_layer_int8`` for each form
+(``int8``, ``int8_cache``) at the ``--shape`` and prints per seed and form
+the bf16 check's largest excess over the cast of the out (and, for
+``int8``, of slot ``pos``), the out's largest mean abs error, the slot
+codes that differ from the twin's (f32) and the largest distance of such
+a code's x / scale from its tie, and each dtype's missed checks;
+part 3 plants the int8 faults (``roundf`` for ``rintf``, the k-scale not
+applied, the v-scale applied before the mass, the current slot read back
+quantized).
 
 1. ``chip_smoke.check_fused_step`` (B=256, full width, pos 0/1/115/230,
    manager on and off, 24 checks) on each seed, in f32 and in bf16: per
@@ -90,6 +99,29 @@ FAULTS = {  # kernel: {name: (its file in csrc/, text, its replacement)}
         "cache_outputs_ignored": ("decoder_layer_v1.cu", "  if (cache_outputs)\n",
                                   "  if (false)\n"),
     },
+    "decoder_layer_int8": {
+        # round half away from zero: shows only on exact ties (the tie probe)
+        "roundf": ("decoder_common.cuh", "rintf(xr[i] / sc)", "roundf(xr[i] / sc)"),
+        "no_k_scale": ("decoder_common.cuh", "(SCALED ? dot / temp * sk : dot / temp)",
+                       "(dot / temp)"),
+        # the mass sums p * v-scale, so l no longer tracks the softmax weights
+        "v_scale_before_mass": ("decoder_common.cuh", "      float psum = p;\n",
+                                "      float psum = SCALED ? p * sv : p;\n"),
+        # slot pos quantized and stored first, then read back by the attention
+        "current_read_back": (
+            "decoder_common.cuh",
+            "    attend<CacheT<T, KQ>, PACKED_SLOTS, D, KQ == KvQ::kSrcCache>(\n"
+            "        Q, 3 * H, cache, c_row, c_slot, b0, nrows, pos + 1, H, heads, temp, Q + H,\n",
+            "    if constexpr (KQ == KvQ::kSrcCache) {\n"
+            "      write_slot_int8<T>(s, wt, const_cast<int8_t*>(cache),\n"
+            "                         const_cast<float*>(cache_scale), c_row, b0, nrows, H,\n"
+            "                         pos, 0);\n"
+            "      __syncthreads();\n"
+            "    }\n"
+            "    attend<CacheT<T, KQ>, PACKED_SLOTS, D, KQ == KvQ::kSrcCache>(\n"
+            "        Q, 3 * H, cache, c_row, c_slot, b0, nrows, pos + 1, H, heads, temp,\n"
+            "        KQ == KvQ::kSrcCache ? nullptr : Q + H,\n"),
+    },
     "decoder_stack_v3": {
         "previous_layer_weights": ("decoder_stack.cu", "layer_weights<T>(p, l, H, F)",
                                    "layer_weights<T>(p, l > 0 ? l - 1 : 0, H, F)"),
@@ -130,6 +162,25 @@ def layer_readings(dev, seeds, kernel, shape):
               f"{r['slot']:.3e}; out mean abs {r['mean']:.3e}; missed "
               f"{missed[torch.bfloat16]} bf16 and {missed[torch.float32]} f32 of "
               f"{3 * len(cs.LAYER_POS)} checks each", flush=True)
+
+
+def int8_readings(dev, seeds, shape):
+    """Kernel 3's int8 forms: per seed and form the bf16 check's readings,
+    the f32 slot codes that differ, and each dtype's misses."""
+    for seed in seeds:
+        for form in cs.INT8_FORMS:
+            missed, r32 = {}, {}
+            for dt in (torch.float32, torch.bfloat16):
+                misses = []
+                r = cs.check_layer_int8(dev, dt, {}, misses, seed, shape, form)
+                missed[dt] = len({m.split(":")[0] for m in misses})  # one per check
+                r32 = r if dt == torch.float32 else r32
+            n = 2 * len(cs.LAYER_POS) + (form == "int8_cache")
+            print(f"READING seed {seed} {form}: bf16 beyond the cast: out "
+                  f"{r['out']:.3e}, slot {r['slot']:.3e}; out mean abs {r['mean']:.3e}; "
+                  f"f32 slot codes differing {r32['flips']} (the furthest from its tie "
+                  f"{r32['tie_dist']:.2e}); missed {missed[torch.bfloat16]} bf16 and "
+                  f"{missed[torch.float32]} f32 checks of about {n} each", flush=True)
 
 
 def readings(dev, seeds, shape):
@@ -293,6 +344,8 @@ def main(argv=None):
             swin_readings(dev, args.seeds)
         elif args.kernel in LAYER_CHECKS:
             layer_readings(dev, args.seeds, args.kernel, SHAPES[args.shape])
+        elif args.kernel == "decoder_layer_int8":
+            int8_readings(dev, args.seeds, SHAPES[args.shape])
         else:
             readings(dev, args.seeds, SHAPES[args.shape])
             if not args.readings_only:
