@@ -66,10 +66,14 @@ with a non-zero exit and no result line:
 5. Timing in bf16 (printed only): each kernel vs its twin and, where one
    PyTorch call computes the same function, that call; images/s of the
    kernel, fused and plain greedy paths at B=256, in turns, and of beam
-   W=3 at B=256; the window attention per Swin-B stage (SDPA with the
-   float bias and mask as its library call), the decoder-layer step at
+   W=3 at B=256; the window attention per Swin-B stage, with the shift
+   mask and without (bf16: both products on the tensor cores; SDPA with
+   the float bias and mask as its library call), and the registers and
+   local memory of its two bodies at n=144; the decoder-layer step at
    SwinTRN's shape, and SwinTRN greedy images/s at B=32 with the split of
-   its stream time between encode and decode. Kernel 8 beside kernel 3,
+   its stream time between encode and decode (each timed kernel-path and
+   fused call, and each split encode, must show 24 window-attention
+   launches, the plain call none). Kernel 8 beside kernel 3,
    kernel 7 beside three kernel-3 launches and one kernel-6 launch, and
    the v1 and v3 greedy paths' images/s in turns with the others. Kernel
    3's int8 forms beside it, and greedy images/s with ``--kv_quant int8``
@@ -169,7 +173,7 @@ TOL_STD_F32 = dict(atol=1e-6, rtol=0)  # one FMA per element
 # (PERF.md, Findings).
 BF16_RTOL = 2.0 ** -8
 BF16_ATOL = {"standardize": 1e-6, "mbconv": 1.5e-3, "decoder_layer": 2e-3,
-             "fused_greedy_step": 1.5e-2, "swin_attention": 1e-3,
+             "fused_greedy_step": 1.5e-2, "swin_attention": 6e-3,
              "fused_greedy_step_swin": 2e-2, "decoder_layer_v1": 2e-3,
              "decoder_stack_v3": 2e-2, "decoder_layer_int8": 2e-3,
              "decoder_layer_int8_cache": 2e-3}
@@ -183,8 +187,15 @@ BF16_ATOL = {"standardize": 1e-6, "mbconv": 1.5e-3, "decoder_layer": 2e-3,
 # Kernel 7's out, written in its type, is held the same way for the same
 # reason; its mean also holds the final cast's rounding (~1.1e-3), and one
 # pair of gates serves both decoder shapes.
+# Kernel 5's bf16 scores come from tensor cores, in another summation order
+# than the twin's, so a probability near a bf16 rounding boundary may round
+# the other way: a flip moves an output by up to ulp(p) |v|, and the sound
+# kernel reads up to 3.5e-3 beyond the cast over seeds 0-4 (atol 6e-3).
+# Normalising after the value product moves every output a little: its
+# largest excess (4.4e-3 - 5.5e-3) overlaps the flips, its mean (5.4e-4)
+# does not (sound: 3.07e-4, the final cast's rounding).
 BF16_MEAN_ATOL = {"fused_greedy_step": 5e-4, "fused_greedy_step_swin": 1.2e-3,
-                  "decoder_stack_v3": 2e-3}
+                  "decoder_stack_v3": 2e-3, "swin_attention": 4e-4}
 TOL_LOGITS_F32 = 1e-3  # e2e logits, f32, 28 blocks + 3 x 231 layer steps
 # kernel 3's int8 slot, f32: its scales (max |x| / 127 of values that differ
 # from the twin's in summation order only) within 1e-5 relative; a code may
@@ -443,7 +454,7 @@ def check_swin_attention(dev, dtype, errors, misses, seed):
                 worst = max(worst, compare(tag, got, want, TOL_F32, misses))
             else:
                 excess, mean = compare_bf16(tag, got, want, BF16_ATOL["swin_attention"],
-                                            misses)
+                                            misses, BF16_MEAN_ATOL["swin_attention"])
                 readings = {"excess": max(readings["excess"], excess),
                             "mean": max(readings["mean"], mean)}
         del qkv, bias, mask, got, want
@@ -1327,17 +1338,25 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def e2e(label, fn, batch, card, what):
+def e2e(label, fn, batch, card, what, launches=None):
     """One timed call of ``fn`` after a short warm-up; host clock around
-    work that ends in a synchronize."""
+    work that ends in a synchronize. ``launches``: {kernel: count} that
+    the timed call must show in the launch counters."""
+    from p4fr_tpu_torch.ops import _build
+
     fn(4)  # warm
     torch.cuda.synchronize()
+    _build.reset_launches()
     t0 = time.perf_counter()
     fn(STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     print(f"  e2e {label} path: {what} B={batch} {STEPS} steps: {dt:.4f} s, "
           f"{batch / dt:.2f} images/s ({card})")
+    for name, want in (launches or {}).items():
+        if _build.LAUNCHES[name] != want:
+            raise AssertionError(f"the timed {label} call launched {name} "
+                                 f"{_build.LAUNCHES[name]} times, expected {want}")
 
 
 def timing(ckpt, dev, card):
@@ -1586,16 +1605,23 @@ def swin_timing(ckpt, dev, card, times):
     from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder, greedy_decode
     from p4fr_tpu_torch.decoding.manager import RuleTables
     from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
     from p4fr_tpu_torch.ops.decoder_layer import decoder_layer_step, layer_step_ref
     from p4fr_tpu_torch.ops.swin_attention import (
         fused_window_attention,
         fused_window_attention_ref,
+        kernel_attrs,
     )
     from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
     bf = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator().manual_seed(SEED + 7)
+    n = SWIN_WINDOW * SWIN_WINDOW
+    for dt, body in ((bf, "tensor-core"), (torch.float32, "CUDA-core")):
+        regs, local = kernel_attrs(n, dt)
+        print(f"  swin_attention {str(dt)[6:]} ({body} body, n={n}): {regs} registers, "
+              f"{local} bytes of local memory a thread")
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
     for stage in SWIN_STAGES:
         _, blocks, shifted, _, c, heads = stage
@@ -1657,12 +1683,16 @@ def swin_timing(ckpt, dev, card, times):
     images = torch.randint(0, 256, (SWIN_BATCH, SWIN_SIZE, SWIN_SIZE, 3), generator=gen,
                            dtype=torch.uint8).to(dev)
     paths = {"kernel": {}, "fused": dict(kernel="fused"), "plain": dict(plain=True)}
+    blocks = sum(st[1] for st in SWIN_STAGES)
     for label in ("kernel", "fused", "plain", "kernel", "fused", "plain"):
+        # the bf16 encode runs kernel 5's tensor-core body once per block
         e2e(label, lambda n: decode_images(model, fast, images, tables, n, **paths[label]),
-            SWIN_BATCH, card, "SwinTRN greedy, manager on,")
+            SWIN_BATCH, card, "SwinTRN greedy, manager on,",
+            {"swin_attention": 0 if label == "plain" else blocks})
     for _ in range(2):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         torch.cuda.synchronize()
+        _build.reset_launches()
         ev[0].record()
         memory = encode_images(model, images)
         ev[1].record()
@@ -1672,6 +1702,9 @@ def swin_timing(ckpt, dev, card, times):
         print(f"  SwinTRN kernel path B={SWIN_BATCH} stream time: encode "
               f"{ev[0].elapsed_time(ev[1]):.3f} ms, decode {STEPS} steps "
               f"{ev[1].elapsed_time(ev[2]):.3f} ms ({card})")
+        check_launches(dict(_build.LAUNCHES), {
+            "standardize": 1, "swin_attention": blocks,
+            "decoder_layer": len(fast.layers) * STEPS}, at_least=())
 
 
 def main():

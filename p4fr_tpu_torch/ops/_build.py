@@ -83,6 +83,9 @@ _SIGNATURES = {
     # (qkv, bias f32, mask f32|null, out, N, n, C, heads, nW, scale, bf16,
     #  stream)
     "p4fr_window_attention": [P] * 4 + [I] * 5 + [F, I, P],
+    # (n, bf16, regs i32 out, local bytes i32 out): the compiled instance's
+    # registers and local memory a thread
+    "p4fr_window_attention_attrs": [I, I, P, P],
 }
 
 

@@ -14,7 +14,8 @@ softmax are f32; in a 16-bit type the probabilities are rounded to it
 before the value product and the output after it.
 
 ``fused_window_attention`` launches ``csrc/swin_attention.cu`` for a CUDA
-tensor and runs ``fused_window_attention_ref`` for a CPU tensor.
+tensor (bf16: both products on the tensor cores; f32: on the CUDA cores)
+and runs ``fused_window_attention_ref`` for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -62,8 +63,9 @@ def fused_window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     CUDA tensor: one launch of ``csrc/swin_attention.cu`` (replaces the TPU
     kernel ``ops/pallas/swin_attention.py::fused_window_attention``), one
     CTA per (window, head) with the head's q, k and v in shared memory and
-    the scores in registers; ``bias`` and ``mask`` are taken in f32. CPU
-    tensor: ``fused_window_attention_ref``.
+    the scores in registers; bf16 computes both products with ``mma.sync``
+    on the tensor cores, f32 on the CUDA cores; ``bias`` and ``mask`` are
+    taken in f32. CPU tensor: ``fused_window_attention_ref``.
     """
     if qkv.device.type == "cpu":
         return fused_window_attention_ref(qkv, bias, mask, heads=heads, scale=scale)
@@ -101,3 +103,16 @@ def fused_window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     _build.check(code, "fused_window_attention")
     _build.LAUNCHES["swin_attention"] += 1
     return out
+
+
+def kernel_attrs(n: int, dtype: torch.dtype) -> tuple:
+    """(registers, local-memory bytes) a thread of the compiled kernel that
+    takes ``n`` tokens a window in ``dtype``; local bytes above 0 are
+    spills. Needs the CUDA library."""
+    import ctypes
+
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    _build.check(_build.library().p4fr_window_attention_attrs(
+        n, int(dtype == torch.bfloat16), ctypes.byref(regs), ctypes.byref(local)),
+        "fused_window_attention attributes")
+    return regs.value, local.value

@@ -11,7 +11,9 @@ Shapes are small and ragged (partial tiles); chip_smoke.py checks the main
 path's shapes. Tolerances: f32 with TF32 off 1e-4 (summation order). bf16
 against the twin computed in f32 on the same bf16 operands, rounding where
 the kernel rounds, element by element: |kernel - twin| <= atol + 2^-8
-|twin|, 2^-8 being the final cast's rounding and atol chip_smoke.py's."""
+|twin|, 2^-8 being the final cast's rounding and atol chip_smoke.py's
+(kernel 5 keeps 1e-3 here: at these small shapes its tensor-core scores
+flip no probability far enough to need chip_smoke.py's 6e-3)."""
 
 import pytest
 import torch
@@ -436,21 +438,25 @@ def test_v1_and_v3_refuse_what_their_kernels_do_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_win,window,heads,shifted", [
-    (6, 4, 2, False),     # one partial 32-position chunk
-    (12, 4, 2, True),     # shift mask [4, 16, 16], 3 images: window % nW
-    (4, 7, 3, True),      # 49 tokens: a full chunk and a ragged one
-    (3, 12, 4, False),    # the Swin-B window: 144 tokens, 5 chunks
+@pytest.mark.parametrize("n_win,n,heads,shifted", [
+    (6, 16, 2, False),    # one 16-row tile (f32: one partial 32-position chunk)
+    (12, 16, 2, True),    # shift mask [4, 16, 16], 3 images: window % nW
+    (4, 49, 3, True),     # window 7: 64 padded rows and keys, odd n
+    (3, 144, 4, False),   # the Swin-B window: 9 tiles (f32: 5 chunks)
+    (8, 25, 2, True),     # window 5: 2 tiles, 7 padded rows and keys, odd n
+    (2, 160, 2, False),   # the wrapper's largest n, not a square window
+    (2, 144, 32, False),  # stage 3's width: C = 1024, 32 heads
 ])
-def test_swin_attention_kernel(cuda, dtype, n_win, window, heads, shifted):
+def test_swin_attention_kernel(cuda, dtype, n_win, n, heads, shifted):
     from p4fr_tpu_torch.models.swin import shift_attn_mask
 
     gen = torch.Generator().manual_seed(0)
-    n, c = window * window, 32 * heads
+    c = 32 * heads
     qkv = torch.randn(n_win, n, 3 * c, generator=gen).to(cuda, dtype)
     bias = torch.randn(heads, n, n, generator=gen).to(cuda)
     mask = None
     if shifted:
+        window = int(n ** 0.5)
         side = 2 * window
         mask = torch.from_numpy(shift_attn_mask(side, side, window, window // 2)).to(cuda)
     scale = 32 ** -0.5

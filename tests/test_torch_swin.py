@@ -6,8 +6,9 @@ attention in interpret mode). Inputs come from numpy seeds. Held:
 
 - ``fused_window_attention_ref`` against JAX's ``fused_window_attention``
   (interpret), without a mask, with a shift mask over N = 3 nW windows (the
-  ``window % nW`` rows), and at the real geometry (144 tokens, heads of
-  32): atol 1e-5 (f32 summation order);
+  ``window % nW`` rows), at the real geometry (144 tokens, heads of 32),
+  and at 49 tokens with a shift mask (a ragged shape for the card's 16-row
+  tiles): atol 1e-5 (f32 summation order);
 - the static helpers equal JAX's exactly;
 - a tiny SwinTRN (32x32 input, patch 4, embed 16, depths (2, 2), heads
   (2, 4), window 4; a 2-layer decoder of 128 wide with heads of 64) takes
@@ -84,6 +85,7 @@ def window_inputs(seed, n_win, n, c, heads, mask_windows=0):
     (6, 4, 64, 4, 0),      # no mask
     (12, 4, 32, 2, 4),     # shift mask, N = 3 nW: window % nW picks the row
     (2, 12, 128, 4, 0),    # Swin-B geometry: 144 tokens, heads of 32
+    (8, 7, 64, 2, 4),      # window 7: 49 tokens (ragged 16-row tiles), shift mask
 ])
 def test_window_attention_ref_matches_jax(n_win, window, c, heads, mask_windows):
     n = window * window

@@ -14,7 +14,11 @@ flagship's. With ``--kernel swin_attention`` (kernel 5) part 1 runs
 ``chip_smoke.check_swin_attention`` (each Swin-B stage at B=32, shift mask
 on and off, 8 checks) and prints per seed the bf16 check's largest excess
 over the cast and largest mean abs error; part 2 is kernel 6's only; part
-3 plants ``FAULTS["swin_attention"]`` in ``csrc/swin_attention.cu``. With
+3 plants ``FAULTS["swin_attention"]`` in ``csrc/swin_attention.cu``, and
+its ``PROBES`` (the bias and mask never read; ``expf`` and the IEEE
+division in place of ``ex2.approx`` and the reciprocal); part 1 also prints
+kernel 5's bf16 time over one B=32 encode, for the sound kernel and each
+copy. With
 ``--kernel decoder_layer_v1`` (kernel 8) or ``decoder_stack_v3`` (kernel 7)
 part 1 runs ``chip_smoke.check_layer_v1`` or ``check_stack_v3`` at the
 ``--shape`` (pos 0, 115 and 230, 6 checks) and prints per seed the bf16
@@ -48,11 +52,12 @@ quantized).
      rounding where the kernel rounds, then neither rounding; and how
      many values of each layer's rounded output the two round to
      different bf16 values.
-3. ``--faults``: each fault of the kernel's ``FAULTS`` planted in a copy
-   of the checkout under ``build/tolerance_study/<name>`` (one text
-   replacement in a file of ``csrc/``), each copy run through part 1 in
-   its own process, all at once; their READING lines are printed at the
-   end.
+3. ``--faults``: each fault of the kernel's ``FAULTS`` (and each of its
+   ``PROBES``) planted in a copy of the checkout under
+   ``build/tolerance_study/<name>`` (text replacements in a file of
+   ``csrc/``); the copies are built at once, then each is run through part
+   1 in its own process, one at a time; their READING (and TIME) lines are
+   printed at the end.
 """
 
 import argparse
@@ -66,7 +71,9 @@ import torch
 import chip_smoke as cs
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FAULTS = {  # kernel: {name: (its file in csrc/, text, its replacement)}
+# kernel: {name: (its file in csrc/, text, its replacement[, text, its
+# replacement ...])}
+FAULTS = {
     "fused_greedy_step": {
         "layer0_ff1": ("decoder_common.cuh",
                        "at(p.w_ff1, static_cast<long long>(l) * F * H)", "at(p.w_ff1, 0)"),
@@ -79,14 +86,26 @@ FAULTS = {  # kernel: {name: (its file in csrc/, text, its replacement)}
         "limit_gt": ("fused_decode.cu", "static_cast<float>(run) >= limit",
                      "static_cast<float>(run) > limit"),
     },
+    # the bf16 (tensor-core) body; the f32 body stays as it was
     "swin_attention": {
-        "mask_next_row": ("swin_attention.cu", "(w % nW) * n * n", "((w + 1) % nW) * n * n"),
-        "no_prob_round": ("swin_attention.cu", "s[c] = round_t<T>(s[c] / sum);",
-                          "s[c] = s[c] / sum;"),
-        "scale_after_bias": ("swin_attention.cu", "__fmul_rn(dot, scale) + brow[j]",
-                             "__fmul_rn(dot + brow[j], scale)"),
-        "last_key_dropped": ("swin_attention.cu", "if (c < nc && j < n) {",
-                             "if (c < nc && j < n - 1) {"),
+        "mask_next_row": ("swin_attention.cu", "static_cast<long long>(w % nW) * n * n : nullptr",
+                          "static_cast<long long>((w + 1) % nW) * n * n : nullptr"),
+        # the probabilities rounded before they are normalised, and the
+        # output divided by the sum after the value product (FlashAttention's
+        # order): three edits
+        "normalised_after_pv": (
+            "swin_attention.cu",
+            "      sc[j][0] *= inv_lo, sc[j][1] *= inv_lo;\n"
+            "      sc[j][2] *= inv_hi, sc[j][3] *= inv_hi;\n", "",
+            "pack_bf16(o[j][0], o[j][1]);", "pack_bf16(o[j][0] * inv_lo, o[j][1] * inv_lo);",
+            "pack_bf16(o[j][2], o[j][3]);", "pack_bf16(o[j][2] * inv_hi, o[j][3] * inv_hi);"),
+        "scale_after_bias": ("swin_attention.cu", "return (__fmul_rn(dot, scale) + b) + m;",
+                             "return __fmul_rn(dot + b, scale) + m;"),
+        "last_key_dropped": ("swin_attention.cu", "const int kend = n;",
+                             "const int kend = n - 1;"),
+        # the accumulator layout: row r's bias read for row r + 8
+        "bias_row_r_for_r8": ("swin_attention.cu", "const float* b_hi = b_lo + 8 * n;",
+                              "const float* b_hi = b_lo;"),
     },
     "decoder_layer_v1": {
         # the ban off by one: slots >= pos banned, the current one too
@@ -129,7 +148,50 @@ FAULTS = {  # kernel: {name: (its file in csrc/, text, its replacement)}
                      "s.A[i] = s.Dd[i];"),
     },
 }
+# planted like the faults, but read for their time: what a part of the
+# kernel costs (kernel: {name: (file in csrc/, text, replacement, ...)})
+PROBES = {
+    "swin_attention": {
+        # bias and mask never read (wrong output): the time of everything else
+        "no_tables": (
+            "swin_attention.cu",
+            "    if (pair)\n      stage_tile<NT, true>(frag, rows, bias, lo, n, kend, t4);\n"
+            "    else\n      stage_tile<NT, false>(frag, rows, bias, lo, n, kend, t4);\n", "",
+            "      const float2 b0 = frag[(4 * j + 0) * 32], b1 = frag[(4 * j + 1) * 32];\n"
+            "      const float2 m0 = m_lo != nullptr ? frag[(4 * j + 2) * 32] : zero;\n"
+            "      const float2 m1 = m_lo != nullptr ? frag[(4 * j + 3) * 32] : zero;\n",
+            "      const float2 b0 = zero, b1 = zero, m0 = zero, m1 = zero;\n"),
+        # expf(x - max) and the IEEE division by the sum (the twin's own
+        # arithmetic) in place of ex2.approx and the reciprocal
+        "expf_division": (
+            "swin_attention.cu",
+            '  float y;\n  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : '
+            '"f"(fmaf(x, LOG2E, -mx2)));\n  return y;\n', "  return expf(x - mx2);\n",
+            "const float mx2_lo = mx_lo * LOG2E, mx2_hi = mx_hi * LOG2E;",
+            "const float mx2_lo = mx_lo, mx2_hi = mx_hi;",
+            "      sc[j][0] *= inv_lo, sc[j][1] *= inv_lo;\n"
+            "      sc[j][2] *= inv_hi, sc[j][3] *= inv_hi;\n",
+            "      sc[j][0] /= sum_lo, sc[j][1] /= sum_lo;\n"
+            "      sc[j][2] /= sum_hi, sc[j][3] /= sum_hi;\n"),
+    },
+}
 N_CHECKS = 3 * 2 * len(cs.GATHER_POS)  # logits, slot, picks x manager x pos
+
+
+def swin_encode_ms(dev):
+    """Kernel 5, bf16: its 24 launches of one B=32 encode (chip_smoke's
+    stage inputs, each launch timed alone), summed."""
+    from p4fr_tpu_torch.ops.swin_attention import fused_window_attention
+
+    gen = torch.Generator().manual_seed(cs.SEED + 7)
+    total = 0.0
+    for stage in cs.SWIN_STAGES:
+        _, blocks, shifted, _, c, heads = stage
+        qkv, bias, mask = cs.swin_stage_inputs(torch.bfloat16, gen, dev, stage)
+        for m, count in ((mask, shifted), (None, blocks - shifted)):
+            total += count * cs.cuda_ms(lambda: fused_window_attention(
+                qkv, bias, m, heads=heads, scale=(c // heads) ** -0.5), iters=10)
+    return total
 
 
 def swin_readings(dev, seeds):
@@ -143,6 +205,8 @@ def swin_readings(dev, seeds):
               f"{r['mean']:.3e}; missed {missed[torch.bfloat16]} bf16 and "
               f"{missed[torch.float32]} f32 of {2 * len(cs.SWIN_STAGES)} checks each",
               flush=True)
+    print(f"TIME kernel 5, bf16, 24 launches of one B={cs.SWIN_BATCH} encode: "
+          f"{swin_encode_ms(dev):.4f} ms", flush=True)
 
 
 SHAPES = {"satrn": cs.SATRN_DECODER, "swin": cs.SWIN_DECODER}
@@ -292,36 +356,45 @@ def cause(dev, seed, pos=115):
 
 
 def plant_and_run(seeds, kernel, shape):
-    """Each fault in its own copy, all copies at once; their READING lines."""
-    procs = []
-    for name, (source, old, new) in FAULTS[kernel].items():
-        dst = os.path.join(ROOT, "build", "tolerance_study", name)
-        shutil.rmtree(dst, ignore_errors=True)
-        shutil.copytree(os.path.join(ROOT, "p4fr_tpu_torch"),
-                        os.path.join(dst, "p4fr_tpu_torch"),
-                        ignore=shutil.ignore_patterns("__pycache__"))
-        for f in ("chip_smoke.py", "tolerance_study.py"):
-            shutil.copy(os.path.join(ROOT, f), dst)
-        src = os.path.join(dst, "p4fr_tpu_torch", "csrc", source)
-        with open(src) as f:
-            text = f.read()
-        if old not in text:
-            raise RuntimeError(f"fault {name}: {old!r} is not in {source}")
-        with open(src, "w") as f:
-            f.write(text.replace(old, new))
-        out = open(os.path.join(dst, "out.txt"), "w")
-        procs.append((name, out, subprocess.Popen(
-            [sys.executable, "tolerance_study.py", "--readings_only", "--kernel",
-             kernel, "--shape", shape, "--seeds", *map(str, seeds)], cwd=dst, stdout=out, stderr=subprocess.STDOUT,
-            env=dict(os.environ, PYTHONPATH=dst))))
-    for name, out, proc in procs:
+    """Each fault and probe in its own copy: all copies built at once, then
+    run one at a time, so that each time is read alone on the card; their
+    READING and TIME lines."""
+    copies = []
+    for kind, table in (("fault", FAULTS), ("probe", PROBES)):
+        for name, (source, *edits) in table.get(kernel, {}).items():
+            dst = os.path.join(ROOT, "build", "tolerance_study", name)
+            shutil.rmtree(dst, ignore_errors=True)
+            shutil.copytree(os.path.join(ROOT, "p4fr_tpu_torch"),
+                            os.path.join(dst, "p4fr_tpu_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            for f in ("chip_smoke.py", "tolerance_study.py"):
+                shutil.copy(os.path.join(ROOT, f), dst)
+            src = os.path.join(dst, "p4fr_tpu_torch", "csrc", source)
+            with open(src) as f:
+                text = f.read()
+            for old, new in zip(edits[::2], edits[1::2]):
+                if old not in text:
+                    raise RuntimeError(f"{kind} {name}: {old!r} is not in {source}")
+                text = text.replace(old, new)
+            with open(src, "w") as f:
+                f.write(text)
+            copies.append((kind, name, dst))
+    env = {dst: dict(os.environ, PYTHONPATH=dst) for _, _, dst in copies}
+    builds = [subprocess.Popen([sys.executable, "-c", "from p4fr_tpu_torch.ops import _build; "
+                                "_build.library()"], cwd=dst, env=env[dst],
+                               stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+              for _, _, dst in copies]
+    for proc in builds:
         proc.wait()
-        out.close()
-        print(f"[fault {name}: exit {proc.returncode}]")
-        with open(out.name) as f:
-            for text in f:
-                if text.startswith(("READING", "Traceback", "RuntimeError")):
-                    print(f"  {text.rstrip()}")
+    for kind, name, dst in copies:
+        res = subprocess.run(
+            [sys.executable, "tolerance_study.py", "--readings_only", "--kernel", kernel,
+             "--shape", shape, "--seeds", *map(str, seeds)], cwd=dst, env=env[dst],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        print(f"[{kind} {name}: exit {res.returncode}]")
+        for text in res.stdout.splitlines():
+            if text.startswith(("READING", "TIME", "Traceback", "RuntimeError")):
+                print(f"  {text}", flush=True)
 
 
 def main(argv=None):
