@@ -16,7 +16,13 @@ with a non-zero exit and no result line:
    allowed logits are further apart than the tolerance. The window
    attention runs at each Swin-B stage's shape at B=32, with and without
    the shift mask; the decoder-layer and fused steps also at SwinTRN's
-   decoder shape (hidden 512, heads of 64, 4 layers, 144 source tokens).
+   decoder shape (hidden 512, heads of 64, 4 layers, 144 source tokens),
+   and the decoder-layer step (kernel 3, a thread-block cluster of C CTAs
+   per 4 rows) also at beam's 768 rows: one shape per cluster size that a
+   main path takes. Before the checks, each shape's cluster size, the
+   card's resident clusters of each size (``cudaOccupancyMaxActiveClusters``)
+   and each kernel-3 instance's registers and local memory are printed;
+   SwinTRN's B=32 and the flagship's B=256 must launch clusters (C > 1).
    The v1 layer step (kernel 8) and the one-launch decoder stack (kernel
    7) at both decoder shapes, pos 0, 115 and 230, random values in every
    cache slot: out and slot ``pos`` within tolerance, the other slots
@@ -70,10 +76,10 @@ with a non-zero exit and no result line:
    mask and without (bf16: both products on the tensor cores; SDPA with
    the float bias and mask as its library call), and the registers and
    local memory of its two bodies at n=144; the decoder-layer step at
-   SwinTRN's shape, and SwinTRN greedy images/s at B=32 with the split of
-   its stream time between encode and decode (each timed kernel-path and
-   fused call, and each split encode, must show 24 window-attention
-   launches, the plain call none). Kernel 8 beside kernel 3,
+   SwinTRN's shape and at beam's 768 rows, and SwinTRN greedy images/s at
+   B=32 with the split of its stream time between encode and decode (each
+   timed kernel-path and fused call, and each split encode, must show 24
+   window-attention launches, the plain call none). Kernel 8 beside kernel 3,
    kernel 7 beside three kernel-3 launches and one kernel-6 launch, and
    the v1 and v3 greedy paths' images/s in turns with the others. Kernel
    3's int8 forms beside it, and greedy images/s with ``--kv_quant int8``
@@ -152,6 +158,8 @@ SATRN_DECODER = dict(b=KERNEL_BATCH, hidden=256, heads=8, filter_dim=1024,
                      layers=3, s_len=128, fused_gate="fused_greedy_step")
 SWIN_DECODER = dict(b=SWIN_BATCH, hidden=512, heads=8, filter_dim=512,
                     layers=4, s_len=144, fused_gate="fused_greedy_step_swin")
+# kernel 3 at beam's rows (B=256 x W=3): the flagship's decoder
+BEAM_DECODER = dict(SATRN_DECODER, b=E2E_TIME_BATCH * BEAM_WIDTH)
 
 # stride-1 MBConv shapes of the main path at B=256:
 # (name, H, W, Cin, Cout, expand, blocks on the path)
@@ -331,11 +339,6 @@ def check_kernels(dev, dtype, errors, seed=SEED):
     f32 twin (``errors`` gets each kernel's max abs error). bf16: against
     the twin in f32 on the same bf16 operands (``compare_bf16``). Raises
     after printing every check if any missed."""
-    from p4fr_tpu_torch.ops.decoder_layer import (
-        LayerWeights,
-        decoder_layer_step,
-        layer_step_ref,
-    )
     from p4fr_tpu_torch.ops.mbconv import fold_mbconv_params, fused_mbconv, mbconv_block_ref
     from p4fr_tpu_torch.ops.preprocess import standardize, standardize_ref
 
@@ -375,27 +378,8 @@ def check_kernels(dev, dtype, errors, seed=SEED):
               got, mbconv_block_ref(x, folded, res, out_dtype=torch.float32))
         del x, got
 
-    for shape in (SATRN_DECODER, SWIN_DECODER):
-        for pos in (0, 1, 115, 230):
-            x, cache, src, weights = decoder_inputs(
-                dtype, gen, dev, pos, b=shape["b"], hidden=shape["hidden"],
-                s_len=shape["s_len"], filter_dim=shape["filter_dim"])
-            # the twin in f32 on the same operands, the current k|v rounded
-            # through the cache type as the kernel stores it
-            cache_ref = cache.to(torch.float32, copy=True)
-            out_ref, _ = layer_step_ref(
-                x.float(), pos, cache_ref, src.float(),
-                LayerWeights(*(t.float() for t in weights)), head_num=shape["heads"],
-                cache_outputs=True, kv_dtype=dtype)
-            out, _ = decoder_layer_step(x, pos, cache, src, weights,
-                                        head_num=shape["heads"], cache_outputs=True)
-            torch.cuda.synchronize()
-            tag = (f"B={shape['b']} H={shape['hidden']}/{shape['heads']} heads "
-                   f"pos={pos}")
-            check("decoder_layer", f"decoder_layer out {tag}", out, out_ref)
-            check("decoder_layer", f"decoder_layer cache {tag}", cache, cache_ref)
-        del x, cache, src, cache_ref
-
+    for shape in (SATRN_DECODER, SWIN_DECODER, BEAM_DECODER):
+        check_layer(dev, dtype, errors, misses, seed, shape)
     check_beam_gather(dev, dtype, errors, misses, seed)
     for shape in (SATRN_DECODER, SWIN_DECODER):
         check_fused_step(dev, dtype, errors, misses, seed, shape)
@@ -407,6 +391,33 @@ def check_kernels(dev, dtype, errors, seed=SEED):
             check_layer_int8(dev, dtype, errors, misses, seed, shape, form)
     if misses:
         raise AssertionError("kernels disagree with their twins: " + "; ".join(misses))
+
+
+def cluster_report(dev):
+    """Kernel 3's cluster size at each main-path shape, per operand form and
+    type, with the card's resident clusters of every size and each
+    instance's registers and local memory a thread; raises unless
+    SwinTRN's B=32 and the flagship's B=256 launch clusters."""
+    from p4fr_tpu_torch.ops.decoder_layer import FORMS, cluster_query, step_cluster
+
+    print("[kernel 3: cluster size per shape (C CTAs a group of 4 rows), resident "
+          "clusters of C = 1/2/4/8/16, registers and local bytes a thread]")
+    for label, shape in (("SwinTRN", SWIN_DECODER), ("flagship", SATRN_DECODER),
+                         ("beam rows", BEAM_DECODER)):
+        hid, heads, ff = shape["hidden"], shape["heads"], shape["filter_dim"]
+        for entry, form in FORMS.items():
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.empty(shape["b"], hid, device=dev, dtype=dt)
+                c = step_cluster(entry, x, heads, ff)
+                per_c = {k: cluster_query(form, dt == torch.bfloat16, hid // heads, hid, ff,
+                                          k) for k in (1, 2, 4, 8, 16)}
+                print(f"  {label} B={shape['b']} H={hid} F={ff} {entry} {str(dt)[6:]}: "
+                      f"C={c}; resident clusters {[q[0] for q in per_c.values()]}; the "
+                      f"launched instance {per_c[c][1]} registers, {per_c[c][2]} bytes of "
+                      "local memory a thread")
+                if label != "beam rows" and c == 1:
+                    raise AssertionError(f"kernel 3 at {label} B={shape['b']} launches "
+                                         "no cluster")
 
 
 def swin_stage_inputs(dtype, gen, dev, stage, b=SWIN_BATCH):
@@ -643,6 +654,64 @@ def check_fused_step(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
                 misses.append(f"fused_greedy_step picks/state/slots {tag}")
     if f32:
         errors["fused_greedy_step"] = max(errors.get("fused_greedy_step", 0.0), worst)
+    return readings
+
+
+def check_layer(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
+    """Kernel 3 vs its plain version (``layer_step_ref`` on the same
+    operands, in f32, the current k|v rounded through the cache type as the
+    kernel stores it) at a decoder ``shape`` (the flagship's B=256, beam's
+    768 rows, SwinTRN's B=32 with heads of 64: the cluster sizes the main
+    paths take), slots before ``pos`` random and the rest zero, pos 0, 1,
+    115 and 230, ``cache_outputs`` on: out and slot ``pos`` within
+    tolerance, the other slots untouched. bf16 returns the largest
+    readings: the out's and the slot's excess over the cast and the out's
+    mean abs error (``compare_bf16``)."""
+    from p4fr_tpu_torch.ops.decoder_layer import (
+        LayerWeights,
+        decoder_layer_step,
+        layer_step_ref,
+    )
+
+    f32 = dtype == torch.float32
+    gen = torch.Generator().manual_seed(seed + 30)
+    worst = 0.0
+    readings = {"out": 0.0, "slot": 0.0, "mean": 0.0}
+    for pos in GATHER_POS:
+        x, cache, src, weights = decoder_inputs(
+            dtype, gen, dev, pos, b=shape["b"], hidden=shape["hidden"],
+            s_len=shape["s_len"], filter_dim=shape["filter_dim"])
+        base = cache.clone()
+        cache_ref = cache.to(torch.float32, copy=True)
+        out_ref, _ = layer_step_ref(
+            x.float(), pos, cache_ref, src.float(),
+            LayerWeights(*(t.float() for t in weights)), head_num=shape["heads"],
+            cache_outputs=True, kv_dtype=dtype)
+        out, _ = decoder_layer_step(x, pos, cache, src, weights,
+                                    head_num=shape["heads"], cache_outputs=True)
+        torch.cuda.synchronize()
+        tag = f"B={shape['b']} H={shape['hidden']}/{shape['heads']} heads pos={pos}"
+        if f32:
+            worst = max(worst,
+                        compare(f"decoder_layer out {tag}", out, out_ref, TOL_F32, misses),
+                        compare(f"decoder_layer slot pos {tag}", cache[:, pos],
+                                cache_ref[:, pos], TOL_F32, misses))
+        else:
+            atol = BF16_ATOL["decoder_layer"]
+            ex_o, mean = compare_bf16(f"decoder_layer out {tag}", out, out_ref, atol,
+                                      misses)
+            ex_s, _ = compare_bf16(f"decoder_layer slot pos {tag}", cache[:, pos],
+                                   cache_ref[:, pos], atol, misses)
+            readings = {k: max(readings[k], r) for k, r in
+                        (("out", ex_o), ("slot", ex_s), ("mean", mean))}
+        others = torch.arange(STEPS, device=dev) != pos
+        untouched = torch.equal(cache[:, others], base[:, others])
+        print(f"  decoder_layer {tag}: other slots untouched {untouched}")
+        if not untouched:
+            misses.append(f"decoder_layer other slots {tag}")
+        del x, src, base, cache, cache_ref
+    if f32:
+        errors["decoder_layer"] = max(errors.get("decoder_layer", 0.0), worst)
     return readings
 
 
@@ -1446,6 +1515,19 @@ def timing(ckpt, dev, card):
            cuda_ms(lambda: layer_step_ref(x, pos, cache, src, weights, head_num=8,
                                           cache_outputs=True), iters=50),
            None, layer_bytes, layer_ops, BF16_TENSOR_OPS_PER_S)
+    # kernel 3 at beam's 768 rows (the beam path's step), bytes as above
+    xb, cacheb, srcb, weightsb = decoder_inputs(bf, gen, dev, pos, b=BEAM_DECODER["b"])
+    kb = cuda_ms(lambda: decoder_layer_step(xb, pos, cacheb, srcb, weightsb, head_num=8,
+                                            cache_outputs=True), iters=50)
+    pb = cuda_ms(lambda: layer_step_ref(xb, pos, cacheb, srcb, weightsb, head_num=8,
+                                        cache_outputs=True), iters=20)
+    bb, byb = bound(2 * nbytes(xb) + nbytes(cacheb[:, :pos + 1]) + nbytes(cacheb[:, pos])
+                    + nbytes(srcb) + nbytes(*weightsb[:18]),
+                    layer_ops * xb.shape[0] // b, BF16_TENSOR_OPS_PER_S)
+    print(f"  decoder_layer beam rows B={xb.shape[0]} pos={pos} L={STEPS} S={s_len} per "
+          f"layer step: kernel {kb:.4f} ms, plain {pb:.4f} ms, bound {bb:.4f} ms by "
+          f"{byb} ({card})")
+    del xb, cacheb, srcb, weightsb
     print(f"  decoder_layer_v1 B={b} pos={pos}: {times['decoder_layer_v1']['ms']:.4f} ms "
           f"beside kernel 3's {times['decoder_layer']['ms']:.4f} ms in this call ({card})")
     # kernel 3's int8 forms on the same x and weights: int8 src K|V (and the
@@ -1729,6 +1811,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     errors = {}
     with torch.no_grad():
+        cluster_report(dev)
         check_kernels(dev, torch.float32, errors)
         check_kernels(dev, torch.bfloat16, {})
         ckpt = build_checkpoint(dev)

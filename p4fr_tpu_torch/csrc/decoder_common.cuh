@@ -1,9 +1,11 @@
 // One transformer-decoder layer's autoregressive step for TB batch rows,
-// shared by csrc/decoder_layer.cu (kernel 3: one layer per launch,
-// batch-major cache), csrc/decoder_layer_v1.cu (kernel 8: the same with the
-// whole-prefix softmax), csrc/decoder_stack.cu (kernel 7: every layer in one
-// launch, batch-major stacked caches) and csrc/fused_decode.cu (kernel 6:
-// the whole greedy step, time-major caches). Contract: p4fr_tpu/decoding/
+// shared by csrc/decoder_layer_v1.cu (kernel 8: one layer per launch,
+// batch-major cache, the whole-prefix softmax), csrc/decoder_stack.cu
+// (kernel 7: every layer in one launch, batch-major stacked caches) and
+// csrc/fused_decode.cu (kernel 6: the whole greedy step, time-major
+// caches); csrc/decoder_layer.cu (kernel 3) runs the same contract as a
+// cluster (decoder_cluster.cuh), on this file's loads, operand forms and
+// LayerNorm. Contract: p4fr_tpu/decoding/
 // fast_step.py::jnp_layer_step. Per batch row, with hidden H, `heads` heads of D = 32 or
 // 64 (a template parameter; EfficientSATRN's decoder has 32, SwinTRN's 64),
 // FF F:
@@ -14,8 +16,8 @@
 //     LN2(att2 + out1)
 //   FF: ReLU after BOTH linears; LN3(ff + out2); LayerNorm eps 1e-5
 //   slot `pos` := cache_outputs ? out @ w_qkv[:, H:] + b_qkv[H:] : k|v
-// Kernel 3 also takes the TPU kernel's int8 operands (kv_quant, template
-// parameter KvQ; kernels 6-8 keep kNone):
+// Kernel 3 also takes the TPU kernel's int8 operands (kv_quant, KvQ below;
+// kernels 6-8 take none):
 //   kSrc: the cross K|V as int8 codes [B, S, 2H] with f32 scales
 //     src_scale [B, 2, S] (k-scale, v-scale per row and source token);
 //   kSrcCache: that, and the self cache as int8 codes [B, L, 2H] with f32
@@ -86,23 +88,6 @@ __device__ __forceinline__ void load32(const __nv_bfloat16* p, float* v) {
       float2 f = __bfloat1622float2(h[j]);
       v[8 * i + 2 * j] = f.x;
       v[8 * i + 2 * j + 1] = f.y;
-    }
-  }
-}
-
-// 32 contiguous int8 codes (16-byte aligned) -> f32, two 16-byte loads
-__device__ __forceinline__ void load32(const int8_t* p, float* v) {
-  const int4* q = reinterpret_cast<const int4*>(p);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int4 t = q[i];
-    const char4* c = reinterpret_cast<const char4*>(&t);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[16 * i + 4 * j] = c[j].x;
-      v[16 * i + 4 * j + 1] = c[j].y;
-      v[16 * i + 4 * j + 2] = c[j].z;
-      v[16 * i + 4 * j + 3] = c[j].w;
     }
   }
 }
@@ -295,24 +280,18 @@ __device__ void add_ln(const float* a, const float* res, int H,
 //     cache with row = L, or the cross K|V with row = S);
 //   otherwise: b*row + l*slot_stride, `row` being the row stride (a
 //     time-major [L, B, 2H] cache: row 2H, slot_stride B*2H).
-// Kernel 3 (packed) and kernel 6 (strided, for its cross K|V too) each run
+// Kernel 7 (packed) and kernel 6 (strided, for its cross K|V too) each run
 // faster with their own form of this arithmetic (PERF.md, Findings). With
 // `cur`, position n_pos-1 (= pos) is the current token: its key is at
 // cur[r*cur_ld + h*D] and value at cur[r*cur_ld + H + h*D] (shared memory)
 // and it is folded in last. Writes the [TB][H] attention output (before the
-// out-projection). SCALED (kv int8 codes, packed): each position's k-scale
-// and v-scale come from `scl` (KvScales); a lane loads those of the
-// position it scores with its key row, multiplies its score by the
-// k-scale after the division by sqrt(H), and hands its probability times
-// the v-scale to the value loop, while the mass sums the probability.
-template <typename T, bool PACKED_SLOTS, int D, bool SCALED = false>
+// out-projection).
+template <typename T, bool PACKED_SLOTS, int D>
 __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
                        int row, int slot_stride, int b0, int nrows,
                        int n_pos, int H, int heads, float temp,
-                       const float* cur, int cur_ld, float* out,
-                       KvScales scl = {}) {
+                       const float* cur, int cur_ld, float* out) {
   static_assert(D == 32 || D == 64, "heads of 32 or 64");
-  static_assert(!SCALED || PACKED_SLOTS, "int8 K|V are batch-major");
   constexpr int VPL = D / 32;  // value dims per lane
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_mem = cur != nullptr ? n_pos - 1 : n_pos;
@@ -322,8 +301,6 @@ __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
     const float* q = qbuf + r * qld + h * D;
     const T* base = PACKED_SLOTS ? kv + static_cast<long long>(b0 + r) * row * 2 * H
                                  : kv + static_cast<long long>(b0 + r) * row;
-    const float* srow = SCALED ? scl.p + static_cast<long long>(b0 + r) * scl.row
-                               : nullptr;
     // value dims VPL*lane .. of position 0
     const T* vcol = base + H + h * D + VPL * lane;
     float m = -INFINITY, ssum = 0.f, acc[VPL];  // acc: head dims VPL*lane ..
@@ -340,11 +317,6 @@ __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
       for (int c = 0; c < VPL; ++c)
         load32(base + (PACKED_SLOTS ? lc * 2 * H : lc * slot_stride) + h * D + 32 * c,
                kk + 32 * c);
-      float sk = 1.f, sv = 1.f;  // this lane's position's scales
-      if constexpr (SCALED) {
-        sk = srow[lc * scl.pos];
-        sv = srow[lc * scl.pos + scl.v];
-      }
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const long long lj = min(l0 + j, n_mem - 1);
@@ -353,7 +325,7 @@ __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) dot = fmaf(q[d], kk[d], dot);
-      const float sc = l < n_mem ? (SCALED ? dot / temp * sk : dot / temp) : -INFINITY;
+      const float sc = l < n_mem ? dot / temp : -INFINITY;
       float cmax = sc;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -365,12 +337,11 @@ __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
       ssum = ssum * corr + psum;
-      const float pv = SCALED ? p * sv : p;  // the v-scale after the mass
 #pragma unroll
       for (int i = 0; i < VPL; ++i) acc[i] *= corr;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, pv, j);
+        const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
         for (int i = 0; i < VPL; ++i) acc[i] = fmaf(pj, vbuf[j].get(i), acc[i]);
       }
@@ -553,41 +524,6 @@ __device__ void write_slot(const LayerSmem& s, const Weights& wt,
   }
 }
 
-// write_slot's int8 form (kernel 3 with KvQ::kSrcCache, batch-major
-// [B, L, 2H] codes and [B, L, 2] scales): the f32 k|v that write_slot
-// would store (s.Q's, or the output's projection with cache_outputs) is
-// quantized per (row, half), one warp each: scale = max(max|x|, 1e-8) / 127,
-// codes clip(rint(x / scale), -127, 127). rintf rounds half to even, as
-// jnp.round and torch.round do, and the division is IEEE (no fast math),
-// so the codes are the plain version's.
-template <typename T>
-__device__ void write_slot_int8(const LayerSmem& s, const Weights& wt,
-                                int8_t* __restrict__ cache, float* __restrict__ scale,
-                                int L, int b0, int nrows, int H, int pos,
-                                int cache_outputs) {
-  if (cache_outputs) {
-    rowmm<T>(s.Dd, H, static_cast<const T*>(wt.w_qkv) + H, 3 * H,
-             static_cast<const T*>(wt.b_qkv) + H, 2 * H, s.Q + H, 3 * H, false,
-             s.R);
-    __syncthreads();
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int pair = warp; pair < nrows * 2; pair += NWARP) {
-    const int r = pair >> 1, half = pair & 1;
-    const float* xr = s.Q + r * 3 * H + H + half * H;
-    float m = 0.f;
-    for (int i = lane; i < H; i += 32) m = fmaxf(m, fabsf(xr[i]));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const float sc = fmaxf(m, 1e-8f) / 127.f;
-    const long long slot = static_cast<long long>(b0 + r) * L + pos;
-    int8_t* dst = cache + slot * 2 * H + half * H;
-    for (int i = lane; i < H; i += 32)
-      dst[i] = static_cast<int8_t>(fminf(fmaxf(rintf(xr[i] / sc), -127.f), 127.f));
-    if (lane == 0) scale[slot * 2 + half] = sc;
-  }
-}
-
 // One layer's step for the CTA's rows b0..b0+nrows-1, up to its output:
 // on entry s.A holds the input rows (f32, synchronised); on return s.Dd
 // holds the layer's output in f32 (not yet rounded to T) and s.Q the
@@ -595,22 +531,14 @@ __device__ void write_slot_int8(const LayerSmem& s, const Weights& wt,
 // s_row are its `row` and `slot_stride`). write_slot then stores slot `pos`.
 // FULL (kernel 8; batch-major caches only) stores the current k|v into slot
 // `pos` before the attention and runs attend_full over the cache and the
-// cross K|V, so its cache is written here; the online form (kernels 3, 6,
-// 7) only reads it. KQ (kernel 3 only) makes the cross K|V, and with
-// kSrcCache the cache, int8 codes with the f32 scales src_scale [B, 2, S]
-// and cache_scale [B, L, 2]; write_slot_int8 then stores slot `pos`.
-template <typename T, bool PACKED_SLOTS, int D, bool FULL = false,
-          KvQ KQ = KvQ::kNone>
+// cross K|V, so its cache is written here; the online form (kernels 6, 7)
+// only reads it.
+template <typename T, bool PACKED_SLOTS, int D, bool FULL = false>
 __device__ void layer_body(const LayerSmem& s, const Weights& wt,
-                           std::conditional_t<FULL, T, const CacheT<T, KQ>>* __restrict__ cache,
-                           int c_row, int c_slot,
-                           const SrcT<T, KQ>* __restrict__ src, int s_row, int b0,
-                           int nrows, int H, int heads, int F, int S, int pos,
-                           const float* __restrict__ src_scale = nullptr,
-                           const float* __restrict__ cache_scale = nullptr) {
+                           std::conditional_t<FULL, T, const T>* __restrict__ cache,
+                           int c_row, int c_slot, const T* __restrict__ src, int s_row,
+                           int b0, int nrows, int H, int heads, int F, int S, int pos) {
   static_assert(!FULL || PACKED_SLOTS, "the full form reads a batch-major cache");
-  static_assert(KQ == KvQ::kNone || (PACKED_SLOTS && !FULL),
-                "int8 operands: kernel 3's online form over a batch-major cache");
   const float temp = sqrtf(static_cast<float>(H));
   float *A = s.A, *Q = s.Q, *C = s.C, *Dd = s.Dd, *Fb = s.Fb, *R = s.R;
 
@@ -631,9 +559,8 @@ __device__ void layer_body(const LayerSmem& s, const Weights& wt,
     attend_full<T, D>(Q, 3 * H, cache, c_row, b0, nrows, pos + 1, H, heads, temp,
                       C, R);
   } else {
-    attend<CacheT<T, KQ>, PACKED_SLOTS, D, KQ == KvQ::kSrcCache>(
-        Q, 3 * H, cache, c_row, c_slot, b0, nrows, pos + 1, H, heads, temp, Q + H,
-        3 * H, C, KvScales{cache_scale, 2 * c_row, 2, 1});
+    attend<T, PACKED_SLOTS, D>(Q, 3 * H, cache, c_row, c_slot, b0, nrows, pos + 1, H,
+                               heads, temp, Q + H, 3 * H, C);
   }
   __syncthreads();
   rowmm<T>(C, H, static_cast<const T*>(wt.w_out), H,
@@ -652,9 +579,8 @@ __device__ void layer_body(const LayerSmem& s, const Weights& wt,
   if constexpr (FULL) {
     attend_full<T, D>(C, H, src, s_row, b0, nrows, S, H, heads, temp, Dd, R);
   } else {
-    attend<SrcT<T, KQ>, PACKED_SLOTS, D, KQ != KvQ::kNone>(
-        C, H, src, s_row, 2 * H, b0, nrows, S, H, heads, temp, nullptr, 0, Dd,
-        KvScales{src_scale, 2 * S, 1, S});
+    attend<T, PACKED_SLOTS, D>(C, H, src, s_row, 2 * H, b0, nrows, S, H, heads, temp,
+                               nullptr, 0, Dd);
   }
   __syncthreads();
   rowmm<T>(Dd, H, static_cast<const T*>(wt.w_out2), H,

@@ -1,92 +1,151 @@
 // One transformer-decoder layer's autoregressive step over a packed KV cache.
 //
 // Replaces p4fr_tpu/ops/pallas/decoder_layer_v2.py::decoder_layer_step_v2
-// (kernel body _kernel); contract and design: decoder_common.cuh, whose
-// layer_body and write_slot this kernel runs once over a batch-major
-// [B, L, 2H] cache, instanced for heads of 32 and of 64. The TPU kernel's
-// int8 operand forms (src_scale; the int8 cache) are instanced too: one
-// entry point each, p4fr_decoder_layer_int8 (int8 cross K|V) and
-// p4fr_decoder_layer_int8_cache (and the int8 self cache), the same body
-// with other operand loads (decoder_common.cuh's KvQ).
+// (kernel body _kernel); contract: decoder_common.cuh. One launch a layer
+// step over a batch-major [B, L, 2H] cache, instanced for f32 and bf16 and
+// for heads of 32 and of 64. The TPU kernel's int8 operand forms
+// (src_scale; the int8 cache) are instanced too: one entry point each,
+// p4fr_decoder_layer_int8 (int8 cross K|V) and p4fr_decoder_layer_int8_cache
+// (and the int8 self cache), the same body with other operand loads
+// (decoder_common.cuh's KvQ).
 //
-// Bound on the card: each CTA streams the layer's weights (about 1 M
-// values) from L2 once for its TB rows and its rows' cache prefix and src
-// K/V from device memory; with one CTA per SM, memory LATENCY is what
-// limits it, so every loop issues its loads in batches before using them.
-// The int8 forms move fewer bytes and keep the same loads in flight.
+// Design: decoder_cluster.cuh's layer_body_cluster, a thread-block cluster
+// of C CTAs (the caller's `cluster`, 1 to 16) per group of TB = 4 rows,
+// launched with cudaLaunchKernelEx: 512 threads a CTA in a cluster, 256
+// (two CTAs an SM) at C = 1. Bound on the card: at 4 rows a product is a
+// GEMV, so a group's time is the bytes of the layer's weights that one SM
+// pulls from L2 (plus its rows' cache prefix and src K|V from device
+// memory), paid in memory latency; C CTAs a group pull 1/C each, and every
+// loop issues its loads in batches before using them.
 #include <type_traits>
 
-#include "decoder_common.cuh"
+#include "decoder_cluster.cuh"
 
 namespace {
 
-template <typename T, int D, KvQ KQ>
-__global__ void __launch_bounds__(NT) decoder_layer_kernel(
+template <int NT, typename T, int D, KvQ KQ>
+__global__ void __launch_bounds__(NT, 512 / NT) decoder_layer_kernel(
     const T* __restrict__ x, CacheT<T, KQ>* __restrict__ cache,
     float* __restrict__ cache_scale, const SrcT<T, KQ>* __restrict__ src,
     const float* __restrict__ src_scale, T* __restrict__ out, Weights wt, int B,
-    int H, int heads, int F, int S, int L, int pos, int cache_outputs) {
-  extern __shared__ float sm[];
-  const LayerSmem s = carve_layer_smem(sm, H, F);
-  const int b0 = blockIdx.x * TB;
-  const int nrows = min(TB, B - b0);
-
-  for (int i = threadIdx.x; i < TB * H; i += NT) {
-    int r = i / H;
-    s.A[i] = r < nrows ? to_f(x[static_cast<long long>(b0) * H + i]) : 0.f;
-  }
-  __syncthreads();
-  layer_body<T, true, D, false, KQ>(s, wt, cache, L, 2 * H, src, S, b0, nrows, H,
-                                    heads, F, S, pos, src_scale, cache_scale);
-  for (int i = threadIdx.x; i < nrows * H; i += NT)
-    out[static_cast<long long>(b0) * H + i] = from_f<T>(s.Dd[i]);
-  if constexpr (KQ == KvQ::kSrcCache)
-    write_slot_int8<T>(s, wt, cache, cache_scale, L, b0, nrows, H, pos, cache_outputs);
-  else
-    write_slot<T, true>(s, wt, cache, L, 2 * H, b0, nrows, H, pos, cache_outputs);
+    int H, int heads, int F, int S, int L, int pos, int cache_outputs, int C) {
+  extern __shared__ __align__(16) float sm[];
+  const ClusterSmem s = carve_cluster_smem(sm, H, F);
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int b0 = static_cast<int>(blockIdx.x) / C * TB;
+  layer_body_cluster<NT, T, D, KQ>(s, wt, x, cache, cache_scale, src, src_scale, out, b0,
+                               min(TB, B - b0), H, heads, F, S, L, pos, cache_outputs,
+                               C, rank);
 }
 
-template <typename T, int D, KvQ KQ>
+// The function attributes of an instance, set once: dynamic shared memory
+// up to the card's opt-in limit, and clusters of 16 (beyond the portable 8).
+template <int NT, typename T, int D, KvQ KQ>
+cudaError_t prepare() {
+  static const cudaError_t err = [] {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(decoder_layer_kernel<NT, T, D, KQ>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(decoder_layer_kernel<NT, T, D, KQ>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+  }();
+  return err;
+}
+
+// groups * C CTAs of NT threads in clusters of C, at widths H, F
+template <int NT>
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int groups, int C, int H, int F, cudaStream_t stream) {
+    cfg.gridDim = dim3(groups * C);
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = cluster_smem_floats<NT>(H, F) * sizeof(float);
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <int NT, typename T, int D, KvQ KQ>
 int launch(const void* x, void* cache, void* cache_scale, const void* src,
            const void* src_scale, void* out, const Weights& w, int B, int H,
-           int heads, int F, int S, int L, int pos, int cache_outputs,
+           int heads, int F, int S, int L, int pos, int cache_outputs, int C,
            cudaStream_t stream) {
-  size_t smem = layer_smem_floats(H, F) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      decoder_layer_kernel<T, D, KQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t e = prepare<NT, T, D, KQ>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((B + TB - 1) / TB);
-  decoder_layer_kernel<T, D, KQ><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<CacheT<T, KQ>*>(cache),
-      static_cast<float*>(cache_scale), static_cast<const SrcT<T, KQ>*>(src),
-      static_cast<const float*>(src_scale), static_cast<T*>(out), w, B, H, heads,
-      F, S, L, pos, cache_outputs);
+  ClusterLaunch<NT> cl((B + TB - 1) / TB, C, H, F, stream);
+  e = cudaLaunchKernelEx(
+      &cl.cfg, decoder_layer_kernel<NT, T, D, KQ>, static_cast<const T*>(x),
+      static_cast<CacheT<T, KQ>*>(cache), static_cast<float*>(cache_scale),
+      static_cast<const SrcT<T, KQ>*>(src), static_cast<const float*>(src_scale),
+      static_cast<T*>(out), w, B, H, heads, F, S, L, pos, cache_outputs, C);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instance by operand form, type and head width: 32 (EfficientSATRN),
-// 64 (SwinTRN)
+// What the wrapper picks C from, for one instance at widths H, F: the
+// clusters of C that can be resident at once, and the instance's
+// registers and local memory a thread.
+template <int NT, typename T, int D, KvQ KQ>
+int query(int H, int F, int C, int* clusters, int* regs, int* local) {
+  cudaError_t e = prepare<NT, T, D, KQ>();
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, decoder_layer_kernel<NT, T, D, KQ>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = fa.numRegs;
+  *local = static_cast<int>(fa.localSizeBytes);
+  ClusterLaunch<NT> cl(1, C, H, F, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, decoder_layer_kernel<NT, T, D, KQ>, &cl.cfg));
+}
+
+template <typename T, int DD, KvQ Q>
+struct Instance {
+  using type = T;
+  static constexpr int D = DD;
+  static constexpr KvQ KQ = Q;
+};
+
+// fn(Instance<...>{}) for the instance by operand form, type and head
+// width: 32 (EfficientSATRN), 64 (SwinTRN)
+template <KvQ KQ, typename Fn>
+int with_instance(int bf16, int d, Fn&& fn) {
+  if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return d == 32 ? fn(Instance<__nv_bfloat16, 32, KQ>{})
+                   : fn(Instance<__nv_bfloat16, 64, KQ>{});
+  return d == 32 ? fn(Instance<float, 32, KQ>{}) : fn(Instance<float, 64, KQ>{});
+}
+
 template <KvQ KQ>
 int dispatch(const void* x, void* cache, void* cache_scale, const void* src,
              const void* src_scale, void* out, const Weights& w, int B, int H,
-             int heads, int F, int S, int L, int pos, int cache_outputs, int bf16,
-             void* stream) {
+             int heads, int F, int S, int L, int pos, int cache_outputs, int C,
+             int bf16, void* stream) {
   const int d = heads > 0 ? H / heads : 0;
-  if (H != heads * d || (d != 32 && d != 64) || F % CPT)
+  if (H != heads * d || F % CPT || C < 1 || C > 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto head) {
-    constexpr int D = decltype(head)::value;
-    if (bf16)
-      return launch<__nv_bfloat16, D, KQ>(x, cache, cache_scale, src, src_scale, out,
-                                          w, B, H, heads, F, S, L, pos,
-                                          cache_outputs, s);
-    return launch<float, D, KQ>(x, cache, cache_scale, src, src_scale, out, w, B, H,
-                                heads, F, S, L, pos, cache_outputs, s);
-  };
-  return d == 32 ? run(std::integral_constant<int, 32>{})
-                 : run(std::integral_constant<int, 64>{});
+  return with_instance<KQ>(bf16, d, [&](auto inst) {
+    using I = decltype(inst);
+    auto run = [&](auto nt) {
+      return launch<decltype(nt)::value, typename I::type, I::D, I::KQ>(
+          x, cache, cache_scale, src, src_scale, out, w, B, H, heads, F, S, L, pos,
+          cache_outputs, C, static_cast<cudaStream_t>(stream));
+    };
+    return C == 1 ? run(std::integral_constant<int, 256>{})
+                  : run(std::integral_constant<int, 512>{});
+  });
 }
 
 }  // namespace
@@ -102,14 +161,15 @@ int dispatch(const void* x, void* cache, void* cache_scale, const void* src,
   Weights{w_qkv, b_qkv, w_out, b_out, ln1_s, ln1_b, w_q2, b_q2, w_out2,       \
           b_out2, ln2_s, ln2_b, w_ff0, b_ff0, w_ff1, b_ff1, ln3_s, ln3_b}
 
-// x, cache and src in the weights' type (f32, or bf16 with bf16 != 0)
+// x, cache and src in the weights' type (f32, or bf16 with bf16 != 0);
+// `cluster` CTAs a group of 4 rows
 extern "C" int p4fr_decoder_layer(
     const void* x, void* cache, const void* src, void* out, P4FR_LAYER_WEIGHTS,
     int B, int H, int heads, int F, int S, int L, int pos, int cache_outputs,
-    int bf16, void* stream) {
+    int cluster, int bf16, void* stream) {
   return dispatch<KvQ::kNone>(x, cache, nullptr, src, nullptr, out,
                               P4FR_WEIGHTS_STRUCT, B, H, heads, F, S, L, pos,
-                              cache_outputs, bf16, stream);
+                              cache_outputs, cluster, bf16, stream);
 }
 
 // src int8 [B, S, 2H] with f32 src_scale [B, 2, S]; the cache in the
@@ -117,19 +177,38 @@ extern "C" int p4fr_decoder_layer(
 extern "C" int p4fr_decoder_layer_int8(
     const void* x, void* cache, const void* src, const void* src_scale,
     void* out, P4FR_LAYER_WEIGHTS, int B, int H, int heads, int F, int S,
-    int L, int pos, int cache_outputs, int bf16, void* stream) {
+    int L, int pos, int cache_outputs, int cluster, int bf16, void* stream) {
   return dispatch<KvQ::kSrc>(x, cache, nullptr, src, src_scale, out,
                              P4FR_WEIGHTS_STRUCT, B, H, heads, F, S, L, pos,
-                             cache_outputs, bf16, stream);
+                             cache_outputs, cluster, bf16, stream);
 }
 
 // src as above, and the cache int8 [B, L, 2H] with f32 cache_scale [B, L, 2]
 extern "C" int p4fr_decoder_layer_int8_cache(
     const void* x, void* cache, void* cache_scale, const void* src,
     const void* src_scale, void* out, P4FR_LAYER_WEIGHTS, int B, int H,
-    int heads, int F, int S, int L, int pos, int cache_outputs, int bf16,
-    void* stream) {
+    int heads, int F, int S, int L, int pos, int cache_outputs, int cluster,
+    int bf16, void* stream) {
   return dispatch<KvQ::kSrcCache>(x, cache, cache_scale, src, src_scale, out,
                                   P4FR_WEIGHTS_STRUCT, B, H, heads, F, S, L, pos,
-                                  cache_outputs, bf16, stream);
+                                  cache_outputs, cluster, bf16, stream);
+}
+
+// form 0, 1, 2 (p4fr_decoder_layer, _int8, _int8_cache), bf16, head width
+// d, widths H and F, cluster size C -> clusters of C resident at once, and
+// the instance's registers and local memory bytes a thread
+extern "C" int p4fr_decoder_layer_query(int form, int bf16, int d, int H, int F,
+                                        int C, int* clusters, int* regs, int* local) {
+  auto fn = [&](auto inst) {
+    using I = decltype(inst);
+    return C == 1 ? query<256, typename I::type, I::D, I::KQ>(H, F, C, clusters, regs, local)
+                  : query<512, typename I::type, I::D, I::KQ>(H, F, C, clusters, regs, local);
+  };
+  if (C < 1 || C > 16) return static_cast<int>(cudaErrorInvalidValue);
+  switch (form) {
+    case 0: return with_instance<KvQ::kNone>(bf16, d, fn);
+    case 1: return with_instance<KvQ::kSrc>(bf16, d, fn);
+    case 2: return with_instance<KvQ::kSrcCache>(bf16, d, fn);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

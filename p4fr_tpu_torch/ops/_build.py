@@ -58,16 +58,20 @@ _SIGNATURES = {
     #  bf16, stream)
     "p4fr_mbconv_project": [P] * 7 + [I] * 5 + [P],
     # (x, cache, src_kv, out, 18 weight pointers, B, H, heads, F, S, L,
-    #  pos, cache_outputs, bf16, stream)
-    "p4fr_decoder_layer": [P] * 22 + [I] * 9 + [P],
+    #  pos, cache_outputs, cluster, bf16, stream)
+    "p4fr_decoder_layer": [P] * 22 + [I] * 10 + [P],
     # (x, cache, src_kv i8, src_scale f32, out, 18 weight pointers, B, H,
-    #  heads, F, S, L, pos, cache_outputs, bf16, stream)
-    "p4fr_decoder_layer_int8": [P] * 23 + [I] * 9 + [P],
+    #  heads, F, S, L, pos, cache_outputs, cluster, bf16, stream)
+    "p4fr_decoder_layer_int8": [P] * 23 + [I] * 10 + [P],
     # (x, cache i8, cache_scale f32, src_kv i8, src_scale f32, out, 18
-    #  weight pointers, B, H, heads, F, S, L, pos, cache_outputs, bf16,
-    #  stream)
-    "p4fr_decoder_layer_int8_cache": [P] * 24 + [I] * 9 + [P],
-    # kernel 8: the same arguments as p4fr_decoder_layer
+    #  weight pointers, B, H, heads, F, S, L, pos, cache_outputs, cluster,
+    #  bf16, stream)
+    "p4fr_decoder_layer_int8_cache": [P] * 24 + [I] * 10 + [P],
+    # (form, bf16, head width, H, F, cluster, clusters i32 out, regs i32
+    #  out, local bytes i32 out): kernel 3's instance and its resident
+    #  clusters of that size
+    "p4fr_decoder_layer_query": [I] * 6 + [P] * 3,
+    # kernel 8: p4fr_decoder_layer's arguments but the cluster
     "p4fr_decoder_layer_v1": [P] * 22 + [I] * 9 + [P],
     # (x, caches, src_kv, out, the 15 stacked weights, B, H, heads, F, S, L,
     #  NL, pos, cache_outputs, bf16, stream)

@@ -25,7 +25,9 @@ the TPU's tiled one). ``layer_step_ref`` is the plain version of both.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -34,6 +36,11 @@ from p4fr_tpu_torch.ops.attention import NEG_INF
 
 LN_EPS = 1e-5
 HEAD_DIMS = (32, 64)  # the kernel's head widths: EfficientSATRN 256 / 8, SwinTRN 512 / 8
+ROWS_PER_GROUP = 4  # batch rows a cluster of the kernel holds (TB in csrc/)
+MAX_CLUSTER = 16  # the card's largest cluster (non-portable above 8)
+# the kernel's operand forms, by entry point (`form` of p4fr_decoder_layer_query)
+FORMS = {"p4fr_decoder_layer": 0, "p4fr_decoder_layer_int8": 1,
+         "p4fr_decoder_layer_int8_cache": 2}
 
 
 class LayerWeights(NamedTuple):
@@ -173,11 +180,14 @@ def decoder_layer_step(x: torch.Tensor, pos: int, cache, src_kv: torch.Tensor,
 
     CUDA tensor: one launch of ``csrc/decoder_layer.cu`` (replaces the TPU
     kernel ``ops/pallas/decoder_layer_v2.py::decoder_layer_step_v2``), for
-    heads of 32 or 64. It is bound by streaming the layer's weights from L2 for each CTA and the
-    cache prefix and src K/V from device memory; one CTA holds 4 batch rows
-    and keeps every activation in shared memory, so each weight is read
-    once per 4 rows, as 16-byte vectors with the K range split over the
-    warps. The operands pick the entry point: int8 ``src_kv`` with its
+    heads of 32 or 64. A cluster of C CTAs (``step_cluster``; 512 threads
+    each, or 256 alone at C = 1) holds 4 batch rows, every activation in
+    each CTA's shared memory; each CTA computes 1/C of every product's
+    columns and of the attention's (row, head) pairs and stores its slice
+    into its peers' shared memory. It is bound by streaming the layer's
+    weights from L2, 1/C of them a CTA, and the cache prefix and src K/V
+    from device memory. The operands pick the entry point: int8 ``src_kv``
+    with its
     ``src_scale`` launches ``p4fr_decoder_layer_int8`` (counted as
     ``decoder_layer_int8``), and with an int8 cache pair too
     ``p4fr_decoder_layer_int8_cache`` (``decoder_layer_int8_cache``).
@@ -197,7 +207,59 @@ def decoder_layer_step(x: torch.Tensor, pos: int, cache, src_kv: torch.Tensor,
         entry, counter = "p4fr_decoder_layer_int8", "decoder_layer_int8"
     return launch_layer_step("decoder_layer_step", entry, counter, x, pos, cache,
                              src_kv, weights, head_num=head_num,
-                             cache_outputs=cache_outputs, src_scale=src_scale)
+                             cache_outputs=cache_outputs, src_scale=src_scale,
+                             clustered=True)
+
+
+def cluster_size(batch: int, hidden: int, sm_count: int,
+                 max_clusters: Callable[[int], int]) -> int:
+    """CTAs a row group of kernel 3 (the cluster size C): the largest power
+    of two C <= MAX_CLUSTER with C <= hidden / 32 (each CTA owns whole
+    32-column groups of every H-wide product), groups * C <= ``sm_count``
+    and groups <= ``max_clusters(C)`` (clusters of C resident at once), for
+    groups = ceil(batch / 4) row groups; else 1. ``max_clusters`` is asked
+    only for a C that passes the first two."""
+    groups = -(-batch // ROWS_PER_GROUP)
+    c = MAX_CLUSTER
+    while c > 1:
+        if c <= hidden // 32 and groups * c <= sm_count and groups <= max_clusters(c):
+            return c
+        c //= 2
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_query(form: int, bf16: bool, head_dim: int, hidden: int, filter_dim: int,
+                  c: int, index: int = 0):
+    """(clusters of ``c`` resident at once, registers, local-memory bytes a
+    thread) of the kernel-3 instance that launches clusters of ``c`` for
+    the operand ``form`` (``FORMS``), type and head width, at widths
+    ``hidden`` and ``filter_dim``, on card ``index``; asked once per
+    argument set."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(index):
+        code = _build.library().p4fr_decoder_layer_query(
+            form, int(bf16), head_dim, hidden, filter_dim, c, *map(ctypes.byref, out))
+    _build.check(code, "decoder_layer cluster query")
+    return tuple(v.value for v in out)
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_for(entry: str, batch: int, hidden: int, head_num: int, filter_dim: int,
+                 bf16: bool, index: int) -> int:
+    form = FORMS[entry]
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return cluster_size(batch, hidden, sms, lambda c: cluster_query(
+        form, bf16, hidden // head_num, hidden, filter_dim, c, index)[0])
+
+
+def step_cluster(entry: str, x: torch.Tensor, head_num: int, filter_dim: int) -> int:
+    """The cluster size kernel 3's ``entry`` launches with for ``x`` [B, H]
+    on its card (``cluster_size`` over ``cluster_query``; one lookup a
+    call once a shape has been seen)."""
+    batch, hidden = x.shape
+    return _cluster_for(entry, batch, hidden, head_num, filter_dim,
+                        x.dtype == torch.bfloat16, x.device.index or 0)
 
 
 def check_operands(what: str, tensors, dtype, device) -> None:
@@ -212,12 +274,14 @@ def check_operands(what: str, tensors, dtype, device) -> None:
 
 def launch_layer_step(what: str, entry: str, counter: str, x, pos, cache,
                       src_kv, weights: LayerWeights, *, head_num: int,
-                      cache_outputs: bool, src_scale=None):
+                      cache_outputs: bool, src_scale=None, clustered: bool = False):
     """One launch of a one-layer step kernel (``entry`` in the library,
-    kernel 3's arguments; kernel 8 takes the same) on CUDA tensors, after
-    checking them; counts it under ``LAUNCHES[counter]``. The int8 entries
-    take ``src_scale`` after ``src_kv`` and, for a cache pair, its scales
-    after the codes."""
+    kernel 3's arguments; kernel 8 takes the same but the cluster size) on
+    CUDA tensors, after checking them; counts it under
+    ``LAUNCHES[counter]``. The int8 entries take ``src_scale`` after
+    ``src_kv`` and, for a cache pair, its scales after the codes;
+    ``clustered`` (kernel 3) passes ``step_cluster``'s C after
+    ``cache_outputs``."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     given = cache
@@ -252,11 +316,12 @@ def launch_layer_step(what: str, entry: str, counter: str, x, pos, cache,
     out = torch.empty_like(x)
     operands = [t for t in (x, cache, cache_scale, src_kv, src_scale, out)
                 if t is not None]
+    cluster = [step_cluster(entry, x, head_num, filter_dim)] if clustered else []
     code = getattr(_build.library(), entry)(
         *[t.data_ptr() for t in operands],
         *[getattr(weights, f).data_ptr() for f in _KERNEL_FIELDS],
         batch, hidden, head_num, filter_dim, s_len, max_len, int(pos),
-        int(cache_outputs), int(x.dtype == torch.bfloat16),
+        int(cache_outputs), *cluster, int(x.dtype == torch.bfloat16),
         _build.stream_ptr(x.device),
     )
     _build.check(code, what)

@@ -26,9 +26,11 @@ from p4fr_tpu_torch.ops import _build
 from p4fr_tpu_torch.ops.beam_gather import beam_parent_gather, beam_parent_gather_ref
 from p4fr_tpu_torch.ops.decoder_layer import (
     LayerWeights,
+    cluster_size,
     decoder_layer_step,
     layer_step_ref,
     quantize_rows,
+    step_cluster,
 )
 from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
 from p4fr_tpu_torch.ops.decoder_stack_v3 import (
@@ -320,6 +322,141 @@ def check_int8_layer_kernel(cuda, dtype, form, cache_outputs, hidden, heads):
 @pytest.mark.parametrize("hidden", [64, 128], ids=["heads_of_32", "heads_of_64"])
 def test_decoder_layer_int8_kernels(cuda, dtype, form, cache_outputs, hidden):
     check_int8_layer_kernel(cuda, dtype, form, cache_outputs, hidden, heads=2)
+
+
+# kernel 3's cluster cases: (hidden, FF) of the two shipped decoders, each
+# with 8 heads (of 32, of 64), at batches whose row groups (B / 4, B=30
+# leaving a partial one) reach every cluster size on an H100 (132 SMs; 7
+# resident clusters of 16, 15 of 8, 30 of 4, 66 of 2): B=4 -> 16 (H=512)
+# or 8, B=30 -> 8, B=64 -> 4, B=128 and 256 -> 2, B=768 -> 1 (256 threads)
+CLUSTER_WIDTHS = [(256, 1024), (512, 512)]
+CLUSTER_BATCHES = [4, 30, 64, 128, 256, 768]
+
+
+def check_clustered_layer(cuda, form, dtype, cache_outputs, hidden, filter_dim, b):
+    """Kernel 3 (``form``: "none", "int8", "int8_cache") at real widths and
+    batch ``b`` vs ``layer_step_ref`` on the same operands, over positions
+    on both sides of a 32-position chunk: the out; slot ``pos``; the other
+    slots untouched; one launch a call. Slot ``pos`` in f32: as the twin's
+    (the int8 cache's codes within one, its scales within 1e-5 relative).
+    In bf16, against the unrounded f32 value it is made from (without
+    ``cache_outputs`` the current k|v, which the twin stores rounded) by the
+    bf16 rule, the int8 cache's dequantized codes with half a quantization
+    step more: a sound kernel's f32 output drifts from the twin's by the
+    bf16 path (a k|v rounding flip), which moves the int8 scale by more
+    than 1e-5, so codes and scales are held exactly only in f32 (as in
+    chip_smoke.py)."""
+    gen = torch.Generator().manual_seed(b)
+    heads, s_len, max_len = 8, 70, 40  # the cross K|V in 3 chunks
+    w = random_layer(gen, hidden, filter_dim, cuda, dtype)
+    w_r = LayerWeights(*(t.float() for t in w))
+    x = torch.randn(b, hidden, generator=gen).to(cuda, dtype)
+    src_scale = None
+    if form == "none":
+        src = torch.randn(b, s_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    else:
+        codes, scales = int8_kv(gen, b, s_len, hidden)
+        src, src_scale = codes.to(cuda), scales.transpose(1, 2).contiguous().to(cuda)
+    if form == "int8_cache":
+        c_k = tuple(t.to(cuda) for t in int8_kv(gen, b, max_len, hidden))
+    else:
+        c_k = torch.randn(b, max_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    counter = "decoder_layer" if form == "none" else f"decoder_layer_{form}"
+    entry = "p4fr_" + counter
+    c = step_cluster(entry, x, heads, filter_dim)
+    print(f"{form} {dtype} H={hidden} B={b}: cluster of {c}")
+    for pos in (0, 33, 39):
+        was = tuple(t.clone() for t in c_k) if form == "int8_cache" else (c_k.clone(),)
+        c_r = (tuple(t.clone() for t in c_k) if form == "int8_cache"
+               else c_k.to(torch.float32, copy=True))
+        before = _build.LAUNCHES[counter]
+        o_k, _ = decoder_layer_step(x, pos, c_k, src, w, src_scale, head_num=heads,
+                                    cache_outputs=cache_outputs)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[counter] == before + 1
+        o_r, _ = layer_step_ref(x.float(), pos, c_r, src if src_scale is not None
+                                else src.float(), w_r, src_scale, head_num=heads,
+                                cache_outputs=cache_outputs, kv_dtype=dtype)
+        if dtype == torch.float32:
+            assert torch.allclose(o_k, o_r, rtol=1e-4, atol=1e-4), (pos, c)
+        else:
+            assert_bf16_close(o_k, o_r, counter)
+        others = torch.arange(max_len, device=cuda) != pos
+        got = c_k if form == "int8_cache" else (c_k,)
+        for g, w0 in zip(got, was):
+            assert torch.equal(g[:, others], w0[:, others]), (pos, c)
+        # the f32 value slot pos is made from: the output's k|v, or the
+        # current k|v (which the twin stores rounded to the cache type)
+        slot = (o_r if cache_outputs else x.float()) @ w_r.w_qkv[:, hidden:] + \
+            w_r.b_qkv[hidden:]
+        if form == "int8_cache" and dtype == torch.float32:
+            flips = (c_k[0][:, pos].int() - c_r[0][:, pos].int()).abs()
+            assert flips.max().item() <= 1, (pos, c)
+            assert torch.allclose(c_k[1][:, pos], c_r[1][:, pos], rtol=1e-5, atol=0)
+        elif form == "int8_cache":  # bf16: dequantized, within half a step
+            step = c_k[1][:, pos].repeat_interleave(hidden, dim=-1)
+            excess = ((c_k[0][:, pos].float() * step - slot).abs() - step / 2
+                      - BF16_RTOL * slot.abs())
+            assert excess.max().item() <= BF16_ATOL[counter], (pos, c)
+        elif dtype == torch.float32:
+            assert torch.allclose(c_k[:, pos], c_r[:, pos], rtol=1e-4, atol=1e-4), (pos, c)
+        else:
+            assert_bf16_close(c_k[:, pos], slot, counter)
+        if form == "int8_cache":  # one history
+            for g, want in zip(c_k, c_r):
+                g.copy_(want)
+        else:
+            c_k.copy_(c_r.to(dtype))
+        x = o_r.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["none", "int8", "int8_cache"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_outputs", [True, False])
+@pytest.mark.parametrize("hidden,filter_dim", CLUSTER_WIDTHS, ids=["H256", "H512"])
+@pytest.mark.parametrize("b", CLUSTER_BATCHES)
+def test_decoder_layer_kernel_clusters(cuda, form, dtype, cache_outputs, hidden,
+                                       filter_dim, b):
+    check_clustered_layer(cuda, form, dtype, cache_outputs, hidden, filter_dim, b)
+
+
+@pytest.mark.cuda
+def test_decoder_layer_cluster_cases_reach_every_size(cuda):
+    """The cluster cases above launch every cluster size, 1 to 16, for
+    each operand form and type."""
+    for entry in ("p4fr_decoder_layer", "p4fr_decoder_layer_int8",
+                  "p4fr_decoder_layer_int8_cache"):
+        for dtype in (torch.float32, torch.bfloat16):
+            sizes = {step_cluster(entry, torch.empty(b, hidden, device=cuda, dtype=dtype),
+                                  8, filter_dim)
+                     for hidden, filter_dim in CLUSTER_WIDTHS for b in CLUSTER_BATCHES}
+            assert sizes == {1, 2, 4, 8, 16}, (entry, dtype, sizes)
+
+
+@pytest.mark.parametrize("batch,hidden,resident,want", [
+    (32, 512, {16: 8}, 16),        # SwinTRN: 8 groups x 16 = 128 SMs
+    (32, 512, {16: 7, 8: 16}, 8),  # 8 clusters of 16 not co-resident
+    (256, 256, {2: 64}, 2),        # the flagship: 64 groups x 2
+    (768, 256, {}, 1),             # beam's rows: 192 groups
+    (128, 512, {4: 32}, 4),
+    (4, 256, {8: 1}, 8),           # H=256: C <= 8
+    (4, 64, {2: 1}, 2),            # H=64: C <= 2
+    (30, 64, {2: 1}, 1),           # ... and 8 groups need 8 clusters of 2
+    (30, 32, {}, 1),               # H=32: C = 1
+])
+def test_cluster_size(batch, hidden, resident, want):
+    """``cluster_size`` on a 132-SM card whose resident clusters of C are
+    ``resident[C]`` (asked only where C passes the width and SM rules)."""
+    asked = []
+
+    def max_clusters(c):
+        asked.append(c)
+        return resident[c]
+
+    assert cluster_size(batch, hidden, 132, max_clusters) == want
+    groups = -(-batch // 4)
+    assert all(c <= hidden // 32 and groups * c <= 132 for c in asked)
 
 
 def check_layer_v1_kernel(cuda, dtype, cache_outputs, hidden, heads):

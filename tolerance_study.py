@@ -3,7 +3,7 @@
 and (kernel 6) where the sound kernel's error comes from.
 
     python3 tolerance_study.py [--kernel fused_greedy_step|swin_attention|
-        decoder_layer_v1|decoder_stack_v3|decoder_layer_int8]
+        decoder_layer|decoder_layer_v1|decoder_stack_v3|decoder_layer_int8]
         [--shape satrn|swin] [--seeds 0 1 2 3 4] [--faults]
 
 Needs one CUDA card; the kernels build from the checkout on first use.
@@ -19,12 +19,17 @@ its ``PROBES`` (the bias and mask never read; ``expf`` and the IEEE
 division in place of ``ex2.approx`` and the reciprocal); part 1 also prints
 kernel 5's bf16 time over one B=32 encode, for the sound kernel and each
 copy. With
-``--kernel decoder_layer_v1`` (kernel 8) or ``decoder_stack_v3`` (kernel 7)
-part 1 runs ``chip_smoke.check_layer_v1`` or ``check_stack_v3`` at the
-``--shape`` (pos 0, 115 and 230, 6 checks) and prints per seed the bf16
-check's largest excess over the cast of the out and of slot ``pos``, the
-out's largest mean abs error and each dtype's missed checks; part 3
-plants that kernel's faults. With ``--kernel decoder_layer_int8`` (kernel
+``--kernel decoder_layer`` (kernel 3, a cluster of C CTAs per 4 rows: C=2
+at the flagship's shape, 8 or 16 at SwinTRN's), ``decoder_layer_v1``
+(kernel 8) or ``decoder_stack_v3`` (kernel 7) part 1 runs
+``chip_smoke.check_layer``, ``check_layer_v1`` or ``check_stack_v3`` at
+the ``--shape`` (kernel 3 at pos 0, 1, 115 and 230; the others at 0, 115
+and 230; three checks a position) and prints per seed the bf16 check's
+largest excess over the cast of the out and of slot ``pos``, the out's
+largest mean abs error and each dtype's missed checks; part 3 plants that
+kernel's faults (kernel 3's: a rank storing its slice at the next rank's
+offset in its peers' copies, the cluster barrier before LN1 removed, a
+rank's attention pairs shifted by one). With ``--kernel decoder_layer_int8`` (kernel
 3's int8 forms) part 1 runs ``chip_smoke.check_layer_int8`` for each form
 (``int8``, ``int8_cache``) at the ``--shape`` and prints per seed and form
 the bf16 check's largest excess over the cast of the out (and, for
@@ -33,7 +38,7 @@ codes that differ from the twin's (f32) and the largest distance of such
 a code's x / scale from its tie, and each dtype's missed checks;
 part 3 plants the int8 faults (``roundf`` for ``rintf``, the k-scale not
 applied, the v-scale applied before the mass, the current slot read back
-quantized).
+quantized), in ``csrc/decoder_cluster.cuh``, the body kernel 3 runs.
 
 1. ``chip_smoke.check_fused_step`` (B=256, full width, pos 0/1/115/230,
    manager on and off, 24 checks) on each seed, in f32 and in bf16: per
@@ -118,28 +123,44 @@ FAULTS = {
         "cache_outputs_ignored": ("decoder_layer_v1.cu", "  if (cache_outputs)\n",
                                   "  if (false)\n"),
     },
+    # kernel 3's cluster body
+    "decoder_layer": {
+        # peers get a rank's slice at the next rank's columns (the last
+        # rank's at rank 0's); its own copy stays right
+        "slice_at_peer_offset": ("decoder_cluster.cuh", "*cl.map_shared_rank(src, peer) = *src;",
+                                 "*cl.map_shared_rank(src + (ce - cb) / 4 * (rank + 1 < C ? 1 "
+                                 ": -rank), peer) = *src;"),
+        "no_barrier_before_ln1": (
+            "decoder_cluster.cuh",
+            "  cluster_sync(C);  // out-proj gathered: LN1 reads every column\n", ""),
+        "pairs_shifted": ("decoder_cluster.cuh",
+                          "const int pair = p0 + j, r = pair / heads, h = pair % heads;",
+                          "const int pair = p0 + j + 1, r = pair / heads, h = pair % heads;"),
+    },
     "decoder_layer_int8": {
         # round half away from zero: shows only on exact ties (the tie probe)
-        "roundf": ("decoder_common.cuh", "rintf(xr[i] / sc)", "roundf(xr[i] / sc)"),
-        "no_k_scale": ("decoder_common.cuh", "(SCALED ? dot / temp * sk : dot / temp)",
+        "roundf": ("decoder_cluster.cuh", "rintf(kv[r * 3 * H + j] / sc)",
+                   "roundf(kv[r * 3 * H + j] / sc)"),
+        "no_k_scale": ("decoder_cluster.cuh", "(SCALED ? dot / temp * sk : dot / temp)",
                        "(dot / temp)"),
         # the mass sums p * v-scale, so l no longer tracks the softmax weights
-        "v_scale_before_mass": ("decoder_common.cuh", "      float psum = p;\n",
-                                "      float psum = SCALED ? p * sv : p;\n"),
-        # slot pos quantized and stored first, then read back by the attention
+        "v_scale_before_mass": ("decoder_cluster.cuh", "        float psum = p;\n",
+                                "        float psum = SCALED ? p * sv : p;\n"),
+        # slot pos quantized and stored first (each rank its columns), then
+        # read back by the attention
         "current_read_back": (
-            "decoder_common.cuh",
-            "    attend<CacheT<T, KQ>, PACKED_SLOTS, D, KQ == KvQ::kSrcCache>(\n"
-            "        Q, 3 * H, cache, c_row, c_slot, b0, nrows, pos + 1, H, heads, temp, Q + H,\n",
-            "    if constexpr (KQ == KvQ::kSrcCache) {\n"
-            "      write_slot_int8<T>(s, wt, const_cast<int8_t*>(cache),\n"
-            "                         const_cast<float*>(cache_scale), c_row, b0, nrows, H,\n"
-            "                         pos, 0);\n"
-            "      __syncthreads();\n"
-            "    }\n"
-            "    attend<CacheT<T, KQ>, PACKED_SLOTS, D, KQ == KvQ::kSrcCache>(\n"
-            "        Q, 3 * H, cache, c_row, c_slot, b0, nrows, pos + 1, H, heads, temp,\n"
-            "        KQ == KvQ::kSrcCache ? nullptr : Q + H,\n"),
+            "decoder_cluster.cuh",
+            "  attend_part<NT, CacheT<T, KQ>, D, KQ == KvQ::kSrcCache>(\n"
+            "      Q, 3 * H, cache, L, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H, AT,\n",
+            "  if constexpr (KQ == KvQ::kSrcCache) {\n"
+            "    write_slot_part<NT, T, KQ>(Q + H, cache, cache_scale, R, L, b0, nrows, H, pos,\n"
+            "                           CPT * cut(2 * H / CPT, C, rank),\n"
+            "                           CPT * cut(2 * H / CPT, C, rank + 1), rank);\n"
+            "    cluster_sync(C);\n"
+            "  }\n"
+            "  attend_part<NT, CacheT<T, KQ>, D, KQ == KvQ::kSrcCache>(\n"
+            "      Q, 3 * H, cache, L, b0, nrows, pos + 1, H, heads, temp,\n"
+            "      KQ == KvQ::kSrcCache ? nullptr : Q + H, 3 * H, AT,\n"),
     },
     "decoder_stack_v3": {
         "previous_layer_weights": ("decoder_stack.cu", "layer_weights<T>(p, l, H, F)",
@@ -210,12 +231,13 @@ def swin_readings(dev, seeds):
 
 
 SHAPES = {"satrn": cs.SATRN_DECODER, "swin": cs.SWIN_DECODER}
-LAYER_CHECKS = {"decoder_layer_v1": cs.check_layer_v1,
+LAYER_CHECKS = {"decoder_layer": cs.check_layer, "decoder_layer_v1": cs.check_layer_v1,
                 "decoder_stack_v3": cs.check_stack_v3}
 
 
 def layer_readings(dev, seeds, kernel, shape):
-    """Kernel 8 or 7: per seed the bf16 check's readings and misses."""
+    """Kernel 3, 8 or 7: per seed the bf16 check's readings and misses."""
+    n_pos = len(cs.GATHER_POS if kernel == "decoder_layer" else cs.LAYER_POS)
     for seed in seeds:
         missed = {}
         for dt in (torch.float32, torch.bfloat16):
@@ -225,7 +247,7 @@ def layer_readings(dev, seeds, kernel, shape):
         print(f"READING seed {seed}: bf16 beyond the cast: out {r['out']:.3e}, slot "
               f"{r['slot']:.3e}; out mean abs {r['mean']:.3e}; missed "
               f"{missed[torch.bfloat16]} bf16 and {missed[torch.float32]} f32 of "
-              f"{3 * len(cs.LAYER_POS)} checks each", flush=True)
+              f"{3 * n_pos} checks each", flush=True)
 
 
 def int8_readings(dev, seeds, shape):
@@ -363,7 +385,9 @@ def plant_and_run(seeds, kernel, shape):
     for kind, table in (("fault", FAULTS), ("probe", PROBES)):
         for name, (source, *edits) in table.get(kernel, {}).items():
             dst = os.path.join(ROOT, "build", "tolerance_study", name)
-            shutil.rmtree(dst, ignore_errors=True)
+            # a copy's build/ stays: the same planted sources load the same
+            # library without a new build (another --shape, say)
+            shutil.rmtree(os.path.join(dst, "p4fr_tpu_torch"), ignore_errors=True)
             shutil.copytree(os.path.join(ROOT, "p4fr_tpu_torch"),
                             os.path.join(dst, "p4fr_tpu_torch"),
                             ignore=shutil.ignore_patterns("__pycache__"))
