@@ -21,8 +21,12 @@ with a non-zero exit and no result line:
    per 4 rows) also at beam's 768 rows: one shape per cluster size that a
    main path takes. Before the checks, each shape's cluster size, the
    card's resident clusters of each size (``cudaOccupancyMaxActiveClusters``)
-   and each kernel-3 instance's registers and local memory are printed;
-   SwinTRN's B=32 and the flagship's B=256 must launch clusters (C > 1).
+   and each kernel-3 instance's registers and local memory are printed,
+   and the same for the fused step (kernel 6, also a cluster of C CTAs
+   per 4 rows, with its own residency); at SwinTRN's B=32 and the
+   flagship's B=256 both must launch clusters (C > 1). Kernel 6 is also
+   held to the first index of the max where its top two logits tie
+   exactly across the generator's first rank boundary.
    The v1 layer step (kernel 8) and the one-launch decoder stack (kernel
    7) at both decoder shapes, pos 0, 115 and 230, random values in every
    cache slot: out and slot ``pos`` within tolerance, the other slots
@@ -55,7 +59,9 @@ with a non-zero exit and no result line:
    back with strict=True: B=32 decoded through the kernels, counters as
    above (24 window-attention launches, 4 x 231 decoder-layer launches);
    the encoder memory and every step's replayed logits of the kernel path
-   meet the plain path's.
+   meet the plain path's. Then the same images with ``kernel="fused"``
+   (231 launches of kernel 6, none of kernel 3): the fused step replayed
+   on its tokens picks them again, and its logits meet the plain path's.
 3c. EfficientSATRN greedy through the v1 step (``make_fast_greedy_fn(
    use_v1=True)``: kernel 8 per layer, 693 launches, no kernel 3), B=32,
    f32, manager on: replayed on its own tokens it picks them again, and
@@ -76,7 +82,9 @@ with a non-zero exit and no result line:
    mask and without (bf16: both products on the tensor cores; SDPA with
    the float bias and mask as its library call), and the registers and
    local memory of its two bodies at n=144; the decoder-layer step at
-   SwinTRN's shape and at beam's 768 rows, and SwinTRN greedy images/s at
+   SwinTRN's shape and at beam's 768 rows, the fused step at SwinTRN's
+   shape (its bound, beside four kernel-3 launches at pos 0, 115 and
+   230), and SwinTRN greedy images/s at
    B=32 with the split of its stream time between encode and decode (each
    timed kernel-path and fused call, and each split encode, must show 24
    window-attention launches, the plain call none). Kernel 8 beside kernel 3,
@@ -418,6 +426,33 @@ def cluster_report(dev):
                 if label != "beam rows" and c == 1:
                     raise AssertionError(f"kernel 3 at {label} B={shape['b']} launches "
                                          "no cluster")
+    fused_cluster_report()
+
+
+def fused_cluster_report():
+    """Kernel 6's cluster size at the fused path's shapes (SwinTRN B=32,
+    the flagship B=256) per type, with its own resident clusters of every
+    size and each instance's registers and local memory a thread; raises
+    unless both launch clusters."""
+    from p4fr_tpu_torch.data.vocab import TOKENS_PATH, Vocab
+    from p4fr_tpu_torch.ops.fused_decode import fused_cluster, fused_query, padded_vocab
+
+    print("[kernel 6: cluster size per shape, its resident clusters of C = "
+          "1/2/4/8/16, registers and local bytes a thread]")
+    vp = padded_vocab(len(Vocab.from_files([TOKENS_PATH])))
+    for label, shape in (("SwinTRN", SWIN_DECODER), ("flagship", SATRN_DECODER)):
+        hid, heads, ff = shape["hidden"], shape["heads"], shape["filter_dim"]
+        for bf16 in (False, True):
+            c = fused_cluster(shape["b"], hid, heads, ff, vp, bf16)
+            per_c = {k: fused_query(bf16, hid // heads, hid, ff, vp, k)
+                     for k in (1, 2, 4, 8, 16)}
+            print(f"  {label} B={shape['b']} H={hid} F={ff} Vp={vp} "
+                  f"{'bfloat16' if bf16 else 'float32'}: C={c}; resident clusters "
+                  f"{[q[0] for q in per_c.values()]}; the launched instance {per_c[c][1]} "
+                  f"registers, {per_c[c][2]} bytes of local memory a thread")
+            if c == 1:
+                raise AssertionError(f"kernel 6 at {label} B={shape['b']} launches no "
+                                     "cluster")
 
 
 def swin_stage_inputs(dtype, gen, dev, stage, b=SWIN_BATCH):
@@ -571,24 +606,44 @@ def random_mstate(gen, b, params, dev):
     return state.int().to(dev)
 
 
+def tie_params(params, lane, logit=50.0):
+    """Kernel 6's ``params`` with the generator's lanes ``lane`` and
+    ``lane + 1`` tied exactly above every other: their ``w_gen`` columns
+    zero and ``b_gen`` ``logit`` at both."""
+    w_gen, b_gen = params.w_gen.clone(), params.b_gen.clone()
+    w_gen[:, lane:lane + 2] = 0
+    b_gen[:, lane:lane + 2] = logit
+    return params._replace(w_gen=w_gen, b_gen=b_gen)
+
+
+def rank_boundary(vp, c):
+    """The first lane of rank 1's generator columns in a cluster of ``c``
+    (csrc/decoder_cluster.cuh::rank_cols); lane 32 alone (c = 1)."""
+    return 8 * (vp // 8 // c) if c > 1 else 32
+
+
 def check_fused_step(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
     """Kernel 6 vs its plain version at a decoder ``shape`` (the main
     path's: B=256, 3 layers, caches [3, 231, 256, 512], cross [3, 256, 128,
     512]; SwinTRN's: B=32, 4 layers, heads of 64, caches [4, 231, 32,
-    1024], cross [4, 32, 144, 1024]), random
-    caches in every slot and random manager states, pos 0, 1, 115 and 230,
-    manager on and off: logits and slot ``pos`` within tolerance, the other
-    slots untouched, the state advanced by the kernel's own pick, no banned
-    pick, and the plain version's pick wherever its top two allowed logits
-    are further apart than twice the tolerance. bf16 returns the largest
-    readings: the logits' and the slot's excess over the cast and the
-    logits' mean abs error (``compare_bf16``)."""
+    1024], cross [4, 32, 144, 1024]), at the cluster size it launches,
+    random caches in every slot and random manager states, pos 0, 1, 115
+    and 230, manager on and off: logits and slot ``pos`` within tolerance,
+    the other slots untouched, the state advanced by the kernel's own pick,
+    no banned pick, and the plain version's pick wherever its top two
+    allowed logits are further apart than twice the tolerance. Then one
+    step (pos 115, manager off) whose top two logits tie exactly across the
+    generator's first rank boundary (``tie_params``): every row must pick
+    the lower lane. bf16 returns the largest readings: the logits' and the
+    slot's excess over the cast and the logits' mean abs error
+    (``compare_bf16``)."""
     from p4fr_tpu_torch.ops.fused_decode import (
         N_TENSORS,
         advance_state,
         ban_mask,
         fused_greedy_step,
         fused_greedy_step_ref,
+        step_cluster,
     )
 
     f32 = dtype == torch.float32
@@ -601,6 +656,9 @@ def check_fused_step(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
     cross = (torch.randn(nl, b, s_len, 2 * hid, generator=gen)).to(dev, dtype)
     base = torch.randn(nl, STEPS, b, 2 * hid, generator=torch.Generator(
         device=dev).manual_seed(seed + 21), device=dev).to(dtype)
+    c = step_cluster(base, params)
+    print(f"  fused_greedy_step B={b} H={hid} {str(dtype)[6:]}: a cluster of {c} CTAs "
+          "a group of 4 rows")
     worst = 0.0
     readings = {"logits": 0.0, "slot": 0.0, "mean": 0.0}
     for pos in GATHER_POS:
@@ -652,6 +710,24 @@ def check_fused_step(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
                   f"untouched {untouched}, pad lanes exact {pads}")
             if not (untouched and state_ok and pads and banned == 0 and same == n_dec):
                 misses.append(f"fused_greedy_step picks/state/slots {tag}")
+
+    lane = rank_boundary(params.w_gen.shape[1], c) - 1
+    tied = tie_params(params, lane)
+    token = torch.randint(0, params.vocab_size, (b,), generator=gen).int().to(dev)
+    mstate = random_mstate(gen, b, params, dev)
+    t_k, _, _, _ = fused_greedy_step(token, 115, base.clone(), cross, mstate, tied,
+                                     use_manager=False)
+    torch.cuda.synchronize()
+    t_r, _, _, _ = fused_greedy_step_ref(
+        token, 115, base.float(), cross.float(), mstate,
+        tied._replace(**{f: getattr(tied, f).float() for f in tied._fields[:N_TENSORS]}),
+        use_manager=False, kv_dtype=dtype)
+    lower = int((t_k == lane).sum())
+    print(f"  fused_greedy_step tie B={b} H={hid} C={c}: lanes {lane} and {lane + 1} "
+          f"tied exactly across the rank boundary; {lower}/{b} rows pick {lane} "
+          f"(all required; the plain version {int((t_r == lane).sum())}/{b})")
+    if lower != b or not bool((t_r == lane).all()):
+        misses.append(f"fused_greedy_step tie B={b} H={hid}: {lower}/{b} pick lane {lane}")
     if f32:
         errors["fused_greedy_step"] = max(errors.get("fused_greedy_step", 0.0), worst)
     return readings
@@ -1054,9 +1130,9 @@ def main_path(ckpt, dev):
     return launches
 
 
-def replay_gate(label, k_logits, k_picks, tokens, p_logits):
+def replay_gate(label, k_logits, k_picks, tokens, p_logits, tol=TOL_LOGITS_F32):
     """The path replayed on its own tokens picks them again, and its logits
-    meet the plain path's replay on the same tokens within 1e-3."""
+    meet the plain path's replay on the same tokens within ``tol``."""
     if not bool(torch.isfinite(k_logits).all()):
         raise AssertionError(f"non-finite logits on the {label} path")
     if not torch.equal(k_picks, tokens):
@@ -1065,8 +1141,8 @@ def replay_gate(label, k_logits, k_picks, tokens, p_logits):
     worst, step = errs.max().item(), int(errs.argmax())
     print(f"  replay: the {label} path picks its own {STEPS}-step tokens again; "
           f"logits {label} vs plain: max_abs_err {worst:.3e} at step {step} "
-          f"(bound {TOL_LOGITS_F32:.1e}); max |logit| {p_logits.abs().max().item():.3e}")
-    if not worst <= TOL_LOGITS_F32:
+          f"(bound {tol:.1e}); max |logit| {p_logits.abs().max().item():.3e}")
+    if not worst <= tol:
         raise AssertionError(f"{label}-path logits disagree with the plain path")
 
 
@@ -1199,22 +1275,28 @@ def build_swin_checkpoint():
     return path
 
 
-def swin_path(ckpt, dev):
-    """SwinTRN greedy at B=32, f32, manager on: launch counts, then the
-    encoder memory and a replay gate against the plain path."""
+def swin_images(ckpt, dev):
+    """SwinTRN in f32, its fast decoder, the manager's tables and the
+    path's B=32 images."""
     from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder
     from p4fr_tpu_torch.decoding.manager import RuleTables
-    from p4fr_tpu_torch.decoding.replay import replay_logits
-    from p4fr_tpu_torch.infer.single import decode_images, encode_images
-    from p4fr_tpu_torch.ops import _build
     from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
     model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, torch.float32)
-    fast = build_fast_decoder(model)
-    tables = RuleTables.build(vocab, dev)
     gen = torch.Generator().manual_seed(SEED + 6)
     images = torch.randint(0, 256, (SWIN_BATCH, SWIN_SIZE, SWIN_SIZE, 3), generator=gen,
                            dtype=torch.uint8).to(dev)
+    return model, build_fast_decoder(model), RuleTables.build(vocab, dev), images
+
+
+def swin_path(ckpt, dev):
+    """SwinTRN greedy at B=32, f32, manager on: launch counts, then the
+    encoder memory and a replay gate against the plain path."""
+    from p4fr_tpu_torch.decoding.replay import replay_logits
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
+
+    model, fast, tables, images = swin_images(ckpt, dev)
     print(f"[SwinTRN path: greedy, B={SWIN_BATCH}, {SWIN_SIZE}x{SWIN_SIZE} u8, Swin-B/384 encoder, "
           f"4-layer 512-wide decoder (heads of 64), {STEPS} steps, manager on, f32, "
           f"TF32 off]")
@@ -1226,7 +1308,7 @@ def swin_path(ckpt, dev):
     blocks = sum(st[1] for st in SWIN_STAGES)
     check_launches(launches, {"standardize": 1, "decoder_layer": 4 * STEPS,
                               "swin_attention": blocks}, at_least=())
-    v = len(vocab)
+    v = model.num_classes
     if tokens.shape != (SWIN_BATCH, STEPS) or not bool(
             ((tokens >= 0) & (tokens < v)).all()):
         raise AssertionError(f"bad SwinTRN tokens {tuple(tokens.shape)}")
@@ -1264,6 +1346,39 @@ def swin_path(ckpt, dev):
              == tokens).float().mean().item()
     print(f"  {distinct} distinct tokens; free-running token agreement kernel vs "
           f"plain: {agree:.4f} (not gated: near-ties of random weights)")
+    return launches
+
+
+def swin_fused_path(ckpt, dev):
+    """SwinTRN greedy ``--kernel fused`` (kernel 6 per step) at B=32, f32,
+    manager on: launch counts (231 of kernel 6, none of kernel 3), then a
+    replay gate against the plain path on the decoded tokens."""
+    from p4fr_tpu_torch.decoding.replay import replay_fused, replay_logits
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
+
+    model, fast, tables, images = swin_images(ckpt, dev)
+    print(f"[SwinTRN fused path: greedy --kernel fused, B={SWIN_BATCH}, "
+          f"{SWIN_SIZE}x{SWIN_SIZE} u8, {STEPS} steps, manager on, f32, TF32 off]")
+    _build.reset_launches()
+    tokens = decode_images(model, fast, images, tables, STEPS, kernel="fused")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches {json.dumps(launches)}")
+    check_launches(launches, {"standardize": 1, "fused_greedy_step": STEPS,
+                              "swin_attention": sum(st[1] for st in SWIN_STAGES)},
+                   at_least=())
+    v = model.num_classes
+    if tokens.shape != (SWIN_BATCH, STEPS) or not bool(
+            ((tokens >= 0) & (tokens < v)).all()):
+        raise AssertionError(f"bad SwinTRN fused tokens {tuple(tokens.shape)}")
+    k_logits, k_picks = replay_fused(fast, encode_images(model, images), tokens,
+                                     sos_id=model.sos_id, vocab_size=v, tables=tables)
+    p_logits, _ = replay_logits(fast, encode_images(model, images, plain=True), tokens,
+                                sos_id=model.sos_id, tables=tables, plain=True)
+    torch.cuda.synchronize()
+    replay_gate("SwinTRN fused", k_logits, k_picks, tokens, p_logits,
+                tol=TOL_SWIN_LOGITS_F32)
     return launches
 
 
@@ -1405,6 +1520,21 @@ def bound(nbytes, ops, ops_per_s):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fused_cost(token, mstate, caches, cross, params, pos):
+    """(bytes, operations) of one kernel-6 step at ``pos``: token and state
+    in and out, the logits out, every layer's cache prefix read and slot
+    ``pos`` written, the cross K|V, every weight and table; every layer's
+    products and attention, and the generator."""
+    nl, _, b, two_h = caches.shape
+    hid, s_len = two_h // 2, cross.shape[2]
+    ff, vp = params.w_ff0.shape[2], params.w_gen.shape[1]
+    nb = (2 * nbytes(token, mstate) + b * vp * 4 + nbytes(caches[:, :pos + 1])
+          + nbytes(cross) + nbytes(*params[:20]))
+    ops = (nl * (2 * b * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
+                 + 4 * b * hid * (pos + 1 + s_len)) + 2 * b * hid * vp)
+    return nb, ops
 
 
 def e2e(label, fn, batch, card, what, launches=None):
@@ -1583,21 +1713,13 @@ def timing(ckpt, dev, card):
         device=dev).manual_seed(SEED + 13), device=dev).to(bf)
     token = torch.randint(0, params.vocab_size, (b,), generator=gen).int().to(dev)
     mstate = random_mstate(gen, b, params, dev)
-    vp = params.w_gen.shape[1]
     report("fused_greedy_step",
            f"B={b} pos={pos} L={STEPS} S={s_len} {nl} layers, manager on, per step",
            cuda_ms(lambda: fused_greedy_step(token, pos, caches, cross, mstate, params,
                                              use_manager=True), iters=50),
            cuda_ms(lambda: fused_greedy_step_ref(token, pos, caches, cross, mstate,
                                                  params, use_manager=True), iters=50),
-           None,
-           # token and state in and out, the logits out, every layer's cache
-           # prefix (slots < pos) read and slot pos written, the cross K|V,
-           # every weight and table
-           2 * nbytes(token, mstate) + b * vp * 4 + nbytes(caches[:, :pos + 1])
-           + nbytes(cross) + nbytes(*params[:20]),
-           nl * (2 * b * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
-                 + 4 * b * hid * (pos + 1 + s_len)) + 2 * b * hid * vp,
+           None, *fused_cost(token, mstate, caches, cross, params, pos),
            BF16_TENSOR_OPS_PER_S)
     # the fused step beside three launches of kernel 3 (batch-major cache)
     for at in (0, pos, STEPS - 1):
@@ -1689,6 +1811,11 @@ def swin_timing(ckpt, dev, card, times):
     from p4fr_tpu_torch.infer.single import decode_images, encode_images
     from p4fr_tpu_torch.ops import _build
     from p4fr_tpu_torch.ops.decoder_layer import decoder_layer_step, layer_step_ref
+    from p4fr_tpu_torch.ops.fused_decode import (
+        fused_greedy_step,
+        fused_greedy_step_ref,
+        step_cluster,
+    )
     from p4fr_tpu_torch.ops.swin_attention import (
         fused_window_attention,
         fused_window_attention_ref,
@@ -1757,7 +1884,33 @@ def swin_timing(ckpt, dev, card, times):
           f"{hid // shape['heads']}) F={ff} pos={pos} L={STEPS} S={shape['s_len']} per "
           f"layer step: kernel {k:.4f} ms, plain {p:.4f} ms, bound {b:.4f} ms by {by} "
           f"({card})")
-    del x, cache, src
+
+    # kernel 6 at SwinTRN's shape (4 layers, time-major caches), beside four
+    # kernel-3 launches at each position
+    nl = shape["layers"]
+    params, _ = fused_params(bf, gen, dev, nl, hid, ff, shape["heads"])
+    cross = torch.randn(nl, shape["b"], shape["s_len"], 2 * hid, generator=gen).to(dev, bf)
+    caches = torch.randn(nl, STEPS, shape["b"], 2 * hid, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 14), device=dev).to(bf)
+    token = torch.randint(0, params.vocab_size, (shape["b"],), generator=gen).int().to(dev)
+    mstate = random_mstate(gen, shape["b"], params, dev)
+    c6 = step_cluster(caches, params)
+    for at in (0, pos, STEPS - 1):
+        k6 = cuda_ms(lambda: fused_greedy_step(token, at, caches, cross, mstate, params,
+                                               use_manager=True), iters=50)
+        k3 = k if at == pos else cuda_ms(lambda: decoder_layer_step(
+            x, at, cache, src, weights, head_num=shape["heads"], cache_outputs=True),
+            iters=50)
+        p6 = cuda_ms(lambda: fused_greedy_step_ref(token, at, caches, cross, mstate, params,
+                                                   use_manager=True), iters=20)
+        b6, by6 = bound(*fused_cost(token, mstate, caches, cross, params, at),
+                        BF16_TENSOR_OPS_PER_S)
+        print(f"  fused_greedy_step SwinTRN shape B={shape['b']} H={hid} (heads of "
+              f"{hid // shape['heads']}) {nl} layers C={c6} pos={at} L={STEPS} "
+              f"S={shape['s_len']}, manager on, per step: kernel {k6:.4f} ms, plain "
+              f"{p6:.4f} ms, bound {b6:.4f} ms by {by6}; four kernel-3 launches "
+              f"{4 * k3:.4f} ms ({card})")
+    del x, cache, src, cross, caches
 
     model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, bf)
     fast = build_fast_decoder(model)
@@ -1821,6 +1974,7 @@ def main():
         launches["fused_greedy_step"] = fused_launches["fused_greedy_step"]
         swin_ckpt = build_swin_checkpoint()
         launches["swin_attention"] = swin_path(swin_ckpt, dev)["swin_attention"]
+        swin_fused_path(swin_ckpt, dev)
         launches["decoder_layer_v1"] = v1_path(ckpt, dev)["decoder_layer_v1"]
         launches["decoder_stack_v3"] = v3_path(ckpt, dev)["decoder_stack_v3"]
         for form in INT8_FORMS:

@@ -1,6 +1,7 @@
-// Kernel 3's layer step as a thread-block cluster: C CTAs (C in 1, 2, 4, 8,
-// 16; the wrapper picks it, ops/decoder_layer.py::cluster_size) share one
-// group of TB = 4 batch rows. The contract is decoder_common.cuh's
+// Kernel 3's layer step as a thread-block cluster, also run once per layer
+// by kernel 6 (csrc/fused_decode.cu): C CTAs (C in 1, 2, 4, 8, 16; the
+// wrapper picks it, ops/decoder_layer.py::cluster_size) share one group
+// of TB = 4 batch rows. The contract is decoder_common.cuh's
 // (p4fr_tpu/decoding/fast_step.py::jnp_layer_step, the int8 forms KvQ):
 // scores / sqrt(H), ReLU after both FF linears, LayerNorm eps 1e-5, slot
 // `pos` written in place after the attention (the output's k|v under
@@ -39,8 +40,9 @@
 // that a phase pushes into is one that no rank touches in that phase or
 // in the local work just before it (the buffer plan in layer_body_cluster),
 // so one barrier a phase suffices. No DSMEM access follows the last
-// barrier, which is therefore the exit barrier: no CTA leaves while a peer
-// may still touch its shared memory.
+// barrier, which is therefore kernel 3's exit barrier: no CTA leaves while
+// a peer may still touch its shared memory (kernel 6 ends in a barrier of
+// its own).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -165,11 +167,12 @@ __device__ __forceinline__ void rowmm_batch(const float* in, int K, const T* wp,
 // out[r][n] = act(sum_k in[r][k] * W[k][n] + bias[n]) for r < TB and this
 // rank's columns n in [nb, ne) (multiples of 8), into this CTA's `out`
 // (row stride ldo); columns n >= round_from are rounded through T (the
-// cache's type). in: smem [TB][K]; red: smem scratch of NT / 32 * TB *
-// NCHUNK floats. Returns synchronised.
-template <int NT, typename T>
+// cache's type). in: smem [TB][K]; bias in T, or f32 (TBias; kernel 6's
+// generator); red: smem scratch of NT / 32 * TB * NCHUNK floats. Returns
+// synchronised.
+template <int NT, typename T, typename TBias = T>
 __device__ void rowmm_part(const float* in, int K, const T* __restrict__ W, int ldw,
-                           const T* __restrict__ bias, int nb, int ne, float* out,
+                           const TBias* __restrict__ bias, int nb, int ne, float* out,
                            int ldo, bool relu, int round_from, float* red) {
   constexpr int NW = NT / 32, OUTS = TB * NCHUNK / NT;  // OUTS: outputs a thread sums
   static_assert(TB * NCHUNK % NT == 0, "whole outputs a thread");
@@ -254,8 +257,11 @@ __device__ __forceinline__ void finish_pair(const float* q, int r, int h, int H,
   for (int i = 0; i < VPL; ++i) out[r * H + h * D + VPL * lane + i] = acc[i] / ssum;
 }
 
-// decoder_common.cuh's attend (its packed, batch-major form) for this
-// rank's pairs p0 .. p0+np-1 (pair p: row p / heads, head p % heads), into
+// decoder_common.cuh's attend for this rank's pairs p0 .. p0+np-1 (pair
+// p: row p / heads, head p % heads); row b's position l of kv at
+// b * row_stride + l * pos_stride (a batch-major [B, L, 2H] cache or the
+// cross K|V: L * 2H and 2H; kernel 6's time-major [L, B, 2H] cache: 2H and
+// B * 2H), keys at + h*D, values at + H + h*D; into
 // this CTA's out [TB][H] at pair p's D values, out[p*D ..]. With np >=
 // NT / 32 warps take whole pairs; otherwise each pair gets NT / 32 / np
 // warps, warp `split` of them taking the chunks l0 = 32 * (split + k *
@@ -267,7 +273,8 @@ __device__ __forceinline__ void finish_pair(const float* q, int r, int h, int H,
 // while the mass sums the probability. Returns synchronised.
 template <int NT, typename T, int D, bool SCALED>
 __device__ void attend_part(const float* qbuf, int qld, const T* __restrict__ kv,
-                            int row, int b0, int nrows, int n_pos, int H, int heads,
+                            int row_stride, int pos_stride, int b0, int nrows,
+                            int n_pos, int H, int heads,
                             float temp, const float* cur, int cur_ld, float* out,
                             KvScales scl, int p0, int np, float* stage) {
   static_assert(D == 32 || D == 64, "heads of 32 or 64");
@@ -285,7 +292,7 @@ __device__ void attend_part(const float* qbuf, int qld, const T* __restrict__ kv
 #pragma unroll
     for (int i = 0; i < VPL; ++i) acc[i] = 0.f;
     if (r < nrows) {
-      const T* base = kv + static_cast<long long>(b0 + r) * row * 2 * H;
+      const T* base = kv + static_cast<long long>(b0 + r) * row_stride;
       const float* srow = SCALED ? scl.p + static_cast<long long>(b0 + r) * scl.row
                                  : nullptr;
       const T* vcol = base + H + h * D + VPL * lane;
@@ -296,7 +303,8 @@ __device__ void attend_part(const float* qbuf, int qld, const T* __restrict__ kv
         ValueReg<T, VPL> vbuf[32];
         const long long lc = min(l, n_mem - 1);
 #pragma unroll
-        for (int c = 0; c < VPL; ++c) ldg32(base + lc * 2 * H + h * D + 32 * c, kk + 32 * c);
+        for (int c = 0; c < VPL; ++c)
+          ldg32(base + lc * pos_stride + h * D + 32 * c, kk + 32 * c);
         float sk = 1.f, sv = 1.f;  // this lane's position's scales
         if constexpr (SCALED) {
           sk = __ldg(srow + lc * scl.pos);
@@ -305,7 +313,7 @@ __device__ void attend_part(const float* qbuf, int qld, const T* __restrict__ kv
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const long long li = min(l0 + i, n_mem - 1);
-          ldg_value(vbuf[i], vcol + li * 2 * H);
+          ldg_value(vbuf[i], vcol + li * pos_stride);
         }
         float dot = 0.f;
 #pragma unroll
@@ -371,15 +379,20 @@ __device__ void attend_part(const float* qbuf, int qld, const T* __restrict__ kv
 // (later out2), Q q|k|v (later the output's k|v), AT the attention output
 // (self, then cross), P the projections (out, out2, ff1), O1 out1, Q2 the
 // cross query (later the layer's output), FB the FF's inner activation, R
-// rowmm_part's partial sums and attend_part's stage.
+// rowmm_part's partial sums and attend_part's stage (red_floats<NT>).
 struct ClusterSmem {
   float *X, *Q, *AT, *P, *O1, *Q2, *FB, *R;
 };
 
+template <int NT>
+__host__ __device__ constexpr int red_floats() {
+  return NT / 32 * TB * NCHUNK;
+}
+
 // floats of a CTA of NT threads
 template <int NT>
 size_t cluster_smem_floats(int H, int F) {
-  return static_cast<size_t>(TB) * (8 * H + F) + static_cast<size_t>(NT / 32) * TB * NCHUNK;
+  return static_cast<size_t>(TB) * (8 * H + F) + red_floats<NT>();
 }
 
 __device__ __forceinline__ ClusterSmem carve_cluster_smem(float* sm, int H, int F) {
@@ -396,17 +409,19 @@ __device__ __forceinline__ ClusterSmem carve_cluster_smem(float* sm, int H, int 
 }
 
 // This rank's columns [cb, ce) of slot `pos` for the valid rows, from the
-// gathered k|v at kv[r*3H ..] (smem): in T, or (kSrcCache) as int8 codes
+// gathered k|v at kv[r*3H ..] (smem), row b's slot at b * c_row + pos *
+// c_pos (attend_part's strides): in T, or (kSrcCache) as int8 codes
 // with the per-(row, half) scales max(max|x|, 1e-8) / 127, computed over
 // the whole half by every rank (one warp a (row, half)) and written by rank
 // 0; codes clip(rint(x / scale), -127, 127), IEEE division, so they are
 // the plain version's.
 template <int NT, typename T, KvQ KQ>
 __device__ void write_slot_part(const float* kv, CacheT<T, KQ>* __restrict__ cache,
-                                float* __restrict__ cache_scale, float* scl, int L,
-                                int b0, int nrows, int H, int pos, int cb, int ce,
-                                int rank) {
+                                float* __restrict__ cache_scale, float* scl, int c_row,
+                                int c_pos, int L, int b0, int nrows, int H, int pos,
+                                int cb, int ce, int rank) {
   const int n = ce - cb;
+  CacheT<T, KQ>* at = cache + static_cast<long long>(pos) * c_pos;
   if constexpr (KQ == KvQ::kSrcCache) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     for (int pair = warp; pair < nrows * 2; pair += NT / 32) {
@@ -427,60 +442,82 @@ __device__ void write_slot_part(const float* kv, CacheT<T, KQ>* __restrict__ cac
     for (int i = threadIdx.x; i < nrows * n; i += NT) {
       const int r = i / n, j = cb + i % n;
       const float sc = scl[r * 2 + j / H];
-      cache[(static_cast<long long>(b0 + r) * L + pos) * 2 * H + j] = static_cast<int8_t>(
+      at[static_cast<long long>(b0 + r) * c_row + j] = static_cast<int8_t>(
           fminf(fmaxf(rintf(kv[r * 3 * H + j] / sc), -127.f), 127.f));
     }
   } else {
     for (int i = threadIdx.x; i < nrows * n; i += NT) {
       const int r = i / n, j = cb + i % n;
-      cache[(static_cast<long long>(b0 + r) * L + pos) * 2 * H + j] =
-          from_f<T>(kv[r * 3 * H + j]);
+      at[static_cast<long long>(b0 + r) * c_row + j] = from_f<T>(kv[r * 3 * H + j]);
     }
   }
 }
 
+// This rank's share [b, e) of n columns, in whole groups of CPT.
+struct Cols {
+  int b, e;
+};
+__device__ __forceinline__ Cols rank_cols(int n, int C, int rank) {
+  return {CPT * cut(n / CPT, C, rank), CPT * cut(n / CPT, C, rank + 1)};
+}
+
 // One layer step of the rows b0 .. b0+nrows-1 on rank `rank` of a cluster
-// of C: x [B, H] in, out [B, H] and slot `pos` of the batch-major cache
-// [B, L, 2H] written (each rank its columns). Phases, each ending in the
-// cluster barrier after its push (buffer written: what it reads):
+// of C. On entry s.X holds the rows' input (f32, every row of the group,
+// synchronised); on return s.Q2 holds the layer's output (f32, every row,
+// synchronised) and this rank's columns of slot `pos` of the cache are
+// written (b * c_row + pos * c_pos, attend_part's strides); the caller
+// writes the output. Phases, each ending in the cluster barrier after its
+// push (buffer written: what it reads):
 //   qkv Q: X | self-attention AT: Q, cache | out-proj P: AT |
 //   LN1 O1 (local), q2 Q2: O1 | cross-attention AT: Q2, src | out2 P: AT |
-//   LN2 X (local), ff0 FB: X | ff1 P: FB | LN3 Q2 (local), out;
+//   LN2 X (local), ff0 FB: X | ff1 P: FB | LN3 Q2 (local);
 //   the output's k|v into Q+H (cache_outputs; pushed only for the int8
 //   slot's scale), slot `pos`.
+// The opening barrier (arrive before the qkv product, wait before its
+// push) keeps a peer's first push out of a CTA that has not started, and,
+// when layers are chained in one launch (kernel 6: `chained`, every layer
+// after the first), out of Q while this CTA still reads the last layer's
+// k|v there for its slot. The chained plan, layer l to layer l+1: after
+// layer l's last barrier (LN3 gathered; with kSrcCache the output's k|v)
+// no peer pushes in layer l again; each rank then reads Q2 and Q+H locally
+// (the cache_outputs product and slot `pos`), refills X from Q2 and
+// arrives, with release semantics, only after those reads; peers push
+// layer l+1's q|k|v into Q only after the wait, so after every rank's
+// arrival. X, which the refill writes, no peer ever pushes into.
 template <int NT, typename T, int D, KvQ KQ>
 __device__ void layer_body_cluster(const ClusterSmem& s, const Weights& wt,
-                                   const T* __restrict__ x,
-                                   CacheT<T, KQ>* __restrict__ cache,
+                                   CacheT<T, KQ>* __restrict__ cache, int c_row, int c_pos,
                                    float* __restrict__ cache_scale,
                                    const SrcT<T, KQ>* __restrict__ src,
-                                   const float* __restrict__ src_scale,
-                                   T* __restrict__ out, int b0, int nrows, int H,
-                                   int heads, int F, int S, int L, int pos,
-                                   int cache_outputs, int C, int rank) {
+                                   const float* __restrict__ src_scale, int b0, int nrows,
+                                   int H, int heads, int F, int S, int L, int pos,
+                                   int cache_outputs, int C, int rank, bool chained) {
   const float temp = sqrtf(static_cast<float>(H));
   const int p0 = cut(TB * heads, C, rank), np = cut(TB * heads, C, rank + 1) - p0;
-  const int hb = CPT * cut(H / CPT, C, rank), he = CPT * cut(H / CPT, C, rank + 1);
+  const Cols hc = rank_cols(H, C, rank);
+  const int hb = hc.b, he = hc.e;
   float *X = s.X, *Q = s.Q, *AT = s.AT, *P = s.P, *O1 = s.O1, *Q2 = s.Q2, *FB = s.FB,
         *R = s.R;
   const auto w = [](const void* p) { return static_cast<const T*>(p); };
 
-  for (int i = threadIdx.x; i < TB * H; i += NT)
-    X[i] = i / H < nrows ? to_f(__ldg(x + static_cast<long long>(b0) * H + i)) : 0.f;
-  __syncthreads();
-  // a peer's shared memory is written only once every CTA has started
-  if (C > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const bool opening = C > 1;
+  if (opening) {
+    if (chained)
+      asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    else
+      asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  }
 
   // fused q|k|v of the current token; k|v rounded to the cache type
-  int cb = CPT * cut(3 * H / CPT, C, rank), ce = CPT * cut(3 * H / CPT, C, rank + 1);
-  rowmm_part<NT, T>(X, H, w(wt.w_qkv), 3 * H, w(wt.b_qkv), cb, ce, Q, 3 * H, false, H, R);
-  if (C > 1) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  push<NT>(Q, 3 * H, TB, cb, ce, C, rank);
+  const Cols c3 = rank_cols(3 * H, C, rank);
+  rowmm_part<NT, T>(X, H, w(wt.w_qkv), 3 * H, w(wt.b_qkv), c3.b, c3.e, Q, 3 * H, false, H, R);
+  if (opening) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  push<NT>(Q, 3 * H, TB, c3.b, c3.e, C, rank);
   cluster_sync(C);  // q|k|v gathered
 
   // masked self-attention over slots 0..pos
   attend_part<NT, CacheT<T, KQ>, D, KQ == KvQ::kSrcCache>(
-      Q, 3 * H, cache, L, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H, AT,
+      Q, 3 * H, cache, c_row, c_pos, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H, AT,
       KvScales{cache_scale, 2 * L, 2, 1}, p0, np, R);
   push<NT>(AT, 0, 1, p0 * D, (p0 + np) * D, C, rank);
   cluster_sync(C);  // self-attention gathered
@@ -495,7 +532,7 @@ __device__ void layer_body_cluster(const ClusterSmem& s, const Weights& wt,
   push<NT>(Q2, H, TB, hb, he, C, rank);
   cluster_sync(C);  // cross query gathered
   attend_part<NT, SrcT<T, KQ>, D, KQ != KvQ::kNone>(
-      Q2, H, src, S, b0, nrows, S, H, heads, temp, nullptr, 0, AT,
+      Q2, H, src, S * 2 * H, 2 * H, b0, nrows, S, H, heads, temp, nullptr, 0, AT,
       KvScales{src_scale, 2 * S, 1, S}, p0, np, R);
   push<NT>(AT, 0, 1, p0 * D, (p0 + np) * D, C, rank);
   cluster_sync(C);  // cross-attention gathered
@@ -506,33 +543,99 @@ __device__ void layer_body_cluster(const ClusterSmem& s, const Weights& wt,
   __syncthreads();
 
   // feed-forward, ReLU after both linears
-  const int fb = CPT * cut(F / CPT, C, rank), fe = CPT * cut(F / CPT, C, rank + 1);
-  rowmm_part<NT, T>(X, H, w(wt.w_ff0), F, w(wt.b_ff0), fb, fe, FB, F, true, F, R);
-  push<NT>(FB, F, TB, fb, fe, C, rank);
+  const Cols fc = rank_cols(F, C, rank);
+  rowmm_part<NT, T>(X, H, w(wt.w_ff0), F, w(wt.b_ff0), fc.b, fc.e, FB, F, true, F, R);
+  push<NT>(FB, F, TB, fc.b, fc.e, C, rank);
   cluster_sync(C);  // FF inner gathered
   rowmm_part<NT, T>(FB, F, w(wt.w_ff1), H, w(wt.b_ff1), hb, he, P, H, true, H, R);
   push<NT>(P, H, TB, hb, he, C, rank);
   cluster_sync(C);  // ff1 gathered: LN3 reads every column
   add_ln<T>(P, X, H, w(wt.ln3_s), w(wt.ln3_b), Q2);
   __syncthreads();
-  for (int i = threadIdx.x; i < nrows * (he - hb); i += NT) {
-    const int r = i / (he - hb), n = hb + i % (he - hb);
-    out[static_cast<long long>(b0 + r) * H + n] = from_f<T>(Q2[r * H + n]);
-  }
 
   // slot `pos` := the current k|v, or (reference parity) the output's,
   // Q2 @ w_qkv[:, H:] + b_qkv[H:]
-  cb = CPT * cut(2 * H / CPT, C, rank), ce = CPT * cut(2 * H / CPT, C, rank + 1);
+  const Cols c2 = rank_cols(2 * H, C, rank);
   if (cache_outputs) {
-    rowmm_part<NT, T>(Q2, H, w(wt.w_qkv) + H, 3 * H, w(wt.b_qkv) + H, cb, ce, Q + H, 3 * H,
-                  false, 2 * H, R);
+    rowmm_part<NT, T>(Q2, H, w(wt.w_qkv) + H, 3 * H, w(wt.b_qkv) + H, c2.b, c2.e, Q + H,
+                      3 * H, false, 2 * H, R);
     if constexpr (KQ == KvQ::kSrcCache) {  // the scales need every column
-      push<NT>(Q + H, 3 * H, TB, cb, ce, C, rank);
+      push<NT>(Q + H, 3 * H, TB, c2.b, c2.e, C, rank);
       cluster_sync(C);  // the output's k|v gathered
     }
   }
-  write_slot_part<NT, T, KQ>(Q + H, cache, cache_scale, R, L, b0, nrows, H, pos, cb, ce,
-                         rank);
+  write_slot_part<NT, T, KQ>(Q + H, cache, cache_scale, R, c_row, c_pos, L, b0, nrows, H,
+                             pos, c2.b, c2.e, rank);
+}
+
+// ---- the launch, shared by kernels 3 and 6 (Kernel: the __global__
+// instance; `threads` a CTA, `smem` bytes of dynamic shared memory)
+
+// The function attributes of an instance, set once: dynamic shared memory
+// up to the card's opt-in limit (less the instance's static shared
+// memory), and clusters of 16 (beyond the portable 8).
+template <auto Kernel>
+cudaError_t prepare() {
+  static const cudaError_t err = [] {
+    int dev = 0, optin = 0;
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, Kernel);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - static_cast<int>(fa.sharedSizeBytes));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+  }();
+  return err;
+}
+
+// groups * C CTAs of `threads` threads in clusters of C
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int groups, int C, int threads, size_t smem, cudaStream_t stream) {
+    cfg.gridDim = dim3(groups * C);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// groups * C CTAs of Kernel in clusters of C, then cudaGetLastError
+template <auto Kernel, typename... Args>
+int launch_cluster(int groups, int C, int threads, size_t smem, cudaStream_t stream,
+                   Args... args) {
+  cudaError_t e = prepare<Kernel>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ClusterLaunch cl(groups, C, threads, smem, stream);
+  e = cudaLaunchKernelEx(&cl.cfg, Kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What a wrapper picks C from, for one instance: the clusters of C that
+// can be resident at once with `smem` bytes a CTA, and the instance's
+// registers and local memory a thread.
+template <auto Kernel>
+int query_cluster(int C, int threads, size_t smem, int* clusters, int* regs, int* local) {
+  cudaError_t e = prepare<Kernel>();
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, Kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = fa.numRegs;
+  *local = static_cast<int>(fa.localSizeBytes);
+  ClusterLaunch cl(1, C, threads, smem, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, Kernel, &cl.cfg));
 }
 
 }  // namespace

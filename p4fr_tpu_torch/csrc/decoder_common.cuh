@@ -1,10 +1,10 @@
 // One transformer-decoder layer's autoregressive step for TB batch rows,
 // shared by csrc/decoder_layer_v1.cu (kernel 8: one layer per launch,
-// batch-major cache, the whole-prefix softmax), csrc/decoder_stack.cu
-// (kernel 7: every layer in one launch, batch-major stacked caches) and
-// csrc/fused_decode.cu (kernel 6: the whole greedy step, time-major
-// caches); csrc/decoder_layer.cu (kernel 3) runs the same contract as a
-// cluster (decoder_cluster.cuh), on this file's loads, operand forms and
+// batch-major cache, the whole-prefix softmax) and csrc/decoder_stack.cu
+// (kernel 7: every layer in one launch, batch-major stacked caches);
+// csrc/decoder_layer.cu (kernel 3) and csrc/fused_decode.cu (kernel 6: the
+// whole greedy step, time-major caches) run the same contract as a cluster
+// (decoder_cluster.cuh), on this file's loads, operand forms and
 // LayerNorm. Contract: p4fr_tpu/decoding/
 // fast_step.py::jnp_layer_step. Per batch row, with hidden H, `heads` heads of D = 32 or
 // 64 (a template parameter; EfficientSATRN's decoder has 32, SwinTRN's 64),
@@ -275,22 +275,17 @@ __device__ void add_ln(const float* a, const float* res, int H,
 // dims (lane*VPL ..) and accumulates the chunk's values, all 32 value
 // loads issued before the first is used (latency, not bandwidth, bounds
 // this loop). q at qbuf[r*qld + h*D]; kv holds 2H values per (row b,
-// position l), keys at + h*D, values at + H + h*D, at
-//   PACKED_SLOTS: (b*row + l)*2H, kv being [B, row, 2H] (a batch-major
-//     cache with row = L, or the cross K|V with row = S);
-//   otherwise: b*row + l*slot_stride, `row` being the row stride (a
-//     time-major [L, B, 2H] cache: row 2H, slot_stride B*2H).
-// Kernel 7 (packed) and kernel 6 (strided, for its cross K|V too) each run
-// faster with their own form of this arithmetic (PERF.md, Findings). With
+// position l) at (b*row + l)*2H, kv being [B, row, 2H] (a batch-major
+// cache with row = L, or the cross K|V with row = S), keys at + h*D,
+// values at + H + h*D. With
 // `cur`, position n_pos-1 (= pos) is the current token: its key is at
 // cur[r*cur_ld + h*D] and value at cur[r*cur_ld + H + h*D] (shared memory)
 // and it is folded in last. Writes the [TB][H] attention output (before the
 // out-projection).
-template <typename T, bool PACKED_SLOTS, int D>
+template <typename T, int D>
 __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
-                       int row, int slot_stride, int b0, int nrows,
-                       int n_pos, int H, int heads, float temp,
-                       const float* cur, int cur_ld, float* out) {
+                       int row, int b0, int nrows, int n_pos, int H, int heads,
+                       float temp, const float* cur, int cur_ld, float* out) {
   static_assert(D == 32 || D == 64, "heads of 32 or 64");
   constexpr int VPL = D / 32;  // value dims per lane
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -299,8 +294,7 @@ __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
     const int r = pair / heads, h = pair % heads;
     if (r >= nrows) continue;
     const float* q = qbuf + r * qld + h * D;
-    const T* base = PACKED_SLOTS ? kv + static_cast<long long>(b0 + r) * row * 2 * H
-                                 : kv + static_cast<long long>(b0 + r) * row;
+    const T* base = kv + static_cast<long long>(b0 + r) * row * 2 * H;
     // value dims VPL*lane .. of position 0
     const T* vcol = base + H + h * D + VPL * lane;
     float m = -INFINITY, ssum = 0.f, acc[VPL];  // acc: head dims VPL*lane ..
@@ -315,12 +309,11 @@ __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
       const long long lc = min(l, n_mem - 1);
 #pragma unroll
       for (int c = 0; c < VPL; ++c)
-        load32(base + (PACKED_SLOTS ? lc * 2 * H : lc * slot_stride) + h * D + 32 * c,
-               kk + 32 * c);
+        load32(base + lc * 2 * H + h * D + 32 * c, kk + 32 * c);
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const long long lj = min(l0 + j, n_mem - 1);
-        vbuf[j].load(vcol + (PACKED_SLOTS ? lj * 2 * H : lj * slot_stride));
+        vbuf[j].load(vcol + lj * 2 * H);
       }
       float dot = 0.f;
 #pragma unroll
@@ -461,7 +454,7 @@ struct StackedWeights {
 
 // layer l's weights inside the stacked tensors
 template <typename T>
-__device__ Weights layer_weights(const StackedWeights& p, int l, int H, int F) {
+__host__ __device__ Weights layer_weights(const StackedWeights& p, int l, int H, int F) {
   auto at = [](const void* base, long long off) -> const void* {
     return static_cast<const T*>(base) + off;
   };
@@ -502,13 +495,13 @@ __device__ __forceinline__ LayerSmem carve_layer_smem(float* sm, int H, int F) {
   return s;
 }
 
-// Slot `pos` of the rows' cache := the current k|v, or with cache_outputs
-// (reference parity) the layer OUTPUT's k|v, out @ w_qkv[:, H:] + b_qkv[H:].
-template <typename T, bool PACKED_SLOTS>
+// Slot `pos` of the rows' batch-major [B, L, 2H] cache := the current k|v,
+// or with cache_outputs (reference parity) the layer OUTPUT's k|v, out @
+// w_qkv[:, H:] + b_qkv[H:].
+template <typename T>
 __device__ void write_slot(const LayerSmem& s, const Weights& wt,
-                           T* __restrict__ cache, int c_row, int c_slot,
-                           int b0, int nrows, int H, int pos,
-                           int cache_outputs) {
+                           T* __restrict__ cache, int L, int b0, int nrows, int H,
+                           int pos, int cache_outputs) {
   if (cache_outputs) {
     rowmm<T>(s.Dd, H, static_cast<const T*>(wt.w_qkv) + H, 3 * H,
              static_cast<const T*>(wt.b_qkv) + H, 2 * H, s.Q + H, 3 * H, false,
@@ -517,28 +510,24 @@ __device__ void write_slot(const LayerSmem& s, const Weights& wt,
   }
   for (int i = threadIdx.x; i < nrows * 2 * H; i += NT) {
     int r = i / (2 * H), j = i % (2 * H);
-    const long long at = PACKED_SLOTS
-        ? (static_cast<long long>(b0 + r) * c_row + pos) * 2 * H + j
-        : static_cast<long long>(b0 + r) * c_row + static_cast<long long>(pos) * c_slot + j;
-    cache[at] = from_f<T>(s.Q[r * 3 * H + H + j]);
+    cache[(static_cast<long long>(b0 + r) * L + pos) * 2 * H + j] =
+        from_f<T>(s.Q[r * 3 * H + H + j]);
   }
 }
 
 // One layer's step for the CTA's rows b0..b0+nrows-1, up to its output:
 // on entry s.A holds the input rows (f32, synchronised); on return s.Dd
 // holds the layer's output in f32 (not yet rounded to T) and s.Q the
-// current k|v. The caches are addressed as attend's `kv` (c_row, c_slot and
-// s_row are its `row` and `slot_stride`). write_slot then stores slot `pos`.
-// FULL (kernel 8; batch-major caches only) stores the current k|v into slot
-// `pos` before the attention and runs attend_full over the cache and the
-// cross K|V, so its cache is written here; the online form (kernels 6, 7)
-// only reads it.
-template <typename T, bool PACKED_SLOTS, int D, bool FULL = false>
+// current k|v. The cache is batch-major [B, L, 2H], the cross K|V [B, S,
+// 2H]. write_slot then stores slot `pos`. FULL (kernel 8) stores the
+// current k|v into slot `pos` before the attention and runs attend_full
+// over the cache and the cross K|V, so its cache is written here; the
+// online form (kernel 7) only reads it.
+template <typename T, int D, bool FULL = false>
 __device__ void layer_body(const LayerSmem& s, const Weights& wt,
                            std::conditional_t<FULL, T, const T>* __restrict__ cache,
-                           int c_row, int c_slot, const T* __restrict__ src, int s_row,
-                           int b0, int nrows, int H, int heads, int F, int S, int pos) {
-  static_assert(!FULL || PACKED_SLOTS, "the full form reads a batch-major cache");
+                           int L, const T* __restrict__ src, int b0, int nrows, int H,
+                           int heads, int F, int S, int pos) {
   const float temp = sqrtf(static_cast<float>(H));
   float *A = s.A, *Q = s.Q, *C = s.C, *Dd = s.Dd, *Fb = s.Fb, *R = s.R;
 
@@ -554,13 +543,11 @@ __device__ void layer_body(const LayerSmem& s, const Weights& wt,
 
   // masked self-attention over slots 0..pos
   if constexpr (FULL) {
-    write_slot<T, PACKED_SLOTS>(s, wt, cache, c_row, c_slot, b0, nrows, H, pos, 0);
+    write_slot<T>(s, wt, cache, L, b0, nrows, H, pos, 0);
     __syncthreads();
-    attend_full<T, D>(Q, 3 * H, cache, c_row, b0, nrows, pos + 1, H, heads, temp,
-                      C, R);
+    attend_full<T, D>(Q, 3 * H, cache, L, b0, nrows, pos + 1, H, heads, temp, C, R);
   } else {
-    attend<T, PACKED_SLOTS, D>(Q, 3 * H, cache, c_row, c_slot, b0, nrows, pos + 1, H,
-                               heads, temp, Q + H, 3 * H, C);
+    attend<T, D>(Q, 3 * H, cache, L, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H, C);
   }
   __syncthreads();
   rowmm<T>(C, H, static_cast<const T*>(wt.w_out), H,
@@ -577,10 +564,9 @@ __device__ void layer_body(const LayerSmem& s, const Weights& wt,
            static_cast<const T*>(wt.b_q2), H, C, H, false, R);
   __syncthreads();
   if constexpr (FULL) {
-    attend_full<T, D>(C, H, src, s_row, b0, nrows, S, H, heads, temp, Dd, R);
+    attend_full<T, D>(C, H, src, S, b0, nrows, S, H, heads, temp, Dd, R);
   } else {
-    attend<T, PACKED_SLOTS, D>(C, H, src, s_row, 2 * H, b0, nrows, S, H, heads, temp,
-                               nullptr, 0, Dd);
+    attend<T, D>(C, H, src, S, b0, nrows, S, H, heads, temp, nullptr, 0, Dd);
   }
   __syncthreads();
   rowmm<T>(Dd, H, static_cast<const T*>(wt.w_out2), H,

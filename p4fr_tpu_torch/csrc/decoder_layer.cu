@@ -33,65 +33,33 @@ __global__ void __launch_bounds__(NT, 512 / NT) decoder_layer_kernel(
   const ClusterSmem s = carve_cluster_smem(sm, H, F);
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int b0 = static_cast<int>(blockIdx.x) / C * TB;
-  layer_body_cluster<NT, T, D, KQ>(s, wt, x, cache, cache_scale, src, src_scale, out, b0,
-                               min(TB, B - b0), H, heads, F, S, L, pos, cache_outputs,
-                               C, rank);
-}
-
-// The function attributes of an instance, set once: dynamic shared memory
-// up to the card's opt-in limit, and clusters of 16 (beyond the portable 8).
-template <int NT, typename T, int D, KvQ KQ>
-cudaError_t prepare() {
-  static const cudaError_t err = [] {
-    int dev = 0, optin = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(decoder_layer_kernel<NT, T, D, KQ>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(decoder_layer_kernel<NT, T, D, KQ>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    return e;
-  }();
-  return err;
-}
-
-// groups * C CTAs of NT threads in clusters of C, at widths H, F
-template <int NT>
-struct ClusterLaunch {
-  cudaLaunchConfig_t cfg{};
-  cudaLaunchAttribute attr[1];
-  ClusterLaunch(int groups, int C, int H, int F, cudaStream_t stream) {
-    cfg.gridDim = dim3(groups * C);
-    cfg.blockDim = dim3(NT);
-    cfg.dynamicSmemBytes = cluster_smem_floats<NT>(H, F) * sizeof(float);
-    cfg.stream = stream;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = C;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
+  const int nrows = min(TB, B - b0);
+  for (int i = threadIdx.x; i < TB * H; i += NT)
+    s.X[i] = i / H < nrows ? to_f(__ldg(x + static_cast<long long>(b0) * H + i)) : 0.f;
+  __syncthreads();
+  layer_body_cluster<NT, T, D, KQ>(s, wt, cache, L * 2 * H, 2 * H, cache_scale, src,
+                                   src_scale, b0, nrows, H, heads, F, S, L, pos,
+                                   cache_outputs, C, rank, false);
+  // this rank's columns of the output
+  const Cols hc = rank_cols(H, C, rank);
+  const int n = hc.e - hc.b;
+  for (int i = threadIdx.x; i < nrows * n; i += NT) {
+    const int r = i / n, c = hc.b + i % n;
+    out[static_cast<long long>(b0 + r) * H + c] = from_f<T>(s.Q2[r * H + c]);
   }
-};
+}
 
 template <int NT, typename T, int D, KvQ KQ>
 int launch(const void* x, void* cache, void* cache_scale, const void* src,
            const void* src_scale, void* out, const Weights& w, int B, int H,
            int heads, int F, int S, int L, int pos, int cache_outputs, int C,
            cudaStream_t stream) {
-  cudaError_t e = prepare<NT, T, D, KQ>();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ClusterLaunch<NT> cl((B + TB - 1) / TB, C, H, F, stream);
-  e = cudaLaunchKernelEx(
-      &cl.cfg, decoder_layer_kernel<NT, T, D, KQ>, static_cast<const T*>(x),
-      static_cast<CacheT<T, KQ>*>(cache), static_cast<float*>(cache_scale),
-      static_cast<const SrcT<T, KQ>*>(src), static_cast<const float*>(src_scale),
-      static_cast<T*>(out), w, B, H, heads, F, S, L, pos, cache_outputs, C);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cluster<decoder_layer_kernel<NT, T, D, KQ>>(
+      (B + TB - 1) / TB, C, NT, cluster_smem_floats<NT>(H, F) * sizeof(float), stream,
+      static_cast<const T*>(x), static_cast<CacheT<T, KQ>*>(cache),
+      static_cast<float*>(cache_scale), static_cast<const SrcT<T, KQ>*>(src),
+      static_cast<const float*>(src_scale), static_cast<T*>(out), w, B, H, heads, F, S, L,
+      pos, cache_outputs, C);
 }
 
 // What the wrapper picks C from, for one instance at widths H, F: the
@@ -99,15 +67,8 @@ int launch(const void* x, void* cache, void* cache_scale, const void* src,
 // registers and local memory a thread.
 template <int NT, typename T, int D, KvQ KQ>
 int query(int H, int F, int C, int* clusters, int* regs, int* local) {
-  cudaError_t e = prepare<NT, T, D, KQ>();
-  cudaFuncAttributes fa;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, decoder_layer_kernel<NT, T, D, KQ>);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  *regs = fa.numRegs;
-  *local = static_cast<int>(fa.localSizeBytes);
-  ClusterLaunch<NT> cl(1, C, H, F, nullptr);
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(
-      clusters, decoder_layer_kernel<NT, T, D, KQ>, &cl.cfg));
+  return query_cluster<decoder_layer_kernel<NT, T, D, KQ>>(
+      C, NT, cluster_smem_floats<NT>(H, F) * sizeof(float), clusters, regs, local);
 }
 
 template <typename T, int DD, KvQ Q>

@@ -45,12 +45,11 @@ __global__ void __launch_bounds__(NT) decoder_layer_v1_kernel(
     s.A[i] = r < nrows ? to_f(x[static_cast<long long>(b0) * H + i]) : 0.f;
   }
   __syncthreads();
-  layer_body<T, true, D, true>(s, wt, cache, L, 2 * H, src, S, b0, nrows, H,
-                               heads, F, S, pos);
+  layer_body<T, D, true>(s, wt, cache, L, src, b0, nrows, H, heads, F, S, pos);
   for (int i = threadIdx.x; i < nrows * H; i += NT)
     out[static_cast<long long>(b0) * H + i] = from_f<T>(s.Dd[i]);
   if (cache_outputs)
-    write_slot<T, true>(s, wt, cache, L, 2 * H, b0, nrows, H, pos, 1);
+    write_slot<T>(s, wt, cache, L, b0, nrows, H, pos, 1);
 }
 
 template <typename T, int D>

@@ -49,10 +49,9 @@ __global__ void __launch_bounds__(NT) decoder_stack_kernel(
   for (int l = 0; l < NL; ++l) {
     const Weights w = layer_weights<T>(p, l, H, F);
     T* cache = caches + static_cast<long long>(l) * B * L * slot;
-    layer_body<T, true, D>(s, w, cache, L, slot,
-                           src + static_cast<long long>(l) * B * S * slot, S,
-                           b0, nrows, H, heads, F, S, pos);
-    write_slot<T, true>(s, w, cache, L, slot, b0, nrows, H, pos, cache_outputs);
+    layer_body<T, D>(s, w, cache, L, src + static_cast<long long>(l) * B * S * slot, b0,
+                     nrows, H, heads, F, S, pos);
+    write_slot<T>(s, w, cache, L, b0, nrows, H, pos, cache_outputs);
     for (int i = threadIdx.x; i < TB * H; i += NT) s.A[i] = round_t<T>(s.Dd[i]);
     __syncthreads();
   }

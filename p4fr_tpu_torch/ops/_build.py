@@ -82,8 +82,12 @@ _SIGNATURES = {
     # (token i32, caches, cross, mstate i32, the 20 FusedDecodeParams
     #  tensors, tok_out, mstate_out, logits f32, B, H, heads, F, S, L, NL,
     #  Vp, pos, cache_outputs, use_manager, sos, eos, lbrace, rbrace,
-    #  vocab, bf16, stream)
-    "p4fr_fused_greedy_step": [P] * 27 + [I] * 17 + [P],
+    #  vocab, cluster, bf16, stream)
+    "p4fr_fused_greedy_step": [P] * 27 + [I] * 18 + [P],
+    # (bf16, head width, H, F, Vp, cluster, clusters i32 out, regs i32 out,
+    #  local bytes i32 out): kernel 6's instance and its resident clusters
+    #  of that size
+    "p4fr_fused_greedy_query": [I] * 6 + [P] * 3,
     # (qkv, bias f32, mask f32|null, out, N, n, C, heads, nW, scale, bf16,
     #  stream)
     "p4fr_window_attention": [P] * 4 + [I] * 5 + [F, I, P],

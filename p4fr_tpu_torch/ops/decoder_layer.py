@@ -213,12 +213,12 @@ def decoder_layer_step(x: torch.Tensor, pos: int, cache, src_kv: torch.Tensor,
 
 def cluster_size(batch: int, hidden: int, sm_count: int,
                  max_clusters: Callable[[int], int]) -> int:
-    """CTAs a row group of kernel 3 (the cluster size C): the largest power
-    of two C <= MAX_CLUSTER with C <= hidden / 32 (each CTA owns whole
-    32-column groups of every H-wide product), groups * C <= ``sm_count``
-    and groups <= ``max_clusters(C)`` (clusters of C resident at once), for
-    groups = ceil(batch / 4) row groups; else 1. ``max_clusters`` is asked
-    only for a C that passes the first two."""
+    """CTAs a row group of kernel 3, or of kernel 6 (the cluster size C):
+    the largest power of two C <= MAX_CLUSTER with C <= hidden / 32 (each
+    CTA owns whole 32-column groups of every H-wide product), groups * C <=
+    ``sm_count`` and groups <= ``max_clusters(C)`` (that kernel's clusters
+    of C resident at once), for groups = ceil(batch / 4) row groups; else
+    1. ``max_clusters`` is asked only for a C that passes the first two."""
     groups = -(-batch // ROWS_PER_GROUP)
     c = MAX_CLUSTER
     while c > 1:

@@ -19,6 +19,8 @@ and runs ``fused_greedy_step_ref`` for a CPU tensor.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -26,7 +28,7 @@ import torch
 
 from p4fr_tpu_torch.ops import _build
 from p4fr_tpu_torch.ops.attention import NEG_INF
-from p4fr_tpu_torch.ops.decoder_layer import check_head_width, layer_step_ref
+from p4fr_tpu_torch.ops.decoder_layer import check_head_width, cluster_size, layer_step_ref
 from p4fr_tpu_torch.ops.decoder_stack_v3 import layer_weights, stack_fast_layers
 
 
@@ -63,6 +65,13 @@ class FusedDecodeParams(NamedTuple):
 
 
 N_TENSORS = 20  # the tensor fields, in the kernel's argument order
+MAX_LAYERS = 16  # the decoder layers the kernel takes (csrc/fused_decode.cu's MAX_NL)
+
+
+def padded_vocab(vocab_size: int) -> int:
+    """The generator's lane count Vp for ``vocab_size`` tokens: a multiple
+    of 128 above them, at least 256."""
+    return max(256, math.ceil((vocab_size + 1) / 128) * 128)
 
 
 def _pad_lanes(x: torch.Tensor, vp: int, fill: float = 0.0) -> torch.Tensor:
@@ -78,7 +87,7 @@ def build_fused_params(fast, tables=None, *, max_steps: int, vocab_size: int,
     layers = fast.layers
     dt, dev = fast.w_gen.dtype, fast.w_gen.device
     hidden = fast.embed_scaled.shape[1]
-    vp = max(256, math.ceil((vocab_size + 1) / 128) * 128)
+    vp = padded_vocab(vocab_size)
     lp = math.ceil(max(max_steps, 1) / 8) * 8
 
     stacked = stack_fast_layers(layers)
@@ -168,6 +177,44 @@ def fused_greedy_step_ref(token: torch.Tensor, pos: int, caches: torch.Tensor,
     return pick, caches, advance_state(mstate, pick, p), logits
 
 
+@functools.lru_cache(maxsize=None)
+def fused_query(bf16: bool, head_dim: int, hidden: int, filter_dim: int, vp: int,
+                c: int, index: int = 0):
+    """(clusters of ``c`` resident at once, registers, local-memory bytes a
+    thread) of the kernel-6 instance that launches clusters of ``c`` for the
+    type and head width, at widths ``hidden``, ``filter_dim`` and padded
+    vocabulary ``vp``, on card ``index``; asked once per argument set.
+    Kernel 6's shared memory holds the logits beside kernel 3's buffers, so
+    its residency is its own."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(index):
+        code = _build.library().p4fr_fused_greedy_query(
+            int(bf16), head_dim, hidden, filter_dim, vp, c, *map(ctypes.byref, out))
+    _build.check(code, "fused_greedy_step cluster query")
+    return tuple(v.value for v in out)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_cluster(batch: int, hidden: int, head_num: int, filter_dim: int, vp: int,
+                  bf16: bool, index: int = 0) -> int:
+    """Kernel 6's cluster size at these widths on card ``index``:
+    ``decoder_layer.cluster_size`` over kernel 6's own resident clusters
+    (``fused_query``)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return cluster_size(batch, hidden, sms, lambda c: fused_query(
+        bf16, hidden // head_num, hidden, filter_dim, vp, c, index)[0])
+
+
+def step_cluster(caches: torch.Tensor, params: FusedDecodeParams) -> int:
+    """The cluster size kernel 6 launches with for ``caches`` [NL, L, B, 2H]
+    on its card (``fused_cluster``; one cached lookup a step once a shape
+    has been seen)."""
+    batch, hidden = caches.shape[2], caches.shape[3] // 2
+    return fused_cluster(batch, hidden, params.head_num, params.w_ff0.shape[2],
+                         params.w_gen.shape[1], caches.dtype == torch.bfloat16,
+                         caches.device.index or 0)
+
+
 def fused_greedy_step(token: torch.Tensor, pos: int, caches: torch.Tensor,
                       cross: torch.Tensor, mstate: torch.Tensor,
                       params: FusedDecodeParams, *, use_manager: bool):
@@ -178,10 +225,13 @@ def fused_greedy_step(token: torch.Tensor, pos: int, caches: torch.Tensor,
     [NL, B, S, 2H]; ``mstate`` [B, 4] int32 (last, run, lbrackets,
     rbrackets). CUDA tensor: one launch of ``csrc/fused_decode.cu``
     (replaces the TPU kernel ``ops/pallas/fused_decode.py::
-    fused_greedy_step``): one CTA owns 4 batch rows for the whole step and
-    runs kernel 3's layer body once per layer with every activation in
-    shared memory, then the generator, the manager's ban and the argmax.
-    CPU tensor: ``fused_greedy_step_ref``.
+    fused_greedy_step``): a thread-block cluster of C CTAs (``step_cluster``)
+    owns 4 batch rows for the whole step and runs kernel 3's cluster body
+    once per layer, each CTA 1/C of every product's columns and attention
+    pairs, every activation in each CTA's shared memory; then each CTA
+    takes 1/C of the generator's lanes, bans them and finds their first
+    max, and the cluster's first CTA merges the C picks. CPU tensor:
+    ``fused_greedy_step_ref``.
     """
     if caches.device.type == "cpu":
         return fused_greedy_step_ref(token, pos, caches, cross, mstate, params,
@@ -205,6 +255,9 @@ def fused_greedy_step(token: torch.Tensor, pos: int, caches: torch.Tensor,
                          f"cross {tuple(cross.shape)}, token "
                          f"{tuple(token.shape)}, mstate {tuple(mstate.shape)} "
                          "and the params do not fit")
+    if not 1 <= nl <= MAX_LAYERS:
+        raise ValueError(f"fused_greedy_step: {nl} decoder layers; the kernel "
+                         f"takes 1 to {MAX_LAYERS}")
     if not 0 <= pos < min(max_len, lp):
         raise ValueError(f"fused_greedy_step: pos {pos} outside "
                          f"[0, {min(max_len, lp)})")
@@ -231,7 +284,7 @@ def fused_greedy_step(token: torch.Tensor, pos: int, caches: torch.Tensor,
         tok_out.data_ptr(), mstate_out.data_ptr(), logits.data_ptr(),
         batch, hidden, p.head_num, filter_dim, s_len, max_len, nl, vp, int(pos),
         int(p.cache_outputs), int(use_manager), p.sos_id, p.eos_id, p.lbrace_id,
-        p.rbrace_id, p.vocab_size, int(dt == torch.bfloat16),
+        p.rbrace_id, p.vocab_size, step_cluster(caches, p), int(dt == torch.bfloat16),
         _build.stream_ptr(dev),
     )
     _build.check(code, "fused_greedy_step")

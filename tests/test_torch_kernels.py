@@ -38,11 +38,13 @@ from p4fr_tpu_torch.ops.decoder_stack_v3 import (
     decoder_stack_step_v3_ref,
     stack_fast_layers,
 )
+from p4fr_tpu_torch.ops import fused_decode
 from p4fr_tpu_torch.ops.fused_decode import (
     N_TENSORS,
     advance_state,
     ban_mask,
     build_fused_params,
+    fused_cluster,
     fused_greedy_step,
     fused_greedy_step_ref,
 )
@@ -444,6 +446,10 @@ def test_decoder_layer_cluster_cases_reach_every_size(cuda):
     (4, 64, {2: 1}, 2),            # H=64: C <= 2
     (30, 64, {2: 1}, 1),           # ... and 8 groups need 8 clusters of 2
     (30, 32, {}, 1),               # H=32: C = 1
+    # kernel 6 on an H100 (its own residency: 7 clusters of 16, 15 of 8, 66
+    # of 2): SwinTRN's B=32 takes 8, the flagship's B=256 takes 2
+    (32, 512, {16: 7, 8: 15}, 8),
+    (256, 256, {2: 66}, 2),
 ])
 def test_cluster_size(batch, hidden, resident, want):
     """``cluster_size`` on a 132-SM card whose resident clusters of C are
@@ -457,6 +463,43 @@ def test_cluster_size(batch, hidden, resident, want):
     assert cluster_size(batch, hidden, 132, max_clusters) == want
     groups = -(-batch // 4)
     assert all(c <= hidden // 32 and groups * c <= 132 for c in asked)
+
+
+def test_fused_step_asks_its_own_query(monkeypatch):
+    """Kernel 6's cluster size comes from kernel 6's own residency query
+    (``fused_query``, at its widths and padded vocabulary), never from
+    kernel 3's, and is asked once per shape."""
+    asked = []
+
+    def query(bf16, head_dim, hidden, filter_dim, vp, c, index=0):
+        asked.append((bf16, head_dim, hidden, filter_dim, vp, c, index))
+        return ({16: 7, 8: 15, 2: 66}.get(c, 0), 128, 0)
+
+    def kernel3_query(*args):
+        raise AssertionError("kernel 6 asked kernel 3's residency")
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(fused_decode, "fused_query", query)
+    monkeypatch.setattr("p4fr_tpu_torch.ops.decoder_layer.cluster_query", kernel3_query)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda index: Props())
+    fused_cluster.cache_clear()
+    try:
+        gen = torch.Generator().manual_seed(0)
+        for hidden, filter_dim, head_dim, b, want in ((512, 512, 64, 32, 8),
+                                                       (256, 1024, 32, 256, 2)):
+            params, _ = random_fused(gen, hidden, filter_dim, 1, 4, head_dim=head_dim)
+            caches = torch.empty(4, 0, b, 2 * hidden, device="meta", dtype=torch.bfloat16)
+            before = len(asked)
+            for _ in range(3):  # one lookup a step: asked for the first only
+                assert fused_decode.step_cluster(caches, params) == want
+            assert asked[before:] and all(
+                a[:5] == (True, head_dim, hidden, filter_dim, 256) for a in asked[before:])
+            assert asked[-1][5] == want
+            assert len(asked) - before == len({a[5] for a in asked[before:]})
+    finally:
+        fused_cluster.cache_clear()
 
 
 def check_layer_v1_kernel(cuda, dtype, cache_outputs, hidden, heads):
@@ -677,6 +720,102 @@ def check_fused_greedy_step_kernel(cuda, dtype, cache_outputs, use_manager,
         c_r = c_r.to(dtype).float()
         c_k.copy_(c_r)
         token = t_r
+
+
+def check_clustered_fused(cuda, dtype, use_manager, hidden, filter_dim, b):
+    """Kernel 6 at real widths (2 layers, 8 heads of 32 or 64) and batch
+    ``b`` vs ``fused_greedy_step_ref`` on the same operands, random values in
+    every cache slot, pos 0, 115 and 230: the logits, slot ``pos`` of every
+    layer; the other slots untouched; the state advanced by the kernel's
+    pick, no banned pick, and the twin's pick wherever its top two allowed
+    logits are further apart than the tolerance; one launch a call."""
+    gen = torch.Generator().manual_seed(b)
+    layers, s_len, max_len = 2, 70, 231
+    params, _ = random_fused(gen, hidden, filter_dim, layers, max_len, cuda, dtype,
+                             True, hidden // 8)
+    ref = params._replace(**{f: getattr(params, f).float()
+                             for f in params._fields[:N_TENSORS]})
+    cross = torch.randn(layers, b, s_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    base = torch.randn(layers, max_len, b, 2 * hidden, generator=gen).to(cuda, dtype)
+    c = fused_decode.step_cluster(base, params)
+    print(f"{dtype} H={hidden} B={b}: cluster of {c}")
+    v = params.vocab_size
+    for pos in (0, 115, 230):
+        token = torch.randint(0, v, (b,), generator=gen).int().to(cuda)
+        mstate = random_mstate(gen, b, v).to(cuda)
+        c_k, c_r = base.clone(), base.float()
+        before = _build.LAUNCHES["fused_greedy_step"]
+        t_k, _, m_k, l_k = fused_greedy_step(token, pos, c_k, cross, mstate, params,
+                                             use_manager=use_manager)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["fused_greedy_step"] == before + 1
+        t_r, _, _, l_r = fused_greedy_step_ref(token, pos, c_r, cross.float(), mstate, ref,
+                                               use_manager=use_manager, kv_dtype=dtype)
+        others = torch.arange(max_len, device=cuda) != pos
+        assert torch.equal(c_k[:, others], base[:, others]), (pos, c)
+        assert torch.equal(l_k[:, v:], l_r[:, v:]), (pos, c)
+        l_k, l_r = l_k[:, :v], l_r[:, :v]
+        if dtype == torch.float32:
+            assert torch.allclose(l_k, l_r, rtol=1e-4, atol=1e-4), (pos, c)
+            assert torch.allclose(c_k[:, pos], c_r[:, pos], rtol=1e-4, atol=1e-4), (pos, c)
+            tol = 2e-4 + 1e-4 * l_r.abs().amax(dim=-1)
+        else:
+            assert_bf16_close(c_k[:, pos], c_r[:, pos], "fused_greedy_step")
+            excess = (l_k - l_r).abs() - BF16_RTOL * l_r.abs()
+            assert excess.max().item() <= BF16_ATOL["fused_greedy_step"], (pos, c)
+            tol = 2 * (BF16_ATOL["fused_greedy_step"] + BF16_RTOL * l_r.abs().amax(dim=-1))
+        ban = ban_mask(mstate, params, use_manager=use_manager)
+        assert not ban.gather(1, t_k.long()[:, None]).any(), (pos, c)
+        assert torch.equal(m_k, advance_state(mstate, t_k, params)), (pos, c)
+        top2 = l_r.masked_fill(ban[:, :v], float("-inf")).topk(2, dim=-1).values
+        decided = top2[:, 0] - top2[:, 1] > tol
+        assert torch.equal(t_k[decided], t_r[decided]), (pos, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_manager", [True, False])
+@pytest.mark.parametrize("hidden,filter_dim", CLUSTER_WIDTHS, ids=["H256", "H512"])
+@pytest.mark.parametrize("b", CLUSTER_BATCHES)
+def test_fused_greedy_step_kernel_clusters(cuda, dtype, use_manager, hidden, filter_dim, b):
+    check_clustered_fused(cuda, dtype, use_manager, hidden, filter_dim, b)
+
+
+@pytest.mark.cuda
+def test_fused_cluster_cases_reach_every_size(cuda):
+    """The cluster cases above launch every cluster size, 1 to 16, in each
+    type (kernel 6's own residency)."""
+    for bf16 in (False, True):
+        sizes = {fused_cluster(b, hidden, 8, filter_dim, 256, bf16)
+                 for hidden, filter_dim in CLUSTER_WIDTHS for b in CLUSTER_BATCHES}
+        assert sizes == {1, 2, 4, 8, 16}, (bf16, sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_greedy_step_tie_across_ranks(cuda, dtype):
+    """The top two allowed logits tied exactly across a rank boundary of the
+    generator (lanes 31 and 32 at C = 8: w_gen's columns zero, b_gen equal
+    and above every other logit): every row picks the lower lane, the first
+    index of the max, as the twin does."""
+    gen = torch.Generator().manual_seed(0)
+    b, hidden, layers, max_len = 30, 512, 2, 40
+    params, _ = random_fused(gen, hidden, 512, layers, max_len, cuda, dtype, True, 64)
+    w_gen, b_gen = params.w_gen.clone(), params.b_gen.clone()
+    w_gen[:, 31:33] = 0
+    b_gen[:, 31:33] = 50.0
+    params = params._replace(w_gen=w_gen, b_gen=b_gen)
+    cross = torch.randn(layers, b, 5, 2 * hidden, generator=gen).to(cuda, dtype)
+    caches = torch.randn(layers, max_len, b, 2 * hidden, generator=gen).to(cuda, dtype)
+    assert fused_decode.step_cluster(caches, params) == 8
+    token = torch.randint(0, params.vocab_size, (b,), generator=gen).int().to(cuda)
+    mstate = random_mstate(gen, b, params.vocab_size).to(cuda)
+    t_k, _, m_k, l_k = fused_greedy_step(token, 33, caches, cross, mstate, params,
+                                         use_manager=False)
+    torch.cuda.synchronize()
+    assert torch.equal(l_k[:, 31], l_k[:, 32])
+    assert bool((t_k == 31).all()), t_k
+    assert torch.equal(m_k, advance_state(mstate, t_k, params))
 
 
 @pytest.mark.cuda

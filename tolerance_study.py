@@ -41,11 +41,19 @@ applied, the v-scale applied before the mass, the current slot read back
 quantized), in ``csrc/decoder_cluster.cuh``, the body kernel 3 runs.
 
 1. ``chip_smoke.check_fused_step`` (B=256, full width, pos 0/1/115/230,
-   manager on and off, 24 checks) on each seed, in f32 and in bf16: per
-   seed the bf16 check's largest excess over the cast of the logits and of
-   slot ``pos`` (what ``BF16_ATOL["fused_greedy_step"]`` must cover), its
-   largest mean |kernel - twin| of the logits (what ``BF16_MEAN_ATOL``
-   must cover), and each dtype's missed checks.
+   manager on and off, 24 checks, and the tie across the generator's first
+   rank boundary) on each seed, in f32 and in bf16: per seed the bf16
+   check's largest excess over the cast of the logits and of slot ``pos``
+   (what ``BF16_ATOL["fused_greedy_step"]`` must cover), its largest mean
+   |kernel - twin| of the logits (what ``BF16_MEAN_ATOL`` must cover), and
+   each dtype's missed checks. Kernel 6 runs as a cluster of C CTAs per 4
+   rows (C=2 at the flagship's shape, 8 at SwinTRN's); its faults are the
+   layer chain's (layer 0's FF weights everywhere, layer 0's cross K|V,
+   the cache read with a position stride of 2H, the next position's
+   encoding, no rounding between layers), the manager's (the repeat limit
+   by ``>``) and the cluster's (the barrier opening each chained layer
+   removed, the ranks' maxima merged keeping the later rank on a tie, a
+   rank's generator columns read at the next rank's offset).
 2. Where the bf16 excess comes from, on the first seed at pos 115 with
    the manager off, from fresh inputs drawn as the check draws them:
    - the chain: kernel 6 against its twin, as the check compares them;
@@ -84,12 +92,28 @@ FAULTS = {
                        "at(p.w_ff1, static_cast<long long>(l) * F * H)", "at(p.w_ff1, 0)"),
         "cross_layer0": ("fused_decode.cu",
                          "cross + static_cast<long long>(l) * a.B * a.S * slot", "cross"),
+        # the time-major cache read and written with a position stride of 2H
         "batch_major_slot": ("fused_decode.cu", ", a.B * slot,", ", slot,"),
         "pe_next": ("fused_decode.cu", "static_cast<long long>(a.pos) * H;",
                     "static_cast<long long>(a.pos + 1) * H;"),
-        "no_round": ("fused_decode.cu", "s.A[i] = round_t<T>(s.Dd[i]);", "s.A[i] = s.Dd[i];"),
+        # no rounding of a layer's output into the next layer's input (and
+        # the generator's)
+        "no_round": ("fused_decode.cu", "? round_t<T>(from[i]) : 0.f", "? from[i] : 0.f"),
         "limit_gt": ("fused_decode.cu", "static_cast<float>(run) >= limit",
                      "static_cast<float>(run) > limit"),
+        # the cluster barrier that opens each chained layer removed (a race:
+        # a peer's first push may land in Q before this rank has stored the
+        # last layer's slot from it)
+        "no_layer_barrier": ("decoder_cluster.cuh", "const bool opening = C > 1;",
+                             "const bool opening = C > 1 && !chained;"),
+        # the merge of the ranks' maxima keeps the later rank on a tie
+        "merge_later_rank": ("fused_decode.cu", "if (best[q * TB + r] > bst)",
+                             "if (best[q * TB + r] >= bst)"),
+        # a rank's generator columns read at the next rank's offset (the last
+        # rank's at rank 0's)
+        "gen_next_rank_offset": (
+            "fused_decode.cu", "const T* w_gen = static_cast<const T*>(p.w_gen);",
+            "const T* w_gen = static_cast<const T*>(p.w_gen) + (rank + 1 < C ? g.e - g.b : -g.b);"),
     },
     # the bf16 (tensor-core) body; the f32 body stays as it was
     "swin_attention": {
@@ -115,11 +139,10 @@ FAULTS = {
     "decoder_layer_v1": {
         # the ban off by one: slots >= pos banned, the current one too
         "ban_ge_pos": ("decoder_common.cuh",
-                       "attend_full<T, D>(Q, 3 * H, cache, c_row, b0, nrows, pos + 1,",
-                       "attend_full<T, D>(Q, 3 * H, cache, c_row, b0, nrows, pos,"),
+                       "attend_full<T, D>(Q, 3 * H, cache, L, b0, nrows, pos + 1,",
+                       "attend_full<T, D>(Q, 3 * H, cache, L, b0, nrows, pos,"),
         "no_store_before": ("decoder_common.cuh",
-                            "write_slot<T, PACKED_SLOTS>(s, wt, cache, c_row, c_slot, b0, "
-                            "nrows, H, pos, 0);", ""),
+                            "write_slot<T>(s, wt, cache, L, b0, nrows, H, pos, 0);", ""),
         "cache_outputs_ignored": ("decoder_layer_v1.cu", "  if (cache_outputs)\n",
                                   "  if (false)\n"),
     },
@@ -151,15 +174,15 @@ FAULTS = {
         "current_read_back": (
             "decoder_cluster.cuh",
             "  attend_part<NT, CacheT<T, KQ>, D, KQ == KvQ::kSrcCache>(\n"
-            "      Q, 3 * H, cache, L, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H, AT,\n",
+            "      Q, 3 * H, cache, c_row, c_pos, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H, AT,\n",
             "  if constexpr (KQ == KvQ::kSrcCache) {\n"
-            "    write_slot_part<NT, T, KQ>(Q + H, cache, cache_scale, R, L, b0, nrows, H, pos,\n"
-            "                           CPT * cut(2 * H / CPT, C, rank),\n"
-            "                           CPT * cut(2 * H / CPT, C, rank + 1), rank);\n"
+            "    write_slot_part<NT, T, KQ>(Q + H, cache, cache_scale, R, c_row, c_pos, L, b0,\n"
+            "                               nrows, H, pos, rank_cols(2 * H, C, rank).b,\n"
+            "                               rank_cols(2 * H, C, rank).e, rank);\n"
             "    cluster_sync(C);\n"
             "  }\n"
             "  attend_part<NT, CacheT<T, KQ>, D, KQ == KvQ::kSrcCache>(\n"
-            "      Q, 3 * H, cache, L, b0, nrows, pos + 1, H, heads, temp,\n"
+            "      Q, 3 * H, cache, c_row, c_pos, b0, nrows, pos + 1, H, heads, temp,\n"
             "      KQ == KvQ::kSrcCache ? nullptr : Q + H, 3 * H, AT,\n"),
     },
     "decoder_stack_v3": {
@@ -196,7 +219,8 @@ PROBES = {
             "      sc[j][2] /= sum_hi, sc[j][3] /= sum_hi;\n"),
     },
 }
-N_CHECKS = 3 * 2 * len(cs.GATHER_POS)  # logits, slot, picks x manager x pos
+# logits, slot, picks x manager x pos, and the tie across the rank boundary
+N_CHECKS = 3 * 2 * len(cs.GATHER_POS) + 1
 
 
 def swin_encode_ms(dev):
