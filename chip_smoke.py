@@ -11,7 +11,10 @@ with a non-zero exit and no result line:
    source, all at once) and hold each against its plain PyTorch twin on
    the card at the main paths' shapes: first f32 with TF32 off, then bf16
    (against the twin computed in f32 on the same bf16 operands), each
-   against a stated tolerance; the beam gather, a copy, exactly; the fused
+   against a stated tolerance (kernel 2, the stride-1 MBConv blocks, at the
+   flagship's four shapes on its cluster path, after printing each shape's
+   plan, C and launch A's resident clusters, and at EfficientASTER's stage
+   4 on its three-launch tiled path); the beam gather, a copy, exactly; the fused
    greedy step's picks and manager state exactly where its twin's top two
    allowed logits are further apart than the tolerance. The window
    attention runs at each Swin-B stage's shape at B=32, with and without
@@ -76,7 +79,9 @@ with a non-zero exit and no result line:
    kv_quant=)``) the path picks them again, and its logits meet the plain
    path's replay with the same ``kv_quant``.
 5. Timing in bf16 (printed only): each kernel vs its twin and, where one
-   PyTorch call computes the same function, that call; images/s of the
+   PyTorch call computes the same function, that call (kernel 2 per shape:
+   its plan, launch A and launch B, the block beside its bound, the
+   three-launch tiled form, and a traced pass's phase cycles); images/s of the
    kernel, fused and plain greedy paths at B=256, in turns, and of beam
    W=3 at B=256; the window attention per Swin-B stage, with the shift
    mask and without (bf16: both products on the tensor cores; SDPA with
@@ -177,6 +182,10 @@ MBCONV_SHAPES = [
     ("stage4_tail", 16, 32, 160, 160, 6, 8),
     ("stage5_tail", 8, 16, 256, 256, 6, 14),
 ]
+# a shape whose expanded map no cluster holds (EfficientASTER's stage 4 at
+# 256x1024), checked on the tiled path at a small batch; no main path runs it
+MBCONV_TILED = ("aster_stage4", 16, 64, 160, 160, 6, 0)
+MBCONV_TILED_BATCH = 8
 
 # f32 tolerances: max |kernel - twin| <= atol + rtol * max |twin|
 TOL_F32 = dict(atol=1e-4, rtol=1e-5)   # summation order only
@@ -210,6 +219,19 @@ BF16_ATOL = {"standardize": 1e-6, "mbconv": 1.5e-3, "decoder_layer": 2e-3,
 # Normalising after the value product moves every output a little: its
 # largest excess (4.4e-3 - 5.5e-3) overlaps the flips, its mean (5.4e-4)
 # does not (sound: 3.07e-4, the final cast's rounding).
+# Kernel 2's output: a rounding flip at the SE's pooled mean or hidden
+# moves one image's gates a little, and its output by up to ~7e-4 beyond
+# the cast, as far as the pooled mean left unrounded does (6e-4-8e-4) and
+# half as far as h2 rounded before the gate (1.2e-3-1.4e-3); its means do
+# not separate them either. So atol 1.5e-3 holds the output (the residual
+# added after the cast and the SE partial dropped read 1.9e-3 and up), and
+# launch A's gated operand is held against the twin's round(h2 * gate):
+# the share of an image's elements that differ, its median over the
+# images, is ~2e-4 for a sound kernel (an f32 summation order flips a
+# rounding now and then, and a flipped SE hidden moves one image), ~4.7e-3
+# with the mean unrounded (every image's gates move) and ~0.25 with h2
+# rounded first (PERF.md, Findings).
+BF16_GATED_SHARE = {"mbconv": 1e-3}
 BF16_MEAN_ATOL = {"fused_greedy_step": 5e-4, "fused_greedy_step_swin": 1.2e-3,
                   "decoder_stack_v3": 2e-3, "swin_attention": 4e-4}
 TOL_LOGITS_F32 = 1e-3  # e2e logits, f32, 28 blocks + 3 x 231 layer steps
@@ -303,7 +325,11 @@ def random_bn_stats(module, gen):
 def mbconv_block(cin, cout, expand, gen, dev):
     from p4fr_tpu_torch.models.efficientnetv2 import MBConv
 
-    block = MBConv(cin, cout, 3, 1, expand, 0.25)
+    # the module initialises its weights from the global generator: seed
+    # that from gen, so a seed gives the same block in every run
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(int(torch.randint(2 ** 31, (1,), generator=gen)))
+        block = MBConv(cin, cout, 3, 1, expand, 0.25)
     random_bn_stats(block, gen)
     return block.to(dev).eval()
 
@@ -347,7 +373,6 @@ def check_kernels(dev, dtype, errors, seed=SEED):
     f32 twin (``errors`` gets each kernel's max abs error). bf16: against
     the twin in f32 on the same bf16 operands (``compare_bf16``). Raises
     after printing every check if any missed."""
-    from p4fr_tpu_torch.ops.mbconv import fold_mbconv_params, fused_mbconv, mbconv_block_ref
     from p4fr_tpu_torch.ops.preprocess import standardize, standardize_ref
 
     f32 = dtype == torch.float32
@@ -372,20 +397,7 @@ def check_kernels(dev, dtype, errors, seed=SEED):
           standardize_ref(images, torch.float32))
     del images, got
 
-    for name, h, w, cin, cout, expand, _ in MBCONV_SHAPES:
-        block = mbconv_block(cin, cout, expand, gen, dev)
-        folded = fold_mbconv_params(block, dtype)
-        # a per-image channel offset gives each image its own SE gate
-        x = (torch.randn(KERNEL_BATCH, h, w, cin, generator=gen)
-             + torch.randn(KERNEL_BATCH, 1, 1, cin, generator=gen)).to(dev, dtype)
-        res = cin == cout
-        got = fused_mbconv(x, folded, residual=res)
-        torch.cuda.synchronize()
-        check("mbconv", f"mbconv {name} B={KERNEL_BATCH} {h}x{w} "
-              f"{cin}->{cin * expand}->{cout}",
-              got, mbconv_block_ref(x, folded, res, out_dtype=torch.float32))
-        del x, got
-
+    check_mbconv(dev, dtype, errors, misses, seed)
     for shape in (SATRN_DECODER, SWIN_DECODER, BEAM_DECODER):
         check_layer(dev, dtype, errors, misses, seed, shape)
     check_beam_gather(dev, dtype, errors, misses, seed)
@@ -399,6 +411,91 @@ def check_kernels(dev, dtype, errors, seed=SEED):
             check_layer_int8(dev, dtype, errors, misses, seed, shape, form)
     if misses:
         raise AssertionError("kernels disagree with their twins: " + "; ".join(misses))
+
+
+def mbconv_report(dev):
+    """Kernel 2's plan at each main-path shape (B=256) per type: the path,
+    cluster size C and slice width, ring stages and shared memory, with
+    launch A's resident clusters of C, registers and local memory a
+    thread; raises unless every shape takes the cluster path."""
+    from p4fr_tpu_torch.ops.mbconv import cluster_query, mbconv_plan
+
+    print("[kernel 2: plan per shape (launch A: C CTAs an image), resident clusters, "
+          "registers and local bytes a thread]")
+    for name, h, w, cin, cout, expand, _ in MBCONV_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            rd = cin // 4
+            p = mbconv_plan(KERNEL_BATCH, h, w, cin, cin * expand, cout, dt, se_dim=rd)
+            if p.path != "cluster":
+                raise AssertionError(f"kernel 2 at {name} takes the {p.path} path")
+            q = cluster_query(h, w, cin, p.width, p.cluster, rd, p.warp_rows,
+                              dt == torch.bfloat16)
+            print(f"  {name} {h}x{w} {cin}->{cin * expand}->{cout} {str(dt)[6:]}: C="
+                  f"{p.cluster}, slices of {p.width} channels, warps {p.warp_rows} along "
+                  f"the pixels, {p.stages} x ring slots, {p.smem} bytes of shared memory; resident "
+                  f"clusters {q[0]}; {q[1]} registers, {q[2]} bytes of local memory a thread")
+
+
+def check_mbconv(dev, dtype, errors, misses, seed):
+    """Kernel 2 vs its plain version (``mbconv_block_ref`` on the same
+    operands, in f32) at the four stride-1 shapes of the flagship's encode,
+    B=256, on the cluster path, and at EfficientASTER's stage 4 (B=8) on the
+    tiled path; a per-image channel offset gives each image its own SE
+    gate. f32 within TOL_F32; bf16 by ``compare_bf16`` with
+    ``BF16_ATOL["mbconv"]``, and on the cluster path launch A's gated
+    operand by ``gated_share`` within ``BF16_GATED_SHARE["mbconv"]``. bf16
+    returns the largest excess over the cast, the largest mean abs error
+    and the largest gated share."""
+    from p4fr_tpu_torch.ops.mbconv import (
+        block_plan,
+        expand_gate_ref,
+        fold_mbconv_params,
+        fused_mbconv,
+        mbconv_block_ref,
+        mbconv_expand_gate,
+    )
+
+    gen = torch.Generator().manual_seed(seed + 30)
+    worst = {"excess": 0.0, "mean": 0.0, "share": 0.0}
+    for name, h, w, cin, cout, expand, _ in MBCONV_SHAPES + [MBCONV_TILED]:
+        b = KERNEL_BATCH if name != MBCONV_TILED[0] else MBCONV_TILED_BATCH
+        block = mbconv_block(cin, cout, expand, gen, dev)
+        folded = fold_mbconv_params(block, dtype)
+        x = (torch.randn(b, h, w, cin, generator=gen)
+             + torch.randn(b, 1, 1, cin, generator=gen)).to(dev, dtype)
+        res = cin == cout
+        plan = block_plan(x, folded)
+        if plan.path != ("tiled" if name == MBCONV_TILED[0] else "cluster"):
+            raise AssertionError(f"mbconv {name}: the plan took the {plan.path} path")
+        got = fused_mbconv(x, folded, residual=res)
+        torch.cuda.synchronize()
+        want = mbconv_block_ref(x, folded, res, out_dtype=torch.float32)
+        tag = (f"mbconv {name} B={b} {h}x{w} {cin}->{cin * expand}->{cout} "
+               f"({plan.path}{f', C={plan.cluster}' if plan.cluster else ''})")
+        if dtype == torch.float32:
+            errors["mbconv"] = max(errors.get("mbconv", 0.0),
+                                   compare(tag, got, want, TOL_F32, misses))
+        else:
+            excess, mean = compare_bf16(tag, got, want, BF16_ATOL["mbconv"], misses)
+            worst["excess"] = max(worst["excess"], excess)
+            worst["mean"] = max(worst["mean"], mean)
+            if plan.path == "cluster":
+                share = gated_share(mbconv_expand_gate(x, folded, plan),
+                                    expand_gate_ref(x, folded))
+                limit = BF16_GATED_SHARE["mbconv"]
+                print(f"  {tag} launch A: gated elements differing from the twin's, "
+                      f"median share an image {share:.3e} (limit {limit:.1e})")
+                if not share <= limit:
+                    misses.append(f"{tag} launch A: gated share {share:.3e} > {limit:.1e}")
+                worst["share"] = max(worst["share"], share)
+        del x, got, want
+    return worst
+
+
+def gated_share(got, want):
+    """The median over the images of the share of an image's elements in
+    which ``got`` and ``want`` (both [B, ...] in bf16) differ."""
+    return (got != want).flatten(1).float().mean(1).median().item()
 
 
 def cluster_report(dev):
@@ -1558,6 +1655,76 @@ def e2e(label, fn, batch, card, what, launches=None):
                                  f"{_build.LAUNCHES[name]} times, expected {want}")
 
 
+def mbconv_timing(dev, card, gen):
+    """Kernel 2 in bf16 at each stride-1 shape of the flagship's B=256
+    encode: the plan's path and C; launch A, launch B and the block; the
+    three-launch tiled form and the plain version at the same shape; the
+    block's bound; then one traced pass of each launch, whose CTA 0 phase
+    timeline (SM cycles) splits launch A per image into the expand's K
+    loop, its BN + SiLU epilogue, the depthwise, the SE gate and the gated
+    write (images 1-7; image 0 also loads the CTA's weights), and launch B
+    into its K loop and epilogue. Returns (block ms x blocks, plain ms x
+    blocks, bound bytes, bound operations) over the 28 blocks."""
+    from p4fr_tpu_torch.ops.mbconv import (
+        block_plan,
+        fold_mbconv_params,
+        fused_mbconv,
+        mbconv_block_ref,
+        mbconv_expand_gate,
+        mbconv_project,
+        mbconv_tiled,
+        read_trace,
+    )
+
+    bf = torch.bfloat16
+    k_tot = p_tot = t_tot = b_bytes = b_ops = 0.0
+    for name, h, w, cin, cout, expand, count in MBCONV_SHAPES:
+        block = mbconv_block(cin, cout, expand, gen, dev).to(bf)
+        folded = fold_mbconv_params(block, bf)
+        x = torch.randn(KERNEL_BATCH, h, w, cin, generator=gen).to(dev, bf)
+        res = cin == cout
+        plan = block_plan(x, folded)
+        if plan.path != "cluster":
+            raise AssertionError(f"mbconv {name} takes the {plan.path} path")
+        g2 = mbconv_expand_gate(x, folded, plan)
+        ka = cuda_ms(lambda: mbconv_expand_gate(x, folded, plan), iters=10)
+        kb = cuda_ms(lambda: mbconv_project(g2, x, folded, res), iters=10)
+        k = cuda_ms(lambda: fused_mbconv(x, folded, residual=res), iters=10)
+        t = cuda_ms(lambda: mbconv_tiled(x, folded, res), iters=10)
+        p = cuda_ms(lambda: mbconv_block_ref(x, folded, res), iters=10)
+        k_tot += k * count
+        p_tot += p * count
+        t_tot += t * count
+        cmid = cin * expand
+        # x (also the residual) read, out written, the folded operands
+        nb = nbytes(x) * (cin + cout) // cin + nbytes(*folded.values())
+        ops = 2 * x.shape[0] * h * w * (cin * cmid + 9 * cmid + cmid * cout)
+        b_bytes += count * nb
+        b_ops += count * ops
+        bb, by = bound(nb, ops, BF16_TENSOR_OPS_PER_S)
+        print(f"  mbconv {name} B={x.shape[0]} {h}x{w} {cin}->{cmid}->{cout}: {plan.path} "
+              f"path, C={plan.cluster}; launch A {ka:.4f} ms, launch B {kb:.4f} ms, block "
+              f"{k:.4f} ms (bound {bb:.4f} ms by {by}, {100 * bb / k:.1f}%); the three-"
+              f"launch tiled form {t:.4f} ms; plain {p:.4f} ms; per block, x{count} on the "
+              f"path ({card})")
+        mbconv_expand_gate(x, folded, plan, trace=True)
+        mbconv_project(g2, x, folded, res, trace=True)
+        torch.cuda.synchronize()
+        tr = read_trace()
+        per = (tr[2:9, 0] - tr[1:8, 0]).mean()
+        phases = [(tr[1:8, i + 1] - tr[1:8, i]).mean() for i in range(4)]
+        phases.append((tr[2:9, 0] - tr[1:8, 4]).mean())
+        print(f"  mbconv {name} CTA 0 cycles an image (images 1-7): " + ", ".join(
+            f"{lab} {v:.0f}" for lab, v in zip(
+                ("expand K loop", "BN+SiLU", "depthwise", "SE gate", "gated write"), phases))
+            + f"; total {per:.0f}; launch B CTA 0: K loop {tr[15, 1] - tr[15, 0]}, epilogue "
+            f"{tr[15, 2] - tr[15, 1]}")
+        del g2
+    print(f"  mbconv 28 blocks: the tiled form {t_tot:.4f} ms against {k_tot:.4f} ms "
+          f"({card})")
+    return k_tot, p_tot, b_bytes, b_ops
+
+
 def timing(ckpt, dev, card):
     """bf16 times of each kernel, its plain version and its library call
     (None where no single PyTorch call computes the function), with its
@@ -1576,7 +1743,6 @@ def timing(ckpt, dev, card):
         decoder_stack_step_v3_ref,
     )
     from p4fr_tpu_torch.ops.fused_decode import fused_greedy_step, fused_greedy_step_ref
-    from p4fr_tpu_torch.ops.mbconv import fold_mbconv_params, fused_mbconv, mbconv_block_ref
     from p4fr_tpu_torch.ops.preprocess import scale_shift, standardize, standardize_ref
     from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
@@ -1603,22 +1769,7 @@ def timing(ckpt, dev, card):
            nbytes(images, out) + 24, 2 * images.numel(), F32_OPS_PER_S)
     del images, out
 
-    k_tot = p_tot = b_bytes = b_ops = 0.0
-    for name, h, w, cin, cout, expand, count in MBCONV_SHAPES:
-        block = mbconv_block(cin, cout, expand, gen, dev).to(bf)
-        folded = fold_mbconv_params(block, bf)
-        x = torch.randn(KERNEL_BATCH, h, w, cin, generator=gen).to(dev, bf)
-        res = cin == cout
-        k = cuda_ms(lambda: fused_mbconv(x, folded, residual=res), iters=10)
-        p = cuda_ms(lambda: mbconv_block_ref(x, folded, res), iters=10)
-        k_tot += k * count
-        p_tot += p * count
-        cmid = cin * expand
-        # x (also the residual) read, out written, the folded operands
-        b_bytes += count * (nbytes(x) * (cin + cout) // cin + nbytes(*folded.values()))
-        b_ops += count * 2 * x.shape[0] * h * w * (cin * cmid + 9 * cmid + cmid * cout)
-        print(f"  mbconv {name} B={x.shape[0]}: kernel {k:.4f} ms, plain {p:.4f} ms per "
-              f"block, x{count} on the path ({card})")
+    k_tot, p_tot, b_bytes, b_ops = mbconv_timing(dev, card, gen)
     report("mbconv", f"all 28 stride-1 blocks of one B={KERNEL_BATCH} encode",
            k_tot, p_tot,
            None, b_bytes, b_ops, BF16_TENSOR_OPS_PER_S)
@@ -1964,6 +2115,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     errors = {}
     with torch.no_grad():
+        mbconv_report(dev)
         cluster_report(dev)
         check_kernels(dev, torch.float32, errors)
         check_kernels(dev, torch.bfloat16, {})

@@ -30,7 +30,8 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
-LAUNCHES = {"standardize": 0, "mbconv": 0, "decoder_layer": 0, "beam_gather": 0,
+LAUNCHES = {"standardize": 0, "mbconv": 0, "mbconv_tiled": 0, "decoder_layer": 0,
+            "beam_gather": 0,
             "fused_greedy_step": 0, "swin_attention": 0, "decoder_layer_v1": 0,
             "decoder_stack_v3": 0, "decoder_layer_int8": 0,
             "decoder_layer_int8_cache": 0}
@@ -46,8 +47,23 @@ F = ctypes.c_float
 _SIGNATURES = {
     # (in u8, out, scale_shift f32[2C], n_bytes, channels, out_bf16, stream)
     "p4fr_standardize": [P, P, P, ctypes.c_longlong, I, I, P],
-    # (x, pw_w, pw_s, pw_b, dw_w, dw_s, dw_b, h2 f32, partial f32,
-    #  B, H, W, Cin, Cmid, bf16, stream)
+    # kernel 2, launch A: (x, pw_w, pw_s, pw_b, dw_w, dw_s, dw_b, se_rw|null,
+    #  se_rb, se_ew, se_eb, g2, B, H, W, Cin, Cmid, rd, C, width, warp rows,
+    #  clusters, bf16, trace, stream)
+    "p4fr_mbconv_expand_gate": [P] * 12 + [I] * 12 + [P],
+    # launch B: (g2, pwl_w, pwl_s, pwl_b, x|null, out, M, Cmid, Cout, bf16,
+    #  trace, stream)
+    "p4fr_mbconv_project_cluster": [P] * 6 + [I] * 5 + [P],
+    # (H, W, Cin, width, C, rd, warp rows, bf16) -> launch A's shared
+    # memory bytes (not a CUDA error code)
+    "p4fr_mbconv_cluster_smem": [I] * 8,
+    # (H, W, Cin, width, C, rd, warp rows, bf16, clusters i32 out, regs i32
+    #  out, local bytes i32 out): launch A's resident clusters of C
+    "p4fr_mbconv_cluster_query": [I] * 8 + [P] * 3,
+    # (host u64 [16, 8] out): the traced launches' phase timeline
+    "p4fr_mbconv_trace": [P],
+    # the tiled form (csrc/mbconv_tiled.cu): (x, pw_w, pw_s, pw_b, dw_w,
+    #  dw_s, dw_b, h2 f32, partial f32, B, H, W, Cin, Cmid, bf16, stream)
     "p4fr_mbconv_expand_dw": [P] * 9 + [I] * 6 + [P],
     # (H, W) -> spatial tiles per image of expand_dw (not a CUDA error code)
     "p4fr_mbconv_tiles": [I, I],

@@ -5,8 +5,10 @@ Port of ``p4fr_tpu/ops/pallas/mbconv.py``. ``fold_mbconv_params`` turns an
 reshaped/transposed to [in, out]), each BatchNorm as a per-channel f32
 (scale, bias) applied to its product's OUTPUT. ``fused_mbconv_chain``
 applies a run of blocks to an NHWC activation; on a CUDA tensor each block
-is one pass of the CUDA kernels in ``csrc/mbconv.cu``, on a CPU tensor it
-is the plain twin ``mbconv_block_ref`` (the composed convs).
+is the two launches of ``csrc/mbconv.cu`` (or, for a shape whose expanded
+map a cluster cannot hold, the three of ``csrc/mbconv_tiled.cu``:
+``mbconv_plan`` decides from the shape alone), on a CPU tensor it is the
+plain twin ``mbconv_block_ref`` (the composed convs).
 
 Numeric contract (the TPU kernel's, ``_apply_block``): f32 accumulation;
 exact SiLU; the SE pooled mean and SE hidden rounded to the activation
@@ -16,7 +18,9 @@ the residual added in f32 and the result cast once.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,18 +70,14 @@ def fold_mbconv_params(block, dtype) -> Dict[str, torch.Tensor]:
     return {k: v.detach() for k, v in out.items()}
 
 
-def mbconv_block_ref(x: torch.Tensor, folded: Dict[str, torch.Tensor],
-                     residual: bool, out_dtype=None) -> torch.Tensor:
-    """Plain twin of one block: the composed convs. x [B, H, W, Cin].
-
-    The result is cast once, to ``out_dtype`` (default ``x.dtype``);
-    ``out_dtype=torch.float32`` gives the value before that cast."""
+def expand_gate_ref(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Plain twin of launch A: round(h2 * gate), [B, H, W, Cmid] in x's
+    type (h2 alone without SE)."""
 
     def rnd(v):  # round through the activation type
         return v.to(x.dtype).float()
 
-    xf = x.float()
-    h1 = F.silu(xf @ folded["pw_w"].float() * folded["pw_s"] + folded["pw_b"])
+    h1 = F.silu(x.float() @ folded["pw_w"].float() * folded["pw_s"] + folded["pw_b"])
     cmid = h1.shape[-1]
     dw = folded["dw_w"].t().reshape(cmid, 1, 3, 3)
     h2 = F.conv2d(h1.permute(0, 3, 1, 2), dw, padding=1, groups=cmid)
@@ -87,9 +87,19 @@ def mbconv_block_ref(x: torch.Tensor, folded: Dict[str, torch.Tensor],
         r = rnd(F.silu(pooled @ folded["se_rw"].float() + folded["se_rb"]))
         g = torch.sigmoid(r @ folded["se_ew"].float() + folded["se_eb"])
         h2 = h2 * g[:, None, None, :]
-    out = rnd(h2) @ folded["pwl_w"].float() * folded["pwl_s"] + folded["pwl_b"]
+    return h2.to(x.dtype)
+
+
+def mbconv_block_ref(x: torch.Tensor, folded: Dict[str, torch.Tensor],
+                     residual: bool, out_dtype=None) -> torch.Tensor:
+    """Plain twin of one block: the composed convs. x [B, H, W, Cin].
+
+    The result is cast once, to ``out_dtype`` (default ``x.dtype``);
+    ``out_dtype=torch.float32`` gives the value before that cast."""
+    g2 = expand_gate_ref(x, folded).float()
+    out = g2 @ folded["pwl_w"].float() * folded["pwl_s"] + folded["pwl_b"]
     if residual:
-        out = out + xf
+        out = out + x.float()
     return out.to(out_dtype or x.dtype)
 
 
@@ -118,25 +128,199 @@ def _check(x: torch.Tensor, folded: Dict[str, torch.Tensor], residual: bool):
                          "16-byte aligned")
 
 
-def fused_mbconv(x: torch.Tensor, folded: Dict[str, torch.Tensor], *,
-                 residual: bool) -> torch.Tensor:
-    """One stride-1 MBConv(+SE) block on an NHWC tensor.
+# ---- the plan: which launches a block takes, from its shape alone
 
-    CUDA tensor: the three kernels of ``csrc/mbconv.cu`` (expand+depthwise
-    over 8x16 tiles with a recomputed halo, SE gate, gated projection),
-    replacing the TPU kernel ``ops/pallas/mbconv.py::fused_mbconv_chain``.
-    The whole-image-in-VMEM design of the TPU cannot fit a Hopper block's
-    shared memory, so the expanded map goes through device memory once (as
-    f32) and the SE mean is reduced from per-tile partial sums. The two 1x1
-    products bound the block; in bf16 they run on the tensor cores (WMMA),
-    in f32 on CUDA cores. One launch count per block. CPU tensor:
-    ``mbconv_block_ref``.
-    """
-    if x.device.type == "cpu":
-        return mbconv_block_ref(x, folded, residual)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mbconv: unsupported device {x.device}")
-    _check(x, folded, residual)
+NT = 512          # threads a CTA (csrc/mbconv.cu)
+MAX_TILES = 4     # launch A: m-tiles and n-tiles a warp (64 accumulators)
+MAX_WIDTH = 32    # launch A's depthwise: 8 lanes a channel, 4 columns each
+RING_MAX = 6      # launch A's x ring slots at most
+MAX_CLUSTER = 16  # the card's non-portable cluster limit
+SMEM_LIMIT = 232448  # an H100 CTA's opt-in shared memory, bytes
+
+
+class MbconvPlan(NamedTuple):
+    """How ``fused_mbconv`` runs a block. ``path`` "cluster": launch A as
+    clusters of ``cluster`` CTAs, rank r owning mid channels ``slices[r]``
+    (start, width), widest ``width``; ``warp_rows`` of launch A's 16 warps
+    split the pixels; ``stages`` x ring slots; ``smem`` bytes a CTA; then
+    launch B. "tiled": the three launches of ``csrc/mbconv_tiled.cu``
+    (the other fields 0 or empty)."""
+    path: str
+    cluster: int = 0
+    slices: Tuple[Tuple[int, int], ...] = ()
+    width: int = 0
+    warp_rows: int = 0
+    stages: int = 0
+    smem: int = 0
+
+
+def _align(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+def launch_a_tiles(pixels: int, width: int, warp_rows: int) -> Tuple[int, int]:
+    """Launch A's m-tiles (16 pixels, 2 or 4) and n-tiles (8 channels, 2 to
+    4) a warp, with ``warp_rows`` of its 16 warps along the pixels
+    (``csrc/mbconv.cu::a_tile``)."""
+    mpw = -(-(-(-pixels // 16)) // warp_rows)
+    npw = -(-(width // 8) // (16 // warp_rows))
+    return (2 if mpw <= 2 else mpw), max(2, npw)
+
+
+def launch_a_layout(h: int, w: int, cin: int, width: int, cluster: int, se_dim: int,
+                    warp_rows: int, bf16: bool) -> Tuple[int, int]:
+    """(bytes of shared memory a CTA, x ring slots) of launch A
+    (``csrc/mbconv.cu::a_layout``): the f32 map, whose room holds ring slots
+    1 .. stages - 1 while the expand runs, ring slot 0, the slice's pw_w,
+    pooled/gate, SE hidden, the exchange, the slice's
+    per-channel constants, and (bf16) its SE weights."""
+    es, kc, ldx = (2, 32, 40) if bf16 else (4, 8, 12)
+    mpw, npw = launch_a_tiles(h * w, width, warp_rows)
+    np_ = (16 // warp_rows) * npw * 8
+    s = h * w
+    ldm = width + 4
+    ldw = np_ + (8 if (np_ // 8) % 2 == 0 else 16) if bf16 else np_
+    xstage = _align(warp_rows * mpw * 16 * ldx * es, 128)
+    room = _align(s * ldm * 4, 128)
+    stages = 1 + min(RING_MAX - 1, room // xstage)
+    n = room + xstage + _align(_align(cin, kc) * ldw * es, 128) + _align(width * 4, 16) + _align(se_dim * 4, 16) + _align(cluster * se_dim * 4, 16)
+    n += _align((14 * width + se_dim) * 4, 16)
+    return n + (2 * _align(se_dim * width * es, 16) if bf16 else 0), stages
+
+
+def _warp_rows(pixels: int, width: int) -> int:
+    """Launch A's warps along the pixels (the rest split the channels): of
+    the tilings with at most 4 x 4 tiles a warp, the one that computes the
+    fewest padded tiles, then reads the fewest operand bytes; 0 if none."""
+    fits = []
+    for wm in (1, 2, 4, 8, 16):
+        mpw, npw = launch_a_tiles(pixels, width, wm)
+        if mpw <= MAX_TILES and npw <= MAX_TILES:
+            fits.append((wm * mpw * (16 // wm) * npw, 512 * mpw + 256 * npw, wm))
+    return min(fits)[2] if fits else 0
+
+
+def mbconv_plan(batch: int, h: int, w: int, cin: int, cmid: int, cout: int, dtype,
+                se_dim: int = 0) -> MbconvPlan:
+    """Launch A's cluster size and slices, or the tiled path, from the
+    block's shape alone (``se_dim``: the SE hidden width, 0 without SE).
+
+    The cluster path needs Cin, Cmid and Cout multiples of 8; it takes the
+    smallest C (a power of two up to 16, at most Cmid / 8) whose widest
+    slice of whole 8-channel groups lets the image's expand tiles sit in
+    the warps' registers (the depthwise takes images up to ``MAX_WIDTH``
+    wide), and whose shared memory (the image's f32 map, which also holds
+    the x ring while the expand runs, one ring slot more, the slice's
+    pw_w and SE weights, the SE buffers) fits ``SMEM_LIMIT`` with a ring of
+    at least 2 slots. Any other shape takes the tiled path."""
+    if batch < 1 or min(h, w) < 1:
+        raise ValueError(f"mbconv_plan: empty shape {(batch, h, w)}")
+    bf16 = dtype == torch.bfloat16
+    if not (cin % 8 or cmid % 8 or cout % 8):
+        groups = cmid // 8
+        c = 1
+        while c <= min(MAX_CLUSTER, groups):
+            width = 8 * -(-groups // c)
+            wm = _warp_rows(h * w, width)
+            smem, stages = launch_a_layout(h, w, cin, width, c, se_dim, wm or 1, bf16)
+            if wm and w <= MAX_WIDTH and stages >= 2 and smem <= SMEM_LIMIT:
+                slices = tuple((8 * (groups * r // c),
+                                8 * (groups * (r + 1) // c - groups * r // c))
+                               for r in range(c))
+                return MbconvPlan("cluster", c, slices, width, wm, stages, smem)
+            c *= 2
+    return MbconvPlan("tiled")
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_query(h: int, w: int, cin: int, width: int, cluster: int, se_dim: int,
+                  warp_rows: int, bf16: bool, index: int = 0):
+    """(clusters resident at once, registers, local-memory bytes a thread)
+    of launch A's instance at that plan on card ``index``; asked once per
+    argument set."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(index):
+        code = _build.library().p4fr_mbconv_cluster_query(
+            h, w, cin, width, cluster, se_dim, warp_rows, int(bf16),
+            *map(ctypes.byref, out))
+    _build.check(code, "mbconv cluster query")
+    return tuple(v.value for v in out)
+
+
+def _se_dim(folded) -> int:
+    return folded["se_rw"].shape[1] if "se_rw" in folded else 0
+
+
+def block_plan(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> MbconvPlan:
+    """``mbconv_plan`` for this block on this input."""
+    b, h, w, cin = x.shape
+    return mbconv_plan(b, h, w, cin, folded["pw_w"].shape[1], folded["pwl_w"].shape[1],
+                       x.dtype, se_dim=_se_dim(folded))
+
+
+def mbconv_expand_gate(x: torch.Tensor, folded: Dict[str, torch.Tensor],
+                       plan: MbconvPlan, trace: bool = False) -> torch.Tensor:
+    """Launch A of a cluster plan on checked CUDA operands: round(h2 *
+    gate), [B, H, W, Cmid] in x's type. Persistent: min(B, resident
+    clusters) clusters walk the batch. ``trace``: CTA 0 records its phase
+    timeline (``read_trace``)."""
+    b, h, w, cin = x.shape
+    cmid = folded["pw_w"].shape[1]
+    bf16 = x.dtype == torch.bfloat16
+    se = "se_rw" in folded
+    rd = _se_dim(folded)
+    resident = cluster_query(h, w, cin, plan.width, plan.cluster, rd, plan.warp_rows, bf16,
+                             x.device.index or 0)[0]
+    if resident < 1:
+        raise RuntimeError(f"mbconv: no cluster of {plan.cluster} CTAs with "
+                           f"{plan.smem} bytes of shared memory fits the card")
+    g2 = torch.empty((b, h, w, cmid), dtype=x.dtype, device=x.device)
+    ptr = lambda k: folded[k].data_ptr() if se else None  # noqa: E731
+    _build.check(_build.library().p4fr_mbconv_expand_gate(
+        x.data_ptr(), folded["pw_w"].data_ptr(), folded["pw_s"].data_ptr(),
+        folded["pw_b"].data_ptr(), folded["dw_w"].data_ptr(), folded["dw_s"].data_ptr(),
+        folded["dw_b"].data_ptr(), ptr("se_rw"), ptr("se_rb"), ptr("se_ew"), ptr("se_eb"),
+        g2.data_ptr(), b, h, w, cin, cmid, rd, plan.cluster, plan.width, plan.warp_rows,
+        min(b, resident), int(bf16), int(trace), _build.stream_ptr(x.device),
+    ), "mbconv expand_gate")
+    return g2
+
+
+def mbconv_project(g2: torch.Tensor, x: torch.Tensor, folded: Dict[str, torch.Tensor],
+                   residual: bool, trace: bool = False) -> torch.Tensor:
+    """Launch B on checked CUDA operands: g2 @ pwl_w, BN fold, the residual
+    x in f32, one cast; [B, H, W, Cout]. ``trace``: CTA 0 records its phase
+    timeline (``read_trace``)."""
+    b, h, w, cmid = g2.shape
+    cout = folded["pwl_w"].shape[1]
+    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    _build.check(_build.library().p4fr_mbconv_project_cluster(
+        g2.data_ptr(), folded["pwl_w"].data_ptr(), folded["pwl_s"].data_ptr(),
+        folded["pwl_b"].data_ptr(), x.data_ptr() if residual else None, out.data_ptr(),
+        b * h * w, cmid, cout, int(x.dtype == torch.bfloat16), int(trace),
+        _build.stream_ptr(x.device),
+    ), "mbconv project")
+    return out
+
+
+def read_trace():
+    """The last traced launches' timeline on the current card (after a
+    synchronize): CTA 0's cycle counts, a [16, 8] int64 array. Launch A:
+    row i is its i-th image (0 start, 1 expand's K loop done, 2 h1 in the
+    map, 3 depthwise done, 4 gate known; row i + 1's 0 ends the gated
+    write); launch B: row 15 (start, K loop done, epilogue done)."""
+    import numpy as np
+
+    buf = np.zeros((16, 8), dtype=np.uint64)
+    _build.check(_build.library().p4fr_mbconv_trace(buf.ctypes.data), "mbconv trace")
+    return buf.astype(np.int64)
+
+
+def mbconv_tiled(x: torch.Tensor, folded: Dict[str, torch.Tensor],
+                 residual: bool) -> torch.Tensor:
+    """The three launches of ``csrc/mbconv_tiled.cu``: expand+depthwise over
+    8x16 tiles with a recomputed halo (h2 through device memory in f32),
+    SE gate, gated projection."""
     lib = _build.library()
     b, h, w, cin = x.shape
     cmid = folded["pw_w"].shape[1]
@@ -171,6 +355,44 @@ def fused_mbconv(x: torch.Tensor, folded: Dict[str, torch.Tensor], *,
         x.data_ptr() if residual else None, out.data_ptr(), b, h * w, cmid,
         cout, bf16, stream,
     ), "mbconv project")
+    return out
+
+
+def fused_mbconv(x: torch.Tensor, folded: Dict[str, torch.Tensor], *,
+                 residual: bool) -> torch.Tensor:
+    """One stride-1 MBConv(+SE) block on an NHWC tensor.
+
+    CUDA tensor: the two launches of ``csrc/mbconv.cu``, replacing the TPU
+    kernel ``ops/pallas/mbconv.py::fused_mbconv_chain``, which keeps a whole
+    image's expanded map in VMEM. Here a thread-block cluster of C CTAs per
+    image holds it, in f32, in shared memory: launch A expands (each rank a
+    slice of the mid channels over the whole image, no halo), runs the
+    depthwise in place, reduces the SE mean in a fixed order, exchanges the
+    SE reduce FC's partials over distributed shared memory and writes
+    round(h2 * gate) in x's type; launch B projects that operand, read
+    once, with the BN fold, the residual in f32 and one cast. What bounds
+    it: launch A's per-image phases (the depthwise's issue, the x stream
+    from L2, the SE's cluster barrier, the gated write), then launch B's
+    weight rows from L2. ``mbconv_plan`` picks C from the shape alone; a
+    shape whose map no cluster of 16 can hold takes the three launches of
+    ``csrc/mbconv_tiled.cu`` (h2 through device memory in f32), counted as
+    ``mbconv_tiled``. One launch count per block; a build or launch failure
+    raises. CPU tensor: ``mbconv_block_ref``.
+    """
+    if x.device.type == "cpu":
+        return mbconv_block_ref(x, folded, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mbconv: unsupported device {x.device}")
+    _check(x, folded, residual)
+    plan = block_plan(x, folded)
+    if plan.path == "tiled":
+        out = mbconv_tiled(x, folded, residual)
+        _build.LAUNCHES["mbconv_tiled"] += 1
+        return out
+    if x.data_ptr() % 16:
+        raise ValueError("fused_mbconv: the cluster kernels move 16-byte vectors: x must "
+                         "be 16-byte aligned")
+    out = mbconv_project(mbconv_expand_gate(x, folded, plan), x, folded, residual)
     _build.LAUNCHES["mbconv"] += 1
     return out
 

@@ -48,7 +48,15 @@ from p4fr_tpu_torch.ops.fused_decode import (
     fused_greedy_step,
     fused_greedy_step_ref,
 )
-from p4fr_tpu_torch.ops.mbconv import fold_mbconv_params, fused_mbconv, mbconv_block_ref
+from p4fr_tpu_torch.ops.mbconv import (
+    expand_gate_ref,
+    fold_mbconv_params,
+    fused_mbconv,
+    mbconv_block_ref,
+    mbconv_expand_gate,
+    mbconv_plan,
+)
+from p4fr_tpu_torch.ops.mbconv import cluster_query as cluster_query_mbconv
 from p4fr_tpu_torch.ops.preprocess import standardize, standardize_ref
 from p4fr_tpu_torch.ops.swin_attention import (
     fused_window_attention,
@@ -187,29 +195,110 @@ def test_standardize_kernel(cuda):
         assert_bf16_close(standardize(img, torch.bfloat16), want, "standardize")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout,se", [(40, 40, 0.25), (24, 40, 0.25), (32, 32, 0.0)])
-def test_mbconv_kernel(cuda, cin, cout, se):
-    torch.manual_seed(0)
-    block = MBConv(cin, cout, 3, 1, 4, se).to(cuda).eval()
+# kernel 2's cases: (B, H, W, Cin, Cout, expand, SE ratio). The plan
+# (mbconv_plan) gives them every cluster size and the tiled path: 11x19
+# leaves partial tiles and slices; the flagship's widths at B just past a
+# multiple of the card's resident clusters leave the last clusters an image
+# short; SE off and no residual (Cin != Cout) each appear.
+MBCONV_CASES = {
+    "c1": (3, 11, 19, 24, 40, 4, 0.25),
+    "c1_no_se": (3, 11, 19, 32, 32, 4, 0.0),
+    "c2": (3, 11, 19, 40, 40, 4, 0.25),
+    "c4": (3, 11, 19, 80, 80, 4, 0.25),
+    "c8_stage3": (17, 16, 32, 128, 128, 4, 0.25),
+    "c16_stage4_head": (3, 16, 32, 128, 160, 6, 0.25),
+    "c16_stage4_tail": (9, 16, 32, 160, 160, 6, 0.25),
+    "c16_stage5": (9, 8, 16, 256, 256, 6, 0.25),
+    "tiled_aster_stage4": (2, 16, 64, 160, 160, 6, 0.25),
+    "tiled_not_multiple_of_8": (2, 11, 19, 12, 12, 4, 0.25),
+}
+
+
+def mbconv_case(name, device, seed=0):
+    b, h, w, cin, cout, expand, se = MBCONV_CASES[name]
+    gen = torch.Generator().manual_seed(seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        block = MBConv(cin, cout, 3, 1, expand, se).eval()
     with torch.no_grad():
         for m in block.modules():
             if isinstance(m, torch.nn.BatchNorm2d):
-                m.running_var.uniform_(0.5, 1.5)
-                m.running_mean.normal_(0, 0.1)
-    # 11x19: partial 8x16 tiles; Cout not a multiple of the 64-wide tile
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+                m.running_mean.normal_(0, 0.1, generator=gen)
     # a per-image channel offset gives each image its own SE gate
-    x = torch.randn(3, 11, 19, cin, device=cuda) + torch.randn(3, 1, 1, cin, device=cuda)
-    res = cin == cout
-    folded = fold_mbconv_params(block, torch.float32)
+    x = torch.randn(b, h, w, cin, generator=gen) + torch.randn(b, 1, 1, cin, generator=gen)
+    return block.to(device), x.to(device), cin == cout
+
+
+def mbconv_case_plan(name, dtype):
+    b, h, w, cin, cout, expand, se = MBCONV_CASES[name]
+    return mbconv_plan(b, h, w, cin, cin * expand, cout, dtype,
+                       se_dim=max(1, int(cin * se)) if se > 0 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", MBCONV_CASES)
+def test_mbconv_kernel(cuda, dtype, case):
+    """Kernel 2 against its twin on the path its plan picks (counted under
+    that path's key): f32 within 1e-4, bf16 by the bf16 rule, and on the
+    cluster path launch A's bf16 operand against the twin's round(h2 *
+    gate): the median over the images of the share of elements that differ
+    within 1e-3 (chip_smoke.py's ``BF16_GATED_SHARE``)."""
+    block, x, res = mbconv_case(case, cuda)
+    folded = fold_mbconv_params(block, dtype)
+    x = x.to(dtype)
+    plan = mbconv_case_plan(case, dtype)
+    if dtype == torch.bfloat16 and plan.path == "tiled" and x.shape[-1] % 8:
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fused_mbconv(x, folded, residual=res)
+        return
+    before = dict(_build.LAUNCHES)
     got = fused_mbconv(x, folded, residual=res)
     torch.cuda.synchronize()
-    assert torch.allclose(got, mbconv_block_ref(x, folded, res), rtol=1e-4, atol=1e-4)
-    folded = fold_mbconv_params(block, torch.bfloat16)
-    xb = x.bfloat16()
-    assert_bf16_close(fused_mbconv(xb, folded, residual=res),
-                      mbconv_block_ref(xb, folded, res, out_dtype=torch.float32),
-                      "mbconv")
+    key = "mbconv" if plan.path == "cluster" else "mbconv_tiled"
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before if
+            _build.LAUNCHES[k] != before[k]} == {key: 1}
+    want = mbconv_block_ref(x, folded, res, out_dtype=torch.float32)
+    if dtype == torch.float32:
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-4), (got - want).abs().max()
+    else:
+        assert_bf16_close(got, want, "mbconv")
+    if dtype == torch.bfloat16 and plan.path == "cluster":
+        differ = mbconv_expand_gate(x, folded, plan) != expand_gate_ref(x, folded)
+        share = differ.flatten(1).float().mean(1).median().item()
+        assert share <= 1e-3, share
+
+
+def test_mbconv_cases_reach_every_size():
+    """The cases above take every cluster size, 1 to 16, and the tiled
+    path, in each type."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plans = [mbconv_case_plan(case, dtype) for case in MBCONV_CASES]
+        assert {p.cluster for p in plans if p.path == "cluster"} == {1, 2, 4, 8, 16}
+        assert any(p.path == "tiled" for p in plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mbconv_plan_matches_the_kernel(cuda, dtype):
+    """The plan's shared memory is the kernel's own layout, and the card
+    holds at least one cluster of every cluster plan (the flagship's and
+    the cases')."""
+    lib = _build.library()
+    shapes = [(h, w, cin, cin * e, cout, max(1, int(cin * se)) if se > 0 else 0)
+              for _, h, w, cin, cout, e, se in MBCONV_CASES.values()]
+    shapes += [(16, 32, 128, 512, 128, 32), (16, 32, 128, 768, 160, 32),
+               (16, 32, 160, 960, 160, 40), (8, 16, 256, 1536, 256, 64)]
+    bf16 = dtype == torch.bfloat16
+    for h, w, cin, cmid, cout, rd in shapes:
+        plan = mbconv_plan(1, h, w, cin, cmid, cout, dtype, se_dim=rd)
+        if plan.path != "cluster":
+            continue
+        assert lib.p4fr_mbconv_cluster_smem(h, w, cin, plan.width, plan.cluster, rd,
+                                            plan.warp_rows, int(bf16)) == plan.smem
+        assert cluster_query_mbconv(h, w, cin, plan.width, plan.cluster, rd, plan.warp_rows,
+                                    bf16)[0] >= 1
 
 
 def check_decoder_layer_kernel(cuda, dtype, cache_outputs, hidden, heads):

@@ -3,7 +3,7 @@
 and (kernel 6) where the sound kernel's error comes from.
 
     python3 tolerance_study.py [--kernel fused_greedy_step|swin_attention|
-        decoder_layer|decoder_layer_v1|decoder_stack_v3|decoder_layer_int8]
+        decoder_layer|decoder_layer_v1|decoder_stack_v3|decoder_layer_int8|mbconv]
         [--shape satrn|swin] [--seeds 0 1 2 3 4] [--faults]
 
 Needs one CUDA card; the kernels build from the checkout on first use.
@@ -38,7 +38,16 @@ codes that differ from the twin's (f32) and the largest distance of such
 a code's x / scale from its tie, and each dtype's missed checks;
 part 3 plants the int8 faults (``roundf`` for ``rintf``, the k-scale not
 applied, the v-scale applied before the mass, the current slot read back
-quantized), in ``csrc/decoder_cluster.cuh``, the body kernel 3 runs.
+quantized), in ``csrc/decoder_cluster.cuh``, the body kernel 3 runs. With
+``--kernel mbconv`` (kernel 2) part 1 runs ``chip_smoke.check_mbconv`` (the
+flagship's four stride-1 shapes at B=256 on the cluster path, and
+EfficientASTER's stage 4 on the tiled path) and prints per seed the bf16
+check's largest excess over the cast, its largest mean abs error, the
+largest median share of launch A's gated elements that differ from the
+twin's, and each dtype's missed checks; part 3 plants h2 rounded before the gate, the last
+rank's SE partial dropped from the exchange, the depthwise reading a row
+back after it was overwritten, the pooled mean left unrounded and the
+residual added after the cast, in ``csrc/mbconv.cu``.
 
 1. ``chip_smoke.check_fused_step`` (B=256, full width, pos 0/1/115/230,
    manager on and off, 24 checks, and the tie across the generator's first
@@ -185,6 +194,29 @@ FAULTS = {
             "      Q, 3 * H, cache, c_row, c_pos, b0, nrows, pos + 1, H, heads, temp,\n"
             "      KQ == KvQ::kSrcCache ? nullptr : Q + H, 3 * H, AT,\n"),
     },
+    # kernel 2's cluster path (csrc/mbconv.cu)
+    "mbconv": {
+        # h2 rounded to the activation type before the gate multiplies it
+        "h2_rounded_before_gate": ("mbconv.cu", "for (int e = 0; e < 8; ++e) v[e] = m[e] * gk[e];",
+                                   "for (int e = 0; e < 8; ++e) v[e] = round_t<T>(m[e]) * gk[e];"),
+        # the last rank's SE partial left out of the sum over the exchange
+        "se_partial_dropped": ("mbconv.cu", "for (int r = 0; r < C; ++r) s += xbuf[r * a.rd + j];",
+                               "for (int r = 0; r < C - 1; ++r) s += xbuf[r * a.rd + j];"),
+        # every fourth output row's upper neighbours read back from the map,
+        # where that row's h2 has already overwritten its h1
+        "depthwise_reads_overwritten_row": (
+            "mbconv.cu",
+            "      sum += dw_out<LPC>(map, ldm, W, y, c, g, kw, s2, b2, ra, rb, rc);\n",
+            "      if (y > 0) dw_row<LPC>(map, ldm, W, H, y - 1, c, g, gb, ra);\n"
+            "      sum += dw_out<LPC>(map, ldm, W, y, c, g, kw, s2, b2, ra, rb, rc);\n"),
+        "pooled_unrounded": ("mbconv.cu",
+                             "vec[c] = round_t<T>(sum / static_cast<float>(W * H));",
+                             "vec[c] = sum / static_cast<float>(W * H);"),
+        # the projection rounded to the activation type before the residual
+        # is added (two roundings)
+        "residual_after_cast": ("mbconv.cu", "for (int e = 0; e < 8; ++e) v[e] += rv[e];",
+                                "for (int e = 0; e < 8; ++e) v[e] = round_t<T>(v[e]) + rv[e];"),
+    },
     "decoder_stack_v3": {
         "previous_layer_weights": ("decoder_stack.cu", "layer_weights<T>(p, l, H, F)",
                                    "layer_weights<T>(p, l > 0 ? l - 1 : 0, H, F)"),
@@ -291,6 +323,23 @@ def int8_readings(dev, seeds, shape):
                   f"f32 slot codes differing {r32['flips']} (the furthest from its tie "
                   f"{r32['tie_dist']:.2e}); missed {missed[torch.bfloat16]} bf16 and "
                   f"{missed[torch.float32]} f32 checks of about {n} each", flush=True)
+
+
+def mbconv_readings(dev, seeds):
+    """Kernel 2: per seed the bf16 check's largest excess over the cast,
+    largest mean abs error and largest gated share (launch A's operand
+    against the twin's) over the shapes, and each dtype's missed checks."""
+    for seed in seeds:
+        missed, r = {}, {}
+        for dt in (torch.float32, torch.bfloat16):
+            misses = []
+            r = cs.check_mbconv(dev, dt, {}, misses, seed)
+            missed[dt] = len(misses)
+        print(f"READING seed {seed}: bf16 beyond the cast {r['excess']:.3e}; mean abs "
+              f"{r['mean']:.3e}; gated share {r['share']:.3e}; missed "
+              f"{missed[torch.bfloat16]} bf16 and "
+              f"{missed[torch.float32]} f32 of {len(cs.MBCONV_SHAPES) + 1} checks each",
+              flush=True)
 
 
 def readings(dev, seeds, shape):
@@ -463,6 +512,8 @@ def main(argv=None):
     with torch.no_grad():
         if args.kernel == "swin_attention":
             swin_readings(dev, args.seeds)
+        elif args.kernel == "mbconv":
+            mbconv_readings(dev, args.seeds)
         elif args.kernel in LAYER_CHECKS:
             layer_readings(dev, args.seeds, args.kernel, SHAPES[args.shape])
         elif args.kernel == "decoder_layer_int8":
