@@ -30,7 +30,9 @@ with a non-zero exit and no result line:
    flagship's B=256 both must launch clusters (C > 1). Kernel 6 is also
    held to the first index of the max where its top two logits tie
    exactly across the generator's first rank boundary.
-   The v1 layer step (kernel 8) and the one-launch decoder stack (kernel
+   The v1 layer step (kernel 8, a cluster of C CTAs per 4 rows by its own
+   plan, printed per shape with its own residency; both shapes must launch
+   clusters) and the one-launch decoder stack (kernel
    7) at both decoder shapes, pos 0, 115 and 230, random values in every
    cache slot: out and slot ``pos`` within tolerance, the other slots
    untouched. Kernel 3's int8 forms (``--kv_quant``: int8 cross K|V with
@@ -92,7 +94,8 @@ with a non-zero exit and no result line:
    230), and SwinTRN greedy images/s at
    B=32 with the split of its stream time between encode and decode (each
    timed kernel-path and fused call, and each split encode, must show 24
-   window-attention launches, the plain call none). Kernel 8 beside kernel 3,
+   window-attention launches, the plain call none). Kernel 8 beside kernel 3
+   at B=256 and at SwinTRN's decoder shape,
    kernel 7 beside three kernel-3 launches and one kernel-6 launch, and
    the v1 and v3 greedy paths' images/s in turns with the others. Kernel
    3's int8 forms beside it, and greedy images/s with ``--kv_quant int8``
@@ -524,6 +527,34 @@ def cluster_report(dev):
                     raise AssertionError(f"kernel 3 at {label} B={shape['b']} launches "
                                          "no cluster")
     fused_cluster_report()
+    v1_cluster_report(dev)
+
+
+def v1_cluster_report(dev):
+    """Kernel 8's cluster size at the v1 path's shapes (SwinTRN B=32, the
+    flagship B=256; L=231 slots) per type, with its own resident clusters
+    of every size (its shared memory adds max(L, S) scores for each pair a
+    rank has in flight) and each instance's registers and local memory a
+    thread; raises unless both launch clusters."""
+    from p4fr_tpu_torch.ops.decoder_layer_v1 import step_cluster, v1_query
+
+    print("[kernel 8: cluster size per shape, its resident clusters of C = "
+          "1/2/4/8/16, registers and local bytes a thread]")
+    for label, shape in (("SwinTRN", SWIN_DECODER), ("flagship", SATRN_DECODER)):
+        hid, heads, ff, s_len = (shape["hidden"], shape["heads"], shape["filter_dim"],
+                                 shape["s_len"])
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.empty(shape["b"], hid, device=dev, dtype=dt)
+            c = step_cluster(x, heads, ff, STEPS, s_len)
+            per_c = {k: v1_query(dt == torch.bfloat16, hid // heads, hid, ff,
+                                 max(STEPS, s_len), k) for k in (1, 2, 4, 8, 16)}
+            print(f"  {label} B={shape['b']} H={hid} F={ff} L={STEPS} S={s_len} "
+                  f"{str(dt)[6:]}: C={c}; resident clusters "
+                  f"{[q[0] for q in per_c.values()]}; the launched instance {per_c[c][1]} "
+                  f"registers, {per_c[c][2]} bytes of local memory a thread")
+            if c == 1:
+                raise AssertionError(f"kernel 8 at {label} B={shape['b']} launches no "
+                                     "cluster")
 
 
 def fused_cluster_report():
@@ -892,19 +923,28 @@ def check_layer_v1(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
     """Kernel 8 vs its plain version (kernel 3's, ``layer_step_ref``: the
     same contract) at a decoder ``shape`` (the flagship's: B=256, cache
     [256, 231, 512], src [256, 128, 512]; SwinTRN's: B=32, heads of 64,
-    cache [32, 231, 1024], src [32, 144, 1024]), random values in every
-    cache slot (those past ``pos`` are banned), pos 0, 115 and 230: out and
-    slot ``pos`` within tolerance, the other slots untouched. bf16 returns
-    the largest readings: the out's and the slot's excess over the cast and
-    the out's mean abs error (``compare_bf16``)."""
+    cache [32, 231, 1024], src [32, 144, 1024]), at the cluster size it
+    launches, random values in every cache slot (those past ``pos`` are
+    banned), pos 0, 115 and 230: out and slot ``pos`` within tolerance, the
+    other slots untouched. bf16 returns the largest readings: the out's and
+    the slot's excess over the cast and the out's mean abs error
+    (``compare_bf16``)."""
     from p4fr_tpu_torch.ops.decoder_layer import LayerWeights
-    from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1, layer_step_ref
+    from p4fr_tpu_torch.ops.decoder_layer_v1 import (
+        decoder_layer_step_v1,
+        layer_step_ref,
+        step_cluster,
+    )
 
     f32 = dtype == torch.float32
     gen = torch.Generator().manual_seed(seed + 40)
     b, hid, s_len = shape["b"], shape["hidden"], shape["s_len"]
     weights = random_layer_weights(dtype, gen, dev, hid, shape["filter_dim"])
     w_ref = LayerWeights(*(t.float() for t in weights))
+    c = step_cluster(weights.w_qkv.new_empty(b, hid), shape["heads"], shape["filter_dim"],
+                     STEPS, s_len)
+    print(f"  decoder_layer_v1 B={b} H={hid} {str(dtype)[6:]}: a cluster of {c} CTAs "
+          "a group of 4 rows")
     worst = 0.0
     readings = {"out": 0.0, "slot": 0.0, "mean": 0.0}
     for pos in LAYER_POS:
@@ -1737,6 +1777,7 @@ def timing(ckpt, dev, card):
     from p4fr_tpu_torch.infer.single import encode_images
     from p4fr_tpu_torch.ops.decoder_layer import decoder_layer_step, layer_step_ref
     from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
+    from p4fr_tpu_torch.ops.decoder_layer_v1 import step_cluster as v1_step_cluster
     from p4fr_tpu_torch.ops.decoder_stack_v3 import (
         StackedLayers,
         decoder_stack_step_v3,
@@ -1809,8 +1850,10 @@ def timing(ckpt, dev, card):
           f"layer step: kernel {kb:.4f} ms, plain {pb:.4f} ms, bound {bb:.4f} ms by "
           f"{byb} ({card})")
     del xb, cacheb, srcb, weightsb
-    print(f"  decoder_layer_v1 B={b} pos={pos}: {times['decoder_layer_v1']['ms']:.4f} ms "
-          f"beside kernel 3's {times['decoder_layer']['ms']:.4f} ms in this call ({card})")
+    c8 = v1_step_cluster(x, 8, ff, STEPS, s_len)
+    print(f"  decoder_layer_v1 B={b} C={c8} pos={pos}: "
+          f"{times['decoder_layer_v1']['ms']:.4f} ms beside kernel 3's "
+          f"{times['decoder_layer']['ms']:.4f} ms in this call ({card})")
     # kernel 3's int8 forms on the same x and weights: int8 src K|V (and the
     # int8 cache), random codes and scales; bytes as kernel 3's, the int8
     # operands and their f32 scales in place of the bf16 ones
@@ -1962,6 +2005,8 @@ def swin_timing(ckpt, dev, card, times):
     from p4fr_tpu_torch.infer.single import decode_images, encode_images
     from p4fr_tpu_torch.ops import _build
     from p4fr_tpu_torch.ops.decoder_layer import decoder_layer_step, layer_step_ref
+    from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
+    from p4fr_tpu_torch.ops.decoder_layer_v1 import step_cluster as v1_step_cluster
     from p4fr_tpu_torch.ops.fused_decode import (
         fused_greedy_step,
         fused_greedy_step_ref,
@@ -2035,6 +2080,15 @@ def swin_timing(ckpt, dev, card, times):
           f"{hid // shape['heads']}) F={ff} pos={pos} L={STEPS} S={shape['s_len']} per "
           f"layer step: kernel {k:.4f} ms, plain {p:.4f} ms, bound {b:.4f} ms by {by} "
           f"({card})")
+    # kernel 8 on the same operands (its plain version is kernel 3's)
+    k8 = cuda_ms(lambda: decoder_layer_step_v1(x, pos, cache, src, weights,
+                                               head_num=shape["heads"], cache_outputs=True),
+                 iters=50)
+    c8 = v1_step_cluster(x, shape["heads"], ff, STEPS, shape["s_len"])
+    print(f"  decoder_layer_v1 SwinTRN shape B={x.shape[0]} H={hid} (heads of "
+          f"{hid // shape['heads']}) F={ff} C={c8} pos={pos} L={STEPS} S={shape['s_len']} "
+          f"per layer step: kernel {k8:.4f} ms beside kernel 3's {k:.4f} ms, plain "
+          f"{p:.4f} ms, bound {b:.4f} ms by {by} ({card})")
 
     # kernel 6 at SwinTRN's shape (4 layers, time-major caches), beside four
     # kernel-3 launches at each position

@@ -1,12 +1,13 @@
 // Kernel 3's layer step as a thread-block cluster, also run once per layer
-// by kernel 6 (csrc/fused_decode.cu): C CTAs (C in 1, 2, 4, 8, 16; the
+// by kernel 6 (csrc/fused_decode.cu) and, with the two-pass attention, by
+// kernel 8 (csrc/decoder_layer_v1.cu): C CTAs (C in 1, 2, 4, 8, 16; the
 // wrapper picks it, ops/decoder_layer.py::cluster_size) share one group
 // of TB = 4 batch rows. The contract is decoder_common.cuh's
 // (p4fr_tpu/decoding/fast_step.py::jnp_layer_step, the int8 forms KvQ):
 // scores / sqrt(H), ReLU after both FF linears, LayerNorm eps 1e-5, slot
-// `pos` written in place after the attention (the output's k|v under
-// cache_outputs), the int8 k-scale folded into the scores and the v-scale
-// in after the mass.
+// `pos` written in place after the attention (kernel 8: before it, then
+// read back; the output's k|v under cache_outputs), the int8 k-scale
+// folded into the scores and the v-scale in after the mass.
 //
 // Why a cluster: at 4 rows every product is a GEMV over the layer's
 // weights (~2 M values at SwinTRN's H=512), bound by the bytes one SM can
@@ -26,9 +27,11 @@
 //   DSMEM, C times the bytes of the column split's gather.
 // - attention: the (row, head) pairs, rank r owning pairs [r*P/C,
 //   (r+1)*P/C) of P = TB*heads; with fewer pairs than warps, the warps of
-//   a pair split its positions in chunks of 32 (flash-decoding) and their
-//   (max, sum, acc) merge in shared memory in split order, so the result
-//   does not depend on timing.
+//   a pair split its positions in chunks (flash-decoding) and merge in
+//   shared memory in split order, so the result does not depend on timing.
+//   Two forms (Softmax): kernels 3 and 6 walk the positions with an online
+//   softmax (attend_part); kernel 8 keeps the TPU kernel's exact two-pass
+//   softmax (attend_two_pass).
 // - LayerNorms: every rank, on the gathered rows (no exchange follows).
 // - slot `pos` and the output: each rank writes its own columns; the int8
 //   slot's per-(row, half) scale is the max over the whole half, which
@@ -40,7 +43,7 @@
 // that a phase pushes into is one that no rank touches in that phase or
 // in the local work just before it (the buffer plan in layer_body_cluster),
 // so one barrier a phase suffices. No DSMEM access follows the last
-// barrier, which is therefore kernel 3's exit barrier: no CTA leaves while
+// barrier, which is therefore kernel 3's and 8's exit barrier: no CTA leaves while
 // a peer may still touch its shared memory (kernel 6 ends in a barrier of
 // its own).
 #pragma once
@@ -61,9 +64,12 @@ namespace cg = cooperative_groups;
 
 // Read-only loads (ld.global.nc, __ldg): every global operand the body
 // reads (x, weights, biases, the cache's slots < pos and their scales,
-// src K|V) is unchanged for the launch; slot `pos`, which it writes, it
-// never reads. The compiler does not infer this through the DSMEM stores
-// and cluster barriers, and the coherent path is slower.
+// src K|V) is unchanged for the launch. Slot `pos`, which it writes, the
+// online form never reads; the two-pass form (kernel 8) reads it back
+// after storing it, and the read-only path is not coherent with a store
+// made earlier in the same launch, so that slot alone takes a volatile
+// load (load_chunk). The compiler does not infer any of this through the
+// DSMEM stores and cluster barriers, and the coherent path is slower.
 // 8 contiguous weights (16-byte aligned for bf16, 32 for f32) -> f32
 __device__ __forceinline__ void ldg8(const float* p, float* v) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
@@ -376,11 +382,237 @@ __device__ void attend_part(const float* qbuf, int qld, const T* __restrict__ kv
   __syncthreads();
 }
 
+// 16 bytes of K|V values -> f32: 4 f32 or 8 bf16 (the array's size)
+__device__ __forceinline__ void unpack16(const uint4& t, float (&v)[4]) {
+  v[0] = __uint_as_float(t.x);
+  v[1] = __uint_as_float(t.y);
+  v[2] = __uint_as_float(t.z);
+  v[3] = __uint_as_float(t.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& t, float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+// A lane's U 16-byte pieces of positions l, l + PPI, ... (each clamped to
+// `last`, an address that exists) at p + position * pos_stride, all issued
+// before the first is used. WRITTEN (the chunk holds slot `pos`, which this
+// launch stored before its attention): volatile loads, since the
+// read-only path (__ldg, ld.global.nc) is not coherent with a store made
+// earlier in the same launch; every other chunk takes the read-only path.
+template <bool WRITTEN, int U, int PPI, typename T>
+__device__ __forceinline__ void load_chunk(uint4 (&t)[U], const T* p, int l, int last,
+                                           int pos_stride) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const T* a = p + static_cast<long long>(min(l + u * PPI, last)) * pos_stride;
+    if constexpr (WRITTEN)
+      asm volatile("ld.volatile.global.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(t[u].x), "=r"(t[u].y), "=r"(t[u].z), "=r"(t[u].w)
+                   : "l"(__cvta_generic_to_global(a)) : "memory");
+    else
+      t[u] = __ldg(reinterpret_cast<const uint4*>(a));
+  }
+}
+
+// The attention's form in layer_body_cluster: kernels 3 and 6 walk the
+// positions once with an online softmax (attend_part); kernel 8 keeps the
+// TPU kernel's exact two-pass softmax (attend_two_pass), over slot `pos`
+// stored into the cache first and read back.
+enum class Softmax { kOnline, kTwoPass };
+
+// The TPU kernel's attention (p4fr_tpu/ops/pallas/decoder_layer.py:96-117)
+// for this rank's pairs p0 .. p0+np-1 (pair p: row p / heads, head p %
+// heads), positions 0 .. n_pos-1 all read from kv (attend_part's strides),
+// with no online rescaling: every score of the pair first, then their
+// max, then exp(score - max) and their sum, then the values weighted by
+// exp / sum (IEEE division, as the TPU kernel and the plain version
+// normalise before the value product). Position `written` (slot `pos` of
+// the self-attention, -1 for the cross K|V) was stored earlier in this
+// launch and is read by a coherent load (load_chunk). Layout: a position's
+// head row (D values of T) is read by LPK lanes, 16 bytes each, so one
+// load a lane covers PPI = 32 / LPK positions with neighbouring lanes on
+// neighbouring addresses; a chunk is U such loads a lane, all in flight
+// before the first is used. With np >= NT / 32 warps take whole pairs;
+// otherwise a pair gets wpp = NT / 32 / np warps, warp `split` of them
+// taking the chunks split, split + wpp, ...: each scores its positions into
+// the pair's row of `scores` (n_pos floats a pair in flight; sized by
+// two_pass_smem_floats), and the max, the sum and the value partials merge
+// in `stage` (smem, NT / 32 * (D + 2) floats) in split order, so the result
+// does not depend on timing. Writes out[p*D ..] of this CTA's [TB][H];
+// returns synchronised.
+template <int NT, typename T, int D>
+__device__ void attend_two_pass(const float* qbuf, int qld, const T* __restrict__ kv,
+                                int row_stride, int pos_stride, int b0, int nrows,
+                                int n_pos, int written, int H, int heads, float temp,
+                                float* out, int p0, int np, float* stage, float* scores) {
+  static_assert(D == 32 || D == 64, "heads of 32 or 64");
+  constexpr int EPL = 16 / sizeof(T);  // values in a lane's 16-byte piece
+  constexpr int LPK = D / EPL;         // lanes a position's head row
+  constexpr int PPI = 32 / LPK;        // positions one load a lane covers
+  constexpr int U = 8;                 // loads a lane has in flight
+  constexpr int CH = PPI * U;          // positions a chunk
+  constexpr int NW = NT / 32, SD = D + 2;  // SD: a split's max, sum, values
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane / LPK, sub = lane % LPK;  // position in a load, piece
+  const int wpp = np >= NW ? 1 : NW / max(np, 1);
+  const int split = warp % wpp;
+
+  // pass 1: this warp's scores into sc; returns their max (warp-reduced)
+  auto score = [&](const float* q, const T* base, float* sc) {
+    float qv[EPL];
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qv[e] = q[sub * EPL + e];
+    const T* kp = base + sub * EPL;
+    float m = -INFINITY;
+    for (int l0 = CH * split; l0 < n_pos; l0 += CH * wpp) {
+      uint4 t[U];
+      if (l0 <= written && written < l0 + CH)
+        load_chunk<true, U, PPI>(t, kp, l0 + g, n_pos - 1, pos_stride);
+      else
+        load_chunk<false, U, PPI>(t, kp, l0 + g, n_pos - 1, pos_stride);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[EPL];
+        unpack16(t[u], kf);
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) dot = fmaf(qv[e], kf[e], dot);
+#pragma unroll
+        for (int o = LPK / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        const int l = l0 + u * PPI + g;
+        if (l < n_pos) {
+          const float s = dot / temp;
+          m = fmaxf(m, s);
+          if (sub == 0) sc[l] = s;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    return m;
+  };
+  // pass 2: sc := exp(score - m) over this warp's positions; returns their
+  // sum (warp-reduced in a fixed order)
+  auto exps = [&](float m, float* sc) {
+    float s = 0.f;
+    for (int l0 = CH * split; l0 < n_pos; l0 += CH * wpp)
+      for (int i = lane; i < CH; i += 32) {
+        const int l = l0 + i;
+        if (l < n_pos) {
+          const float e = expf(sc[l] - m);
+          sc[l] = e;
+          s += e;
+        }
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    return s;
+  };
+  // pass 3: acc[e] (head dim sub*EPL + e) := sum over this warp's positions
+  // of exp / ssum times the value, the same in every lane of a piece
+  auto values = [&](float ssum, const T* base, const float* sc, float (&acc)[EPL]) {
+    const T* vp = base + H + sub * EPL;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
+    for (int l0 = CH * split; l0 < n_pos; l0 += CH * wpp) {
+      uint4 t[U];
+      if (l0 <= written && written < l0 + CH)
+        load_chunk<true, U, PPI>(t, vp, l0 + g, n_pos - 1, pos_stride);
+      else
+        load_chunk<false, U, PPI>(t, vp, l0 + g, n_pos - 1, pos_stride);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int l = l0 + u * PPI + g;
+        const float e = sc[min(l, n_pos - 1)];
+        const float p = l < n_pos ? e / ssum : 0.f;
+        float vf[EPL];
+        unpack16(t[u], vf);
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
+      }
+    }
+#pragma unroll
+    for (int o = LPK; o < 32; o <<= 1)
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+  };
+  auto head_base = [&](int r, int h) {
+    return kv + static_cast<long long>(b0 + r) * row_stride + h * D;
+  };
+
+  if (wpp == 1) {  // whole pairs, one warp each
+    float* sc = scores + warp * n_pos;
+    for (int pair = p0 + warp; pair < p0 + np; pair += NW) {
+      const int r = pair / heads, h = pair % heads;
+      if (r >= nrows) continue;
+      const T* base = head_base(r, h);
+      const float m = score(qbuf + r * qld + h * D, base, sc);
+      __syncwarp();
+      const float ssum = exps(m, sc);
+      __syncwarp();
+      float acc[EPL];
+      values(ssum, base, sc, acc);
+      if (g == 0)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) out[pair * D + sub * EPL + e] = acc[e];
+      __syncwarp();  // the warp's next pair overwrites sc
+    }
+  } else {  // pair j by its wpp warps, merged in split order
+    const int j = warp / wpp, pair = p0 + j, r = pair / heads, h = pair % heads;
+    const bool active = j < np && r < nrows;
+    float* sc = scores + j * n_pos;
+    float* st = stage + warp * SD;
+    const float* sp = stage + j * wpp * SD;  // the pair's splits
+    const T* base = active ? head_base(r, h) : kv;
+    if (active) {
+      const float m = score(qbuf + r * qld + h * D, base, sc);
+      if (lane == 0) st[0] = m;
+    }
+    __syncthreads();
+    if (active) {
+      float m = -INFINITY;
+      for (int s = 0; s < wpp; ++s) m = fmaxf(m, sp[s * SD]);
+      const float ssum = exps(m, sc);
+      if (lane == 0) st[1] = ssum;
+    }
+    __syncthreads();
+    if (active) {
+      float ssum = 0.f;
+      for (int s = 0; s < wpp; ++s) ssum += sp[s * SD + 1];
+      float acc[EPL];
+      values(ssum, base, sc, acc);
+      if (g == 0)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) st[2 + sub * EPL + e] = acc[e];
+    }
+    __syncthreads();
+    if (warp < np) {  // one warp a pair sums its splits' values
+      const int pw = p0 + warp, rw = pw / heads;
+      if (rw < nrows) {
+        const float* sw = stage + warp * wpp * SD;
+        for (int d = lane; d < D; d += 32) {
+          float a = 0.f;
+          for (int s = 0; s < wpp; ++s) a += sw[s * SD + 2 + d];
+          out[pw * D + d] = a;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // A cluster CTA's shared memory, every buffer [TB][width] f32: X the input
 // (later out2), Q q|k|v (later the output's k|v), AT the attention output
 // (self, then cross), P the projections (out, out2, ff1), O1 out1, Q2 the
 // cross query (later the layer's output), FB the FF's inner activation, R
-// rowmm_part's partial sums and attend_part's stage (red_floats<NT>).
+// rowmm_part's partial sums and the attention's stage (red_floats<NT>);
+// kernel 8's scores follow R (two_pass_smem_floats).
 struct ClusterSmem {
   float *X, *Q, *AT, *P, *O1, *Q2, *FB, *R;
 };
@@ -394,6 +626,16 @@ __host__ __device__ constexpr int red_floats() {
 template <int NT>
 size_t cluster_smem_floats(int H, int F) {
   return static_cast<size_t>(TB) * (8 * H + F) + red_floats<NT>();
+}
+
+// floats of a CTA of kernel 8 (the two-pass form): the body's, then the
+// scores (attend_two_pass): n_pos = max(L, S) floats for each pair a rank
+// has in flight, min(NT / 32, the most pairs a rank owns)
+template <int NT>
+size_t two_pass_smem_floats(int H, int F, int heads, int C, int n_pos) {
+  const int most = (TB * heads + C - 1) / C;
+  return cluster_smem_floats<NT>(H, F) +
+         static_cast<size_t>(most < NT / 32 ? most : NT / 32) * n_pos;
 }
 
 __device__ __forceinline__ ClusterSmem carve_cluster_smem(float* sm, int H, int F) {
@@ -467,8 +709,14 @@ __device__ __forceinline__ Cols rank_cols(int n, int C, int rank) {
 // synchronised); on return s.Q2 holds the layer's output (f32, every row,
 // synchronised) and this rank's columns of slot `pos` of the cache are
 // written (b * c_row + pos * c_pos, attend_part's strides); the caller
-// writes the output. Phases, each ending in the cluster barrier after its
-// push (buffer written: what it reads):
+// writes the output. SM: the attention's form. kTwoPass (kernel 8, no
+// int8 operands) stores this rank's columns of the current k|v into slot
+// `pos` right after its share of the q|k|v product, before the barrier
+// that gathers q|k|v (its release arrive and acquire wait order the stores
+// for the peers; at C = 1 __syncthreads does), reads slots 0..pos back in
+// attend_two_pass, whose scores follow R in shared memory, and stores slot
+// `pos` again at the end only under cache_outputs. Phases, each ending in
+// the cluster barrier after its push (buffer written: what it reads):
 //   qkv Q: X | self-attention AT: Q, cache | out-proj P: AT |
 //   LN1 O1 (local), q2 Q2: O1 | cross-attention AT: Q2, src | out2 P: AT |
 //   LN2 X (local), ff0 FB: X | ff1 P: FB | LN3 Q2 (local);
@@ -485,7 +733,7 @@ __device__ __forceinline__ Cols rank_cols(int n, int C, int rank) {
 // arrives, with release semantics, only after those reads; peers push
 // layer l+1's q|k|v into Q only after the wait, so after every rank's
 // arrival. X, which the refill writes, no peer ever pushes into.
-template <int NT, typename T, int D, KvQ KQ>
+template <int NT, typename T, int D, KvQ KQ, Softmax SM = Softmax::kOnline>
 __device__ void layer_body_cluster(const ClusterSmem& s, const Weights& wt,
                                    CacheT<T, KQ>* __restrict__ cache, int c_row, int c_pos,
                                    float* __restrict__ cache_scale,
@@ -493,6 +741,8 @@ __device__ void layer_body_cluster(const ClusterSmem& s, const Weights& wt,
                                    const float* __restrict__ src_scale, int b0, int nrows,
                                    int H, int heads, int F, int S, int L, int pos,
                                    int cache_outputs, int C, int rank, bool chained) {
+  constexpr bool TWO_PASS = SM == Softmax::kTwoPass;
+  static_assert(!TWO_PASS || KQ == KvQ::kNone, "the two-pass form takes no int8 operands");
   const float temp = sqrtf(static_cast<float>(H));
   const int p0 = cut(TB * heads, C, rank), np = cut(TB * heads, C, rank + 1) - p0;
   const Cols hc = rank_cols(H, C, rank);
@@ -512,14 +762,22 @@ __device__ void layer_body_cluster(const ClusterSmem& s, const Weights& wt,
   // fused q|k|v of the current token; k|v rounded to the cache type
   const Cols c3 = rank_cols(3 * H, C, rank);
   rowmm_part<NT, T>(X, H, w(wt.w_qkv), 3 * H, w(wt.b_qkv), c3.b, c3.e, Q, 3 * H, false, H, R);
+  if constexpr (TWO_PASS)  // slot `pos` := this rank's k|v columns, before the gather
+    write_slot_part<NT, T, KQ>(Q + H, cache, cache_scale, R, c_row, c_pos, L, b0, nrows, H,
+                               pos, max(c3.b - H, 0), max(c3.e - H, 0), rank);
   if (opening) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   push<NT>(Q, 3 * H, TB, c3.b, c3.e, C, rank);
   cluster_sync(C);  // q|k|v gathered
 
   // masked self-attention over slots 0..pos
-  attend_part<NT, CacheT<T, KQ>, D, KQ == KvQ::kSrcCache>(
-      Q, 3 * H, cache, c_row, c_pos, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H, AT,
-      KvScales{cache_scale, 2 * L, 2, 1}, p0, np, R);
+  float* const scores = R + red_floats<NT>();  // kernel 8's (two_pass_smem_floats)
+  if constexpr (TWO_PASS)
+    attend_two_pass<NT, T, D>(Q, 3 * H, cache, c_row, c_pos, b0, nrows, pos + 1, pos, H,
+                              heads, temp, AT, p0, np, R, scores);
+  else
+    attend_part<NT, CacheT<T, KQ>, D, KQ == KvQ::kSrcCache>(
+        Q, 3 * H, cache, c_row, c_pos, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H,
+        AT, KvScales{cache_scale, 2 * L, 2, 1}, p0, np, R);
   push<NT>(AT, 0, 1, p0 * D, (p0 + np) * D, C, rank);
   cluster_sync(C);  // self-attention gathered
   rowmm_part<NT, T>(AT, H, w(wt.w_out), H, w(wt.b_out), hb, he, P, H, false, H, R);
@@ -532,9 +790,13 @@ __device__ void layer_body_cluster(const ClusterSmem& s, const Weights& wt,
   rowmm_part<NT, T>(O1, H, w(wt.w_q2), H, w(wt.b_q2), hb, he, Q2, H, false, H, R);
   push<NT>(Q2, H, TB, hb, he, C, rank);
   cluster_sync(C);  // cross query gathered
-  attend_part<NT, SrcT<T, KQ>, D, KQ != KvQ::kNone>(
-      Q2, H, src, S * 2 * H, 2 * H, b0, nrows, S, H, heads, temp, nullptr, 0, AT,
-      KvScales{src_scale, 2 * S, 1, S}, p0, np, R);
+  if constexpr (TWO_PASS)
+    attend_two_pass<NT, T, D>(Q2, H, src, S * 2 * H, 2 * H, b0, nrows, S, -1, H, heads,
+                              temp, AT, p0, np, R, scores);
+  else
+    attend_part<NT, SrcT<T, KQ>, D, KQ != KvQ::kNone>(
+        Q2, H, src, S * 2 * H, 2 * H, b0, nrows, S, H, heads, temp, nullptr, 0, AT,
+        KvScales{src_scale, 2 * S, 1, S}, p0, np, R);
   push<NT>(AT, 0, 1, p0 * D, (p0 + np) * D, C, rank);
   cluster_sync(C);  // cross-attention gathered
   rowmm_part<NT, T>(AT, H, w(wt.w_out2), H, w(wt.b_out2), hb, he, P, H, false, H, R);
@@ -565,8 +827,40 @@ __device__ void layer_body_cluster(const ClusterSmem& s, const Weights& wt,
       cluster_sync(C);  // the output's k|v gathered
     }
   }
-  write_slot_part<NT, T, KQ>(Q + H, cache, cache_scale, R, c_row, c_pos, L, b0, nrows, H,
-                             pos, c2.b, c2.e, rank);
+  if (!TWO_PASS || cache_outputs)  // the two-pass form stored the current k|v first
+    write_slot_part<NT, T, KQ>(Q + H, cache, cache_scale, R, c_row, c_pos, L, b0, nrows, H,
+                               pos, c2.b, c2.e, rank);
+}
+
+// One layer step over a batch-major [B, L, 2H] cache and [B, S, 2H] cross
+// K|V for the row group of cluster blockIdx.x / C: kernel 3 (kOnline, each
+// operand form; csrc/decoder_layer.cu) and kernel 8 (kTwoPass;
+// csrc/decoder_layer_v1.cu, whose shared memory adds the scores). Each
+// rank writes its columns of the output.
+template <int NT, typename T, int D, KvQ KQ, Softmax SM>
+__global__ void __launch_bounds__(NT, 512 / NT) layer_step_kernel(
+    const T* __restrict__ x, CacheT<T, KQ>* __restrict__ cache,
+    float* __restrict__ cache_scale, const SrcT<T, KQ>* __restrict__ src,
+    const float* __restrict__ src_scale, T* __restrict__ out, Weights wt, int B,
+    int H, int heads, int F, int S, int L, int pos, int cache_outputs, int C) {
+  extern __shared__ __align__(16) float sm[];
+  const ClusterSmem s = carve_cluster_smem(sm, H, F);
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int b0 = static_cast<int>(blockIdx.x) / C * TB;
+  const int nrows = min(TB, B - b0);
+  for (int i = threadIdx.x; i < TB * H; i += NT)
+    s.X[i] = i / H < nrows ? to_f(__ldg(x + static_cast<long long>(b0) * H + i)) : 0.f;
+  __syncthreads();
+  layer_body_cluster<NT, T, D, KQ, SM>(s, wt, cache, L * 2 * H, 2 * H, cache_scale, src,
+                                       src_scale, b0, nrows, H, heads, F, S, L, pos,
+                                       cache_outputs, C, rank, false);
+  // this rank's columns of the output
+  const Cols hc = rank_cols(H, C, rank);
+  const int n = hc.e - hc.b;
+  for (int i = threadIdx.x; i < nrows * n; i += NT) {
+    const int r = i / n, c = hc.b + i % n;
+    out[static_cast<long long>(b0 + r) * H + c] = from_f<T>(s.Q2[r * H + c]);
+  }
 }
 
 }  // namespace

@@ -1,11 +1,10 @@
 // One transformer-decoder layer's autoregressive step for TB batch rows,
-// shared by csrc/decoder_layer_v1.cu (kernel 8: one layer per launch,
-// batch-major cache, the whole-prefix softmax) and csrc/decoder_stack.cu
-// (kernel 7: every layer in one launch, batch-major stacked caches);
-// csrc/decoder_layer.cu (kernel 3) and csrc/fused_decode.cu (kernel 6: the
-// whole greedy step, time-major caches) run the same contract as a cluster
-// (decoder_cluster.cuh), on this file's loads, operand forms and
-// LayerNorm. Contract: p4fr_tpu/decoding/
+// run by csrc/decoder_stack.cu (kernel 7: every layer in one launch,
+// batch-major stacked caches); csrc/decoder_layer.cu (kernel 3),
+// csrc/decoder_layer_v1.cu (kernel 8: the whole-prefix softmax) and
+// csrc/fused_decode.cu (kernel 6: the whole greedy step, time-major
+// caches) run the same contract as a cluster (decoder_cluster.cuh), on
+// this file's loads, operand forms and LayerNorm. Contract: p4fr_tpu/decoding/
 // fast_step.py::jnp_layer_step. Per batch row, with hidden H, `heads` heads of D = 32 or
 // 64 (a template parameter; EfficientSATRN's decoder has 32, SwinTRN's 64),
 // FF F:
@@ -31,17 +30,17 @@
 // clip(rint(x / scale), -127, 127).
 // The cache is updated IN PLACE at slot `pos` only. In the online form
 // (kernels 3, 6, 7) that happens after the attention, which reads slots
-// < pos from the cache and the current k|v from shared memory; in the full
-// form (kernel 8) the current k|v goes into slot `pos` first and the
-// attention reads slots 0..pos back from the cache. A CTA reads and writes
-// only its own rows, so no block reads what another writes.
+// < pos from the cache and the current k|v from shared memory; in the
+// two-pass form (kernel 8, decoder_cluster.cuh) the current k|v goes into
+// slot `pos` first and the attention reads slots 0..pos back from the
+// cache. A CTA (a cluster, in decoder_cluster.cuh) reads and writes only
+// its own rows, so no block reads what another group writes.
 //
 // Design: one CTA of 512 threads (16 warps) per TB = 4 batch rows; every
 // activation of the step stays in shared memory (f32); a product splits K
 // over the warps and gives each lane 8 adjacent output columns for all TB
 // rows (16-byte weight loads); attention gives one warp per (row, head) and
-// walks the positions in chunks of 32 with an online softmax in f32 (or,
-// in the full form, computes every score first and then the exact softmax).
+// walks the positions in chunks of 32 with an online softmax in f32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -362,80 +361,6 @@ __device__ void attend(const float* qbuf, int qld, const T* __restrict__ kv,
   }
 }
 
-// The full form of the attention (kernel 8, the TPU kernel's own): one
-// warp per (row, head) over a batch-major [B, row, 2H] K|V (the cache with
-// row = L, or the cross K|V with row = S), positions 0..n_pos-1, every one
-// held in memory. Pass 1: each lane scores its positions (its key row as
-// 16-byte loads) into the warp's row of `scores` (n_pos floats of shared
-// memory a warp) and the warp reduces their max; pass 2 makes them
-// exp(score - max) and reduces their sum; pass 3 divides them by it; pass 4
-// accumulates the values with those probabilities, each lane owning
-// VPL = D / 32 adjacent head dims, VB value loads issued before the first
-// is used. q at qbuf[r*qld + h*D]; writes the [TB][H] attention output.
-// `kv` is not __restrict__: kernel 8 writes slot `pos` of the cache in the
-// same launch before it reads it back here, so its loads must not take the
-// read-only path.
-template <typename T, int D>
-__device__ void attend_full(const float* qbuf, int qld, const T* kv, int row,
-                            int b0, int nrows, int n_pos, int H, int heads,
-                            float temp, float* out, float* scores) {
-  static_assert(D == 32 || D == 64, "heads of 32 or 64");
-  constexpr int VPL = D / 32;
-  constexpr int VB = 16;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* sc = scores + warp * n_pos;
-  for (int pair = warp; pair < TB * heads; pair += NWARP) {
-    const int r = pair / heads, h = pair % heads;
-    if (r >= nrows) continue;
-    const float* q = qbuf + r * qld + h * D;
-    const T* base = kv + static_cast<long long>(b0 + r) * row * 2 * H;
-    float m = -INFINITY;
-    for (int l = lane; l < n_pos; l += 32) {
-      float kk[D];
-#pragma unroll
-      for (int c = 0; c < VPL; ++c)
-        load32(base + static_cast<long long>(l) * 2 * H + h * D + 32 * c, kk + 32 * c);
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(q[d], kk[d], dot);
-      sc[l] = dot / temp;
-      m = fmaxf(m, sc[l]);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float ssum = 0.f;
-    for (int l = lane; l < n_pos; l += 32) {
-      const float e = expf(sc[l] - m);
-      sc[l] = e;
-      ssum += e;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) ssum += __shfl_xor_sync(0xffffffffu, ssum, o);
-    for (int l = lane; l < n_pos; l += 32) sc[l] = sc[l] / ssum;
-    __syncwarp();
-    const T* vcol = base + H + h * D + VPL * lane;
-    float acc[VPL];
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) acc[i] = 0.f;
-    for (int l0 = 0; l0 < n_pos; l0 += VB) {
-      // positions past the end load the last row and get probability 0
-      ValueReg<T, VPL> vb[VB];
-#pragma unroll
-      for (int j = 0; j < VB; ++j)
-        vb[j].load(vcol + static_cast<long long>(min(l0 + j, n_pos - 1)) * 2 * H);
-#pragma unroll
-      for (int j = 0; j < VB; ++j) {
-        const float p = l0 + j < n_pos ? sc[min(l0 + j, n_pos - 1)] : 0.f;
-#pragma unroll
-        for (int i = 0; i < VPL; ++i) acc[i] = fmaf(p, vb[j].get(i), acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) out[r * H + h * D + VPL * lane + i] = acc[i];
-    __syncwarp();  // the warp's next pair overwrites its scores
-  }
-}
-
 // One layer's weights, [in, out] matrices; each vector of a LayerNorm's
 // scale or bias has H values.
 struct Weights {
@@ -518,16 +443,12 @@ __device__ void write_slot(const LayerSmem& s, const Weights& wt,
 // One layer's step for the CTA's rows b0..b0+nrows-1, up to its output:
 // on entry s.A holds the input rows (f32, synchronised); on return s.Dd
 // holds the layer's output in f32 (not yet rounded to T) and s.Q the
-// current k|v. The cache is batch-major [B, L, 2H], the cross K|V [B, S,
-// 2H]. write_slot then stores slot `pos`. FULL (kernel 8) stores the
-// current k|v into slot `pos` before the attention and runs attend_full
-// over the cache and the cross K|V, so its cache is written here; the
-// online form (kernel 7) only reads it.
-template <typename T, int D, bool FULL = false>
+// current k|v. The cache is batch-major [B, L, 2H], read only; the cross
+// K|V [B, S, 2H]. write_slot then stores slot `pos`.
+template <typename T, int D>
 __device__ void layer_body(const LayerSmem& s, const Weights& wt,
-                           std::conditional_t<FULL, T, const T>* __restrict__ cache,
-                           int L, const T* __restrict__ src, int b0, int nrows, int H,
-                           int heads, int F, int S, int pos) {
+                           const T* __restrict__ cache, int L, const T* __restrict__ src,
+                           int b0, int nrows, int H, int heads, int F, int S, int pos) {
   const float temp = sqrtf(static_cast<float>(H));
   float *A = s.A, *Q = s.Q, *C = s.C, *Dd = s.Dd, *Fb = s.Fb, *R = s.R;
 
@@ -542,13 +463,7 @@ __device__ void layer_body(const LayerSmem& s, const Weights& wt,
   __syncthreads();
 
   // masked self-attention over slots 0..pos
-  if constexpr (FULL) {
-    write_slot<T>(s, wt, cache, L, b0, nrows, H, pos, 0);
-    __syncthreads();
-    attend_full<T, D>(Q, 3 * H, cache, L, b0, nrows, pos + 1, H, heads, temp, C, R);
-  } else {
-    attend<T, D>(Q, 3 * H, cache, L, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H, C);
-  }
+  attend<T, D>(Q, 3 * H, cache, L, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H, C);
   __syncthreads();
   rowmm<T>(C, H, static_cast<const T*>(wt.w_out), H,
            static_cast<const T*>(wt.b_out), H, Dd, H, false, R);
@@ -563,11 +478,7 @@ __device__ void layer_body(const LayerSmem& s, const Weights& wt,
   rowmm<T>(A, H, static_cast<const T*>(wt.w_q2), H,
            static_cast<const T*>(wt.b_q2), H, C, H, false, R);
   __syncthreads();
-  if constexpr (FULL) {
-    attend_full<T, D>(C, H, src, S, b0, nrows, S, H, heads, temp, Dd, R);
-  } else {
-    attend<T, D>(C, H, src, S, b0, nrows, S, H, heads, temp, nullptr, 0, Dd);
-  }
+  attend<T, D>(C, H, src, S, b0, nrows, S, H, heads, temp, nullptr, 0, Dd);
   __syncthreads();
   rowmm<T>(Dd, H, static_cast<const T*>(wt.w_out2), H,
            static_cast<const T*>(wt.b_out2), H, C, H, false, R);

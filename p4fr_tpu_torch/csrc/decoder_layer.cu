@@ -24,37 +24,11 @@
 namespace {
 
 template <int NT, typename T, int D, KvQ KQ>
-__global__ void __launch_bounds__(NT, 512 / NT) decoder_layer_kernel(
-    const T* __restrict__ x, CacheT<T, KQ>* __restrict__ cache,
-    float* __restrict__ cache_scale, const SrcT<T, KQ>* __restrict__ src,
-    const float* __restrict__ src_scale, T* __restrict__ out, Weights wt, int B,
-    int H, int heads, int F, int S, int L, int pos, int cache_outputs, int C) {
-  extern __shared__ __align__(16) float sm[];
-  const ClusterSmem s = carve_cluster_smem(sm, H, F);
-  const int rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int b0 = static_cast<int>(blockIdx.x) / C * TB;
-  const int nrows = min(TB, B - b0);
-  for (int i = threadIdx.x; i < TB * H; i += NT)
-    s.X[i] = i / H < nrows ? to_f(__ldg(x + static_cast<long long>(b0) * H + i)) : 0.f;
-  __syncthreads();
-  layer_body_cluster<NT, T, D, KQ>(s, wt, cache, L * 2 * H, 2 * H, cache_scale, src,
-                                   src_scale, b0, nrows, H, heads, F, S, L, pos,
-                                   cache_outputs, C, rank, false);
-  // this rank's columns of the output
-  const Cols hc = rank_cols(H, C, rank);
-  const int n = hc.e - hc.b;
-  for (int i = threadIdx.x; i < nrows * n; i += NT) {
-    const int r = i / n, c = hc.b + i % n;
-    out[static_cast<long long>(b0 + r) * H + c] = from_f<T>(s.Q2[r * H + c]);
-  }
-}
-
-template <int NT, typename T, int D, KvQ KQ>
 int launch(const void* x, void* cache, void* cache_scale, const void* src,
            const void* src_scale, void* out, const Weights& w, int B, int H,
            int heads, int F, int S, int L, int pos, int cache_outputs, int C,
            cudaStream_t stream) {
-  return launch_cluster<decoder_layer_kernel<NT, T, D, KQ>>(
+  return launch_cluster<layer_step_kernel<NT, T, D, KQ, Softmax::kOnline>>(
       (B + TB - 1) / TB, C, NT, cluster_smem_floats<NT>(H, F) * sizeof(float), stream,
       static_cast<const T*>(x), static_cast<CacheT<T, KQ>*>(cache),
       static_cast<float*>(cache_scale), static_cast<const SrcT<T, KQ>*>(src),
@@ -67,7 +41,7 @@ int launch(const void* x, void* cache, void* cache_scale, const void* src,
 // registers and local memory a thread.
 template <int NT, typename T, int D, KvQ KQ>
 int query(int H, int F, int C, int* clusters, int* regs, int* local) {
-  return query_cluster<decoder_layer_kernel<NT, T, D, KQ>>(
+  return query_cluster<layer_step_kernel<NT, T, D, KQ, Softmax::kOnline>>(
       C, NT, cluster_smem_floats<NT>(H, F) * sizeof(float), clusters, regs, local);
 }
 

@@ -5,7 +5,11 @@ together, and the objects are linked into ONE shared library with a plain
 C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). The library lands in ``build/p4fr_tpu_torch/`` at the repository
 root, named by a hash of the sources, and is built on first use in a
-process, never at import time.
+process, never at import time. Each object is kept under ``obj/`` beside
+it, named by a hash of its ``.cu``, the ``csrc/`` headers it includes and
+the flags, so a build recompiles only the sources an edit reaches (and a
+copy of the tree given those objects, as ``tolerance_study.py`` gives its
+planted copies, only the sources its edit reaches).
 
 Each kernel's C entry point returns ``cudaGetLastError()``; ``check``
 raises on a non-zero code. ``LAUNCHES`` counts, per kernel wrapper, the
@@ -18,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -87,8 +92,12 @@ _SIGNATURES = {
     #  out, local bytes i32 out): kernel 3's instance and its resident
     #  clusters of that size
     "p4fr_decoder_layer_query": [I] * 6 + [P] * 3,
-    # kernel 8: p4fr_decoder_layer's arguments but the cluster
-    "p4fr_decoder_layer_v1": [P] * 22 + [I] * 9 + [P],
+    # kernel 8: p4fr_decoder_layer's arguments
+    "p4fr_decoder_layer_v1": [P] * 22 + [I] * 10 + [P],
+    # (bf16, head width, H, F, n_pos = max(L, S), cluster, clusters i32 out,
+    #  regs i32 out, local bytes i32 out): kernel 8's instance and its
+    #  resident clusters of that size
+    "p4fr_decoder_layer_v1_query": [I] * 6 + [P] * 3,
     # (x, caches, src_kv, out, the 15 stacked weights, B, H, heads, F, S, L,
     #  NL, pos, cache_outputs, bf16, stream)
     "p4fr_decoder_stack_v3": [P] * 19 + [I] * 10 + [P],
@@ -129,24 +138,50 @@ def _sources():
     )
 
 
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
+
+
+def _object_path(src: str) -> str:
+    """Where ``src``'s object is kept: named by a hash of the flags, the
+    source and every ``csrc/`` header it includes, directly or not."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [src], set()
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        digest.update(os.path.basename(path).encode() + text)
+        todo += [os.path.join(CSRC, name) for name in
+                 _INCLUDE.findall(text.decode()) if os.path.exists(os.path.join(CSRC, name))]
+    name = os.path.basename(src)
+    return os.path.join(BUILD_DIR, "obj", f"{name}.{digest.hexdigest()[:16]}.o")
+
+
 def _compile(srcs, so: str) -> None:
-    """One nvcc per ``.cu``, all at once, then one link into ``so``."""
+    """One nvcc per ``.cu`` whose object is not kept yet, all at once, then
+    one link of every object into ``so``."""
     nvcc = _nvcc()
     tmp = f"{so}.{os.getpid()}"
-    objs, procs = [], []
+    objs = [_object_path(src) for src in srcs if src.endswith(".cu")]
+    os.makedirs(os.path.dirname(objs[0]), exist_ok=True)
+    procs = []
     try:
-        for src in (s for s in srcs if s.endswith(".cu")):
-            obj = f"{tmp}.{os.path.basename(src)}.o"
-            objs.append(obj)
-            procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for src, obj in zip((s for s in srcs if s.endswith(".cu")), objs):
+            if not os.path.exists(obj):
+                procs.append((src, obj, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", f"{obj}.{os.getpid()}", src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         failed = []
-        for src, proc in procs:
+        for src, obj, proc in procs:
             _, err = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n"
                               f"{err[-4000:]}")
+            else:
+                os.replace(f"{obj}.{os.getpid()}", obj)
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
         res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.so",
@@ -156,13 +191,12 @@ def _compile(srcs, so: str) -> None:
                                f"{res.stderr[-4000:]}")
         os.replace(f"{tmp}.so", so)
     finally:
-        for _, proc in procs:
+        for _, obj, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        for obj in objs:
-            if os.path.exists(obj):
-                os.remove(obj)
+            if os.path.exists(f"{obj}.{os.getpid()}"):
+                os.remove(f"{obj}.{os.getpid()}")
 
 
 def library() -> ctypes.CDLL:

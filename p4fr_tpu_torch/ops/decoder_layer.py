@@ -205,15 +205,16 @@ def decoder_layer_step(x: torch.Tensor, pos: int, cache, src_kv: torch.Tensor,
         entry, counter = "p4fr_decoder_layer_int8_cache", "decoder_layer_int8_cache"
     else:
         entry, counter = "p4fr_decoder_layer_int8", "decoder_layer_int8"
-    return launch_layer_step("decoder_layer_step", entry, counter, x, pos, cache,
-                             src_kv, weights, head_num=head_num,
-                             cache_outputs=cache_outputs, src_scale=src_scale,
-                             clustered=True)
+    return launch_layer_step(
+        "decoder_layer_step", entry, counter, x, pos, cache, src_kv, weights,
+        head_num=head_num, cache_outputs=cache_outputs, src_scale=src_scale,
+        cluster=lambda filter_dim, _max_len, _s_len: step_cluster(entry, x, head_num,
+                                                                  filter_dim))
 
 
 def cluster_size(batch: int, hidden: int, sm_count: int,
                  max_clusters: Callable[[int], int]) -> int:
-    """CTAs a row group of kernel 3, or of kernel 6 (the cluster size C):
+    """CTAs a row group of kernel 3, 6 or 8 (the cluster size C):
     the largest power of two C <= MAX_CLUSTER with C <= hidden / 32 (each
     CTA owns whole 32-column groups of every H-wide product), groups * C <=
     ``sm_count`` and groups <= ``max_clusters(C)`` (that kernel's clusters
@@ -274,14 +275,15 @@ def check_operands(what: str, tensors, dtype, device) -> None:
 
 def launch_layer_step(what: str, entry: str, counter: str, x, pos, cache,
                       src_kv, weights: LayerWeights, *, head_num: int,
-                      cache_outputs: bool, src_scale=None, clustered: bool = False):
-    """One launch of a one-layer step kernel (``entry`` in the library,
-    kernel 3's arguments; kernel 8 takes the same but the cluster size) on
-    CUDA tensors, after checking them; counts it under
+                      cache_outputs: bool, cluster: Callable[[int, int, int], int],
+                      src_scale=None):
+    """One launch of a one-layer step kernel (``entry`` in the library:
+    kernel 3's entry points, or kernel 8's, which takes the same
+    arguments) on CUDA tensors, after checking them; counts it under
     ``LAUNCHES[counter]``. The int8 entries take ``src_scale`` after
-    ``src_kv`` and, for a cache pair, its scales after the codes;
-    ``clustered`` (kernel 3) passes ``step_cluster``'s C after
-    ``cache_outputs``."""
+    ``src_kv`` and, for a cache pair, its scales after the codes; the
+    cluster size C, ``cluster(filter_dim, max_len, s_len)`` (the kernel's
+    own plan), goes after ``cache_outputs``."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     given = cache
@@ -316,13 +318,12 @@ def launch_layer_step(what: str, entry: str, counter: str, x, pos, cache,
     out = torch.empty_like(x)
     operands = [t for t in (x, cache, cache_scale, src_kv, src_scale, out)
                 if t is not None]
-    cluster = [step_cluster(entry, x, head_num, filter_dim)] if clustered else []
     code = getattr(_build.library(), entry)(
         *[t.data_ptr() for t in operands],
         *[getattr(weights, f).data_ptr() for f in _KERNEL_FIELDS],
         batch, hidden, head_num, filter_dim, s_len, max_len, int(pos),
-        int(cache_outputs), *cluster, int(x.dtype == torch.bfloat16),
-        _build.stream_ptr(x.device),
+        int(cache_outputs), cluster(filter_dim, max_len, s_len),
+        int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device),
     )
     _build.check(code, what)
     _build.LAUNCHES[counter] += 1

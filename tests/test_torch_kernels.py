@@ -32,6 +32,7 @@ from p4fr_tpu_torch.ops.decoder_layer import (
     quantize_rows,
     step_cluster,
 )
+from p4fr_tpu_torch.ops import decoder_layer_v1
 from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
 from p4fr_tpu_torch.ops.decoder_stack_v3 import (
     decoder_stack_step_v3,
@@ -589,6 +590,106 @@ def test_fused_step_asks_its_own_query(monkeypatch):
             assert len(asked) - before == len({a[5] for a in asked[before:]})
     finally:
         fused_cluster.cache_clear()
+
+
+def check_clustered_layer_v1(cuda, dtype, cache_outputs, hidden, filter_dim, b):
+    """Kernel 8 (a cluster of C CTAs a row group, kernel 8's own plan) at
+    real widths and batch ``b`` vs ``layer_step_ref`` on the same operands,
+    random values in every slot, over positions on both sides of a chunk
+    of the two-pass attention (16 to 64 positions by type and head width;
+    pos 64 leaves slot ``pos`` alone in its chunk) and a cross K|V of 70
+    tokens: the out; slot ``pos`` (f32: as the twin's; bf16: against the
+    unrounded f32 value it is made from, by the bf16 rule); the other slots
+    untouched; one launch a call."""
+    gen = torch.Generator().manual_seed(100 + b)
+    heads, s_len, max_len = 8, 70, 72
+    w = random_layer(gen, hidden, filter_dim, cuda, dtype)
+    w_r = LayerWeights(*(t.float() for t in w))
+    x = torch.randn(b, hidden, generator=gen).to(cuda, dtype)
+    src = torch.randn(b, s_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    c_k = torch.randn(b, max_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    c = decoder_layer_v1.step_cluster(x, heads, filter_dim, max_len, s_len)
+    print(f"v1 {dtype} H={hidden} B={b}: cluster of {c}")
+    for pos in (0, 33, 64, 71):
+        was, c_r = c_k.clone(), c_k.to(torch.float32, copy=True)
+        before = _build.LAUNCHES["decoder_layer_v1"]
+        o_k, _ = decoder_layer_step_v1(x, pos, c_k, src, w, head_num=heads,
+                                       cache_outputs=cache_outputs)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["decoder_layer_v1"] == before + 1
+        o_r, _ = layer_step_ref(x.float(), pos, c_r, src.float(), w_r, head_num=heads,
+                                cache_outputs=cache_outputs, kv_dtype=dtype)
+        others = torch.arange(max_len, device=cuda) != pos
+        assert torch.equal(c_k[:, others], was[:, others]), (pos, c)
+        if dtype == torch.float32:
+            assert torch.allclose(o_k, o_r, rtol=1e-4, atol=1e-4), (pos, c)
+            assert torch.allclose(c_k[:, pos], c_r[:, pos], rtol=1e-4, atol=1e-4), (pos, c)
+        else:
+            assert_bf16_close(o_k, o_r, "decoder_layer_v1")
+            slot = (o_r if cache_outputs else x.float()) @ w_r.w_qkv[:, hidden:] + \
+                w_r.b_qkv[hidden:]
+            assert_bf16_close(c_k[:, pos], slot, "decoder_layer_v1")
+        c_k.copy_(c_r.to(dtype))  # one history
+        x = o_r.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_outputs", [True, False])
+@pytest.mark.parametrize("hidden,filter_dim", CLUSTER_WIDTHS,
+                         ids=["H256_heads_of_32", "H512_heads_of_64"])
+@pytest.mark.parametrize("b", CLUSTER_BATCHES)
+def test_decoder_layer_v1_kernel_clusters(cuda, dtype, cache_outputs, hidden, filter_dim,
+                                          b):
+    check_clustered_layer_v1(cuda, dtype, cache_outputs, hidden, filter_dim, b)
+
+
+@pytest.mark.cuda
+def test_decoder_layer_v1_cluster_cases_reach_every_size(cuda):
+    """Kernel 8's cluster cases above launch every cluster size, 1 to 16,
+    in each type, by kernel 8's own plan."""
+    for dtype in (torch.float32, torch.bfloat16):
+        sizes = {decoder_layer_v1.step_cluster(
+            torch.empty(b, hidden, device=cuda, dtype=dtype), 8, filter_dim, 72, 70)
+            for hidden, filter_dim in CLUSTER_WIDTHS for b in CLUSTER_BATCHES}
+        assert sizes == {1, 2, 4, 8, 16}, (dtype, sizes)
+
+
+def test_decoder_layer_v1_asks_its_own_query(monkeypatch):
+    """Kernel 8's cluster size comes from kernel 8's own residency query
+    (``v1_query``, at its widths and max(L, S) scores a pair), never from
+    kernel 3's, and is asked once per shape."""
+    asked = []
+
+    def query(bf16, head_dim, hidden, filter_dim, n_pos, c, index=0):
+        asked.append((bf16, head_dim, hidden, filter_dim, n_pos, c, index))
+        return ({16: 7, 8: 15, 2: 66}.get(c, 0), 128, 0)
+
+    def kernel3_query(*args):
+        raise AssertionError("kernel 8 asked kernel 3's residency")
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(decoder_layer_v1, "v1_query", query)
+    monkeypatch.setattr("p4fr_tpu_torch.ops.decoder_layer.cluster_query", kernel3_query)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda index: Props())
+    decoder_layer_v1.v1_cluster.cache_clear()
+    try:
+        for hidden, filter_dim, head_dim, b, max_len, s_len, want in (
+                (512, 512, 64, 32, 231, 144, 8), (256, 1024, 32, 256, 231, 128, 2)):
+            x = torch.empty(b, hidden, device="meta", dtype=torch.bfloat16)
+            before = len(asked)
+            for _ in range(3):  # one lookup a step: asked for the first only
+                assert decoder_layer_v1.step_cluster(
+                    x, hidden // head_dim, filter_dim, max_len, s_len) == want
+            assert asked[before:] and all(
+                a[:5] == (True, head_dim, hidden, filter_dim, max(max_len, s_len))
+                for a in asked[before:])
+            assert asked[-1][5] == want
+            assert len(asked) - before == len({a[5] for a in asked[before:]})
+    finally:
+        decoder_layer_v1.v1_cluster.cache_clear()
 
 
 def check_layer_v1_kernel(cuda, dtype, cache_outputs, hidden, heads):

@@ -29,7 +29,11 @@ largest excess over the cast of the out and of slot ``pos``, the out's
 largest mean abs error and each dtype's missed checks; part 3 plants that
 kernel's faults (kernel 3's: a rank storing its slice at the next rank's
 offset in its peers' copies, the cluster barrier before LN1 removed, a
-rank's attention pairs shifted by one). With ``--kernel decoder_layer_int8`` (kernel
+rank's attention pairs shifted by one; kernel 8's: the ban off by one,
+slot ``pos`` not stored before the attention, ``cache_outputs`` ignored,
+the slice at the next rank's offset, and the slot store moved after the
+barrier that gathers q|k|v with the last rank held back ~100 us before
+it). With ``--kernel decoder_layer_int8`` (kernel
 3's int8 forms) part 1 runs ``chip_smoke.check_layer_int8`` for each form
 (``int8``, ``int8_cache``) at the ``--shape`` and prints per seed and form
 the bf16 check's largest excess over the cast of the out (and, for
@@ -61,7 +65,8 @@ residual added after the cast, in ``csrc/mbconv.cu``.
    the cache read with a position stride of 2H, the next position's
    encoding, no rounding between layers), the manager's (the repeat limit
    by ``>``) and the cluster's (the barrier opening each chained layer
-   removed, the ranks' maxima merged keeping the later rank on a tie, a
+   removed, alone and with rank 0 held back ~100 us before each slot
+   store, the ranks' maxima merged keeping the later rank on a tie, a
    rank's generator columns read at the next rank's offset).
 2. Where the bf16 excess comes from, on the first seed at pos 115 with
    the manager off, from fresh inputs drawn as the check draws them:
@@ -93,6 +98,21 @@ import torch
 import chip_smoke as cs
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# texts of csrc/decoder_cluster.cuh that the cluster faults move or delay
+EARLY_SLOT_STORE = (
+    "  if constexpr (TWO_PASS)  // slot `pos` := this rank's k|v columns, before the gather\n"
+    "    write_slot_part<NT, T, KQ>(Q + H, cache, cache_scale, R, c_row, c_pos, L, b0, nrows, H,\n"
+    "                               pos, max(c3.b - H, 0), max(c3.e - H, 0), rank);\n")
+QKV_GATHERED = "  cluster_sync(C);  // q|k|v gathered\n"
+SLOT_STORE_AT_END = "  if (!TWO_PASS || cache_outputs)  // the two-pass form stored the current k|v first\n"
+# one rank held back ~100 us (a layer step takes ~100-300 us), so that a
+# race the cluster's barriers prevent shows in the readings
+DELAY = "  if (rank == {rank}) for (int i = 0; i < 100; ++i) __nanosleep(1000);\n"
+# the cluster body's pushes: peers get a rank's slice at the next rank's
+# columns (the last rank's at rank 0's); its own copy stays right
+SLICE_AT_PEER_OFFSET = ("decoder_cluster.cuh", "*cl.map_shared_rank(src, peer) = *src;",
+                        "*cl.map_shared_rank(src + (ce - cb) / 4 * (rank + 1 < C ? 1 "
+                        ": -rank), peer) = *src;")
 # kernel: {name: (its file in csrc/, text, its replacement[, text, its
 # replacement ...])}
 FAULTS = {
@@ -115,6 +135,12 @@ FAULTS = {
         # last layer's slot from it)
         "no_layer_barrier": ("decoder_cluster.cuh", "const bool opening = C > 1;",
                              "const bool opening = C > 1 && !chained;"),
+        # the same race with rank 0 held back ~100 us before each slot store,
+        # so that the peers' next-layer pushes land in its Q first
+        "no_layer_barrier_delayed": (
+            "decoder_cluster.cuh", "const bool opening = C > 1;",
+            "const bool opening = C > 1 && !chained;", SLOT_STORE_AT_END,
+            DELAY.format(rank="0") + SLOT_STORE_AT_END),
         # the merge of the ranks' maxima keeps the later rank on a tie
         "merge_later_rank": ("fused_decode.cu", "if (best[q * TB + r] > bst)",
                              "if (best[q * TB + r] >= bst)"),
@@ -145,23 +171,32 @@ FAULTS = {
         "bias_row_r_for_r8": ("swin_attention.cu", "const float* b_hi = b_lo + 8 * n;",
                               "const float* b_hi = b_lo;"),
     },
+    # kernel 8: the cluster body's two-pass form (decoder_cluster.cuh)
     "decoder_layer_v1": {
         # the ban off by one: slots >= pos banned, the current one too
-        "ban_ge_pos": ("decoder_common.cuh",
-                       "attend_full<T, D>(Q, 3 * H, cache, L, b0, nrows, pos + 1,",
-                       "attend_full<T, D>(Q, 3 * H, cache, L, b0, nrows, pos,"),
-        "no_store_before": ("decoder_common.cuh",
-                            "write_slot<T>(s, wt, cache, L, b0, nrows, H, pos, 0);", ""),
-        "cache_outputs_ignored": ("decoder_layer_v1.cu", "  if (cache_outputs)\n",
-                                  "  if (false)\n"),
+        "ban_ge_pos": ("decoder_cluster.cuh",
+                       "attend_two_pass<NT, T, D>(Q, 3 * H, cache, c_row, c_pos, b0, nrows, "
+                       "pos + 1, pos, H,",
+                       "attend_two_pass<NT, T, D>(Q, 3 * H, cache, c_row, c_pos, b0, nrows, "
+                       "pos, pos, H,"),
+        # slot pos never stored before the attention, which reads it back
+        "no_store_before": ("decoder_cluster.cuh", EARLY_SLOT_STORE, ""),
+        # neither the output's k|v computed nor slot pos stored again
+        "cache_outputs_ignored": (
+            "decoder_cluster.cuh", "  if (cache_outputs) {\n",
+            "  if (cache_outputs && !TWO_PASS) {\n",
+            "  if (!TWO_PASS || cache_outputs)  //", "  if (!TWO_PASS)  //"),
+        "slice_at_peer_offset": SLICE_AT_PEER_OFFSET,
+        # the store-then-read race: each rank's slot store moved after the
+        # barrier that gathers q|k|v, and the last rank held back ~100 us
+        # before it, so that its peers read slot pos before it lands
+        "slot_after_barrier_delayed": (
+            "decoder_cluster.cuh", EARLY_SLOT_STORE, "", QKV_GATHERED,
+            QKV_GATHERED + DELAY.format(rank="C - 1") + EARLY_SLOT_STORE),
     },
     # kernel 3's cluster body
     "decoder_layer": {
-        # peers get a rank's slice at the next rank's columns (the last
-        # rank's at rank 0's); its own copy stays right
-        "slice_at_peer_offset": ("decoder_cluster.cuh", "*cl.map_shared_rank(src, peer) = *src;",
-                                 "*cl.map_shared_rank(src + (ce - cb) / 4 * (rank + 1 < C ? 1 "
-                                 ": -rank), peer) = *src;"),
+        "slice_at_peer_offset": SLICE_AT_PEER_OFFSET,
         "no_barrier_before_ln1": (
             "decoder_cluster.cuh",
             "  cluster_sync(C);  // out-proj gathered: LN1 reads every column\n", ""),
@@ -182,17 +217,22 @@ FAULTS = {
         # read back by the attention
         "current_read_back": (
             "decoder_cluster.cuh",
-            "  attend_part<NT, CacheT<T, KQ>, D, KQ == KvQ::kSrcCache>(\n"
-            "      Q, 3 * H, cache, c_row, c_pos, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H, AT,\n",
-            "  if constexpr (KQ == KvQ::kSrcCache) {\n"
-            "    write_slot_part<NT, T, KQ>(Q + H, cache, cache_scale, R, c_row, c_pos, L, b0,\n"
-            "                               nrows, H, pos, rank_cols(2 * H, C, rank).b,\n"
-            "                               rank_cols(2 * H, C, rank).e, rank);\n"
-            "    cluster_sync(C);\n"
-            "  }\n"
-            "  attend_part<NT, CacheT<T, KQ>, D, KQ == KvQ::kSrcCache>(\n"
-            "      Q, 3 * H, cache, c_row, c_pos, b0, nrows, pos + 1, H, heads, temp,\n"
-            "      KQ == KvQ::kSrcCache ? nullptr : Q + H, 3 * H, AT,\n"),
+            "  else\n"
+            "    attend_part<NT, CacheT<T, KQ>, D, KQ == KvQ::kSrcCache>(\n"
+            "        Q, 3 * H, cache, c_row, c_pos, b0, nrows, pos + 1, H, heads, temp, Q + H, 3 * H,\n"
+            "        AT, KvScales{cache_scale, 2 * L, 2, 1}, p0, np, R);\n",
+            "  else {\n"
+            "    if constexpr (KQ == KvQ::kSrcCache) {\n"
+            "      write_slot_part<NT, T, KQ>(Q + H, cache, cache_scale, R, c_row, c_pos, L, b0,\n"
+            "                                 nrows, H, pos, rank_cols(2 * H, C, rank).b,\n"
+            "                                 rank_cols(2 * H, C, rank).e, rank);\n"
+            "      cluster_sync(C);\n"
+            "    }\n"
+            "    attend_part<NT, CacheT<T, KQ>, D, KQ == KvQ::kSrcCache>(\n"
+            "        Q, 3 * H, cache, c_row, c_pos, b0, nrows, pos + 1, H, heads, temp,\n"
+            "        KQ == KvQ::kSrcCache ? nullptr : Q + H, 3 * H, AT,\n"
+            "        KvScales{cache_scale, 2 * L, 2, 1}, p0, np, R);\n"
+            "  }\n"),
     },
     # kernel 2's cluster path (csrc/mbconv.cu)
     "mbconv": {
@@ -466,6 +506,11 @@ def plant_and_run(seeds, kernel, shape):
                             ignore=shutil.ignore_patterns("__pycache__"))
             for f in ("chip_smoke.py", "tolerance_study.py"):
                 shutil.copy(os.path.join(ROOT, f), dst)
+            # this checkout's objects: the copy compiles only the sources
+            # its edit reaches (_build keeps objects by what they include)
+            shutil.copytree(os.path.join(ROOT, "build", "p4fr_tpu_torch", "obj"),
+                            os.path.join(dst, "build", "p4fr_tpu_torch", "obj"),
+                            dirs_exist_ok=True)
             src = os.path.join(dst, "p4fr_tpu_torch", "csrc", source)
             with open(src) as f:
                 text = f.read()
