@@ -30,11 +30,11 @@ with a non-zero exit and no result line:
    flagship's B=256 both must launch clusters (C > 1). Kernel 6 is also
    held to the first index of the max where its top two logits tie
    exactly across the generator's first rank boundary.
-   The v1 layer step (kernel 8, a cluster of C CTAs per 4 rows by its own
-   plan, printed per shape with its own residency; both shapes must launch
-   clusters) and the one-launch decoder stack (kernel
-   7) at both decoder shapes, pos 0, 115 and 230, random values in every
-   cache slot: out and slot ``pos`` within tolerance, the other slots
+   The v1 layer step (kernel 8) and the one-launch decoder stack (kernel
+   7), each a cluster of C CTAs per 4 rows by its own plan, printed per
+   shape with its own residency (both shapes must launch clusters), at
+   both decoder shapes, pos 0, 115 and 230, random values in every cache
+   slot: out and slot ``pos`` within tolerance, the other slots
    untouched. Kernel 3's int8 forms (``--kv_quant``: int8 cross K|V with
    f32 scales; and the int8 self cache with per-slot scales) at both
    decoder shapes, pos 0, 115 and 230, random codes and scales in every
@@ -96,7 +96,8 @@ with a non-zero exit and no result line:
    timed kernel-path and fused call, and each split encode, must show 24
    window-attention launches, the plain call none). Kernel 8 beside kernel 3
    at B=256 and at SwinTRN's decoder shape,
-   kernel 7 beside three kernel-3 launches and one kernel-6 launch, and
+   kernel 7 beside three kernel-3 launches and one kernel-6 launch at
+   B=256 and beside four and one at SwinTRN's decoder shape, and
    the v1 and v3 greedy paths' images/s in turns with the others. Kernel
    3's int8 forms beside it, and greedy images/s with ``--kv_quant int8``
    and ``int8_cache`` in turns with the others; the int8 self cache's
@@ -528,6 +529,7 @@ def cluster_report(dev):
                                          "no cluster")
     fused_cluster_report()
     v1_cluster_report(dev)
+    v3_cluster_report(dev)
 
 
 def v1_cluster_report(dev):
@@ -554,6 +556,30 @@ def v1_cluster_report(dev):
                   f"registers, {per_c[c][2]} bytes of local memory a thread")
             if c == 1:
                 raise AssertionError(f"kernel 8 at {label} B={shape['b']} launches no "
+                                     "cluster")
+
+
+def v3_cluster_report(dev):
+    """Kernel 7's cluster size at the v3 path's shapes (SwinTRN B=32, the
+    flagship B=256) per type, with its own resident clusters of every size
+    and each instance's registers and local memory a thread; raises unless
+    both launch clusters."""
+    from p4fr_tpu_torch.ops.decoder_stack_v3 import stack_query, step_cluster
+
+    print("[kernel 7: cluster size per shape, its resident clusters of C = "
+          "1/2/4/8/16, registers and local bytes a thread]")
+    for label, shape in (("SwinTRN", SWIN_DECODER), ("flagship", SATRN_DECODER)):
+        hid, heads, ff = shape["hidden"], shape["heads"], shape["filter_dim"]
+        for dt in (torch.float32, torch.bfloat16):
+            c = step_cluster(torch.empty(shape["b"], hid, device=dev, dtype=dt), heads, ff)
+            per_c = {k: stack_query(dt == torch.bfloat16, hid // heads, hid, ff, k)
+                     for k in (1, 2, 4, 8, 16)}
+            print(f"  {label} B={shape['b']} H={hid} F={ff} {shape['layers']} layers "
+                  f"{str(dt)[6:]}: C={c}; resident clusters "
+                  f"{[q[0] for q in per_c.values()]}; the launched instance {per_c[c][1]} "
+                  f"registers, {per_c[c][2]} bytes of local memory a thread")
+            if c == 1:
+                raise AssertionError(f"kernel 7 at {label} B={shape['b']} launches no "
                                      "cluster")
 
 
@@ -999,6 +1025,7 @@ def check_stack_v3(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
         decoder_stack_step_v3,
         decoder_stack_step_v3_ref,
         stack_fast_layers,
+        step_cluster,
     )
 
     f32 = dtype == torch.float32
@@ -1007,6 +1034,9 @@ def check_stack_v3(dev, dtype, errors, misses, seed, shape=SATRN_DECODER):
     stacked = stack_fast_layers([random_layer_weights(dtype, gen, dev, hid,
                                                       shape["filter_dim"])
                                  for _ in range(nl)])
+    c = step_cluster(stacked.w_qkv.new_empty(b, hid), shape["heads"], shape["filter_dim"])
+    print(f"  decoder_stack_v3 B={b} H={hid} {nl} layers {str(dtype)[6:]}: a cluster of "
+          f"{c} CTAs a group of 4 rows")
     ref = type(stacked)(*(t.float() for t in stacked))
     src = torch.randn(nl, b, s_len, 2 * hid, generator=gen).to(dev, dtype)
     base = torch.randn(nl, b, STEPS, 2 * hid, generator=torch.Generator(
@@ -1783,6 +1813,7 @@ def timing(ckpt, dev, card):
         decoder_stack_step_v3,
         decoder_stack_step_v3_ref,
     )
+    from p4fr_tpu_torch.ops.decoder_stack_v3 import step_cluster as v3_step_cluster
     from p4fr_tpu_torch.ops.fused_decode import fused_greedy_step, fused_greedy_step_ref
     from p4fr_tpu_torch.ops.preprocess import scale_shift, standardize, standardize_ref
     from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
@@ -1943,7 +1974,9 @@ def timing(ckpt, dev, card):
            2 * nbytes(x) + nbytes(stack_caches[:, :, :pos + 1])
            + nbytes(stack_caches[:, :, pos]) + nbytes(cross_v3) + nbytes(*stacked),
            nl * layer_ops, BF16_TENSOR_OPS_PER_S)
-    print(f"  decoder_stack_v3 B={b} pos={pos}: {times['decoder_stack_v3']['ms']:.4f} ms; "
+    c7 = v3_step_cluster(x, 8, ff)
+    print(f"  decoder_stack_v3 B={b} C={c7} pos={pos}: "
+          f"{times['decoder_stack_v3']['ms']:.4f} ms; "
           f"three kernel-3 launches {3 * times['decoder_layer']['ms']:.4f} ms; one "
           f"kernel-6 launch {times['fused_greedy_step']['ms']:.4f} ms ({card})")
     del cross, caches, x, cache, src, stack_caches, cross_v3
@@ -2007,6 +2040,12 @@ def swin_timing(ckpt, dev, card, times):
     from p4fr_tpu_torch.ops.decoder_layer import decoder_layer_step, layer_step_ref
     from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
     from p4fr_tpu_torch.ops.decoder_layer_v1 import step_cluster as v1_step_cluster
+    from p4fr_tpu_torch.ops.decoder_stack_v3 import (
+        StackedLayers,
+        decoder_stack_step_v3,
+        decoder_stack_step_v3_ref,
+    )
+    from p4fr_tpu_torch.ops.decoder_stack_v3 import step_cluster as v3_step_cluster
     from p4fr_tpu_torch.ops.fused_decode import (
         fused_greedy_step,
         fused_greedy_step_ref,
@@ -2115,7 +2154,34 @@ def swin_timing(ckpt, dev, card, times):
               f"S={shape['s_len']}, manager on, per step: kernel {k6:.4f} ms, plain "
               f"{p6:.4f} ms, bound {b6:.4f} ms by {by6}; four kernel-3 launches "
               f"{4 * k3:.4f} ms ({card})")
-    del x, cache, src, cross, caches
+        if at == pos:
+            k6_pos = k6
+
+    # kernel 7 at SwinTRN's shape over the same stacked weights and a
+    # batch-major copy of the caches, beside four kernel-3 launches and one
+    # kernel-6 launch at pos 115
+    stacked = StackedLayers(*params[:15])
+    stack_caches = caches.transpose(1, 2).contiguous()
+    k7 = cuda_ms(lambda: decoder_stack_step_v3(x, pos, stack_caches, cross, stacked,
+                                               head_num=shape["heads"], cache_outputs=True),
+                 iters=50)
+    p7 = cuda_ms(lambda: decoder_stack_step_v3_ref(x, pos, stack_caches, cross, stacked,
+                                                   head_num=shape["heads"],
+                                                   cache_outputs=True), iters=20)
+    # x in, out, every layer's cache prefix read and slot pos written, the
+    # cross K|V, every weight
+    b7, by7 = bound(2 * nbytes(x) + nbytes(stack_caches[:, :, :pos + 1])
+                    + nbytes(stack_caches[:, :, pos]) + nbytes(cross) + nbytes(*stacked),
+                    nl * (2 * x.shape[0] * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
+                          + 4 * x.shape[0] * hid * (pos + 1 + shape["s_len"])),
+                    BF16_TENSOR_OPS_PER_S)
+    c7 = v3_step_cluster(x, shape["heads"], ff)
+    print(f"  decoder_stack_v3 SwinTRN shape B={shape['b']} H={hid} (heads of "
+          f"{hid // shape['heads']}) {nl} layers C={c7} pos={pos} L={STEPS} "
+          f"S={shape['s_len']} per step: kernel {k7:.4f} ms, plain {p7:.4f} ms, bound "
+          f"{b7:.4f} ms by {by7}; four kernel-3 launches {4 * k:.4f} ms; one kernel-6 "
+          f"launch {k6_pos:.4f} ms ({card})")
+    del x, cache, src, cross, caches, stack_caches
 
     model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, bf)
     fast = build_fast_decoder(model)

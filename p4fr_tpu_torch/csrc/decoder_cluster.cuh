@@ -1,8 +1,9 @@
 // Kernel 3's layer step as a thread-block cluster, also run once per layer
-// by kernel 6 (csrc/fused_decode.cu) and, with the two-pass attention, by
-// kernel 8 (csrc/decoder_layer_v1.cu): C CTAs (C in 1, 2, 4, 8, 16; the
-// wrapper picks it, ops/decoder_layer.py::cluster_size) share one group
-// of TB = 4 batch rows. The contract is decoder_common.cuh's
+// by kernels 6 and 7 (csrc/fused_decode.cu, csrc/decoder_stack.cu) and,
+// with the two-pass attention, by kernel 8 (csrc/decoder_layer_v1.cu): C
+// CTAs (C in 1, 2, 4, 8, 16; the wrapper picks it,
+// ops/decoder_layer.py::cluster_size) share one group of TB = 4 batch
+// rows. The contract is decoder_common.cuh's
 // (p4fr_tpu/decoding/fast_step.py::jnp_layer_step, the int8 forms KvQ):
 // scores / sqrt(H), ReLU after both FF linears, LayerNorm eps 1e-5, slot
 // `pos` written in place after the attention (kernel 8: before it, then
@@ -21,17 +22,17 @@
 //   Inside a CTA a pass takes 8*G' columns, G' a power of two <= 32: lane
 //   = kq*G' + g owns the 8 columns of group g (one 16-byte weight load a
 //   row) and the K rows of split warp*(32/G') + kq; the kq lanes meet by
-//   shuffles, then the warps in shared memory (rowmm's scheme, which this
-//   is at G' = 32). Splitting K across the ranks instead would read whole
-//   512-byte weight rows but exchange C partial sums of every column over
-//   DSMEM, C times the bytes of the column split's gather.
+//   shuffles, then the warps in shared memory. Splitting K across the
+//   ranks instead would read whole 512-byte weight rows but exchange C
+//   partial sums of every column over DSMEM, C times the bytes of the
+//   column split's gather.
 // - attention: the (row, head) pairs, rank r owning pairs [r*P/C,
 //   (r+1)*P/C) of P = TB*heads; with fewer pairs than warps, the warps of
 //   a pair split its positions in chunks (flash-decoding) and merge in
 //   shared memory in split order, so the result does not depend on timing.
-//   Two forms (Softmax): kernels 3 and 6 walk the positions with an online
-//   softmax (attend_part); kernel 8 keeps the TPU kernel's exact two-pass
-//   softmax (attend_two_pass).
+//   Two forms (Softmax): kernels 3, 6 and 7 walk the positions with an
+//   online softmax (attend_part); kernel 8 keeps the TPU kernel's exact
+//   two-pass softmax (attend_two_pass).
 // - LayerNorms: every rank, on the gathered rows (no exchange follows).
 // - slot `pos` and the output: each rank writes its own columns; the int8
 //   slot's per-(row, half) scale is the max over the whole half, which
@@ -43,9 +44,9 @@
 // that a phase pushes into is one that no rank touches in that phase or
 // in the local work just before it (the buffer plan in layer_body_cluster),
 // so one barrier a phase suffices. No DSMEM access follows the last
-// barrier, which is therefore kernel 3's and 8's exit barrier: no CTA leaves while
-// a peer may still touch its shared memory (kernel 6 ends in a barrier of
-// its own).
+// barrier, which is therefore the exit barrier of kernels 3, 7 (after its
+// last layer) and 8: no CTA leaves while a peer may still touch its shared
+// memory (kernel 6 ends in a barrier of its own).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -264,13 +265,21 @@ __device__ __forceinline__ void finish_pair(const float* q, int r, int h, int H,
   for (int i = 0; i < VPL; ++i) out[r * H + h * D + VPL * lane + i] = acc[i] / ssum;
 }
 
-// decoder_common.cuh's attend for this rank's pairs p0 .. p0+np-1 (pair
-// p: row p / heads, head p % heads); row b's position l of kv at
-// b * row_stride + l * pos_stride (a batch-major [B, L, 2H] cache or the
-// cross K|V: L * 2H and 2H; kernel 6's time-major [L, B, 2H] cache: 2H and
-// B * 2H), keys at + h*D, values at + H + h*D; into
-// this CTA's out [TB][H] at pair p's D values, out[p*D ..]. With np >=
-// NT / 32 warps take whole pairs; otherwise each pair gets NT / 32 / np
+// The online-softmax attention for this rank's pairs p0 .. p0+np-1 (pair
+// p: row p / heads, head p % heads), flash-decode style: the positions
+// held in memory go in chunks of 32; in a chunk each lane scores one
+// position (q from shared memory, its key row as 16-byte loads), the
+// chunk's max and sum update the running f32 softmax statistics, then each
+// lane owns VPL = D / 32 adjacent head dims and accumulates the chunk's
+// values, all 32 value loads issued before the first is used (latency, not
+// bandwidth, bounds this loop). With `cur`, position n_pos-1 (= pos) is
+// the current token: its key is at cur[r*cur_ld + h*D] and its value at
+// cur[r*cur_ld + H + h*D] (shared memory), folded in last. Row b's
+// position l of kv at b * row_stride + l * pos_stride (a batch-major
+// [B, L, 2H] cache or the cross K|V: L * 2H and 2H; kernel 6's time-major
+// [L, B, 2H] cache: 2H and B * 2H), keys at + h*D, values at + H + h*D;
+// into this CTA's out [TB][H] at pair p's D values, out[p*D ..]. With np
+// >= NT / 32 warps take whole pairs; otherwise each pair gets NT / 32 / np
 // warps, warp `split` of them taking the chunks l0 = 32 * (split + k *
 // wpp), and the partials merge in `stage` (smem, NT / 32 * (D + 2) floats)
 // in split order. SCALED (int8 K|V codes): each position's k-scale and v-scale come
@@ -420,7 +429,7 @@ __device__ __forceinline__ void load_chunk(uint4 (&t)[U], const T* p, int l, int
   }
 }
 
-// The attention's form in layer_body_cluster: kernels 3 and 6 walk the
+// The attention's form in layer_body_cluster: kernels 3, 6 and 7 walk the
 // positions once with an online softmax (attend_part); kernel 8 keeps the
 // TPU kernel's exact two-pass softmax (attend_two_pass), over slot `pos`
 // stored into the cache first and read back.
@@ -696,6 +705,17 @@ __device__ void write_slot_part(const float* kv, CacheT<T, KQ>* __restrict__ cac
   }
 }
 
+// Each layer's weights inside the stacked [NL, ...] tensors of kernels 6
+// and 7, worked out on the host: a __grid_constant__ parameter, so the
+// body reads layer l's pointers from the constant bank as kernel 3 reads
+// its own, and holds none in registers across the layer (computed in the
+// kernel instead, kernel 6's step ran up to 5% slower at SwinTRN's width
+// on an H100)
+constexpr int MAX_NL = 16;  // the most decoder layers a launch takes
+struct LayerTable {
+  Weights w[MAX_NL];
+};
+
 // This rank's share [b, e) of n columns, in whole groups of CPT.
 struct Cols {
   int b, e;
@@ -724,8 +744,8 @@ __device__ __forceinline__ Cols rank_cols(int n, int C, int rank) {
 //   slot's scale), slot `pos`.
 // The opening barrier (arrive before the qkv product, wait before its
 // push) keeps a peer's first push out of a CTA that has not started, and,
-// when layers are chained in one launch (kernel 6: `chained`, every layer
-// after the first), out of Q while this CTA still reads the last layer's
+// when layers are chained in one launch (kernels 6 and 7: `chained`, every
+// layer after the first), out of Q while this CTA still reads the last layer's
 // k|v there for its slot. The chained plan, layer l to layer l+1: after
 // layer l's last barrier (LN3 gathered; with kSrcCache the output's k|v)
 // no peer pushes in layer l again; each rank then reads Q2 and Q+H locally

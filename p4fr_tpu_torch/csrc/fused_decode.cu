@@ -50,22 +50,12 @@
 namespace {
 
 constexpr float NEG_INF = -1e9f;
-constexpr int MAX_C = 16;   // the largest cluster
-constexpr int MAX_NL = 16;  // the most decoder layers a step takes
+constexpr int MAX_C = 16;  // the largest cluster
 
 // The tables of FusedDecodeParams (ops/fused_decode.py).
 struct FusedParams {
   const void *embed, *pe, *w_gen;
   const float *b_gen, *man;
-};
-
-// Each layer's weights inside the stacked [NL, ...] tensors, worked out on
-// the host: a __grid_constant__ parameter, so the body reads layer l's
-// pointers from the constant bank as kernel 3 reads its own, and holds
-// none in registers across the layer (computed in the kernel instead, the
-// step ran up to 5% slower at SwinTRN's width on an H100)
-struct LayerTable {
-  Weights w[MAX_NL];
 };
 
 struct StepArgs {

@@ -99,8 +99,12 @@ _SIGNATURES = {
     #  resident clusters of that size
     "p4fr_decoder_layer_v1_query": [I] * 6 + [P] * 3,
     # (x, caches, src_kv, out, the 15 stacked weights, B, H, heads, F, S, L,
-    #  NL, pos, cache_outputs, bf16, stream)
-    "p4fr_decoder_stack_v3": [P] * 19 + [I] * 10 + [P],
+    #  NL, pos, cache_outputs, cluster, bf16, stream)
+    "p4fr_decoder_stack_v3": [P] * 19 + [I] * 11 + [P],
+    # (bf16, head width, H, F, cluster, clusters i32 out, regs i32 out,
+    #  local bytes i32 out): kernel 7's instance and its resident clusters
+    #  of that size
+    "p4fr_decoder_stack_v3_query": [I] * 5 + [P] * 3,
     # (cache, parent i64, rows, group, row_vecs, prefix_vecs, stream)
     "p4fr_beam_gather": [P, P, ctypes.c_longlong, I, ctypes.c_longlong,
                          ctypes.c_longlong, P],

@@ -16,6 +16,8 @@ at slot ``pos`` and return them.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -25,8 +27,13 @@ from p4fr_tpu_torch.ops.decoder_layer import (
     LayerWeights,
     check_head_width,
     check_operands,
+    cluster_size,
     layer_step_ref,
 )
+
+# the decoder layers one launch takes (csrc/decoder_cluster.cuh's MAX_NL,
+# the size of the layer table kernels 6 and 7 take as a parameter)
+MAX_LAYERS = 16
 
 
 class StackedLayers(NamedTuple):
@@ -107,6 +114,43 @@ def decoder_stack_step_v3_ref(x: torch.Tensor, pos: int, caches: torch.Tensor,
     return x, caches
 
 
+@functools.lru_cache(maxsize=None)
+def stack_query(bf16: bool, head_dim: int, hidden: int, filter_dim: int, c: int,
+                index: int = 0):
+    """(clusters of ``c`` resident at once, registers, local-memory bytes a
+    thread) of the kernel-7 instance that launches clusters of ``c`` for
+    the type and head width, at widths ``hidden`` and ``filter_dim``, on
+    card ``index``; asked once per argument set. Kernel 7 runs kernel 3's
+    body once per layer in one launch, so its registers, and with them its
+    residency, are its own."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(index):
+        code = _build.library().p4fr_decoder_stack_v3_query(
+            int(bf16), head_dim, hidden, filter_dim, c, *map(ctypes.byref, out))
+    _build.check(code, "decoder_stack_step_v3 cluster query")
+    return tuple(v.value for v in out)
+
+
+@functools.lru_cache(maxsize=None)
+def stack_cluster(batch: int, hidden: int, head_num: int, filter_dim: int, bf16: bool,
+                  index: int = 0) -> int:
+    """Kernel 7's cluster size at this shape on card ``index``:
+    ``decoder_layer.cluster_size`` over kernel 7's own resident clusters
+    (``stack_query``)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return cluster_size(batch, hidden, sms, lambda c: stack_query(
+        bf16, hidden // head_num, hidden, filter_dim, c, index)[0])
+
+
+def step_cluster(x: torch.Tensor, head_num: int, filter_dim: int) -> int:
+    """The cluster size kernel 7 launches with for ``x`` [B, H] on its card
+    (``stack_cluster``; one cached lookup a step once a shape has been
+    seen)."""
+    batch, hidden = x.shape
+    return stack_cluster(batch, hidden, head_num, filter_dim,
+                         x.dtype == torch.bfloat16, x.device.index or 0)
+
+
 def decoder_stack_step_v3(x: torch.Tensor, pos: int, caches: torch.Tensor,
                           src_kv: torch.Tensor, stacked: StackedLayers, *,
                           head_num: int, cache_outputs: bool):
@@ -114,14 +158,16 @@ def decoder_stack_step_v3(x: torch.Tensor, pos: int, caches: torch.Tensor,
     ``pos`` of every layer).
 
     x [B, H]; caches [NL, B, L, 2H]; src_kv [NL, B, S, 2H]; ``stacked``
-    from ``stack_fast_layers``. CUDA tensor: one launch of
-    ``csrc/decoder_stack.cu`` (replaces the TPU kernel
-    ``ops/pallas/decoder_stack_v3.py::decoder_stack_step_v3``): one CTA
-    owns 4 batch rows from the first layer to the last, runs kernel 3's
-    layer body once per layer with every activation in shared memory, and
-    is bound, as kernel 3, by streaming the weights from L2 and the caches'
-    prefixes and the cross K|V from device memory. Heads of 32 or 64; it
-    raises on anything else. CPU tensor: ``decoder_stack_step_v3_ref``.
+    from ``stack_fast_layers``, at most ``MAX_LAYERS`` layers. CUDA
+    tensor: one launch of ``csrc/decoder_stack.cu`` (replaces the TPU
+    kernel ``ops/pallas/decoder_stack_v3.py::decoder_stack_step_v3``): a
+    thread-block cluster of C CTAs (``step_cluster``) owns 4 batch rows
+    from the first layer to the last and runs kernel 3's cluster body once
+    per layer, each CTA 1/C of every product's columns and attention
+    pairs, every activation in each CTA's shared memory. It is bound, as
+    kernel 3, by streaming the weights from L2 and the caches' prefixes
+    and the cross K|V from device memory. Heads of 32 or 64; it raises on
+    anything else. CPU tensor: ``decoder_stack_step_v3_ref``.
     """
     if x.device.type == "cpu":
         return decoder_stack_step_v3_ref(x, pos, caches, src_kv, stacked,
@@ -143,6 +189,9 @@ def decoder_stack_step_v3(x: torch.Tensor, pos: int, caches: torch.Tensor,
         raise ValueError(f"{what}: caches {tuple(caches.shape)}, src_kv "
                          f"{tuple(src_kv.shape)} and the stacked weights do "
                          f"not fit x {tuple(x.shape)}")
+    if not 1 <= nl <= MAX_LAYERS:
+        raise ValueError(f"{what}: {nl} decoder layers; the kernel takes 1 to "
+                         f"{MAX_LAYERS}")
     if not 0 <= pos < max_len:
         raise ValueError(f"{what}: pos {pos} outside [0, {max_len})")
     if filter_dim % 8:
@@ -154,8 +203,8 @@ def decoder_stack_step_v3(x: torch.Tensor, pos: int, caches: torch.Tensor,
         x.data_ptr(), caches.data_ptr(), src_kv.data_ptr(), out.data_ptr(),
         *[t.data_ptr() for t in stacked],
         batch, hidden, head_num, filter_dim, s_len, max_len, nl, int(pos),
-        int(cache_outputs), int(x.dtype == torch.bfloat16),
-        _build.stream_ptr(x.device),
+        int(cache_outputs), step_cluster(x, head_num, filter_dim),
+        int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device),
     )
     _build.check(code, what)
     _build.LAUNCHES["decoder_stack_v3"] += 1

@@ -29,7 +29,11 @@ import torch
 from p4fr_tpu_torch.ops import _build
 from p4fr_tpu_torch.ops.attention import NEG_INF
 from p4fr_tpu_torch.ops.decoder_layer import check_head_width, cluster_size, layer_step_ref
-from p4fr_tpu_torch.ops.decoder_stack_v3 import layer_weights, stack_fast_layers
+from p4fr_tpu_torch.ops.decoder_stack_v3 import (
+    MAX_LAYERS,
+    layer_weights,
+    stack_fast_layers,
+)
 
 
 class FusedDecodeParams(NamedTuple):
@@ -65,7 +69,6 @@ class FusedDecodeParams(NamedTuple):
 
 
 N_TENSORS = 20  # the tensor fields, in the kernel's argument order
-MAX_LAYERS = 16  # the decoder layers the kernel takes (csrc/fused_decode.cu's MAX_NL)
 
 
 def padded_vocab(vocab_size: int) -> int:

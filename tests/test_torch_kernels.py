@@ -34,6 +34,7 @@ from p4fr_tpu_torch.ops.decoder_layer import (
 )
 from p4fr_tpu_torch.ops import decoder_layer_v1
 from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
+from p4fr_tpu_torch.ops import decoder_stack_v3
 from p4fr_tpu_torch.ops.decoder_stack_v3 import (
     decoder_stack_step_v3,
     decoder_stack_step_v3_ref,
@@ -773,10 +774,110 @@ def test_decoder_stack_v3_kernel(cuda, dtype, cache_outputs, hidden):
     check_stack_v3_kernel(cuda, dtype, cache_outputs, hidden=hidden, heads=2)
 
 
+def check_clustered_stack_v3(cuda, dtype, cache_outputs, hidden, filter_dim, b, nl):
+    """Kernel 7 (a cluster of C CTAs a row group, kernel 7's own plan) at
+    real widths, batch ``b`` and ``nl`` layers vs its plain version on the
+    same operands, random values in every slot of every layer, over
+    positions on both sides of a 32-position chunk and a cross K|V of 70
+    tokens (3 chunks): the out and every layer's slot ``pos``; every other
+    slot untouched; one launch a call."""
+    gen = torch.Generator().manual_seed(200 + 10 * b + nl)
+    heads, s_len, max_len = 8, 70, 40
+    stacked = stack_fast_layers([random_layer(gen, hidden, filter_dim, cuda, dtype)
+                                 for _ in range(nl)])
+    ref = type(stacked)(*(t.float() for t in stacked))
+    x = torch.randn(b, hidden, generator=gen).to(cuda, dtype)
+    src = torch.randn(nl, b, s_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    c_k = torch.randn(nl, b, max_len, 2 * hidden, generator=gen).to(cuda, dtype)
+    c = decoder_stack_v3.step_cluster(x, heads, filter_dim)
+    print(f"v3 {dtype} H={hidden} B={b} {nl} layers: cluster of {c}")
+    for pos in (0, 33, 39):
+        was, c_r = c_k.clone(), c_k.to(torch.float32, copy=True)
+        before = _build.LAUNCHES["decoder_stack_v3"]
+        o_k, _ = decoder_stack_step_v3(x, pos, c_k, src, stacked, head_num=heads,
+                                       cache_outputs=cache_outputs)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["decoder_stack_v3"] == before + 1
+        o_r, _ = decoder_stack_step_v3_ref(x.float(), pos, c_r, src.float(), ref,
+                                           head_num=heads, cache_outputs=cache_outputs,
+                                           kv_dtype=dtype)
+        others = torch.arange(max_len, device=cuda) != pos
+        assert torch.equal(c_k[:, :, others], was[:, :, others]), (pos, c)
+        if dtype == torch.float32:
+            assert torch.allclose(o_k, o_r, rtol=1e-4, atol=1e-4), (pos, c)
+            assert torch.allclose(c_k[:, :, pos], c_r[:, :, pos], rtol=1e-4,
+                                  atol=1e-4), (pos, c)
+        else:
+            assert_bf16_close(o_k, o_r, "decoder_stack_v3")
+            assert_bf16_close(c_k[:, :, pos], c_r[:, :, pos], "decoder_stack_v3")
+        c_k.copy_(c_r.to(dtype))  # one history
+        x = o_r.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_outputs", [True, False])
+@pytest.mark.parametrize("hidden,filter_dim", CLUSTER_WIDTHS,
+                         ids=["H256_heads_of_32", "H512_heads_of_64"])
+@pytest.mark.parametrize("b", CLUSTER_BATCHES)
+@pytest.mark.parametrize("nl", [1, 3], ids=["1_layer", "3_layers"])
+def test_decoder_stack_v3_kernel_clusters(cuda, dtype, cache_outputs, hidden, filter_dim,
+                                          b, nl):
+    check_clustered_stack_v3(cuda, dtype, cache_outputs, hidden, filter_dim, b, nl)
+
+
+@pytest.mark.cuda
+def test_decoder_stack_v3_cluster_cases_reach_every_size(cuda):
+    """Kernel 7's cluster cases above launch every cluster size, 1 to 16,
+    in each type, by kernel 7's own plan."""
+    for dtype in (torch.float32, torch.bfloat16):
+        sizes = {decoder_stack_v3.step_cluster(
+            torch.empty(b, hidden, device=cuda, dtype=dtype), 8, filter_dim)
+            for hidden, filter_dim in CLUSTER_WIDTHS for b in CLUSTER_BATCHES}
+        assert sizes == {1, 2, 4, 8, 16}, (dtype, sizes)
+
+
+def test_decoder_stack_v3_asks_its_own_query(monkeypatch):
+    """Kernel 7's cluster size comes from kernel 7's own residency query
+    (``stack_query``, at its type, head width and widths), never from
+    kernel 3's, and is asked once per shape."""
+    asked = []
+
+    def query(bf16, head_dim, hidden, filter_dim, c, index=0):
+        asked.append((bf16, head_dim, hidden, filter_dim, c, index))
+        return ({16: 7, 8: 15, 2: 66}.get(c, 0), 128, 0)
+
+    def kernel3_query(*args):
+        raise AssertionError("kernel 7 asked kernel 3's residency")
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(decoder_stack_v3, "stack_query", query)
+    monkeypatch.setattr("p4fr_tpu_torch.ops.decoder_layer.cluster_query", kernel3_query)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda index: Props())
+    decoder_stack_v3.stack_cluster.cache_clear()
+    try:
+        for hidden, filter_dim, head_dim, b, want in ((512, 512, 64, 32, 8),
+                                                       (256, 1024, 32, 256, 2)):
+            x = torch.empty(b, hidden, device="meta", dtype=torch.bfloat16)
+            before = len(asked)
+            for _ in range(3):  # one lookup a step: asked for the first only
+                assert decoder_stack_v3.step_cluster(x, hidden // head_dim,
+                                                     filter_dim) == want
+            assert asked[before:] and all(
+                a[:4] == (True, head_dim, hidden, filter_dim) for a in asked[before:])
+            assert asked[-1][4] == want
+            assert len(asked) - before == len({a[4] for a in asked[before:]})
+    finally:
+        decoder_stack_v3.stack_cluster.cache_clear()
+
+
 @pytest.mark.cuda
 def test_v1_and_v3_refuse_what_their_kernels_do_not_take(cuda):
-    """A dtype, head width or cache length the kernel is not built for
-    raises before any launch; nothing is computed some other way."""
+    """A dtype, head width, cache length or layer count the kernel is not
+    built for raises before any launch; nothing is computed some other
+    way."""
     from p4fr_tpu_torch.ops import _build
 
     gen = torch.Generator().manual_seed(0)
@@ -788,7 +889,8 @@ def test_v1_and_v3_refuse_what_their_kernels_do_not_take(cuda):
                               cache_outputs=True)
 
     def v3(x, caches, src, weights=w, heads=2):
-        decoder_stack_step_v3(x, 0, caches, src, stack_fast_layers([weights]),
+        decoder_stack_step_v3(x, 0, caches, src,
+                              stack_fast_layers([weights] * caches.shape[0]),
                               head_num=heads, cache_outputs=True)
 
     x = torch.zeros(2, 64, device=cuda)
@@ -803,6 +905,8 @@ def test_v1_and_v3_refuse_what_their_kernels_do_not_take(cuda):
             step(x, cache, src, heads=4)  # heads of 16
     with pytest.raises(ValueError, match="scores"):
         v1(x, torch.zeros(2, 1025, 128, device=cuda), torch.zeros(2, 3, 128, device=cuda))
+    with pytest.raises(ValueError, match="layers"):  # the layer table holds 16
+        v3(x, torch.zeros(17, 2, 4, 128, device=cuda), torch.zeros(17, 2, 3, 128, device=cuda))
     assert _build.LAUNCHES == before
 
 

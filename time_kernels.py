@@ -5,8 +5,9 @@
 
 At the flagship's decoder shape (B=256, hidden 256, heads of 32) and
 SwinTRN's (B=32, hidden 512, heads of 64), pos 115, L=231: kernel 3 (the
-layer step), kernel 8 (the v1 layer step) and kernel 6 (the fused greedy
-step, manager on), then at the flagship's shape kernel 3's int8-cache form
+layer step), kernel 8 (the v1 layer step), kernel 6 (the fused greedy
+step, manager on) and kernel 7 (every layer of the v3 step, on kernel 6's
+weights and a batch-major copy of its caches), then at the flagship's shape kernel 3's int8-cache form
 and, on [256, 256, 512, 3] u8 images, kernel 1 (standardize); CUDA events
 over 50 launches after warm-up (``chip_smoke.cuda_ms``), on
 ``chip_smoke.py``'s seeded inputs. ``--checkout`` times another checkout's
@@ -36,6 +37,7 @@ def main(argv=None):
     sys.path.insert(0, os.path.abspath(args.checkout))
     from p4fr_tpu_torch.ops.decoder_layer import decoder_layer_step
     from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
+    from p4fr_tpu_torch.ops.decoder_stack_v3 import StackedLayers, decoder_stack_step_v3
     from p4fr_tpu_torch.ops.fused_decode import fused_greedy_step
     from p4fr_tpu_torch.ops.preprocess import standardize
 
@@ -60,6 +62,11 @@ def main(argv=None):
             mstate = cs.random_mstate(gen, b, params, dev)
             times["kernel 6"] = cs.cuda_ms(lambda: fused_greedy_step(
                 token, pos, caches, cross, mstate, params, use_manager=True), iters=50)
+            stacked = StackedLayers(*params[:15])
+            stack_caches = caches.transpose(1, 2).contiguous()
+            times["kernel 7"] = cs.cuda_ms(lambda: decoder_stack_step_v3(
+                x, pos, stack_caches, cross, stacked, head_num=heads, cache_outputs=True),
+                iters=50)
             if name == "flagship":
                 src8, scales = cs.int8_rows(gen, (b, s_len), hid, dev)
                 src_scale = scales.transpose(1, 2).contiguous()

@@ -33,7 +33,10 @@ rank's attention pairs shifted by one; kernel 8's: the ban off by one,
 slot ``pos`` not stored before the attention, ``cache_outputs`` ignored,
 the slice at the next rank's offset, and the slot store moved after the
 barrier that gathers q|k|v with the last rank held back ~100 us before
-it). With ``--kernel decoder_layer_int8`` (kernel
+it; kernel 7's: layer l on layer l-1's weights, no rounding between
+layers, and the barrier opening each chained layer removed with rank 0
+held back ~100 us before each slot store). With ``--kernel
+decoder_layer_int8`` (kernel
 3's int8 forms) part 1 runs ``chip_smoke.check_layer_int8`` for each form
 (``int8``, ``int8_cache``) at the ``--shape`` and prints per seed and form
 the bf16 check's largest excess over the cast of the out (and, for
@@ -108,6 +111,13 @@ SLOT_STORE_AT_END = "  if (!TWO_PASS || cache_outputs)  // the two-pass form sto
 # one rank held back ~100 us (a layer step takes ~100-300 us), so that a
 # race the cluster's barriers prevent shows in the readings
 DELAY = "  if (rank == {rank}) for (int i = 0; i < 100; ++i) __nanosleep(1000);\n"
+# the cluster barrier that opens each chained layer removed, and rank 0
+# held back ~100 us before each slot store, so that the peers' next-layer
+# pushes land in its Q while it still reads the last layer's k|v there
+NO_LAYER_BARRIER_DELAYED = (
+    "decoder_cluster.cuh", "const bool opening = C > 1;",
+    "const bool opening = C > 1 && !chained;", SLOT_STORE_AT_END,
+    DELAY.format(rank="0") + SLOT_STORE_AT_END)
 # the cluster body's pushes: peers get a rank's slice at the next rank's
 # columns (the last rank's at rank 0's); its own copy stays right
 SLICE_AT_PEER_OFFSET = ("decoder_cluster.cuh", "*cl.map_shared_rank(src, peer) = *src;",
@@ -135,12 +145,8 @@ FAULTS = {
         # last layer's slot from it)
         "no_layer_barrier": ("decoder_cluster.cuh", "const bool opening = C > 1;",
                              "const bool opening = C > 1 && !chained;"),
-        # the same race with rank 0 held back ~100 us before each slot store,
-        # so that the peers' next-layer pushes land in its Q first
-        "no_layer_barrier_delayed": (
-            "decoder_cluster.cuh", "const bool opening = C > 1;",
-            "const bool opening = C > 1 && !chained;", SLOT_STORE_AT_END,
-            DELAY.format(rank="0") + SLOT_STORE_AT_END),
+        # the same race made visible
+        "no_layer_barrier_delayed": NO_LAYER_BARRIER_DELAYED,
         # the merge of the ranks' maxima keeps the later rank on a tie
         "merge_later_rank": ("fused_decode.cu", "if (best[q * TB + r] > bst)",
                              "if (best[q * TB + r] >= bst)"),
@@ -257,11 +263,17 @@ FAULTS = {
         "residual_after_cast": ("mbconv.cu", "for (int e = 0; e < 8; ++e) v[e] += rv[e];",
                                 "for (int e = 0; e < 8; ++e) v[e] = round_t<T>(v[e]) + rv[e];"),
     },
+    # kernel 7: kernel 3's cluster body once per layer, chained
     "decoder_stack_v3": {
-        "previous_layer_weights": ("decoder_stack.cu", "layer_weights<T>(p, l, H, F)",
-                                   "layer_weights<T>(p, l > 0 ? l - 1 : 0, H, F)"),
-        "no_round": ("decoder_stack.cu", "s.A[i] = round_t<T>(s.Dd[i]);",
-                     "s.A[i] = s.Dd[i];"),
+        # layer l runs on layer l-1's weights
+        "previous_layer_weights": ("decoder_stack.cu", "s, layers.w[l], caches",
+                                   "s, layers.w[l > 0 ? l - 1 : 0], caches"),
+        # layer l-1's output becomes layer l's input without the rounding
+        "no_round": ("decoder_stack.cu", "? round_t<T>(s.Q2[i]) : 0.f", "? s.Q2[i] : 0.f"),
+        # kernel 6's fault of that name: passing chained = false for l > 0
+        # alone would keep the opening barrier (with a relaxed arrive), so the
+        # barrier itself goes
+        "no_layer_barrier_delayed": NO_LAYER_BARRIER_DELAYED,
     },
 }
 # planted like the faults, but read for their time: what a part of the
