@@ -104,8 +104,23 @@ with a non-zero exit and no result line:
    bytes against the bf16 cache's.
 6. One JSON line of per-kernel results (with each kernel's least time on
    the card, from this run's shapes), then the device line.
+7. Training EfficientSATRN at full width (run before the result lines;
+   256x512 synthetic host-normalized images, labels padded to 232, seeded
+   weights): one teacher-forced and one AR-sampled f32 step on the card
+   against the port on the CPU (B=2, dropout off, each step from one state,
+   the CPU replaying the card's argmax picks): loss, grad norm, gradients,
+   every parameter and BatchNorm statistic within ``TOL_TRAIN_*``; the
+   validation step (``make_eval_step``, B=16) through kernels 2 and 3 (28
+   and 3 x 231 launches) against its plain version, logits within 1e-3;
+   a trainer resumed from its ``.pth`` takes the uninterrupted trainer's
+   next step bit for bit; one dual_opt step equals each group's first Adam
+   update by hand; then, in bf16 autocast at B=16 and B=64, the teacher-
+   forced and AR-sampled step times, validation images/s, peak memory, a
+   profile of one teacher-forced step, and 20 steps on one batch that must
+   lower the loss.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -2213,6 +2228,378 @@ def swin_timing(ckpt, dev, card, times):
             "decoder_layer": len(fast.layers) * STEPS}, at_least=())
 
 
+# ---------------------------------------------------------------- phase 7
+
+TRAIN_LABEL_LEN = 232  # labels padded to --max_label_len's default: 231 AR steps
+TRAIN_GATE_BATCH = 2   # the card-vs-CPU gate (the CPU runs the full model too)
+TRAIN_EVAL_BATCH = 16  # the validation gate
+TRAIN_RESUME_BATCH = 4
+TRAIN_TIME_BATCHES = (16, 64)  # EfficientSATRN.yaml's batch_size, and B=64
+TRAIN_LOSS_STEPS = 20  # steps on one fixed batch that must lower the loss
+# EfficientSATRN.yaml's optimizer: AdamW, lr 5e-4, weight decay 1e-6, clip 2.0;
+# the gates read the cosine schedule over a 5-step run (no warmup step, so
+# both of their updates move the weights)
+TRAIN_LR, TRAIN_WD, TRAIN_CLIP, TRAIN_GATE_TOTAL = 5e-4, 1e-6, 2.0, 5
+DUAL_ENC_LR, DUAL_DEC_LR = 5e-4, 2e-4  # apart, so a misrouted group shows
+# The f32 card-vs-CPU gate of a teacher-forced and an AR-sampled step, each
+# from one state on both sides (the AR step from the CPU's state after the
+# first), the CPU replaying the card's argmax picks (``ar_sampled_logits(
+# picks=)``; its own may part at a near tie, within TOL_TRAIN_PICK_GAP). Set
+# from readings (PERF.md, Findings): the loss and the grad norm relative to
+# the CPU's; each gradient tensor's |card - CPU| (L2) relative to its CPU
+# norm plus 1e-5 of the global norm (some tensors' true gradient is zero, and
+# both read rounding noise there); the share of gradient elements whose two
+# readings part by more than 10%. Adam moves such an element by lr times a
+# sign its rounding sets, so those elements are held to 2 lr and every other
+# parameter element to 2e-6 + 0.1 lr; the BatchNorm running statistics to
+# TOL_TRAIN_STATS relative to 1 + |x|. Readings (H100, seed 0; teacher-forced,
+# AR-sampled): loss 8.4e-8, 0; grad norm 6.2e-5, 1.3e-5; worst gradient tensor
+# 1.7e-2 (the stem's BatchNorm, at the far end of the backward chain), 6.2e-3;
+# split share 4.9e-2, 1.4e-2; other parameter elements 1.3e-5, 2.4e-5 (their
+# bounds 5.2e-5, 4.7e-5); statistics 1.3e-6, 8.7e-7; no pick parted.
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD_NORM = 1e-3
+TOL_TRAIN_GRAD = 5e-2
+TOL_TRAIN_SPLIT_SHARE = 0.1
+TOL_TRAIN_STATS = 1e-4
+TOL_TRAIN_PICK_GAP = 1e-4
+TOL_DUAL_F32 = 1e-6  # the first Adam update against its hand computation
+
+
+def train_batch(b, vocab, gen, dev):
+    """Synthetic host-normalized images [b, 256, 512, 3] f32 and labels
+    [b, 232]: <SOS>, 1 to 230 random tokens, <EOS>, <PAD>*."""
+    size = CONFIGS["input_size"]
+    images = torch.randn(b, size["height"], size["width"], 3, generator=gen)
+    text = torch.full((b, TRAIN_LABEL_LEN), vocab.pad_id, dtype=torch.int64)
+    text[:, 0] = vocab.sos_id
+    for i, n in enumerate(torch.randint(1, TRAIN_LABEL_LEN - 1, (b,),
+                                        generator=gen).tolist()):
+        text[i, 1:1 + n] = torch.randint(3, len(vocab), (n,), generator=gen)
+        text[i, 1 + n] = vocab.eos_id
+    return images.to(dev), text.to(dev)
+
+
+def trainer(ckpt, dev, *, dropout=True, dtype=torch.float32, total=TRAIN_GATE_TOTAL,
+            dual=False):
+    """(model, optimizer, train step, vocab) from the smoke's seeded
+    checkpoint, the model in train mode with f32 weights: AdamW with the
+    config's values and the cosine schedule over ``total`` steps, or with
+    ``dual`` the dual-optimizer regime's two Adam groups."""
+    from p4fr_tpu_torch.train.dual_opt import build_dual_optimizer
+    from p4fr_tpu_torch.train.schedules import cosine_warmup_restarts
+    from p4fr_tpu_torch.train.steps import build_optimizer, make_train_step
+    from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
+
+    model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, torch.float32)
+    if not dropout:
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+    if dual:
+        opt = build_dual_optimizer(model, DUAL_ENC_LR, DUAL_DEC_LR, total,
+                                   max_grad_norm=TRAIN_CLIP)
+    else:
+        opt = build_optimizer("adamw", model.parameters(),
+                              cosine_warmup_restarts(TRAIN_LR, total),
+                              weight_decay=TRAIN_WD, max_grad_norm=TRAIN_CLIP)
+    step = make_train_step(model.train(), opt, vocab.pad_id, compute_dtype=dtype)
+    return model, opt, step, vocab
+
+
+def gate_train_step(label, cpu, card, want, got, lr, misses):
+    """Hold the card's step against the CPU's (the tolerances above)."""
+    readings = {}
+    for key, tol in (("loss", TOL_TRAIN_LOSS), ("grad_norm", TOL_TRAIN_GRAD_NORM)):
+        readings[key] = abs(got[key].item() - want[key].item()) / abs(want[key].item())
+        if not readings[key] <= tol:
+            misses.append(f"{label} {key}: {readings[key]:.3e} > {tol:.1e}")
+    grads = {n: p.grad.cpu() for n, p in card[0].named_parameters()}
+    floor = 1e-5 * torch.stack([p.grad.norm() for p in cpu[0].parameters()]).norm()
+    split, grad_err, worst_tensor, n_split, n_all = {}, -1.0, None, 0, 0
+    for n, p in cpu[0].named_parameters():
+        d = grads[n] - p.grad
+        rel = (d.norm() / (p.grad.norm() + floor)).item()
+        if rel > grad_err:
+            grad_err, worst_tensor = rel, n
+        split[n] = d.abs() > 0.1 * p.grad.abs()
+        n_split += int(split[n].sum())
+        n_all += p.numel()
+    share = n_split / n_all
+    if not grad_err <= TOL_TRAIN_GRAD:
+        misses.append(f"{label} gradient of {worst_tensor}: {grad_err:.3e} > "
+                      f"{TOL_TRAIN_GRAD:.1e}")
+    if not share <= TOL_TRAIN_SPLIT_SHARE:
+        misses.append(f"{label} split gradient share {share:.3e} > "
+                      f"{TOL_TRAIN_SPLIT_SHARE:.1e}")
+    state = {k: v.cpu() for k, v in card[0].state_dict().items()}
+    worst = {"params": 0.0, "split params": 0.0, "stats": 0.0}
+    for k, want_v in cpu[0].state_dict().items():
+        if not want_v.is_floating_point():
+            if not torch.equal(state[k], want_v):
+                misses.append(f"{label} {k} differs")
+            continue
+        d = (state[k] - want_v).abs()
+        if k in split:
+            tight = ~split[k]
+            worst["params"] = max(worst["params"], d[tight].max().item()
+                                  if tight.any() else 0.0)
+            worst["split params"] = max(worst["split params"], d.max().item())
+            ok = d <= torch.where(split[k], 2e-6 + 2 * lr, 2e-6 + 0.1 * lr)
+        else:
+            worst["stats"] = max(worst["stats"], (d / (1 + want_v.abs())).max().item())
+            ok = d <= TOL_TRAIN_STATS * (1 + want_v.abs())
+        if not bool(ok.all()):
+            misses.append(f"{label} {k}: {d.max().item():.3e} beyond its bound")
+    print(f"  {label} step (lr {lr:.3e}): loss {want['loss'].item():.6f} rel err "
+          f"{readings['loss']:.3e} (tol {TOL_TRAIN_LOSS:.0e}); grad norm "
+          f"{want['grad_norm'].item():.4f} rel err {readings['grad_norm']:.3e} (tol "
+          f"{TOL_TRAIN_GRAD_NORM:.0e}); worst gradient tensor {worst_tensor} rel err "
+          f"{grad_err:.3e} (tol {TOL_TRAIN_GRAD:.0e}); split share {share:.3e} (tol "
+          f"{TOL_TRAIN_SPLIT_SHARE:.0e}); parameters max err {worst['params']:.3e} "
+          f"(bound {2e-6 + 0.1 * lr:.3e}), split elements {worst['split params']:.3e} "
+          f"(bound {2e-6 + 2 * lr:.3e}); BN statistics max err / (1 + |x|) "
+          f"{worst['stats']:.3e} (tol {TOL_TRAIN_STATS:.0e})")
+
+
+def train_gate(ckpt, dev):
+    """One teacher-forced and one AR-sampled f32 step, B=2, dropout off, on
+    the card and in the port on the CPU: the first from the checkpoint's
+    weights on both sides, the second from the CPU's state after the first;
+    loss, grad norm, gradients, every parameter and BatchNorm statistic."""
+    from p4fr_tpu_torch.train.steps import ar_sampled_logits, cross_entropy_ignore_pad
+
+    print(f"[training gate: EfficientSATRN f32, TF32 off, B={TRAIN_GATE_BATCH}, "
+          f"labels {TRAIN_LABEL_LEN}, AdamW clip {TRAIN_CLIP}, card vs CPU]")
+    cpu, card = trainer(ckpt, "cpu", dropout=False), trainer(ckpt, dev, dropout=False)
+    pad_id = cpu[3].pad_id
+    images, text = train_batch(TRAIN_GATE_BATCH, cpu[3],
+                               torch.Generator().manual_seed(SEED + 20), "cpu")
+    misses = []
+    lr = cpu[1].lr()
+    t0 = time.perf_counter()
+    want, _ = cpu[2](images, text, True)
+    t1 = time.perf_counter()
+    got, _ = card[2](images.to(dev), text.to(dev), True)
+    gate_train_step("teacher-forced", cpu, card, want, got, lr, misses)
+
+    card[0].load_state_dict(cpu[0].state_dict())
+    card[1].load_state_dict(*copy.deepcopy(cpu[1].state_dict()).values())
+    lr = cpu[1].lr()
+    got, picks = card[2](images.to(dev), text.to(dev), False)
+    picks = picks.cpu()
+    t2 = time.perf_counter()
+    logits = ar_sampled_logits(cpu[0], images, text.shape[1] - 1, picks=picks)
+    loss = cross_entropy_ignore_pad(logits, text[:, 1:], pad_id)
+    cpu[1].zero_grad()
+    loss.backward()
+    want = {"loss": loss.detach(), "grad_norm": cpu[1].step()}
+    t3 = time.perf_counter()
+    parted = logits.argmax(dim=-1) != picks
+    top2 = logits.detach().topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1])[parted]
+    gap = gaps.max().item() if gaps.numel() else 0.0
+    print(f"  AR picks: the CPU's own argmax parts from the card's at "
+          f"{int(parted.sum())} of {parted.numel()} steps, largest top-two gap there "
+          f"{gap:.3e} (tol {TOL_TRAIN_PICK_GAP:.0e}); the CPU replays the card's")
+    if not gap <= TOL_TRAIN_PICK_GAP:
+        misses.append(f"AR picks part at a gap of {gap:.3e}")
+    gate_train_step("AR-sampled", cpu, card, want, got, lr, misses)
+    print(f"  CPU steps: teacher-forced {t1 - t0:.1f} s, AR-sampled {t3 - t2:.1f} s")
+    if misses:
+        raise AssertionError("training gate, card vs CPU: " + "; ".join(misses))
+    return card
+
+
+def eval_gate(model, vocab, dev):
+    """``make_eval_step`` in f32 through kernels 2 and 3 against the same
+    step with ``plain=True``, B=16, 231 steps: the launch counts, then every
+    step's logits while the two greedy sequences agree; where they part, the
+    plain path's top two logits lie within the tolerance (a near tie)."""
+    from p4fr_tpu_torch.ops import _build
+    from p4fr_tpu_torch.train.steps import make_eval_step
+
+    images, text = train_batch(TRAIN_EVAL_BATCH, vocab,
+                               torch.Generator().manual_seed(SEED + 21), dev)
+    steps = TRAIN_LABEL_LEN - 1
+    print(f"[validation gate: make_eval_step, f32, B={TRAIN_EVAL_BATCH}, {steps} "
+          f"steps, after the training gate's two updates]")
+    _build.reset_launches()
+    loss_k, seq_k, logits_k = make_eval_step(model, vocab.pad_id)(images, text)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches {json.dumps(launches)}")
+    check_launches(launches, {"mbconv": 28, "decoder_layer": 3 * steps})
+    if not model.training:
+        raise AssertionError("make_eval_step left the model in eval mode")
+    loss_p, seq_p, logits_p = make_eval_step(model, vocab.pad_id, plain=True)(images, text)
+    same = torch.cat([torch.ones_like(seq_k[:, :1], dtype=torch.bool),
+                      (seq_k == seq_p).cumprod(dim=1).bool()[:, :-1]], dim=1)
+    err = (logits_k - logits_p).abs().amax(dim=2)[same].max().item()
+    parted = same & (seq_k != seq_p)
+    top2 = logits_p.topk(2, dim=2).values
+    gaps = (top2[..., 0] - top2[..., 1])[parted]
+    gap = gaps.max().item() if gaps.numel() else 0.0
+    print(f"  logits kernel vs plain over {int(same.sum())} of {same.numel()} steps "
+          f"(rows up to where their tokens part): max_abs_err {err:.3e} (bound "
+          f"{TOL_LOGITS_F32:.1e}); rows parted {int(parted.sum())}, their largest "
+          f"top-two gap {gap:.3e}; loss {loss_k.item():.6f} vs {loss_p.item():.6f}")
+    if not (bool(torch.isfinite(logits_k).all()) and err <= TOL_LOGITS_F32
+            and gap <= TOL_LOGITS_F32):
+        raise AssertionError("validation logits disagree with the plain path")
+
+
+def resume_gate(ckpt, dev):
+    """A trainer takes a step, saves a ``.pth`` with its optimizer and
+    schedule state and takes another; a fresh trainer resumed from the file
+    takes that step too (the same dropout seed): every parameter and
+    statistic equal bit for bit, f32."""
+    from p4fr_tpu_torch.train.single_opt import resume
+    from p4fr_tpu_torch.utils.checkpoint import save_checkpoint
+
+    print(f"[resume gate: f32, B={TRAIN_RESUME_BATCH}, dropout on, cuDNN "
+          f"deterministic]")
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, opt, step, vocab = trainer(ckpt, dev)
+        images, text = train_batch(TRAIN_RESUME_BATCH, vocab,
+                                   torch.Generator().manual_seed(SEED + 22), dev)
+        torch.manual_seed(SEED + 23)
+        step(images, text, True)
+        path = os.path.join(REPO, "build", "p4fr_tpu_torch", "smoke", "resume.pth")
+        save_checkpoint(path, model, network="EfficientSATRN", configs=CONFIGS,
+                        vocab=vocab, epoch=1, train_state=opt.state_dict())
+        torch.manual_seed(SEED + 24)
+        want, _ = step(images, text, True)
+        model2, opt2, step2, _ = trainer(ckpt, dev)
+        resume(path, model2, opt2)
+        torch.manual_seed(SEED + 24)
+        got, _ = step2(images, text, True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    sd, sd2 = model.state_dict(), model2.state_dict()
+    differ = [k for k in sd if not torch.equal(sd[k], sd2[k])]
+    print(f"  resumed step: loss {got['loss'].item():.6f} vs {want['loss'].item():.6f}, "
+          f"{len(differ)} of {len(sd)} state entries differ; update count "
+          f"{opt2.count} vs {opt.count}")
+    if differ or not torch.equal(got["loss"], want["loss"]) or opt2.count != opt.count:
+        raise AssertionError(f"the resumed step differs: {differ[:5]}")
+
+
+def dual_gate(ckpt, dev):
+    """One teacher-forced f32 step of the dual-optimizer regime: each
+    parameter moved by its group's lr (encoder 5e-4, decoder 2e-4) as the
+    first Adam update, p - lr * g / (|g| + 1e-8), computes by hand from the
+    clipped gradient."""
+    from p4fr_tpu_torch.train.dual_opt import label_fn
+
+    print(f"[dual_opt gate: f32, B={TRAIN_GATE_BATCH}, encoder lr {DUAL_ENC_LR}, "
+          f"decoder lr {DUAL_DEC_LR}, clip {TRAIN_CLIP} per group]")
+    model, opt, step, vocab = trainer(ckpt, dev, dropout=False, dual=True)
+    images, text = train_batch(TRAIN_GATE_BATCH, vocab,
+                               torch.Generator().manual_seed(SEED + 25), dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step(images, text, True)
+    lrs = {"encoder": DUAL_ENC_LR, "decoder": DUAL_DEC_LR}
+    worst = {"encoder": 0.0, "decoder": 0.0}
+    moved = {"encoder": 0.0, "decoder": 0.0}
+    for n, p in model.named_parameters():
+        group, g = label_fn(n), p.grad
+        want = before[n] - lrs[group] * g / (g.abs() + 1e-8)
+        worst[group] = max(worst[group], (p.detach() - want).abs().max().item())
+        moved[group] = max(moved[group], (p.detach() - before[n]).abs().max().item())
+    print(f"  max |p - hand update|: encoder {worst['encoder']:.3e}, decoder "
+          f"{worst['decoder']:.3e} (tol {TOL_DUAL_F32:.0e}); largest move: encoder "
+          f"{moved['encoder']:.3e}, decoder {moved['decoder']:.3e}; "
+          f"{len(opt.optimizer.param_groups)} groups")
+    if not max(worst.values()) <= TOL_DUAL_F32:
+        raise AssertionError("dual_opt's update is not each group's first Adam update")
+
+
+def train_timing(ckpt, dev, card):
+    """bf16 autocast, dropout on: the teacher-forced and AR-sampled step
+    times, validation images/s and peak memory at B=16 and B=64 (host clock
+    around steps that end in a synchronize), a profile of one teacher-forced
+    step at B=16, and the loss over 20 steps on one fixed batch, which must
+    fall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from p4fr_tpu_torch.train.steps import make_eval_step
+
+    print(f"[training timing: bf16 autocast, f32 weights, dropout on ({card})]")
+    for b in TRAIN_TIME_BATCHES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, opt, step, vocab = trainer(ckpt, dev, dtype=torch.bfloat16,
+                                          total=10 * TRAIN_LOSS_STEPS)
+        images, text = train_batch(b, vocab, torch.Generator().manual_seed(SEED + 26), dev)
+
+        def timed(teacher_forced, n):
+            out = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                metrics, _ = step(images, text, teacher_forced)
+                loss = metrics["loss"].item()  # synchronizes
+                out.append((time.perf_counter() - t0, loss))
+            return out
+
+        n_tf = TRAIN_LOSS_STEPS if b == TRAIN_TIME_BATCHES[0] else 6
+        tf = timed(True, n_tf)
+        ar = timed(False, 3)
+        tf_ms = sorted(t for t, _ in tf[2:])[len(tf[2:]) // 2] * 1e3
+        ar_ms = sorted(t for t, _ in ar[1:])[len(ar[1:]) // 2] * 1e3
+        eval_step = make_eval_step(model, vocab.pad_id, compute_dtype=torch.bfloat16)
+        eval_step(images, text)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_step(images, text)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  B={b}: teacher-forced step {tf_ms:.2f} ms (median of {len(tf) - 2}), "
+              f"{b / tf_ms * 1e3:.2f} images/s; AR-sampled step {ar_ms:.2f} ms "
+              f"(median of {len(ar) - 1}), {b / ar_ms * 1e3:.2f} images/s; validation "
+              f"({TRAIN_LABEL_LEN - 1} greedy steps) {eval_s * 1e3:.2f} ms, "
+              f"{b / eval_s:.2f} images/s; peak memory {peak:.2f} GiB")
+        if b == TRAIN_TIME_BATCHES[0]:
+            losses = [loss for _, loss in tf]
+            print(f"  loss over {len(losses)} teacher-forced steps on one batch: "
+                  f"{losses[0]:.4f} -> {losses[-1]:.4f} "
+                  f"({', '.join(f'{x:.3f}' for x in losses)})")
+            if not losses[-1] < losses[0]:
+                raise AssertionError("20 steps on one batch did not lower the loss")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(images, text, True)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            # the optimizer's step is also a user annotation on the device's
+            # timeline; its kernels count on their own
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and not e.key.startswith("Optimizer.")]
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            print(f"  profiled teacher-forced step B={b}: wall {wall:.3f} ms, device "
+                  f"kernel time {busy:.3f} ms, device busy {100 * busy / wall:.1f}%; "
+                  f"top device ops (ms, launches):")
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+                print(f"    {e.self_device_time_total / 1e3:9.3f} {e.count:6d}  "
+                      f"{e.key[:100]}")
+        del model, opt, step
+
+
+def train_phase(ckpt, dev, card):
+    model, _, _, vocab = train_gate(ckpt, dev)
+    eval_gate(model, vocab, dev)
+    del model
+    resume_gate(ckpt, dev)
+    dual_gate(ckpt, dev)
+    torch.cuda.empty_cache()
+    train_timing(ckpt, dev, card)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -2256,6 +2643,8 @@ def main():
         times = timing(ckpt, dev, card)
         torch.cuda.empty_cache()
         swin_timing(swin_ckpt, dev, card, times)
+    torch.cuda.empty_cache()
+    train_phase(ckpt, dev, card)
 
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax"))
     if bad:

@@ -1,10 +1,14 @@
-"""Batching for inference, the port's copy of ``collate`` and ``DataLoader``
-from ``p4fr_tpu/data/loader.py`` (eval use only):
+"""Batching, the port's copy of ``collate``, ``DataLoader`` and
+``dataset_loader`` from ``p4fr_tpu/data/loader.py``:
 
-- labels are padded with ``-1`` to a fixed ``max_label_len``;
-- the u8 images stack to one [B, H, W, C] u8 array;
-- the last short batch is padded up to full size, and ``batch["count"]``
-  says how many rows are real;
+- labels are padded with ``-1`` to a fixed ``max_label_len`` (the trainers
+  map -1 to the pad id);
+- the images stack to one [B, H, W, C] array: u8 stays u8 (the inference
+  feed), anything else becomes f32 (the host-normalized training feed);
+- training shuffles with a generator seeded once (its state runs on from
+  epoch to epoch) and drops the last short batch; otherwise the last short
+  batch is padded up to full size, and ``batch["count"]`` says how many
+  rows are real;
 - ``sort_key`` orders items (stable) so similar-length items share a batch;
 - a background thread keeps ``PREFETCH`` batches ready, so host image
   decode overlaps device compute.
@@ -25,39 +29,51 @@ def collate(items: List[Dict], max_label_len: int) -> Dict:
     """Stack a list of dataset items into fixed-shape arrays."""
     batch: Dict = {
         "path": [d["path"] for d in items],
-        "file_path": [d["file_path"] for d in items],
         "truth": {"text": [d["truth"]["text"] for d in items]},
         "count": len(items),
     }
+    if "file_path" in items[0]:
+        batch["file_path"] = [d["file_path"] for d in items]
     encoded = np.full((len(items), max_label_len), -1, np.int32)
     for i, d in enumerate(items):
         ids = d["truth"]["encoded"][:max_label_len]
         encoded[i, : len(ids)] = ids
     batch["truth"]["encoded"] = encoded
-    batch["image"] = np.stack([d["image"] for d in items])
+    images = np.stack([d["image"] for d in items])
+    batch["image"] = images if images.dtype == np.uint8 else images.astype(np.float32)
     return batch
 
 
 class DataLoader:
-    """In-order batch iterator with thread prefetch."""
+    """Batch iterator with thread prefetch: in order (or by ``sort_key``),
+    or with ``shuffle`` in an order drawn from ``seed``."""
 
     def __init__(self, dataset, batch_size: int, *, max_label_len: int = 232,
-                 sort_key=None):
+                 sort_key=None, shuffle: bool = False, drop_last: bool = False,
+                 seed: int = 0):
+        if sort_key is not None and shuffle:
+            raise ValueError("sort_key and shuffle are mutually exclusive")
         self.dataset = dataset
         self.batch_size = batch_size
         self.max_label_len = max_label_len
         self.sort_key = sort_key
+        self.shuffle, self.drop_last = shuffle, drop_last
+        self.rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
+        if self.drop_last:
+            return len(self.dataset) // self.batch_size
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
     def _index_batches(self) -> List[np.ndarray]:
         idx = np.arange(len(self.dataset))
-        if self.sort_key is not None:
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        elif self.sort_key is not None:
             keys = np.asarray([self.sort_key(int(i)) for i in idx])
             idx = idx[np.argsort(keys, kind="stable")]
         return [idx[s: s + self.batch_size]
-                for s in range(0, len(idx), self.batch_size)]
+                for s in range(0, len(idx), self.batch_size)][:len(self)]
 
     def _make_batch(self, chunk: np.ndarray) -> Dict:
         items = [self.dataset[int(i)] for i in chunk]
@@ -90,3 +106,27 @@ class DataLoader:
             if isinstance(item, Exception):
                 raise item
             yield item
+
+
+def dataset_loader(options, train_transform, valid_transform, *,
+                   max_label_len: int = 232):
+    """(train_loader, train_dataset, valid_loader, valid_dataset) from a
+    reference-schema config (``ConfigNode``)."""
+    from p4fr_tpu_torch.data.dataset import LoadDataset, split_gt
+
+    train_data, valid_data = [], []
+    for path in options.data.train:
+        train, valid = split_gt(path, options.data.fold)
+        train_data += train
+        valid_data += valid
+    kw = dict(crop=options.data.crop, rgb=options.data.rgb)
+    train_dataset = LoadDataset(train_data, options.data.token_paths,
+                                transform=train_transform, **kw)
+    valid_dataset = LoadDataset(valid_data, options.data.token_paths,
+                                transform=valid_transform, **kw)
+    train_loader = DataLoader(train_dataset, options.batch_size,
+                              max_label_len=max_label_len, shuffle=True,
+                              drop_last=True, seed=options.seed)
+    valid_loader = DataLoader(valid_dataset, options.batch_size,
+                              max_label_len=max_label_len)
+    return train_loader, train_dataset, valid_loader, valid_dataset

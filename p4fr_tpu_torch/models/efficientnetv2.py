@@ -13,7 +13,8 @@ Stages (kernel, stride, expand, channels, repeats, SE):
   4: MBConv      k3 s1 e6 160 x9  SE 0.25
   5: MBConv      k3 s2 e6 256 x15 SE 0.25
 
-BatchNorm eps is 1e-3 (TF-ported timm weights). All activations are SiLU.
+BatchNorm eps is 1e-3 (TF-ported timm weights); in train mode it keeps
+flax's statistics (``models/batchnorm.py``). All activations are SiLU.
 Flax's ``padding="SAME"`` is TF-SAME: a stride-2 3x3 conv on an even size
 pads 0 top/left and 1 bottom/right, which torch's symmetric ``padding=1``
 does not, so ``SameConv2d`` pads explicitly. The stem pads nothing (VALID).
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from p4fr_tpu_torch.models.batchnorm import BatchNorm2d
 from p4fr_tpu_torch.ops.mbconv import fold_mbconv_params, fused_mbconv_chain
 
 # (num_repeat, kernel, stride, expand_ratio, in_chs, out_chs, use_se, fused)
@@ -43,8 +45,8 @@ V2_S_STAGES: Tuple[Tuple[int, int, int, int, int, int, bool, bool], ...] = (
 BN_EPS = 1e-3
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS)
+def _bn(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, BN_EPS)
 
 
 def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -163,7 +165,8 @@ class EfficientNetV2Blocks(nn.ModuleList):
     At inference every run of consecutive stride-1 3x3 MBConv blocks goes
     through ``ops.mbconv.fused_mbconv_chain`` (kernel 2 on a CUDA tensor,
     its plain twin on a CPU tensor), mirroring the JAX module's chained
-    dispatch. ``plain=True`` runs the composed modules instead.
+    dispatch. ``plain=True``, and train mode (batch statistics, as the JAX
+    module's ``_chain_ok``), run the composed modules instead.
     """
 
     def __init__(self, stages=V2_S_STAGES):

@@ -14,7 +14,15 @@ Reference-parity quirks kept:
 - the conv feed-forward reads the [B, HW, C] attention output through a
   raw ``reshape(b, c, h, w)`` (LiteSATRN.py:251) — torch's own NCHW
   layout, so the scrambled view needs no transpose here;
-- encoder BatchNorm eps is 1e-5.
+- encoder BatchNorm eps is 1e-5, with flax's train-mode statistics
+  (``models/batchnorm.py``).
+
+Dropout sits where the JAX module has it, at ``dropout`` (the config's
+``dropout_rate``): on the 2D PE's gate MLP, inside every attention (its
+probabilities and its output), after each encoder layer's attention, after
+the decoder's PE; the decoder FF's is pinned (``models.common``).
+``forward(images, text)`` is the teacher-forced pass training runs;
+``decode_step`` the AR-sampled branch's differentiable step.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from p4fr_tpu_torch.models.batchnorm import BatchNorm2d
 from p4fr_tpu_torch.models.common import TransformerDecoder
 from p4fr_tpu_torch.models.efficientnetv2 import EfficientNetV2Backbone
 from p4fr_tpu_torch.ops.attention import MultiHeadAttention
@@ -37,10 +46,12 @@ class AdaptivePositionalEncoding2D(nn.Module):
     """Gated per-axis sinusoidal 2D PE (LiteSATRN.py:72-136): a 2-way MLP
     on the pooled features gates the H-axis and W-axis tables."""
 
-    def __init__(self, hidden_size: int, height: int, width: int):
+    def __init__(self, hidden_size: int, height: int, width: int,
+                 dropout: float = 0.1):
         super().__init__()
         self.hidden_size = hidden_size
         self.dense0 = nn.Linear(hidden_size, hidden_size // 2)
+        self.dropout = nn.Dropout(dropout)
         self.dense1 = nn.Linear(hidden_size // 2, hidden_size * 2)
         self.register_buffer("h_pe", sinusoid_concat(height, hidden_size),
                              persistent=False)
@@ -49,7 +60,7 @@ class AdaptivePositionalEncoding2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, H, W, C] -> x + gated PE."""
-        g = torch.relu(self.dense0(x.mean(dim=(1, 2))))
+        g = self.dropout(torch.relu(self.dense0(x.mean(dim=(1, 2)))))
         g = torch.sigmoid(self.dense1(g)).reshape(-1, 2, self.hidden_size)
         pe = (g[:, 0, None, None, :] * self.h_pe[None, :, None, :]
               + g[:, 1, None, None, :] * self.w_pe[None, None, :, :])
@@ -61,25 +72,27 @@ class SATRNEncoderLayer(nn.Module):
     (LiteSATRN.py:213-263)."""
 
     def __init__(self, hidden_dim: int, filter_dim: int, head_num: int,
-                 scrambled_ff: bool = True):
+                 dropout: float = 0.1, scrambled_ff: bool = True):
         super().__init__()
         self.scrambled_ff = scrambled_ff
         self.norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)  # shared, see above
-        self.attention_layer = MultiHeadAttention(hidden_dim, hidden_dim, head_num)
+        self.attention_layer = MultiHeadAttention(hidden_dim, hidden_dim, head_num,
+                                                  dropout)
+        self.dropout = nn.Dropout(dropout)
         self.conv0 = nn.Conv2d(hidden_dim, filter_dim, 1, bias=False)
-        self.norm0 = nn.BatchNorm2d(filter_dim, eps=ENC_BN_EPS)
+        self.norm0 = BatchNorm2d(filter_dim, ENC_BN_EPS)
         self.depthwise = nn.Conv2d(filter_dim, filter_dim, 3, padding=1,
                                    groups=filter_dim)
-        self.depthwise_norm = nn.BatchNorm2d(filter_dim, eps=ENC_BN_EPS)
+        self.depthwise_norm = BatchNorm2d(filter_dim, ENC_BN_EPS)
         self.conv1 = nn.Conv2d(filter_dim, hidden_dim, 1, bias=False)
-        self.norm1 = nn.BatchNorm2d(hidden_dim, eps=ENC_BN_EPS)
+        self.norm1 = BatchNorm2d(hidden_dim, ENC_BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, H, W, C] -> [B, H, W, C]."""
         b, h, w, c = x.shape
         flat = x.reshape(b, h * w, c)
         y = self.norm(flat)
-        y = self.attention_layer(y, y, y)
+        y = self.dropout(self.attention_layer(y, y, y))
         y = self.norm(y + flat)
         if self.scrambled_ff:
             y2d = y.reshape(b, c, h, w)  # the reference's raw reshape
@@ -95,7 +108,7 @@ class SATRNEncoder(nn.Module):
     """EfficientNet stem + adaptive 2D PE + N layers -> [B, HW, C] memory."""
 
     def __init__(self, input_height: int, input_width: int, hidden_dim: int,
-                 filter_dim: int, head_num: int, layer_num: int,
+                 filter_dim: int, head_num: int, layer_num: int, dropout: float = 0.1,
                  in_chans: int = 3, scrambled_ff: bool = True,
                  backbone_stages: Any = None):
         super().__init__()
@@ -107,9 +120,9 @@ class SATRNEncoder(nn.Module):
             for row in backbone_stages:
                 stride *= row[2]
         self.positional_encoding = AdaptivePositionalEncoding2D(
-            hidden_dim, input_height // stride, input_width // stride)
+            hidden_dim, input_height // stride, input_width // stride, dropout)
         self.attention_layers = nn.ModuleList(
-            SATRNEncoderLayer(hidden_dim, filter_dim, head_num, scrambled_ff)
+            SATRNEncoderLayer(hidden_dim, filter_dim, head_num, dropout, scrambled_ff)
             for _ in range(layer_num)
         )
 
@@ -124,25 +137,26 @@ class SATRNEncoder(nn.Module):
 
 
 class SATRN(nn.Module):
-    """Encoder-decoder SATRN on the EfficientNetV2 backbone (inference)."""
+    """Encoder-decoder SATRN on the EfficientNetV2 backbone."""
 
     def __init__(self, num_classes: int, pad_id: int, sos_id: int,
                  input_height: int, input_width: int, enc_hidden_dim: int,
                  enc_filter_dim: int, enc_layer_num: int, enc_head_num: int,
                  dec_src_dim: int, dec_hidden_dim: int, dec_filter_dim: int,
-                 dec_layer_num: int, dec_head_num: int, in_chans: int = 3,
+                 dec_layer_num: int, dec_head_num: int, dropout: float = 0.1,
+                 in_chans: int = 3,
                  reference_parity: bool = True, backbone_stages: Any = None):
         super().__init__()
         self.num_classes, self.pad_id, self.sos_id = num_classes, pad_id, sos_id
         self.reference_parity = reference_parity
         self.encoder = SATRNEncoder(
             input_height, input_width, enc_hidden_dim, enc_filter_dim,
-            enc_head_num, enc_layer_num, in_chans, reference_parity,
+            enc_head_num, enc_layer_num, dropout, in_chans, reference_parity,
             backbone_stages,
         )
         self.decoder = TransformerDecoder(
             num_classes, dec_src_dim, dec_hidden_dim, dec_filter_dim,
-            dec_head_num, dec_layer_num, pad_id, sos_id,
+            dec_head_num, dec_layer_num, pad_id, sos_id, dropout,
             cache_outputs=reference_parity,
         )
 
@@ -152,6 +166,20 @@ class SATRN(nn.Module):
 
     def encode(self, images: torch.Tensor, plain: bool = False) -> torch.Tensor:
         return self.encoder(images, plain)
+
+    def forward(self, images: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced logits: standardized images [B, H, W, C], text
+        [B, L] -> [B, L, V]."""
+        return self.decoder(self.encode(images), text)
+
+    def precompute_src(self, src: torch.Tensor):
+        return self.decoder.precompute_src(src)
+
+    def init_decode_cache(self):
+        return self.decoder.init_cache()
+
+    def decode_step(self, token: torch.Tensor, pos: int, src_kv, cache) -> torch.Tensor:
+        return self.decoder.step(token, pos, src_kv, cache)
 
 
 def satrn_from_options(options, num_classes: int, pad_id: int, sos_id: int) -> SATRN:
@@ -167,7 +195,7 @@ def satrn_from_options(options, num_classes: int, pad_id: int, sos_id: int) -> S
         enc_layer_num=enc["layer_num"], enc_head_num=enc["head_num"],
         dec_src_dim=dec["src_dim"], dec_hidden_dim=dec["hidden_dim"],
         dec_filter_dim=dec["filter_dim"], dec_layer_num=dec["layer_num"],
-        dec_head_num=dec["head_num"],
+        dec_head_num=dec["head_num"], dropout=float(options["dropout_rate"]),
         in_chans=int((options.get("data") or {}).get("rgb", 3)),
         reference_parity=bool(tpu.get("reference_parity", True)),
         backbone_stages=None if stages is None else tuple(tuple(r) for r in stages),

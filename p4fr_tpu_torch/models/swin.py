@@ -17,8 +17,10 @@ exceeds the window (the 12x12 last stage has one window and no shift); the
 shift mask fills -100.0; PatchMerging concatenates ``[0::2, 0::2]``,
 ``[1::2, 0::2]``, ``[0::2, 1::2]``, ``[1::2, 1::2]`` and its Linear has no
 bias; the window attention scales by ``head_dim ** -0.5`` (the decoder by
-``sqrt(hidden)``); GELU is exact; every LayerNorm has eps 1e-5. Inference
-only: DropPath and dropout are the identity.
+``sqrt(hidden)``); GELU is exact; every LayerNorm has eps 1e-5. The
+encoder is for inference only: its DropPath and dropout are the identity
+(SwinTRN training is a later item). The decoder's dropout sites take the
+JAX module's rates (``dropout_rate``, the FF's pinned 0.1).
 """
 
 from __future__ import annotations
@@ -254,7 +256,7 @@ class SwinTRN(nn.Module):
     def __init__(self, num_classes: int, pad_id: int, sos_id: int,
                  input_height: int, input_width: int, dec_src_dim: int,
                  dec_hidden_dim: int, dec_filter_dim: int, dec_layer_num: int,
-                 dec_head_num: int, in_chans: int = 3,
+                 dec_head_num: int, dropout: float = 0.1, in_chans: int = 3,
                  reference_parity: bool = True, enc_embed_dim: int = 128,
                  enc_depths: Sequence[int] = (2, 2, 18, 2),
                  enc_num_heads: Sequence[int] = (4, 8, 16, 32),
@@ -267,7 +269,7 @@ class SwinTRN(nn.Module):
                                    ape=enc_ape)
         self.decoder = TransformerDecoder(
             num_classes, dec_src_dim, dec_hidden_dim, dec_filter_dim,
-            dec_head_num, dec_layer_num, pad_id, sos_id,
+            dec_head_num, dec_layer_num, pad_id, sos_id, dropout,
             cache_outputs=reference_parity, ff_naming="sequential")
 
     @property
@@ -298,7 +300,7 @@ def swin_from_options(options, num_classes: int, pad_id: int, sos_id: int) -> Sw
         input_width=options["input_size"]["width"],
         dec_src_dim=dec["src_dim"], dec_hidden_dim=dec["hidden_dim"],
         dec_filter_dim=dec["filter_dim"], dec_layer_num=dec["layer_num"],
-        dec_head_num=dec["head_num"],
+        dec_head_num=dec["head_num"], dropout=float(options["dropout_rate"]),
         in_chans=int((options.get("data") or {}).get("rgb", 3)),
         reference_parity=bool(tpu.get("reference_parity", True)), **enc,
     )

@@ -11,7 +11,9 @@ Reference semantics, kept so converted checkpoints reproduce outputs:
 
 Written as plain matmuls and a softmax, not
 ``scaled_dot_product_attention``, so the temperature quirk stays visible.
-Inference only: dropout is the identity.
+In train mode dropout (rate ``dropout``) falls on the attention
+probabilities and on the output, as in the JAX module; in eval mode both
+are the identity.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, q_dim: int, k_dim: int, head_num: int):
+    def __init__(self, q_dim: int, k_dim: int, head_num: int,
+                 dropout: float = 0.1):
         super().__init__()
         self.head_num = head_num
         self.head_dim = q_dim // head_num
@@ -41,6 +44,8 @@ class MultiHeadAttention(nn.Module):
         self.k_linear = nn.Linear(k_dim, inner)
         self.v_linear = nn.Linear(k_dim, inner)
         self.out_linear = nn.Linear(inner, q_dim)
+        self.attn_dropout = nn.Dropout(dropout)
+        self.out_dropout = nn.Dropout(dropout)
         # reference quirk: temperature is sqrt(model dim)
         self.temperature = float(inner) ** 0.5
 
@@ -48,17 +53,27 @@ class MultiHeadAttention(nn.Module):
         b, n, _ = x.shape
         return x.reshape(b, n, self.head_num, self.head_dim)
 
+    def project_q(self, q_in: torch.Tensor) -> torch.Tensor:
+        """[B, Lq, q_dim] -> [B, Lq, h, dh]."""
+        return self._split_heads(self.q_linear(q_in))
+
+    def project_kv(self, kv_in: torch.Tensor):
+        """[B, Lk, k_dim] -> ([B, Lk, h, dh], [B, Lk, h, dh])."""
+        return (self._split_heads(self.k_linear(kv_in)),
+                self._split_heads(self.v_linear(kv_in)))
+
     def attend(self, q, k, v, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """q [B,Lq,h,dh], k/v [B,Lk,h,dh], mask broadcastable to
         [B,h,Lq,Lk] (True = banned) -> [B, Lq, q_dim]."""
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / self.temperature
-        probs = masked_softmax(scores, mask)
+        probs = self.attn_dropout(masked_softmax(scores, mask))
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         b, lq = out.shape[:2]
-        return self.out_linear(out.reshape(b, lq, self.head_num * self.head_dim))
+        out = self.out_linear(out.reshape(b, lq, self.head_num * self.head_dim))
+        return self.out_dropout(out)
 
     def forward(self, q_in, k_in, v_in, mask: Optional[torch.Tensor] = None):
-        q = self._split_heads(self.q_linear(q_in))
+        q = self.project_q(q_in)
         k = self._split_heads(self.k_linear(k_in))
         v = self._split_heads(self.v_linear(v_in))
         if mask is not None:

@@ -1,0 +1,242 @@
+"""Training and validation steps, port of ``p4fr_tpu/train/steps.py``.
+
+- loss: cross-entropy of ``logits[:, t]`` against ``text[:, t+1]``, pad
+  targets ignored, the mean over the rest, in f32;
+- per batch the trainer flips a coin against the teacher-forcing ratio and
+  runs EITHER the teacher-forced pass over ``text[:, :-1]`` OR the
+  AR-sampled pass (argmax feedback, gradients through the cached layer
+  outputs; the argmax token carries none) over ``L - 1`` steps;
+- the optimizer clips by global norm as optax does (``max_norm / norm``
+  only where ``norm >= max_norm``, no epsilon), per parameter group, and
+  reads each group's learning rate (and Adam's beta1) from its schedule at
+  the number of updates made so far, before the update.
+
+Training runs through the plain modules (cuDNN and cuBLAS on the card); the
+compute type is ``torch.autocast`` over the forward, with f32 master
+weights, f32 optimizer state and the loss in f32. Validation
+(``make_eval_step``) runs the model in eval mode: the encoder through
+kernel 2 and each AR step through kernel 3 (``decoding.fast_step``) over
+fused weights read from the current parameters, or every kernel's plain
+version with ``plain=True``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from p4fr_tpu_torch.decoding.fast_step import (
+    FastDecoder,
+    build_fast_decoder,
+    decode_buffers,
+    fast_decode_step,
+)
+from p4fr_tpu_torch.ops.decoder_layer import LayerWeights
+from p4fr_tpu_torch.train.schedules import Schedule
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def autocast(device: torch.device, dtype: torch.dtype):
+    """The forward's compute type: autocast for bf16, nothing for f32."""
+    return torch.autocast(device.type, dtype=dtype,
+                          enabled=dtype != torch.float32)
+
+
+def cross_entropy_ignore_pad(logits: torch.Tensor, targets: torch.Tensor,
+                             pad_id: int) -> torch.Tensor:
+    """Mean CE over non-pad targets. logits [B, L, V], targets [B, L]."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    valid = (targets != pad_id).float()
+    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def teacher_forced_logits(model, images: torch.Tensor, text_in: torch.Tensor
+                          ) -> torch.Tensor:
+    return model(images, text_in)
+
+
+def ar_sampled_logits(model, images: torch.Tensor, num_steps: int,
+                      picks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The AR pass with argmax feedback over the module's own step ->
+    logits [B, num_steps, V]; differentiable through every step's cached
+    layer outputs. ``picks`` [B, >= num_steps - 1] replays another run's
+    argmax picks in place of this run's (a pick carries no gradient), so
+    that two devices differentiate one graph."""
+    src = model.encode(images)
+    src_kv = model.precompute_src(src)
+    cache = model.init_decode_cache()
+    token = torch.full((images.shape[0],), model.sos_id, dtype=torch.int64,
+                       device=images.device)
+    logits = []
+    for t in range(num_steps):
+        step_logits = model.decode_step(token, t, src_kv, cache)
+        logits.append(step_logits)
+        token = step_logits.argmax(dim=-1) if picks is None else picks[:, t]
+    return torch.stack(logits, dim=1)
+
+
+class ScheduledOptimizer:
+    """A torch optimizer whose groups each carry a learning-rate schedule
+    (and, for Adam, an optional beta1 schedule), clipped per group by
+    global norm as optax's ``clip_by_global_norm``.
+
+    ``state_dict`` gives the reference checkpoint's ``optimizer`` (the
+    torch optimizer's state dict) and ``scheduler`` (the update count the
+    schedules read) entries."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 schedules: Sequence[Schedule],
+                 b1_schedules: Optional[Sequence[Optional[Schedule]]] = None,
+                 max_grad_norm: Optional[float] = None):
+        if len(schedules) != len(optimizer.param_groups):
+            raise ValueError("one schedule per parameter group")
+        self.optimizer = optimizer
+        self.schedules = list(schedules)
+        self.b1_schedules = list(b1_schedules or [None] * len(schedules))
+        self.max_grad_norm = max_grad_norm
+        self.count = 0  # updates made so far
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def lr(self, group: int = 0) -> float:
+        """Group ``group``'s learning rate for the next update."""
+        return self.schedules[group](self.count)
+
+    def step(self) -> torch.Tensor:
+        """Clip, set each group's hyperparameters, update -> the global norm
+        of the gradients before clipping (f32 scalar tensor)."""
+        sq_norms = []
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:  # optax updates every leaf, with a zero grad
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in group["params"]]
+            norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+            sq_norms.append(norm.square())
+            if self.max_grad_norm is not None:
+                # optax: select(norm < max, g, (g / norm) * max)
+                keep = norm < self.max_grad_norm
+                one = torch.ones_like(norm)
+                torch._foreach_div_(grads, torch.where(keep, one, norm))
+                torch._foreach_mul_(grads, torch.where(
+                    keep, one, torch.full_like(norm, self.max_grad_norm)))
+        for group, schedule, b1 in zip(self.optimizer.param_groups,
+                                       self.schedules, self.b1_schedules):
+            group["lr"] = schedule(self.count)
+            if b1 is not None:
+                group["betas"] = (b1(self.count), group["betas"][1])
+        self.optimizer.step()
+        self.count += 1
+        return torch.stack(sq_norms).sum().sqrt()
+
+    def state_dict(self):
+        return {"optimizer": self.optimizer.state_dict(),
+                "scheduler": {"step": self.count}}
+
+    def load_state_dict(self, optimizer_state, scheduler_state) -> None:
+        self.optimizer.load_state_dict(optimizer_state)
+        self.count = int(scheduler_state["step"])
+
+
+def build_optimizer(name: str, params, schedule: Schedule, *,
+                    weight_decay: float = 0.0,
+                    max_grad_norm: Optional[float] = None,
+                    b1_schedule: Optional[Schedule] = None) -> ScheduledOptimizer:
+    """Adam (no weight decay, as the reference's), AdamW (decoupled decay)
+    or Adadelta (decay added to the gradient before the update, where
+    optax's ``add_decayed_weights`` adds it and where ``torch.optim.
+    Adadelta`` does) over one parameter group. ``b1_schedule`` rewrites
+    Adam's beta1 every step (circular momentum); Adadelta has no betas and
+    ignores it, as the JAX package does."""
+    params = list(params)
+    name = name.lower()
+    if name == "adam":
+        opt = torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+    elif name == "adamw":
+        opt = torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=weight_decay)
+    elif name == "adadelta":
+        opt = torch.optim.Adadelta(params, lr=0.0, rho=0.9, eps=1e-6,
+                                   weight_decay=weight_decay)
+        b1_schedule = None
+    else:
+        raise NotImplementedError(f"optimizer {name}")
+    return ScheduledOptimizer(opt, [schedule], [b1_schedule], max_grad_norm)
+
+
+def make_train_step(model, optimizer: ScheduledOptimizer, pad_id: int, *,
+                    compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """-> ``train_step(images, text, teacher_forced)`` -> (metrics
+    {"loss", "grad_norm"} as f32 scalar tensors, argmax sequences
+    [B, L-1]). ``images`` [B, H, W, C] standardized; ``text`` [B, L]
+    ``<SOS> ... <EOS> <PAD>*``; the model's parameters and BatchNorm
+    statistics are updated in place."""
+
+    def train_step(images: torch.Tensor, text: torch.Tensor,
+                   teacher_forced: bool = True):
+        model.train()
+        with autocast(images.device, compute_dtype):
+            if teacher_forced:
+                logits = teacher_forced_logits(model, images, text[:, :-1])
+            else:
+                logits = ar_sampled_logits(model, images, text.shape[1] - 1)
+        loss = cross_entropy_ignore_pad(logits, text[:, 1:], pad_id)
+        optimizer.zero_grad()
+        loss.backward()
+        grad_norm = optimizer.step()
+        sequences = logits.detach().argmax(dim=-1)
+        return {"loss": loss.detach(), "grad_norm": grad_norm}, sequences
+
+    return train_step
+
+
+def cast_fast_decoder(fast: FastDecoder, dtype: torch.dtype) -> FastDecoder:
+    """The fused weights in ``dtype`` (validation in the compute type)."""
+    return fast._replace(
+        embed_scaled=fast.embed_scaled.to(dtype),
+        pos_encoding=fast.pos_encoding.to(dtype),
+        layers=tuple(LayerWeights(*(t.to(dtype) for t in layer))
+                     for layer in fast.layers),
+        w_gen=fast.w_gen.to(dtype), b_gen=fast.b_gen.to(dtype))
+
+
+def make_eval_step(model, pad_id: int, *, plain: bool = False,
+                   compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """-> ``eval_step(images, text)`` -> (loss, sequences [B, L-1], logits
+    [B, L-1, V] f32): greedy over ``L - 1`` steps without the manager, in
+    eval mode, and the CE of its logits.
+
+    The fused decoder weights are read here, once: make the step again
+    after the parameters change (the trainer does, at every validation).
+    The encoder's kernel-2 operands re-fold by themselves
+    (``MBConv.folded``)."""
+    fast = cast_fast_decoder(build_fast_decoder(model), compute_dtype)
+
+    @torch.no_grad()
+    def eval_step(images: torch.Tensor, text: torch.Tensor):
+        was_training = model.training
+        model.eval()
+        try:
+            with autocast(images.device, compute_dtype):
+                src = model.encode(images, plain=plain)
+            steps = text.shape[1] - 1
+            cross_kv, cache = decode_buffers(fast, src, steps)
+            token = torch.full((images.shape[0],), model.sos_id,
+                               dtype=torch.int64, device=images.device)
+            logits = []
+            for t in range(steps):
+                step_logits = fast_decode_step(fast, token, t, cross_kv, cache,
+                                               plain=plain)
+                logits.append(step_logits)
+                token = step_logits.argmax(dim=-1)
+        finally:
+            model.train(was_training)
+        logits = torch.stack(logits, dim=1)
+        loss = cross_entropy_ignore_pad(logits, text[:, 1:], pad_id)
+        return loss, logits.argmax(dim=-1), logits
+
+    return eval_step

@@ -289,15 +289,25 @@ def test_port_data_files_equal_the_jax_packages(port, jax_pkg):
 
 
 ISOLATED = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, importlib.machinery, pkgutil, sys
 
-REFUSED = ("jax", "jaxlib", "flax", "p4fr_tpu", "cv2", "PIL", "pandas")
+REFUSED = ("jax", "jaxlib", "flax", "p4fr_tpu", "cv2", "PIL", "pandas", "yaml",
+           "wandb")
 
-class Refuse(importlib.abc.MetaPathFinder):
+# an import of a refused name fails; a probe for it (find_spec, as
+# torch.optim's dynamo import makes for pandas) finds a spec, imports nothing
+class Refuse(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in REFUSED:
-            raise ImportError(f"{name} is refused in the isolated port")
+            return importlib.machinery.ModuleSpec(name, self)
         return None
+
+    def create_module(self, spec):
+        return None
+
+    def exec_module(self, module):
+        raise ImportError(f"{module.__name__} is refused in the isolated port")
 
 sys.meta_path.insert(0, Refuse())
 
@@ -347,6 +357,26 @@ images = torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8)
 greedy = decode_images(model, fast, images, tables, 4)
 fused = decode_images(model, fast, images, tables, 4, kernel="fused")
 assert greedy.shape == fused.shape == (2, 4)
+
+from p4fr_tpu_torch.train.schedules import cosine_warmup_restarts
+from p4fr_tpu_torch.train.steps import build_optimizer, make_eval_step, make_train_step
+from p4fr_tpu_torch.utils.checkpoint import save_checkpoint
+
+model = get_network("EfficientSATRN", configs, vocab).train()
+opt = build_optimizer("adamw", model.parameters(), cosine_warmup_restarts(5e-4, 10),
+                      weight_decay=1e-6, max_grad_norm=2.0)
+step = make_train_step(model, opt, vocab.pad_id)
+text = torch.full((2, 6), vocab.pad_id)
+text[:, 0], text[:, 1:4], text[:, 4] = vocab.sos_id, 5, vocab.eos_id
+images = torch.randn(2, 64, 128, 3)
+for teacher_forced in (True, False):
+    metrics, seq = step(images, text, teacher_forced)
+    assert seq.shape == (2, 5) and bool(torch.isfinite(metrics["loss"]))
+loss, seq, logits = make_eval_step(model, vocab.pad_id)(images, text)
+path = save_checkpoint(%(pth)r, model, network="EfficientSATRN", configs=configs,
+                       vocab=vocab, epoch=1, train_state=opt.state_dict())
+model, _, vocab, ckpt = load_model_from_checkpoint(path, device="cpu")
+assert ckpt["scheduler"] == {"step": 2}
 assert not [k for k in sys.modules if k.split(".")[0] in REFUSED]
 print("ok")
 """
@@ -362,7 +392,10 @@ def test_port_imports_no_jax(tmp_path):
     greedy path and the v3
     step's replay pick kernel 3's path's tokens; then a tiny SwinTRN (heads
     of 64 in its decoder) saves, loads and decodes 4 greedy steps both
-    ways."""
+    ways; and the training path (the train modules import with yaml and
+    wandb refused too): a teacher-forced and an AR-sampled AdamW step, a
+    validation step and a ``.pth`` with the trainer's state, saved and
+    loaded."""
     shutil.copytree(os.path.join(REPO, "p4fr_tpu_torch"),
                     tmp_path / "p4fr_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
