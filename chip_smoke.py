@@ -13,16 +13,18 @@ with a non-zero exit and no result line:
    (against the twin computed in f32 on the same bf16 operands), each
    against a stated tolerance (kernel 2, the stride-1 MBConv blocks, at the
    flagship's four shapes on its cluster path, after printing each shape's
-   plan, C and launch A's resident clusters, and at EfficientASTER's stage
-   4 on its three-launch tiled path); the beam gather, a copy, exactly; the fused
+   plan, C and launch A's resident clusters, and at EfficientASTER's four
+   at B=8: stages 3 and 4 on its three-launch tiled path, stage 5 on the
+   cluster path); the beam gather, a copy, exactly (at the flagship's
+   [768, 231, 512] and SwinTRN beam's [96, 231, 1024]); the fused
    greedy step's picks and manager state exactly where its twin's top two
    allowed logits are further apart than the tolerance. The window
    attention runs at each Swin-B stage's shape at B=32, with and without
    the shift mask; the decoder-layer and fused steps also at SwinTRN's
    decoder shape (hidden 512, heads of 64, 4 layers, 144 source tokens),
    and the decoder-layer step (kernel 3, a thread-block cluster of C CTAs
-   per 4 rows) also at beam's 768 rows: one shape per cluster size that a
-   main path takes. Before the checks, each shape's cluster size, the
+   per 4 rows) also at beam's 768 rows and at SwinTRN beam's 96 rows
+   (heads of 64): one shape per cluster size that a main path takes. Before the checks, each shape's cluster size, the
    card's resident clusters of each size (``cudaOccupancyMaxActiveClusters``)
    and each kernel-3 instance's registers and local memory are printed,
    and the same for the fused step (kernel 6, also a cluster of C CTAs
@@ -80,6 +82,31 @@ with a non-zero exit and no result line:
    none of the plain one; replayed on its own tokens (``replay_logits(
    kv_quant=)``) the path picks them again, and its logits meet the plain
    path's replay with the same ``kv_quant``.
+3f. EfficientASTER greedy at full width (EfficientASTER.yaml: 256x1024 u8,
+   hidden 384, 2 decoder cells; B=32, 231 steps, manager on), f32, seeded
+   random weights saved as a reference-format .pth and loaded back with
+   strict=True: 1 launch of kernel 1, 14 of kernel 2's cluster form (stage
+   5) and 14 of its tiled form (stages 3-4), none of a decoder kernel (the
+   attention-LSTM step is plain torch, as in the JAX package); DeepCNN's
+   output (before the BiLSTM) meets the plain path's within
+   TOL_ASTER_FEATURES_F32 of its largest value, the encoder
+   memory meets the plain path's, and the path replayed on its tokens picks
+   them again with every step's logits within TOL_ASTER_LOGITS_F32 of the
+   plain path's. Whether cuDNN takes the BiLSTM in f32 and bf16 is printed.
+4b. EfficientASTER beam W=3, B=32 (the fused LSTM step, (h, c) reordered by
+   row), and 4c. SwinTRN beam W=3, B=32 (4 x 231 launches of kernel 3 at 96
+   rows and of kernel 4 over [96, 231, 1024], 24 of kernel 5): the replay
+   gate of phase 4.
+3g. EfficientSATRN greedy ``kernel="generic"`` (the module step), B=32:
+   no decoder-kernel launch; replayed on its tokens it picks them again,
+   and its logits meet the plain fast path's replay.
+3h. The ensemble of EfficientSATRN + EfficientASTER + SwinTRN, B=32, each
+   reading one seeded image batch resized to its own input size, manager
+   on, ``kernel="auto"``: 3 launches of kernel 1, 24 of kernel 5, (3 + 4) x
+   231 of kernel 3, none of kernel 6; replayed on its tokens it picks them
+   again, and its mean f32 probabilities meet the plain path's within
+   TOL_ENSEMBLE_PROBS_F32; a one-member ensemble (no manager) gives that
+   member's greedy tokens.
 5. Timing in bf16 (printed only): each kernel vs its twin and, where one
    PyTorch call computes the same function, that call (kernel 2 per shape:
    its plan, launch A and launch B, the block beside its bound, the
@@ -101,7 +128,13 @@ with a non-zero exit and no result line:
    the v1 and v3 greedy paths' images/s in turns with the others. Kernel
    3's int8 forms beside it, and greedy images/s with ``--kv_quant int8``
    and ``int8_cache`` in turns with the others; the int8 self cache's
-   bytes against the bf16 cache's.
+   bytes against the bf16 cache's. Kernel 2 per EfficientASTER shape at
+   B=256 (the tiled form on stages 3-4, the cluster form on stage 5),
+   kernel 3 at SwinTRN beam's 96 rows and kernel 4 at [96, 231, 1024], each
+   beside its bound; in turns with flagship greedy, images/s of
+   EfficientASTER greedy and beam (B=256), the SATRN+ASTER ensemble (B=256)
+   and the three-member ensemble (B=32 and B=256), with each ensemble
+   call's peak memory.
 6. One JSON line of per-kernel results (with each kernel's least time on
    the card, from this run's shapes), then the device line.
 7. Training EfficientSATRN at full width (run before the result lines;
@@ -192,6 +225,23 @@ SWIN_DECODER = dict(b=SWIN_BATCH, hidden=512, heads=8, filter_dim=512,
                     layers=4, s_len=144, fused_gate="fused_greedy_step_swin")
 # kernel 3 at beam's rows (B=256 x W=3): the flagship's decoder
 BEAM_DECODER = dict(SATRN_DECODER, b=E2E_TIME_BATCH * BEAM_WIDTH)
+# kernel 3 at SwinTRN beam's rows (B=32 x W=3), heads of 64
+SWIN_BEAM_DECODER = dict(SWIN_DECODER, b=SWIN_BATCH * BEAM_WIDTH)
+# the kernel-4 checks: (rows, features) of the flagship's beam cache at B=256
+# and of SwinTRN's at B=32
+GATHER_SHAPES = ((E2E_TIME_BATCH * BEAM_WIDTH, 512), (SWIN_BATCH * BEAM_WIDTH, 1024))
+
+# EfficientASTER.yaml's model values, written out
+ASTER_H, ASTER_W = 256, 1024
+ASTER_CONFIGS = {
+    "network": "EfficientASTER",
+    "input_size": {"height": ASTER_H, "width": ASTER_W},
+    "ASTER": {"src_dim": 384, "hidden_dim": 384, "embedding_dim": 384, "layer_num": 2},
+    "data": {"rgb": 3},
+    "dropout_rate": 0.1,
+    "tpu": {"compute_dtype": "bfloat16", "reference_parity": True},
+}
+ENSEMBLE_BATCH = 32  # the ensemble's gates
 
 # stride-1 MBConv shapes of the main path at B=256:
 # (name, H, W, Cin, Cout, expand, blocks on the path)
@@ -201,9 +251,16 @@ MBCONV_SHAPES = [
     ("stage4_tail", 16, 32, 160, 160, 6, 8),
     ("stage5_tail", 8, 16, 256, 256, 6, 14),
 ]
-# a shape whose expanded map no cluster holds (EfficientASTER's stage 4 at
-# 256x1024), checked on the tiled path at a small batch; no main path runs it
-MBCONV_TILED = ("aster_stage4", 16, 64, 160, 160, 6, 0)
+# EfficientASTER's stride-1 MBConv shapes at 256x1024, with the path the plan
+# gives each: stages 3 and 4 hold an expanded map no cluster of 16 holds (2-3.9
+# MB an image in f32) and take the three-launch tiled kernels; stage 5 takes
+# the cluster path. Checked at a small batch, timed at B=256.
+MBCONV_ASTER = [
+    ("aster_stage3_tail", 16, 64, 128, 128, 4, 5, "tiled"),
+    ("aster_stage4_head", 16, 64, 128, 160, 6, 1, "tiled"),
+    ("aster_stage4_tail", 16, 64, 160, 160, 6, 8, "tiled"),
+    ("aster_stage5_tail", 8, 32, 256, 256, 6, 14, "cluster"),
+]
 MBCONV_TILED_BATCH = 8
 
 # f32 tolerances: max |kernel - twin| <= atol + rtol * max |twin|
@@ -270,6 +327,26 @@ TOL_LOGP_F32 = 1e-3  # beam log-probs, f32, the same chain at B*W rows
 # logits of 4 x 231 layer steps fed from it; a wrong kernel is off by O(1)
 TOL_SWIN_MEMORY_F32 = 1e-3
 TOL_SWIN_LOGITS_F32 = 1e-3
+# EfficientASTER, f32: the memory after 28 blocks (14 of them on the tiled
+# path), the conv tail and two BiLSTM layers over 33 columns, in another
+# summation order on each path; then the logits of 231 attention-LSTM steps
+# fed from it (no kernel in the decoder: the two paths differ by the memory)
+TOL_ASTER_MEMORY_F32 = 1e-3
+TOL_ASTER_LOGITS_F32 = 1e-3
+# DeepCNN's output, before the BiLSTM, f32, relative to its largest |value|:
+# under random weights the BiLSTM squeezes the memory (max |memory| is
+# printed beside its gate), so a kernel-2 fault that moves the features by a
+# few percent may stay under the memory's 1e-3. The features are the direct
+# read: a sound kernel differs from the plain blocks in summation order only
+# (~1e-6 of their largest value after 28 blocks), a wrong one by O(1e-2)
+TOL_ASTER_FEATURES_F32 = 1e-4
+# the ensemble's mean probabilities, f32: a softmax moves by at most
+# 2 p |dlogit|. The members' sound logits meet their plain paths within
+# ~1e-6, and the largest mean probability of random weights is ~1.5e-2, so a
+# sound reading is ~3e-8 (9.3e-9 read on the H100, PERF.md, Findings); a
+# wrong kernel moves a member's logits by 0.1 or more, its probabilities by
+# ~1e-3. 1e-5 lies between.
+TOL_ENSEMBLE_PROBS_F32 = 1e-5
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -325,6 +402,24 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# twice the H100's 50 MB L2: operands rotated through sets that together
+# exceed it are read from HBM on each timed launch, as the path reads them
+COLD_L2_BYTES = 2 * 50 * 2**20
+
+
+def cold_sets(make, first, nbytes_per_set):
+    """[first, make(), ...]: enough operand sets that, taken in turn, each
+    launch finds its operands out of L2 (at least two)."""
+    count = max(2, -(-COLD_L2_BYTES // nbytes_per_set) + 1)
+    return [first] + [make() for _ in range(count - 1)]
+
+
+def rotating_ms(fn, sets, iters):
+    """``cuda_ms`` of ``fn(*set)`` over ``sets`` taken in turn."""
+    turn = iter(range(1 << 30))
+    return cuda_ms(lambda: fn(*sets[next(turn) % len(sets)]), iters=iters)
 
 
 def random_bn_stats(module, gen):
@@ -417,9 +512,10 @@ def check_kernels(dev, dtype, errors, seed=SEED):
     del images, got
 
     check_mbconv(dev, dtype, errors, misses, seed)
-    for shape in (SATRN_DECODER, SWIN_DECODER, BEAM_DECODER):
+    for shape in (SATRN_DECODER, SWIN_DECODER, BEAM_DECODER, SWIN_BEAM_DECODER):
         check_layer(dev, dtype, errors, misses, seed, shape)
-    check_beam_gather(dev, dtype, errors, misses, seed)
+    for rows, feat in GATHER_SHAPES:
+        check_beam_gather(dev, dtype, errors, misses, seed, rows, feat)
     for shape in (SATRN_DECODER, SWIN_DECODER):
         check_fused_step(dev, dtype, errors, misses, seed, shape)
     check_swin_attention(dev, dtype, errors, misses, seed)
@@ -453,14 +549,25 @@ def mbconv_report(dev):
                   f"{p.cluster}, slices of {p.width} channels, warps {p.warp_rows} along "
                   f"the pixels, {p.stages} x ring slots, {p.smem} bytes of shared memory; resident "
                   f"clusters {q[0]}; {q[1]} registers, {q[2]} bytes of local memory a thread")
+    for name, h, w, cin, cout, expand, _, path in MBCONV_ASTER:
+        for dt in (torch.float32, torch.bfloat16):
+            p = mbconv_plan(E2E_TIME_BATCH, h, w, cin, cin * expand, cout, dt,
+                            se_dim=cin // 4)
+            print(f"  EfficientASTER {name} {h}x{w} {cin}->{cin * expand}->{cout} "
+                  f"{str(dt)[6:]}: the {p.path} path"
+                  + (f", C={p.cluster}, {p.smem} bytes of shared memory"
+                     if p.path == "cluster" else ""))
+            if p.path != path:
+                raise AssertionError(f"kernel 2 at {name} takes the {p.path} path")
 
 
 def check_mbconv(dev, dtype, errors, misses, seed):
     """Kernel 2 vs its plain version (``mbconv_block_ref`` on the same
     operands, in f32) at the four stride-1 shapes of the flagship's encode,
-    B=256, on the cluster path, and at EfficientASTER's stage 4 (B=8) on the
-    tiled path; a per-image channel offset gives each image its own SE
-    gate. f32 within TOL_F32; bf16 by ``compare_bf16`` with
+    B=256, on the cluster path, and at EfficientASTER's four (B=8): stages 3
+    and 4 on the tiled path, stage 5 on the cluster path; a per-image
+    channel offset gives each image its own SE gate. f32 within TOL_F32
+    (``errors`` keeps the tiled path's apart, as ``mbconv_tiled``); bf16 by ``compare_bf16`` with
     ``BF16_ATOL["mbconv"]``, and on the cluster path launch A's gated
     operand by ``gated_share`` within ``BF16_GATED_SHARE["mbconv"]``. bf16
     returns the largest excess over the cast, the largest mean abs error
@@ -476,15 +583,16 @@ def check_mbconv(dev, dtype, errors, misses, seed):
 
     gen = torch.Generator().manual_seed(seed + 30)
     worst = {"excess": 0.0, "mean": 0.0, "share": 0.0}
-    for name, h, w, cin, cout, expand, _ in MBCONV_SHAPES + [MBCONV_TILED]:
-        b = KERNEL_BATCH if name != MBCONV_TILED[0] else MBCONV_TILED_BATCH
+    shapes = ([(*shape, "cluster", KERNEL_BATCH) for shape in MBCONV_SHAPES]
+              + [(*shape, MBCONV_TILED_BATCH) for shape in MBCONV_ASTER])
+    for name, h, w, cin, cout, expand, _, path, b in shapes:
         block = mbconv_block(cin, cout, expand, gen, dev)
         folded = fold_mbconv_params(block, dtype)
         x = (torch.randn(b, h, w, cin, generator=gen)
              + torch.randn(b, 1, 1, cin, generator=gen)).to(dev, dtype)
         res = cin == cout
         plan = block_plan(x, folded)
-        if plan.path != ("tiled" if name == MBCONV_TILED[0] else "cluster"):
+        if plan.path != path:
             raise AssertionError(f"mbconv {name}: the plan took the {plan.path} path")
         got = fused_mbconv(x, folded, residual=res)
         torch.cuda.synchronize()
@@ -492,8 +600,8 @@ def check_mbconv(dev, dtype, errors, misses, seed):
         tag = (f"mbconv {name} B={b} {h}x{w} {cin}->{cin * expand}->{cout} "
                f"({plan.path}{f', C={plan.cluster}' if plan.cluster else ''})")
         if dtype == torch.float32:
-            errors["mbconv"] = max(errors.get("mbconv", 0.0),
-                                   compare(tag, got, want, TOL_F32, misses))
+            key = "mbconv_tiled" if path == "tiled" else "mbconv"
+            errors[key] = max(errors.get(key, 0.0), compare(tag, got, want, TOL_F32, misses))
         else:
             excess, mean = compare_bf16(tag, got, want, BF16_ATOL["mbconv"], misses)
             worst["excess"] = max(worst["excess"], excess)
@@ -527,7 +635,8 @@ def cluster_report(dev):
     print("[kernel 3: cluster size per shape (C CTAs a group of 4 rows), resident "
           "clusters of C = 1/2/4/8/16, registers and local bytes a thread]")
     for label, shape in (("SwinTRN", SWIN_DECODER), ("flagship", SATRN_DECODER),
-                         ("beam rows", BEAM_DECODER)):
+                         ("beam rows", BEAM_DECODER),
+                         ("SwinTRN beam rows", SWIN_BEAM_DECODER)):
         hid, heads, ff = shape["hidden"], shape["heads"], shape["filter_dim"]
         for entry, form in FORMS.items():
             for dt in (torch.float32, torch.bfloat16):
@@ -539,7 +648,7 @@ def cluster_report(dev):
                       f"C={c}; resident clusters {[q[0] for q in per_c.values()]}; the "
                       f"launched instance {per_c[c][1]} registers, {per_c[c][2]} bytes of "
                       "local memory a thread")
-                if label != "beam rows" and c == 1:
+                if label in ("SwinTRN", "flagship") and c == 1:
                     raise AssertionError(f"kernel 3 at {label} B={shape['b']} launches "
                                          "no cluster")
     fused_cluster_report()
@@ -694,14 +803,15 @@ def gather_parents(kind, rows, dev, gen=None):
     return flat.to(dev)
 
 
-def check_beam_gather(dev, dtype, errors, misses, seed):
-    """Kernel 4 vs its plain version at the beam path's cache shape
-    [B*W, 231, 2H]: exact (it is a copy), slots past pos untouched."""
+def check_beam_gather(dev, dtype, errors, misses, seed, rows=E2E_TIME_BATCH * BEAM_WIDTH,
+                      feat=512):
+    """Kernel 4 vs its plain version at a beam path's cache shape
+    [B*W, 231, 2H] (the flagship's [768, 231, 512], SwinTRN's [96, 231,
+    1024]): exact (it is a copy), slots past pos untouched."""
     from p4fr_tpu_torch.ops.beam_gather import beam_parent_gather, beam_parent_gather_ref
 
-    rows = E2E_TIME_BATCH * BEAM_WIDTH
     gen = torch.Generator().manual_seed(seed + 10)
-    base = torch.randn(rows, STEPS, 512, generator=torch.Generator(
+    base = torch.randn(rows, STEPS, feat, generator=torch.Generator(
         device=dev).manual_seed(seed + 11), device=dev).to(dtype)
     worst = 0.0
     for kind in ("random", "identity", "one group"):
@@ -721,7 +831,7 @@ def check_beam_gather(dev, dtype, errors, misses, seed):
             if not ok:
                 misses.append(f"beam_gather {kind} pos={pos} not exact")
     if dtype == torch.float32:
-        errors["beam_gather"] = worst
+        errors["beam_gather"] = max(errors.get("beam_gather", 0.0), worst)
 
 
 # generator-bias raises that make the manager's bans decide picks: `}`
@@ -1381,59 +1491,16 @@ def check_launches(launches, want, at_least=("mbconv",)):
 
 
 def beam_path(ckpt, dev):
-    from p4fr_tpu_torch.decoding.beam import beam_search, best_tokens
-    from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder
-    from p4fr_tpu_torch.decoding.replay import replay_beam
-    from p4fr_tpu_torch.infer.single import beam_decode_images, encode_images
-    from p4fr_tpu_torch.ops import _build
-    from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
-
-    model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, torch.float32)
-    fast = build_fast_decoder(model)
-    gen = torch.Generator().manual_seed(SEED + 4)
-    images = torch.randint(0, 256, (E2E_CHECK_BATCH, 256, 512, 3), generator=gen,
-                           dtype=torch.uint8).to(dev)
+    """EfficientSATRN beam W=3 at B=32, f32: 3 x 231 launches of kernels 3
+    and 4, then the replay gate (``beam_gate``)."""
+    model, fast, _, vocab = load_path_model(ckpt, dev)
+    images = u8_images(torch.Generator().manual_seed(SEED + 4), E2E_CHECK_BATCH, 256, 512,
+                       dev)
     print(f"[beam path: EfficientSATRN beam W={BEAM_WIDTH}, B={E2E_CHECK_BATCH}, "
           f"256x512 u8, {STEPS} steps, f32, TF32 off]")
-    _build.reset_launches()
-    tokens = beam_decode_images(model, fast, images, STEPS, beam_width=BEAM_WIDTH,
-                                eos_id=vocab.eos_id)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    print(f"  launches {json.dumps(launches)}")
-    check_launches(launches, {"standardize": 1, "mbconv": 28,
-                              "decoder_layer": 3 * STEPS,
-                              "beam_gather": 3 * STEPS})
-    v = len(vocab)
-    if tokens.shape != (E2E_CHECK_BATCH, STEPS) or not bool(
-            ((tokens >= 0) & (tokens < v)).all()):
-        raise AssertionError(f"bad beam tokens {tuple(tokens.shape)}")
-
-    # the record of the same search, then both paths forced along it: the
-    # kernel path must pick it again, and its log-probs meet the plain path's
-    kw = dict(sos_id=model.sos_id, eos_id=vocab.eos_id, pad_id=model.pad_id)
-    src = encode_images(model, images)
-    trace = beam_search(fast, src, max_steps=STEPS, beam_width=BEAM_WIDTH, **kw)
-    if not torch.equal(best_tokens(trace), tokens):
-        raise AssertionError("a second beam search gave other tokens")
-    k_logp, k_tok, k_par = replay_beam(fast, src, trace.tokens, trace.parents, **kw)
-    p_logp, _, _ = replay_beam(fast, encode_images(model, images, plain=True),
-                               trace.tokens, trace.parents, plain=True, **kw)
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(k_logp).all()):
-        raise AssertionError("non-finite log-probs on the kernel path")
-    if not (torch.equal(k_tok, trace.tokens) and torch.equal(k_par, trace.parents)):
-        raise AssertionError("replaying the kernel path does not pick its record")
-    moved = (trace.parents != torch.arange(BEAM_WIDTH, device=dev)).float().mean()
-    errs = (k_logp - p_logp).abs().amax(dim=(1, 2))
-    worst, step = errs.max().item(), int(errs.argmax())
-    print(f"  replay: the kernel path picks its own {STEPS}-step record again; "
-          f"{moved.item():.4f} of the recorded parents are not the beam itself")
-    print(f"  log-probs [B*W, V] kernel vs plain (the record fed), {STEPS} steps: "
-          f"max_abs_err {worst:.3e} at step {step} (bound {TOL_LOGP_F32:.1e})")
-    if not worst <= TOL_LOGP_F32:
-        raise AssertionError("beam log-probs disagree with the plain path")
-    return launches
+    return beam_gate("EfficientSATRN", model, fast, images, vocab.eos_id, {
+        "standardize": 1, "mbconv": 28, "decoder_layer": 3 * STEPS,
+        "beam_gather": 3 * STEPS}, at_least=("mbconv",))
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -1687,6 +1754,316 @@ def kv_quant_path(ckpt, dev, kv_quant):
     agree = (decode_images(model, fast, images, tables, STEPS) == tokens).float().mean()
     print(f"  free-running token agreement with the unquantized kernel-3 path: "
           f"{agree.item():.4f} (not gated: int8 rounding and near-ties)")
+    return launches
+
+
+# ---------------------------------------------------------------- phases 3f, 4b, 4c
+
+def build_aster_checkpoint():
+    """EfficientASTER at EfficientASTER.yaml's full size, seeded random weights
+    and BatchNorm statistics, as a reference-format .pth."""
+    from p4fr_tpu_torch.data.vocab import TOKENS_PATH, Vocab
+    from p4fr_tpu_torch.models.registry import get_network
+    from p4fr_tpu_torch.utils.checkpoint import save_checkpoint
+
+    vocab = Vocab.from_files([TOKENS_PATH])
+    torch.manual_seed(SEED + 20)
+    model = get_network("EfficientASTER", ASTER_CONFIGS, vocab)
+    random_bn_stats(model, torch.Generator().manual_seed(SEED + 21))
+    path_dir = os.path.join(REPO, "build", "p4fr_tpu_torch", "smoke")
+    os.makedirs(path_dir, exist_ok=True)
+    path = os.path.join(path_dir, "EfficientASTER_seed20.pth")
+    save_checkpoint(path, model, network="EfficientASTER", configs=ASTER_CONFIGS,
+                    vocab=vocab)
+    return path
+
+
+def load_path_model(ckpt, dev, dtype=torch.float32):
+    """(model, ``build_fast(model)``, the manager's tables, vocab) from a
+    ``.pth`` loaded with strict=True."""
+    from p4fr_tpu_torch.decoding.manager import RuleTables
+    from p4fr_tpu_torch.infer.single import build_fast
+    from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
+
+    model, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, dtype)
+    return model, build_fast(model), RuleTables.build(vocab, dev), vocab
+
+
+def u8_images(gen, b, h, w, dev):
+    return torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8).to(dev)
+
+
+# the launches of one EfficientASTER encode: kernel 1, kernel 2 on stage 5's
+# 14 stride-1 blocks (cluster path) and on stages 3 and 4's 14 (tiled path)
+ASTER_ENCODE = {"standardize": 1, "mbconv": 14, "mbconv_tiled": 14}
+
+
+def memory_gate(label, mem_k, mem_p, want_shape, tol):
+    if tuple(mem_k.shape) != want_shape or not bool(torch.isfinite(mem_k).all()):
+        raise AssertionError(f"bad {label} memory {tuple(mem_k.shape)}")
+    err = (mem_k - mem_p).abs().max().item()
+    print(f"  encoder memory {list(mem_k.shape)} kernel vs plain: max_abs_err {err:.3e} "
+          f"(bound {tol:.1e}); max |memory| {mem_p.abs().max().item():.3e}")
+    if not err <= tol:
+        raise AssertionError(f"{label} encoder memory disagrees with the plain path")
+
+
+def aster_path(ckpt, dev):
+    """EfficientASTER greedy (the fused LSTM step) at B=32, f32, manager on:
+    launch counts (kernel 1 once, kernel 2's cluster and tiled forms 14
+    times each, no decoder kernel), the encoder memory against the plain
+    path's, then a replay gate."""
+    from p4fr_tpu_torch.decoding.replay import replay_aster
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
+
+    model, fast, tables, _ = load_path_model(ckpt, dev)
+    images = u8_images(torch.Generator().manual_seed(SEED + 22), E2E_CHECK_BATCH, ASTER_H,
+                       ASTER_W, dev)
+    print(f"[EfficientASTER path: greedy (fused LSTM step), B={E2E_CHECK_BATCH}, "
+          f"{ASTER_H}x{ASTER_W} u8, hidden 384, 2 decoder cells, {STEPS} steps, manager "
+          f"on, f32, TF32 off]")
+    lstm_route(model.encoder.blstm, dev)
+    _build.reset_launches()
+    tokens = decode_images(model, fast, images, tables, STEPS)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches {json.dumps(launches)}")
+    check_launches(launches, ASTER_ENCODE, at_least=())
+    if tokens.shape != (E2E_CHECK_BATCH, STEPS) or not bool(
+            ((tokens >= 0) & (tokens < model.num_classes)).all()):
+        raise AssertionError(f"bad EfficientASTER tokens {tuple(tokens.shape)}")
+    features = []  # DeepCNN's output on each path, read before the BiLSTM
+    hook = model.encoder.cnn.register_forward_hook(lambda m, i, out: features.append(out))
+    mem_k, mem_p = (encode_images(model, images, plain=plain) for plain in (False, True))
+    hook.remove()
+    torch.cuda.synchronize()
+    feat_k, feat_p = features
+    err, peak = (feat_k - feat_p).abs().max().item(), feat_p.abs().max().item()
+    print(f"  DeepCNN features {list(feat_k.shape)} kernel vs plain: max_abs_err "
+          f"{err:.3e}, max |features| {peak:.3e}, relative {err / peak:.3e} (bound "
+          f"{TOL_ASTER_FEATURES_F32:.1e})")
+    if tuple(feat_k.shape) != (E2E_CHECK_BATCH, 33, 384) or not err <= (
+            TOL_ASTER_FEATURES_F32 * peak):
+        raise AssertionError("EfficientASTER's DeepCNN features disagree with the plain path")
+    memory_gate("EfficientASTER", mem_k, mem_p, (E2E_CHECK_BATCH, 33, 384),
+                TOL_ASTER_MEMORY_F32)
+    k_logits, k_picks = replay_aster(fast, mem_k, tokens, sos_id=model.sos_id,
+                                     tables=tables)
+    p_logits, _ = replay_aster(fast, mem_p, tokens, sos_id=model.sos_id, tables=tables)
+    torch.cuda.synchronize()
+    replay_gate("EfficientASTER", k_logits, k_picks, tokens, p_logits,
+                tol=TOL_ASTER_LOGITS_F32)
+    print(f"  {len(torch.unique(tokens))} distinct tokens")
+    return launches
+
+
+def lstm_route(blstm, dev):
+    """Which kernels run the BiLSTM on the card, per type: the three with
+    the most device time in one call on a [32, 33, 384] input (cuDNN's RNN
+    kernels, or PyTorch's own cell loop)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for dt in (torch.float32, torch.bfloat16):
+        lstm = copy.deepcopy(blstm).to(dt)
+        x = torch.randn(E2E_CHECK_BATCH, 33, 384, device=dev, dtype=dt)
+        lstm(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            lstm(x)
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)[:3]
+        print(f"  BiLSTM {str(dt)[6:]}: top device kernels "
+              + "; ".join(f"{e.key[:70]} x{e.count}" for e in kernels))
+        del lstm, x
+
+
+def beam_gate(label, model, fast, images, eos_id, want, at_least=()):
+    """Beam W=3 of ``images`` through ``fast``'s branch (``beam_decode_images``):
+    launch counts ``want``, then the replay gate: the kernel path, forced
+    along its own record of tokens and parents, picks it again, and its
+    per-step log-probs meet the plain path's within TOL_LOGP_F32."""
+    from p4fr_tpu_torch.decoding.beam import beam_search, best_tokens
+    from p4fr_tpu_torch.decoding.replay import replay_beam
+    from p4fr_tpu_torch.infer.single import beam_decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
+
+    dev = images.device
+    _build.reset_launches()
+    tokens = beam_decode_images(model, fast, images, STEPS, beam_width=BEAM_WIDTH,
+                                eos_id=eos_id)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches {json.dumps(launches)}")
+    check_launches(launches, want, at_least)
+    if tokens.shape != (images.shape[0], STEPS) or not bool(
+            ((tokens >= 0) & (tokens < model.num_classes)).all()):
+        raise AssertionError(f"bad {label} beam tokens {tuple(tokens.shape)}")
+
+    # the record of the same search, then both paths forced along it: the
+    # kernel path must pick it again, and its log-probs meet the plain path's
+    kw = dict(sos_id=model.sos_id, eos_id=eos_id, pad_id=model.pad_id)
+    src = encode_images(model, images)
+    trace = beam_search(fast, src, max_steps=STEPS, beam_width=BEAM_WIDTH, **kw)
+    if not torch.equal(best_tokens(trace), tokens):
+        raise AssertionError(f"a second {label} beam search gave other tokens")
+    k_logp, k_tok, k_par = replay_beam(fast, src, trace.tokens, trace.parents, **kw)
+    p_logp, _, _ = replay_beam(fast, encode_images(model, images, plain=True),
+                               trace.tokens, trace.parents, plain=True, **kw)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(k_logp).all()):
+        raise AssertionError(f"non-finite log-probs on the {label} kernel path")
+    if not (torch.equal(k_tok, trace.tokens) and torch.equal(k_par, trace.parents)):
+        raise AssertionError(f"replaying the {label} kernel path does not pick its record")
+    moved = (trace.parents != torch.arange(BEAM_WIDTH, device=dev)).float().mean()
+    errs = (k_logp - p_logp).abs().amax(dim=(1, 2))
+    worst, step = errs.max().item(), int(errs.argmax())
+    print(f"  replay: the kernel path picks its own {STEPS}-step record again; "
+          f"{moved.item():.4f} of the recorded parents are not the beam itself")
+    print(f"  log-probs [B*W, V] kernel vs plain (the record fed), {STEPS} steps: "
+          f"max_abs_err {worst:.3e} at step {step} (bound {TOL_LOGP_F32:.1e})")
+    if not worst <= TOL_LOGP_F32:
+        raise AssertionError(f"{label} beam log-probs disagree with the plain path")
+    return launches
+
+
+def aster_beam_path(ckpt, dev):
+    """EfficientASTER beam W=3 at B=32, f32 (the fused LSTM step, its (h, c)
+    reordered by index_select): launch counts and the replay gate."""
+    model, fast, _, vocab = load_path_model(ckpt, dev)
+    images = u8_images(torch.Generator().manual_seed(SEED + 23), E2E_CHECK_BATCH, ASTER_H,
+                       ASTER_W, dev)
+    print(f"[EfficientASTER beam path: W={BEAM_WIDTH}, B={E2E_CHECK_BATCH}, "
+          f"{ASTER_H}x{ASTER_W} u8, {STEPS} steps, f32, TF32 off]")
+    return beam_gate("EfficientASTER", model, fast, images, vocab.eos_id, ASTER_ENCODE)
+
+
+def swin_beam_path(ckpt, dev):
+    """SwinTRN beam W=3 at B=32, f32: kernel 3 at 96 rows (heads of 64) and
+    kernel 4 over [96, 231, 1024] caches, 4 x 231 launches each, 24 of
+    kernel 5; the replay gate."""
+    model, fast, _, vocab = load_path_model(ckpt, dev)
+    images = u8_images(torch.Generator().manual_seed(SEED + 24), SWIN_BATCH, SWIN_SIZE,
+                       SWIN_SIZE, dev)
+    print(f"[SwinTRN beam path: W={BEAM_WIDTH}, B={SWIN_BATCH}, {SWIN_SIZE}x{SWIN_SIZE} "
+          f"u8, {STEPS} steps, f32, TF32 off]")
+    layers = SWIN_DECODER["layers"]
+    return beam_gate("SwinTRN", model, fast, images, vocab.eos_id, {
+        "standardize": 1, "swin_attention": sum(st[1] for st in SWIN_STAGES),
+        "decoder_layer": layers * STEPS, "beam_gather": layers * STEPS})
+
+
+# ---------------------------------------------------------------- phases 3g, 3h
+
+def generic_path(ckpt, dev):
+    """EfficientSATRN greedy ``--kernel generic`` (the module step) at B=32,
+    f32, manager on: no decoder kernel launches; replayed on its tokens it
+    picks them again, and its logits meet the plain fast path's replay."""
+    from p4fr_tpu_torch.decoding.replay import replay_generic, replay_logits
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
+
+    model, fast, tables, images = path_images(ckpt, dev)
+    print(f"[generic path: EfficientSATRN greedy --kernel generic, B={E2E_CHECK_BATCH}, "
+          f"256x512 u8, {STEPS} steps, manager on, f32, TF32 off]")
+    _build.reset_launches()
+    tokens = decode_images(model, fast, images, tables, STEPS, kernel="generic")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches {json.dumps(launches)}")
+    check_launches(launches, {"standardize": 1, "mbconv": 28})
+    if tokens.shape != (E2E_CHECK_BATCH, STEPS) or not bool(
+            ((tokens >= 0) & (tokens < model.num_classes)).all()):
+        raise AssertionError(f"bad generic tokens {tuple(tokens.shape)}")
+    k_logits, k_picks = replay_generic(model, encode_images(model, images), tokens,
+                                       sos_id=model.sos_id, tables=tables)
+    p_logits, _ = replay_logits(fast, encode_images(model, images, plain=True), tokens,
+                                sos_id=model.sos_id, tables=tables, plain=True)
+    torch.cuda.synchronize()
+    replay_gate("generic", k_logits, k_picks, tokens, p_logits)
+    return launches
+
+
+ENSEMBLE_SIZES = ((256, 512), (ASTER_H, ASTER_W), (SWIN_SIZE, SWIN_SIZE))
+
+
+def ensemble_images(gen, b, sizes, dev):
+    """One seeded u8 batch, resized (bilinear, rounded) to each member's
+    input size: the same images at every member's resolution."""
+    base = torch.randint(0, 256, (b, 3, ASTER_H, ASTER_W), generator=gen,
+                         dtype=torch.uint8).to(dev)
+    return [torch.nn.functional.interpolate(base.float(), size=hw, mode="bilinear",
+                                            align_corners=False)
+            .round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+            for hw in sizes]
+
+
+def ensemble_path(ckpts, dev):
+    """The ensemble of EfficientSATRN + EfficientASTER + SwinTRN at B=32,
+    f32, manager on, kernel "auto": launch counts (kernel 1 three times,
+    kernel 5 24 times, kernel 3 (3 + 4) x 231 times, no kernel 6); the
+    replay gate on the mean probabilities; and a one-member ensemble's
+    tokens equal that member's greedy tokens."""
+    from p4fr_tpu_torch.decoding.replay import replay_ensemble
+    from p4fr_tpu_torch.infer.ensemble import ensemble_decode
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
+
+    loaded = [load_path_model(ckpt, dev) for ckpt in ckpts]
+    members = [(model, fast) for model, fast, _, _ in loaded]
+    tables = loaded[0][2]
+    images = ensemble_images(torch.Generator().manual_seed(SEED + 25), ENSEMBLE_BATCH,
+                             ENSEMBLE_SIZES, dev)
+    print(f"[ensemble path: EfficientSATRN + EfficientASTER + SwinTRN, B={ENSEMBLE_BATCH}, "
+          f"each at its own input size, {STEPS} steps, manager on, kernel auto, f32, TF32 "
+          "off]")
+    _build.reset_launches()
+    memories = [encode_images(model, im) for (model, _), im in zip(members, images)]
+    tokens = ensemble_decode(members, memories, max_steps=STEPS, tables=tables)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches {json.dumps(launches)}")
+    check_launches(launches, {
+        "standardize": 3, "mbconv": 28 + ASTER_ENCODE["mbconv"],
+        "mbconv_tiled": ASTER_ENCODE["mbconv_tiled"],
+        "swin_attention": sum(st[1] for st in SWIN_STAGES),
+        "decoder_layer": (CONFIGS["SATRN"]["decoder"]["layer_num"]
+                          + SWIN_CONFIGS["SATRN"]["decoder"]["layer_num"]) * STEPS})
+    if tokens.shape != (ENSEMBLE_BATCH, STEPS) or not bool(
+            ((tokens >= 0) & (tokens < members[0][0].num_classes)).all()):
+        raise AssertionError(f"bad ensemble tokens {tuple(tokens.shape)}")
+    mem_p = [encode_images(model, im, plain=True) for (model, _), im in zip(members, images)]
+    k_probs, k_picks = replay_ensemble(members, memories, tokens, sos_id=tables.sos_id,
+                                       tables=tables)
+    p_probs, _ = replay_ensemble(members, mem_p, tokens, sos_id=tables.sos_id,
+                                 tables=tables, plain=True)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(k_probs).all()):
+        raise AssertionError("non-finite probabilities on the ensemble's kernel path")
+    if not torch.equal(k_picks, tokens):
+        raise AssertionError("replaying the ensemble's kernel path does not pick its tokens")
+    errs = (k_probs - p_probs).abs().amax(dim=(1, 2))
+    worst, step = errs.max().item(), int(errs.argmax())
+    print(f"  replay: the ensemble picks its own {STEPS}-step tokens again; mean "
+          f"probabilities kernel vs plain: max_abs_err {worst:.3e} at step {step} "
+          f"(bound {TOL_ENSEMBLE_PROBS_F32:.1e}); max mean probability "
+          f"{p_probs.max().item():.3e}; {len(torch.unique(tokens))} distinct tokens")
+    if not worst <= TOL_ENSEMBLE_PROBS_F32:
+        raise AssertionError("ensemble probabilities disagree with the plain path")
+
+    # one member, no manager: argmax of its probabilities is argmax of its
+    # logits (with the manager, sift's second softmax may round a near tie of
+    # two probabilities to one value; the CPU tests hold that case)
+    model, fast = members[0]
+    alone = ensemble_decode(members[:1], memories[:1], max_steps=STEPS)
+    greedy = decode_images(model, fast, images[0], None, STEPS)
+    same = torch.equal(alone, greedy)
+    print(f"  one-member ensemble (EfficientSATRN) vs its greedy decode, no manager: "
+          f"tokens equal {same}")
+    if not same:
+        raise AssertionError("a one-member ensemble differs from that member's greedy")
     return launches
 
 
@@ -2228,6 +2605,140 @@ def swin_timing(ckpt, dev, card, times):
             "decoder_layer": len(fast.layers) * STEPS}, at_least=())
 
 
+def aster_timing(ckpts, dev, card, times):
+    """bf16, printed only: kernel 2 per EfficientASTER shape at B=256 (the
+    tiled form on stages 3-4, the cluster form on stage 5, each beside its
+    plain version and its bound; the tiled form's sums into ``times``);
+    kernel 3 at SwinTRN beam's 96 rows (heads of 64) and kernel 4 at its
+    [96, 231, 1024] cache, beside their bounds; then images/s, in turns:
+    flagship greedy (B=256, the reference point), EfficientASTER greedy and
+    beam W=3 (B=256), the EfficientSATRN + EfficientASTER ensemble (B=256)
+    and the three-member ensemble (B=32 and B=256), each ensemble call with
+    its peak device memory."""
+    from p4fr_tpu_torch.infer.ensemble import ensemble_decode
+    from p4fr_tpu_torch.infer.single import beam_decode_images, decode_images, encode_images
+    from p4fr_tpu_torch.ops.beam_gather import beam_parent_gather, beam_parent_gather_ref
+    from p4fr_tpu_torch.ops.decoder_layer import decoder_layer_step, layer_step_ref
+    from p4fr_tpu_torch.ops.mbconv import (
+        block_plan,
+        fold_mbconv_params,
+        fused_mbconv,
+        mbconv_block_ref,
+        mbconv_tiled,
+    )
+
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 26)
+    tot = dict(ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
+    for name, h, w, cin, cout, expand, count, path in MBCONV_ASTER:
+        block = mbconv_block(cin, cout, expand, gen, dev).to(bf)
+        folded = fold_mbconv_params(block, bf)
+        x = torch.randn(E2E_TIME_BATCH, h, w, cin, generator=gen).to(dev, bf)
+        res = cin == cout
+        if block_plan(x, folded).path != path:
+            raise AssertionError(f"mbconv {name} does not take the {path} path")
+        run = mbconv_tiled if path == "tiled" else (
+            lambda x, f, r: fused_mbconv(x, f, residual=r))
+        k = cuda_ms(lambda: run(x, folded, res), iters=5)
+        p = cuda_ms(lambda: mbconv_block_ref(x, folded, res), iters=5)
+        cmid = cin * expand
+        nb = nbytes(x) * (cin + cout) // cin + nbytes(*folded.values())
+        ops = 2 * x.shape[0] * h * w * (cin * cmid + 9 * cmid + cmid * cout)
+        b, by = bound(nb, ops, BF16_TENSOR_OPS_PER_S)
+        print(f"  mbconv EfficientASTER {name} B={x.shape[0]} {h}x{w} {cin}->{cmid}->"
+              f"{cout}, {path} path: {k:.4f} ms (bound {b:.4f} ms by {by}, "
+              f"{100 * b / k:.1f}%); plain {p:.4f} ms; per block, x{count} an encode "
+              f"({card})")
+        if path == "tiled":
+            for key, val in (("ms", k), ("plain_ms", p), ("nbytes", nb), ("ops", ops)):
+                tot[key] += count * val
+        del x, block, folded
+    b, by = bound(tot.pop("nbytes"), tot.pop("ops"), BF16_TENSOR_OPS_PER_S)
+    times["mbconv_tiled"] = dict(**tot, library_ms=None, bound_ms=b, bound_by=by)
+    print(f"  mbconv_tiled, the 14 tiled blocks of one B={E2E_TIME_BATCH} EfficientASTER "
+          f"encode: {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound {b:.4f} ms "
+          f"by {by} ({card})")
+
+    # kernel 3 at 96 rows and kernel 4 at [96, 231, 1024]: each one's
+    # operands fit in L2 (~58 and ~23 MB touched), so each is timed over
+    # cold_sets, as a beam step reads four layers' caches and weights in turn
+    shape, pos = SWIN_BEAM_DECODER, 115
+    hid, ff, s_len = shape["hidden"], shape["filter_dim"], shape["s_len"]
+
+    def layer_set():
+        return decoder_inputs(bf, gen, dev, pos, b=shape["b"], hidden=hid, s_len=s_len,
+                              filter_dim=ff)
+
+    x, cache, src, weights = layer_set()
+    nb = (2 * nbytes(x) + nbytes(cache[:, :pos + 1]) + nbytes(cache[:, pos]) + nbytes(src)
+          + nbytes(*weights[:18]))
+    sets = cold_sets(layer_set, (x, cache, src, weights), nb)
+    kw = dict(head_num=shape["heads"], cache_outputs=True)
+    k = rotating_ms(lambda x, c, s, w: decoder_layer_step(x, pos, c, s, w, **kw), sets, 50)
+    p = rotating_ms(lambda x, c, s, w: layer_step_ref(x, pos, c, s, w, **kw), sets, 20)
+    b, by = bound(nb, 2 * x.shape[0] * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
+                  + 4 * x.shape[0] * hid * (pos + 1 + s_len), BF16_TENSOR_OPS_PER_S)
+    print(f"  decoder_layer SwinTRN beam rows B={x.shape[0]} H={hid} (heads of "
+          f"{hid // shape['heads']}) pos={pos} L={STEPS} S={s_len} per layer step, "
+          f"{len(sets)} operand sets in turn (cold L2): kernel {k:.4f} ms, plain "
+          f"{p:.4f} ms, bound {b:.4f} ms by {by} ({card})")
+    del x, cache, src, weights, sets
+    rows = shape["b"]
+    cache_gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    cycle = gather_parents("cycle", rows, dev)
+
+    def gather_set():
+        return (torch.randn(rows, STEPS, 2 * hid, generator=cache_gen, device=dev).to(bf),)
+
+    nb = 2 * rows * (pos + 1) * 2 * hid * 2 + nbytes(cycle)
+    sets = cold_sets(gather_set, gather_set(), nb)
+    k = rotating_ms(lambda c: beam_parent_gather(c, cycle, pos, group=BEAM_WIDTH), sets, 50)
+    p = rotating_ms(lambda c: beam_parent_gather_ref(c, cycle, pos), sets, 50)
+    lib = rotating_ms(lambda c: c.__setitem__((slice(None), slice(None, pos + 1)),
+                                              c[cycle, :pos + 1]), sets, 50)
+    b, by = bound(nb, 0, BF16_TENSOR_OPS_PER_S)
+    print(f"  beam_gather SwinTRN [{rows},{STEPS},{2 * hid}] pos={pos} every row moved, "
+          f"{len(sets)} caches in turn (cold L2): kernel {k:.4f} ms, plain {p:.4f} ms, "
+          f"library {lib:.4f} ms, bound {b:.4f} ms by {by} ({card})")
+    del sets
+
+    satrn, aster, swin = (load_path_model(ckpt, dev, bf) for ckpt in ckpts)
+    tables, eos_id = satrn[2], satrn[3].eos_id
+
+    def ens_fn(members, images):
+        def fn(n):
+            memories = [encode_images(m, im) for (m, _), im in zip(members, images)]
+            return ensemble_decode(members, memories, max_steps=n, tables=tables)
+        return fn
+
+    big = ensemble_images(gen, E2E_TIME_BATCH, ENSEMBLE_SIZES, dev)
+    small = [im[:ENSEMBLE_BATCH].contiguous() for im in big]
+    pair = [satrn[:2], aster[:2]]
+    three = [satrn[:2], aster[:2], swin[:2]]
+    paths = {
+        "flagship greedy": (lambda n: decode_images(satrn[0], satrn[1], big[0], tables, n),
+                            E2E_TIME_BATCH, "greedy, manager on,"),
+        "EfficientASTER greedy": (
+            lambda n: decode_images(aster[0], aster[1], big[1], tables, n),
+            E2E_TIME_BATCH, "greedy, manager on,"),
+        "EfficientASTER beam": (
+            lambda n: beam_decode_images(aster[0], aster[1], big[1], n,
+                                         beam_width=BEAM_WIDTH, eos_id=eos_id),
+            E2E_TIME_BATCH, f"beam W={BEAM_WIDTH},"),
+        "ensemble SATRN+ASTER": (ens_fn(pair, big[:2]), E2E_TIME_BATCH, "manager on,"),
+        "ensemble SATRN+ASTER+SwinTRN": (ens_fn(three, small), ENSEMBLE_BATCH, "manager on,"),
+        "ensemble SATRN+ASTER+SwinTRN ": (ens_fn(three, big), E2E_TIME_BATCH, "manager on,"),
+    }
+    for label in list(paths) * 2:
+        fn, batch, what = paths[label]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e2e(label.strip(), fn, batch, card, what)
+        if label.startswith("ensemble"):
+            print(f"  peak device memory of the {label.strip()} call at B={batch}: "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 # ---------------------------------------------------------------- phase 7
 
 TRAIN_LABEL_LEN = 232  # labels padded to --max_label_len's default: 231 AR steps
@@ -2639,10 +3150,18 @@ def main():
         for form in INT8_FORMS:
             name = f"decoder_layer_{form}"
             launches[name] = kv_quant_path(ckpt, dev, form)[name]
+        aster_ckpt = build_aster_checkpoint()
+        launches["mbconv_tiled"] = aster_path(aster_ckpt, dev)["mbconv_tiled"]
+        aster_beam_path(aster_ckpt, dev)
+        swin_beam_path(swin_ckpt, dev)
+        generic_path(ckpt, dev)
+        ensemble_path((ckpt, aster_ckpt, swin_ckpt), dev)
         torch.cuda.empty_cache()
         times = timing(ckpt, dev, card)
         torch.cuda.empty_cache()
         swin_timing(swin_ckpt, dev, card, times)
+        torch.cuda.empty_cache()
+        aster_timing((ckpt, aster_ckpt, swin_ckpt), dev, card, times)
     torch.cuda.empty_cache()
     train_phase(ckpt, dev, card)
 
@@ -2654,6 +3173,8 @@ def main():
                         "p4fr_tpu/ops/pallas/preprocess.py:47"),
         "mbconv": ("p4fr_tpu_torch/csrc/mbconv.cu",
                    "p4fr_tpu/ops/pallas/mbconv.py:290"),
+        "mbconv_tiled": ("p4fr_tpu_torch/csrc/mbconv_tiled.cu",
+                         "p4fr_tpu/ops/pallas/mbconv.py:290"),
         "decoder_layer": ("p4fr_tpu_torch/csrc/decoder_layer.cu",
                           "p4fr_tpu/ops/pallas/decoder_layer_v2.py:555"),
         "beam_gather": ("p4fr_tpu_torch/csrc/beam_gather.cu",
@@ -2674,8 +3195,9 @@ def main():
     # launches: the beam path's run, which goes through kernels 1-4, the
     # fused path's, which goes through kernel 6, the SwinTRN path's, which
     # goes through kernel 5, the v3 and v1 paths', which go through
-    # kernels 7 and 8, and the kv_quant paths', which go through kernel 3's
-    # int8 forms
+    # kernels 7 and 8, the kv_quant paths', which go through kernel 3's
+    # int8 forms, and the EfficientASTER path's, which goes through kernel
+    # 2's tiled form
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errors[name],

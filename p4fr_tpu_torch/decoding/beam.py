@@ -1,18 +1,27 @@
-"""Batched fixed-width beam search over the fast decoder, port of
-``p4fr_tpu/decoding/beam.py::make_beam_fn`` (its transformer fast-step
-branch).
+"""Batched fixed-width beam search, port of
+``p4fr_tpu/decoding/beam.py::make_beam_fn``.
 
-All B*W hypotheses advance in lockstep, one ``fast_decode_step`` per token
-(kernel 3 at B*W rows on the card), with
+All B*W hypotheses advance in lockstep, one step per token, through one
+of the three branches of the JAX function (``beam_stepper``):
+
+- the transformer fast step (``fast_step.fast_decode_step``: kernel 3 at
+  B*W rows on the card), its per-layer [B*W, L, 2H] self caches reordered
+  after each step by parent beam over slots ``0..t``
+  (``ops/beam_gather.py``: kernel 4 on the card, its plain version with
+  ``plain=True`` or on a CPU tensor);
+- ASTER's fused LSTM step (``fast_aster.fast_aster_step``), its (h, c)
+  rows reordered with ``index_select``;
+- the model's own module step (``model.decode_step``, JAX's
+  ``kernel="generic"``), every cached tensor's rows reordered with
+  ``index_select``.
+
+Then, whatever the step,
 
 - a per-step f32 ``log_softmax``; finished (post-``<EOS>``) beams may only
   continue with ``<PAD>`` at zero cost, every other token at ``NEG_INF``;
 - top-W over the W*V candidates of each sample, ties to the lower flat
   index as ``jax.lax.top_k`` breaks them (a stable descending sort: the
   order of ``torch.topk``'s ties on the card is unspecified);
-- after the step that wrote slot ``t``, every layer's self cache reordered
-  by parent beam over slots ``0..t`` (``ops/beam_gather.py``: kernel 4 on
-  the card, its plain version with ``plain=True`` or on a CPU tensor);
 - the winner picked by length-normalised score ``scores / max(lengths, 1)``
   and its tokens recovered by backtracking the recorded parents.
 
@@ -21,18 +30,22 @@ candidates built on it (``-1e9 + logp`` rounds to multiples of 64) are
 finite numbers that top-W orders among themselves, where ``-inf`` would
 make them all equal and hand a different set of ties to the sort.
 
-The DecodingManager does not apply to beam search, as in the JAX CLI. The
-ASTER and generic-step branches wait for their model families
-(ROADMAP.md Queue 1: EfficientASTER).
+The DecodingManager does not apply to beam search, as in the JAX CLI.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from p4fr_tpu_torch.decoding.fast_aster import (
+    FastAster,
+    fast_aster_step,
+    init_fast_aster_cache,
+    precompute_aster_src,
+)
 from p4fr_tpu_torch.decoding.fast_step import (
     FastDecoder,
     fast_decode_step,
@@ -118,37 +131,90 @@ def beam_buffers(fast: FastDecoder, src: torch.Tensor, width: int, max_len: int)
     return cross_kv, init_fast_cache(fast, src.shape[0] * width, max_len)
 
 
-def step_logp(fast: FastDecoder, token: torch.Tensor, t: int, cross_kv, cache,
-              plain: bool = False) -> torch.Tensor:
-    """Decode every hypothesis one step (writing slot ``t``) -> [B*W, V]
-    f32 log-probs."""
-    logits = fast_decode_step(fast, token, t, cross_kv, cache, plain=plain)
-    return torch.log_softmax(logits.float(), dim=-1)
-
-
 def pick(cand: torch.Tensor, width: int, vocab: int):
     """Top-W of [B, W*V] candidates -> (scores, parent, token), each [B, W]."""
     scores, idx = top_w(cand, width)
     return scores, idx // vocab, idx % vocab
 
 
-def reorder_caches(cache, gather, parent: torch.Tensor, t: int) -> None:
-    """Every layer's cache over slots ``0..t`` to its parent beam, in place,
-    after the step that wrote slot ``t``."""
+def flat_parents(parent: torch.Tensor) -> torch.Tensor:
+    """[B, W] parent beams -> [B*W] parent rows."""
     batch, width = parent.shape
-    offsets = torch.arange(batch, device=parent.device)[:, None] * width
-    parent_flat = (parent + offsets).reshape(-1)
-    for layer_cache in cache:
-        gather(layer_cache, parent_flat, t)
+    return (parent + torch.arange(batch, device=parent.device)[:, None] * width).reshape(-1)
+
+
+def reorder_rows(cache, parent_flat: torch.Tensor) -> None:
+    """Replace every tensor in the lists of ``cache`` (any nesting of
+    tuples and lists) by its rows in ``parent_flat``'s order."""
+    for i, item in enumerate(cache):
+        if isinstance(item, torch.Tensor):
+            cache[i] = item.index_select(0, parent_flat)
+        else:
+            reorder_rows(item, parent_flat)
+
+
+class Stepper(NamedTuple):
+    """One beam branch: ``step(token [B*W], t)`` -> logits [B*W, V];
+    ``reorder(parent_flat [B*W], t)`` makes each hypothesis's state its
+    parent's after the step that wrote slot ``t``."""
+
+    step: Callable
+    reorder: Callable
+
+
+def beam_stepper(decoder, src: torch.Tensor, width: int, max_len: int,
+                 plain: bool = False) -> Stepper:
+    """The branch for ``decoder``: a ``FastDecoder`` (the transformer fast
+    step over kernels 3 and 4; ``plain`` runs their plain versions), a
+    ``FastAster`` (ASTER's fused LSTM step) or a model (its module step,
+    the generic branch), over ``src`` [B, S, C] repeated per beam."""
+    if isinstance(decoder, FastDecoder):
+        cross_kv, cache = beam_buffers(decoder, src, width, max_len)
+        gather = cache_gather(width, plain)
+
+        def step(token, t):
+            return fast_decode_step(decoder, token, t, cross_kv, cache, plain=plain)
+
+        def reorder(parent_flat, t):
+            for layer_cache in cache:
+                gather(layer_cache, parent_flat, t)
+
+        return Stepper(step, reorder)
+    rows = src.shape[0] * width
+    tiled = src.repeat_interleave(width, dim=0)
+    if isinstance(decoder, FastAster):
+        src_, proj = precompute_aster_src(decoder, tiled.to(decoder.w_gen.dtype))
+        state = [[list(hc) for hc in init_fast_aster_cache(decoder, rows)]]
+
+        def step(token, t):
+            logits, hidden = fast_aster_step(decoder, token, src_, proj, state[0])
+            state[0] = [list(hc) for hc in hidden]
+            return logits
+
+        return Stepper(step, lambda parent_flat, t: reorder_rows(state, parent_flat))
+    src_kv = decoder.precompute_src(tiled.to(decoder.dtype))
+    cache = decoder.init_decode_cache(rows, max_len)
+
+    def step(token, t):
+        return decoder.decode_step(token, t, src_kv, cache).float()
+
+    return Stepper(step, lambda parent_flat, t: reorder_rows(cache, parent_flat))
+
+
+def step_logp(stepper: Stepper, token: torch.Tensor, t: int) -> torch.Tensor:
+    """Decode every hypothesis one step (writing slot ``t``) -> [B*W, V]
+    f32 log-probs."""
+    return torch.log_softmax(stepper.step(token, t).float(), dim=-1)
 
 
 @torch.no_grad()
-def beam_search(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
+def beam_search(decoder, src: torch.Tensor, *, max_steps: int,
                 beam_width: int, sos_id: int, eos_id: int, pad_id: int,
                 early_stop: bool = False,
                 stop_override: Optional[torch.Tensor] = None,
                 plain: bool = False) -> BeamTrace:
-    """Beam search from encoder memory ``src`` [B, S, C].
+    """Beam search from encoder memory ``src`` [B, S, C] through the branch
+    of ``decoder`` (``beam_stepper``).
 
     ``early_stop``: leave the step loop once every beam of every sample has
     finished; token-identical to the full run, since finished beams only
@@ -161,19 +227,18 @@ def beam_search(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
     if stop_override is not None and not early_stop:
         raise ValueError("stop_override requires early_stop=True (the "
                          "fixed-length loop would ignore the stop steps)")
-    gather = cache_gather(beam_width, plain)
     batch, width, dev = src.shape[0], beam_width, src.device
-    cross_kv, cache = beam_buffers(fast, src, width, max_steps)
+    stepper = beam_stepper(decoder, src, width, max_steps, plain)
     token = torch.full((batch * width,), sos_id, dtype=torch.int64, device=dev)
     state = init_beam_state(batch, width, dev)
     tokens = torch.full((max_steps, batch, width), pad_id, dtype=torch.int64,
                         device=dev)
     parents = torch.arange(width, device=dev).expand(max_steps, batch, width).clone()
     for t in range(max_steps):
-        logp = step_logp(fast, token, t, cross_kv, cache, plain)
+        logp = step_logp(stepper, token, t)
         scores, parent, new = pick(candidates(state, logp, pad_id), width,
                                    logp.shape[-1])
-        reorder_caches(cache, gather, parent, t)
+        stepper.reorder(flat_parents(parent), t)
         state = advance(state, scores, parent, new, eos_id)
         tokens[t], parents[t] = new, parent
         token = new.reshape(-1)

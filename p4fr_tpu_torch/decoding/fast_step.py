@@ -34,6 +34,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from p4fr_tpu_torch.decoding import manager as dm
+from p4fr_tpu_torch.decoding.greedy import greedy_loop
 from p4fr_tpu_torch.ops.decoder_layer import (  # noqa: F401  (quantize_rows)
     LayerWeights,
     decoder_layer_step,
@@ -255,47 +256,22 @@ def greedy_decode(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
     ``kv_quant``: "none", "int8" or "int8_cache" (module docstring); with
     ``plain`` the int8 operands go through kernel 3's plain version.
 
-    ``early_stop_eos``: stop once every row has emitted it; the rest of the
-    buffer holds that id (output-equivalent to the fixed-length decode).
-    ``stop_override`` ([B], requires ``early_stop_eos``): benchmarking hook;
-    row i also counts as done once ``t >= stop_override[i]``, so the early
-    exit fires on a chosen length distribution even with random weights.
+    ``early_stop_eos`` and ``stop_override`` as ``greedy.greedy_loop``
+    takes them.
     """
-    if stop_override is not None and early_stop_eos is None:
-        raise ValueError("stop_override requires early_stop_eos (the "
-                         "fixed-length loop would ignore the stop steps)")
     if use_v1 and (plain or use_jnp):
         raise ValueError("use_v1 picks a kernel; plain and use_jnp run none")
-    batch = src.shape[0]
     cross_kv, cache = decode_buffers(fast, src, max_steps, kv_quant=kv_quant,
                                      dequantize=use_v1 or use_jnp)
-    dev = src.device
-    token = torch.full((batch,), sos_id, dtype=torch.int64, device=dev)
-    mstate = dm.init_state(batch, tables) if tables is not None else None
-    fill = early_stop_eos if early_stop_eos is not None else 0
-    out = torch.full((batch, max_steps), fill, dtype=torch.int64, device=dev)
-    done = torch.zeros(batch, dtype=torch.bool, device=dev)
-    for t in range(max_steps):
+
+    def step(token, t):
         if use_v1:
-            logits = decode_step_v1(fast, token, t, cross_kv, cache)
-        else:
-            logits = fast_decode_step(fast, token, t, cross_kv, cache,
-                                      plain=plain or use_jnp)
-        if tables is not None:
-            target, _, mstate = dm.sift(mstate, logits, tables)
-        else:
-            target = torch.argmax(logits, dim=-1)
-        if early_stop_eos is None:
-            out[:, t] = target
-        else:
-            out[:, t] = torch.where(done, torch.full_like(target, fill), target)
-            done = done | (target == early_stop_eos)
-            if stop_override is not None:
-                done = done | (t >= stop_override)
-            if bool(done.all()):
-                break
-        token = target
-    return out
+            return decode_step_v1(fast, token, t, cross_kv, cache)
+        return fast_decode_step(fast, token, t, cross_kv, cache, plain=plain or use_jnp)
+
+    return greedy_loop(step, src.shape[0], max_steps=max_steps, sos_id=sos_id,
+                       device=src.device, tables=tables,
+                       early_stop_eos=early_stop_eos, stop_override=stop_override)
 
 
 def make_fast_greedy_fn(model, *, max_steps: int, tables=None,

@@ -3,19 +3,22 @@
 ``replay_logits`` (greedy) feeds a decode's own tokens back through
 ``fast_step.fast_decode_step`` and returns every step's logits together
 with the token the DecodingManager (or argmax) would pick from them.
-``replay_beam`` does the same for a beam search: it advances every
-hypothesis with the recorded tokens and parents, and returns every step's
-log-probs with the (token, parent) that top-W would pick from them.
-``replay_fused`` feeds a greedy decode's tokens through the fused step
-(``ops/fused_decode.py::fused_greedy_step``) and returns its logits and
-picks; ``replay_logits(use_v1=True)`` and ``replay_v3`` do the same
-through the v1 step (kernel 8 per layer) and the v3 step (kernel 7, every
-layer in one launch). Two
-decode paths replayed on the same record can then be compared value by
-value, with no divergence from near-ties; replaying the path that made the
-record must pick it again. ``chip_smoke.py`` and the tests use them;
-inference uses ``fast_step.greedy_decode``, ``fused_greedy.
-fused_greedy_decode`` and ``beam.beam_search``.
+``replay_beam`` does the same for a beam search, through any of beam's
+branches (the transformer fast step, ASTER's fused step, a module step):
+it advances every hypothesis with the recorded tokens and parents, and
+returns every step's log-probs with the (token, parent) that top-W would
+pick from them. ``replay_fused`` feeds a greedy decode's tokens through
+the fused step (``ops/fused_decode.py::fused_greedy_step``) and returns its
+logits and picks; ``replay_logits(use_v1=True)`` and ``replay_v3`` do the
+same through the v1 step (kernel 8 per layer) and the v3 step (kernel 7,
+every layer in one launch); ``replay_aster`` through ASTER's fused LSTM
+step, ``replay_generic`` through a model's module step (``--kernel
+generic``), and ``replay_ensemble`` through an ensemble's joint step (its
+mean probabilities). Two decode paths replayed on the same record can
+then be compared value by value, with no divergence from near-ties;
+replaying the path that made the record must pick it again.
+``chip_smoke.py`` and the tests use them; inference uses the decode loops
+themselves.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import torch
 
 from p4fr_tpu_torch.decoding import beam as bs
 from p4fr_tpu_torch.decoding import manager as dm
+from p4fr_tpu_torch.decoding.fast_aster import FastAster, aster_step
+from p4fr_tpu_torch.decoding.greedy import module_step
 from p4fr_tpu_torch.decoding.fast_step import (
     FastDecoder,
     decode_buffers,
@@ -129,30 +134,64 @@ def replay_fused(fast: FastDecoder, src: torch.Tensor, tokens: torch.Tensor,
 
 
 @torch.no_grad()
-def replay_beam(fast: FastDecoder, src: torch.Tensor, tokens: torch.Tensor,
+def replay_beam(decoder, src: torch.Tensor, tokens: torch.Tensor,
                 parents: torch.Tensor, *, sos_id: int, eos_id: int,
                 pad_id: int, plain: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Beam search from ``src`` [B, S, C] forced along a record
-    (``BeamTrace.tokens``/``parents`` [T, B, W]) -> (log-probs
-    [T, B*W, V] f32, picked tokens [T, B, W], picked parents [T, B, W])."""
+    """Beam search from ``src`` [B, S, C] through ``decoder``'s branch
+    (``beam.beam_stepper``: a ``FastDecoder``, a ``FastAster`` or a model's
+    module step) forced along a record (``BeamTrace.tokens``/``parents``
+    [T, B, W]) -> (log-probs [T, B*W, V] f32, picked tokens [T, B, W],
+    picked parents [T, B, W])."""
     steps, batch, width = tokens.shape
-    gather = bs.cache_gather(width, plain)
-    cross_kv, cache = bs.beam_buffers(fast, src, width, steps)
+    stepper = bs.beam_stepper(decoder, src, width, steps, plain)
     token = torch.full((batch * width,), sos_id, dtype=torch.int64,
                        device=src.device)
     state = bs.init_beam_state(batch, width, src.device)
     out = []
     for t in range(steps):
-        logp = bs.step_logp(fast, token, t, cross_kv, cache, plain)
+        logp = bs.step_logp(stepper, token, t)
         vocab = logp.shape[-1]
         cand = bs.candidates(state, logp, pad_id)
         _, pick_parent, pick_token = bs.pick(cand, width, vocab)
         # advance along the record, not the pick
         scores = cand.gather(1, parents[t] * vocab + tokens[t])
-        bs.reorder_caches(cache, gather, parents[t], t)
+        stepper.reorder(bs.flat_parents(parents[t]), t)
         state = bs.advance(state, scores, parents[t], tokens[t], eos_id)
         token = tokens[t].reshape(-1)
         out.append((logp, pick_token, pick_parent))
     logp, pick_tokens, pick_parents = zip(*out)
     return torch.stack(logp), torch.stack(pick_tokens), torch.stack(pick_parents)
+
+
+@torch.no_grad()
+def replay_aster(fast: FastAster, src: torch.Tensor, tokens: torch.Tensor, *,
+                 sos_id: int, tables: Optional[dm.RuleTables] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``replay_logits`` through ASTER's fused LSTM step
+    (``fast_aster.fast_aster_step``)."""
+    return _replay(aster_step(fast, src), tokens, sos_id, tables)
+
+
+@torch.no_grad()
+def replay_generic(model, src: torch.Tensor, tokens: torch.Tensor, *, sos_id: int,
+                   tables: Optional[dm.RuleTables] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``replay_logits`` through the model's own module step
+    (``model.decode_step``, the ``--kernel generic`` path)."""
+    return _replay(module_step(model, src, src.shape[0], tokens.shape[1]), tokens,
+                   sos_id, tables)
+
+
+@torch.no_grad()
+def replay_ensemble(members, memories, tokens: torch.Tensor, *, sos_id: int,
+                    tables: Optional[dm.RuleTables] = None, kernel: str = "auto",
+                    plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An ensemble decode (``infer.ensemble``) fed ``tokens`` [B, T] ->
+    (the members' mean f32 probabilities [T, B, V], picks [B, T]);
+    ``members``, ``memories``, ``kernel`` and ``plain`` as
+    ``infer.ensemble.ensemble_decode`` takes them."""
+    from p4fr_tpu_torch.infer.ensemble import ensemble_step
+
+    step = ensemble_step(members, memories, tokens.shape[1], kernel=kernel, plain=plain)
+    return _replay(step, tokens, sos_id, tables)

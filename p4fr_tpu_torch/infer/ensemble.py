@@ -1,0 +1,161 @@
+"""Multi-model ensemble inference, port of ``p4fr_tpu/infer/ensemble.py``.
+
+Heterogeneous members (EfficientSATRN, SwinTRN, EfficientASTER) each
+encode their own resolution-specific batch of the same images, then every
+decoder steps jointly, token by token: each member's logits go through a
+softmax in f32, the members' probabilities are summed in list order and
+divided by their count, and the mean probabilities go to the
+DecodingManager's ``sift`` (or argmax). ``sift`` takes a softmax of its
+input again, which is monotonic, so the picks are those of the mean, as in
+the JAX package (ensemble.py:151-160).
+
+Each member steps as it would alone (``ensemble_step``): a transformer
+member through its fast step (kernel 3 per layer on the card; "jnp" its
+plain version); "fused" maps to "auto", because the fused kernel picks
+inside and the averaging needs each member's probabilities; an ASTER
+member through its fused LSTM step; under "generic" every member through
+its module step. The members must share the vocabulary.
+
+``run_ensemble`` is the CLI path: each member loads its own checkpoint and
+reads the images through the port's eval pipeline at its own
+``input_size`` and ``data.rgb``; ``output.csv`` as in the JAX package.
+``max_cache`` is accepted and unused (every memory stays on the card).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from p4fr_tpu_torch.data.vocab import id_to_string
+from p4fr_tpu_torch.decoding import manager as dm
+from p4fr_tpu_torch.decoding.fast_aster import FastAster, aster_step
+from p4fr_tpu_torch.decoding.fast_step import decode_buffers, fast_decode_step
+from p4fr_tpu_torch.decoding.greedy import greedy_loop, module_step
+from p4fr_tpu_torch.infer.single import KERNELS, build_eval_loader, build_fast, encode_images
+
+# option -> the ROADMAP item that ports it
+NOT_YET = {"preprocess": "ROADMAP.md Queue 1 item 10: preprocess options",
+           "data_parallel": "ROADMAP.md Queue 1 item 13: parallelism"}
+
+
+def _member_step(model, fast, memory: torch.Tensor, steps: int, kernel: str,
+                 plain: bool):
+    if kernel == "generic":
+        return module_step(model, memory, memory.shape[0], steps)
+    if isinstance(fast, FastAster):
+        return aster_step(fast, memory)
+    cross_kv, cache = decode_buffers(fast, memory, steps)
+    use_plain = plain or kernel == "jnp"
+
+    def step(token, t):
+        return fast_decode_step(fast, token, t, cross_kv, cache, plain=use_plain)
+
+    return step
+
+
+def ensemble_step(members: Sequence[Tuple], memories: Sequence[torch.Tensor],
+                  steps: int, *, kernel: str = "auto", plain: bool = False):
+    """``step(token, t)`` -> the members' mean f32 probabilities [B, V].
+
+    ``members``: (model, ``build_fast(model)``) pairs; ``memories``: each
+    member's encoder memory of the same images; ``steps``: the decode
+    length (each transformer member's cache). ``plain`` runs the kernels'
+    plain versions."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel {kernel!r}")
+    if len({m.num_classes for m, _ in members}) != 1:
+        raise ValueError("ensemble members must share the vocabulary, got "
+                         f"{[m.num_classes for m, _ in members]} classes")
+    if kernel == "fused":  # the fused kernel picks inside; averaging needs probabilities
+        kernel = "auto"
+    member_steps = [_member_step(model, fast, mem, steps, kernel, plain)
+                    for (model, fast), mem in zip(members, memories)]
+
+    def step(token, t):
+        total = None
+        for member in member_steps:
+            p = torch.softmax(member(token, t).float(), dim=-1)
+            total = p if total is None else total + p
+        return total / len(member_steps)
+
+    return step
+
+
+@torch.no_grad()
+def ensemble_decode(members: Sequence[Tuple], memories: Sequence[torch.Tensor], *,
+                    max_steps: int, tables: Optional[dm.RuleTables] = None,
+                    early_stop_eos: Optional[int] = None,
+                    kernel: str = "auto") -> torch.Tensor:
+    """Joint greedy decode of the members -> [B, max_steps] int64 tokens
+    (``greedy.greedy_loop`` over ``ensemble_step``): the counterpart of
+    JAX's ``make_ensemble_decode_fn``, the weights being the modules' own."""
+    step = ensemble_step(members, memories, max_steps, kernel=kernel)
+    mem = memories[0]
+    return greedy_loop(step, mem.shape[0], max_steps=max_steps,
+                       sos_id=members[0][0].sos_id, device=mem.device, tables=tables,
+                       early_stop_eos=early_stop_eos)
+
+
+@torch.no_grad()
+def run_ensemble(checkpoint_paths: Sequence[str], file_path: str, output_dir: str, *,
+                 batch_size: int = 32, max_sequence: int = 230,
+                 decoding_manager: bool = True, max_cache: int = 50,
+                 early_stop: bool = False, kernel: str = "auto",
+                 preprocess: str = "device", data_parallel: bool = False,
+                 device="cuda") -> List[Tuple[str, str]]:
+    """Ensemble inference over an ``input.txt`` of image names; writes
+    ``output.csv``. On the CUDA card in bf16 unless the caller passes
+    ``device="cpu"`` (f32); raises if CUDA is asked for and absent.
+    ``preprocess`` other than "device" and ``data_parallel`` are refused
+    with their ROADMAP items."""
+    from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
+
+    del max_cache
+    if preprocess != "device":
+        raise NotImplementedError(f"--preprocess {preprocess}: {NOT_YET['preprocess']}")
+    if data_parallel:
+        raise NotImplementedError(f"--data_parallel: {NOT_YET['data_parallel']}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("run_ensemble: CUDA was asked for and no CUDA card is "
+                           "visible; pass device='cpu' to run on the CPU")
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    loaded = [load_model_from_checkpoint(p, device=device, dtype=dtype)
+              for p in checkpoint_paths]
+    vocab = loaded[0][2]
+    if any(v.token_to_id != vocab.token_to_id for _, _, v, _ in loaded):
+        raise ValueError("ensemble members must share the vocabulary")
+    members = [(model, build_fast(model)) for model, _, _, _ in loaded]
+    tables = dm.RuleTables.build(vocab, device) if decoding_manager else None
+    loaders = [build_eval_loader(file_path, options, vocab, batch_size, max_sequence)
+               for _, options, _, _ in loaded]
+    num_steps = max_sequence + 1  # reference ensemble num_steps
+
+    results: List[Tuple[str, str]] = []
+    start = time.perf_counter()
+    for batches in zip(*loaders):
+        memories = [encode_images(model, torch.from_numpy(b["image"]).to(device))
+                    for (model, _), b in zip(members, batches)]
+        tokens = ensemble_decode(
+            members, memories, max_steps=num_steps, tables=tables,
+            early_stop_eos=vocab.eos_id if early_stop else None,
+            kernel=kernel).cpu().numpy()
+        count = batches[0]["count"]
+        strs = id_to_string(tokens[:count], vocab.id_to_token, sos_id=vocab.sos_id,
+                            eos_id=vocab.eos_id, pad_id=vocab.pad_id, do_eval=True)
+        results.extend(zip(batches[0]["file_path"][:count], strs))
+    elapsed = time.perf_counter() - start
+
+    os.makedirs(output_dir, exist_ok=True)
+    out_path = os.path.join(output_dir, "output.csv")
+    with open(out_path, "w") as w:
+        for path, predicted in results:
+            w.write(path + "\t" + predicted + "\n")
+    print(f"[+] ensemble of {len(members)} wrote {len(results)} predictions -> "
+          f"{out_path} ({len(results) / max(elapsed, 1e-9):.1f} img/s incl. host IO, "
+          f"{device.type})")
+    return results

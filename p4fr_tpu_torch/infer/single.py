@@ -5,7 +5,8 @@ Two halves:
 
 - ``decode_images`` (greedy, kernel 3 per layer or, with
   ``kernel="fused"``, kernel 6 per step; ``kv_quant`` int8 operands for
-  kernel 3) and ``beam_decode_images``: u8
+  kernel 3; ASTER's fused LSTM step; with ``kernel="generic"`` the model's
+  own module step) and ``beam_decode_images``: u8
   [B, H, W, C] images -> tokens, in pure torch (standardize on the card,
   encode, decode). They need nothing beyond torch and numpy.
 - ``run_inference``: the file-driven CLI path. It runs the port's eval
@@ -15,7 +16,14 @@ Two halves:
   JAX CLI does.
 
 Decode length is ``max_sequence + 1`` steps, the reference's dummy-GT
-trick. Ensembles come later (ROADMAP.md).
+trick. Ensembles are ``infer/ensemble.py``.
+
+Routing follows the JAX package's ``run_inference``: ASTER greedy takes
+its fused LSTM step under every ``kernel`` but ``generic`` and refuses
+``kv_quant``; beam takes the module step (JAX's generic branch) under
+``generic`` and, as JAX's CLI maps it, ``fused``. One deviation:
+``generic`` greedy on a transformer family runs the module step, where
+JAX's CLI runs its plain fast step, so ``kv_quant`` is refused with it.
 """
 
 from __future__ import annotations
@@ -29,14 +37,24 @@ import torch
 
 from p4fr_tpu_torch.data.vocab import id_to_string
 from p4fr_tpu_torch.decoding.beam import beam_search, best_tokens
-from p4fr_tpu_torch.decoding.fast_step import KV_QUANT, greedy_decode
+from p4fr_tpu_torch.decoding.fast_aster import FastAster, build_fast_aster, fast_aster_greedy
+from p4fr_tpu_torch.decoding.fast_step import KV_QUANT, build_fast_decoder, greedy_decode
+from p4fr_tpu_torch.decoding.greedy import make_greedy_fn
 from p4fr_tpu_torch.decoding.fused_greedy import fused_greedy_decode
 from p4fr_tpu_torch.decoding.manager import RuleTables
 from p4fr_tpu_torch.ops.preprocess import standardize, standardize_ref
 from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
 
-KERNELS = ("auto", "pallas_v2", "jnp", "fused")  # greedy's --kernel choices
+KERNELS = ("auto", "pallas_v2", "jnp", "fused", "generic")  # --kernel choices
+
+
+def build_fast(model):
+    """The fused decoder of ``model``: a ``FastAster`` for the ASTER family,
+    a ``fast_step.FastDecoder`` for the transformer families."""
+    if getattr(model, "supports_fast_lstm_decode", False):
+        return build_fast_aster(model)
+    return build_fast_decoder(model)
 
 
 def encode_images(model, images: torch.Tensor, *, plain: bool = False
@@ -57,40 +75,62 @@ def decode_images(model, fast, images: torch.Tensor,
     """Greedy: u8 [B, H, W, C] on the model's device -> [B, steps] int64
     tokens.
 
-    ``fast`` is ``decoding.fast_step.build_fast_decoder(model)``.
+    ``fast`` is ``build_fast(model)``.
     ``kernel``: "auto" (and "pallas_v2", JAX's name for the same kernel)
     runs each layer's step (kernel 3) and the manager's ``sift`` as
     separate ops; "jnp" runs each layer's plain step instead
     (``greedy_decode(use_jnp=True)``), the encoder keeping its kernels;
     "fused" runs the whole step in one launch (kernel 6,
-    ``decoding/fused_greedy.py``). ``kv_quant`` ("int8", "int8_cache"; not
-    with "fused") as ``greedy_decode`` takes it. With ``plain=True`` every
-    kernel's plain twin (and the composed MBConv modules) runs instead, on
-    whatever device the tensors are on.
+    ``decoding/fused_greedy.py``); "generic" runs the model's module step
+    (``greedy.make_greedy_fn``, no kernel in the decode). An ASTER model
+    (``fast`` a ``FastAster``) runs its fused LSTM step under every kernel
+    but "generic". ``kv_quant`` ("int8", "int8_cache"; not with "fused",
+    "generic" or ASTER) as ``greedy_decode`` takes it. With ``plain=True``
+    every kernel's plain twin (and the composed MBConv modules) runs
+    instead, on whatever device the tensors are on.
     """
     if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r}")
-    if kernel == "fused" and kv_quant != "none":
-        raise ValueError("kv_quant runs on the non-fused greedy step")
+    if kv_quant != "none" and (kernel in ("fused", "generic")
+                               or isinstance(fast, FastAster)):
+        raise ValueError("kv_quant runs only on the fast greedy step of the "
+                         "transformer families (not fused, not generic), as in "
+                         "the JAX package")
     src = encode_images(model, images, plain=plain)
-    kw = dict(max_steps=steps, sos_id=model.sos_id, tables=tables,
-              early_stop_eos=early_stop_eos, stop_override=stop_override,
-              plain=plain)
+    if kernel == "generic":
+        return make_greedy_fn(model, max_steps=steps, tables=tables, from_memory=True,
+                              return_outputs=False, early_stop_eos=early_stop_eos
+                              )(src, stop_override=stop_override)
+    loop = dict(max_steps=steps, sos_id=model.sos_id, tables=tables,
+                early_stop_eos=early_stop_eos, stop_override=stop_override)
+    if isinstance(fast, FastAster):
+        return fast_aster_greedy(fast, src, **loop)
+    kw = dict(loop, plain=plain)
     if kernel == "fused":
         return fused_greedy_decode(fast, src, vocab_size=model.num_classes, **kw)
     return greedy_decode(fast, src, use_jnp=kernel == "jnp", kv_quant=kv_quant, **kw)
+
+
+def beam_kernel(kernel: str) -> str:
+    """The ``kernel`` beam search takes under the CLI's ``--kernel``: the
+    module step ("generic") for "generic" and, as the JAX CLI maps it,
+    "fused" (kernel 6 scores no beam)."""
+    return "generic" if kernel in ("fused", "generic") else kernel
 
 
 @torch.no_grad()
 def beam_decode_images(model, fast, images: torch.Tensor, steps: int, *,
                        beam_width: int, eos_id: int, early_stop: bool = False,
                        stop_override: Optional[torch.Tensor] = None,
-                       plain: bool = False) -> torch.Tensor:
+                       plain: bool = False, kernel: str = "auto") -> torch.Tensor:
     """Beam search: u8 [B, H, W, C] on the model's device -> [B, steps]
     int64 tokens of each image's best hypothesis
-    (``decoding/beam.py``; no DecodingManager, as in the JAX CLI)."""
+    (``decoding/beam.py``; no DecodingManager, as in the JAX CLI), through
+    ``fast`` (``build_fast(model)``) or, with ``kernel="generic"``, the
+    model's module step."""
     trace = beam_search(
-        fast, encode_images(model, images, plain=plain), max_steps=steps,
+        model if kernel == "generic" else fast,
+        encode_images(model, images, plain=plain), max_steps=steps,
         beam_width=beam_width, sos_id=model.sos_id, eos_id=eos_id,
         pad_id=model.pad_id, early_stop=early_stop,
         stop_override=stop_override, plain=plain,
@@ -133,29 +173,28 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
 
     ``decode_type``: "greedy" (with the DecodingManager unless
     ``decoding_manager=False``) or "beam" (``beam_width`` hypotheses, no
-    manager). ``kernel``: greedy's step, "auto", "pallas_v2", "jnp" or
-    "fused" (see ``decode_images``); beam runs the same search for all
-    four, as the JAX CLI does, except that "jnp" runs it on every kernel's
-    plain version (as ``plain=True``). ``kv_quant`` ("none", "int8",
-    "int8_cache") runs only on the greedy step and not with "fused", as in
-    the JAX package (every family the port loads has that step).
+    manager). ``kernel``: greedy's step, "auto", "pallas_v2", "jnp",
+    "fused" or "generic" (see ``decode_images``); beam runs its fast branch
+    for "auto" and "pallas_v2", "jnp" on every kernel's plain version (as
+    ``plain=True``), and the module step for "generic" and, as the JAX CLI
+    maps it, "fused". ``kv_quant`` ("none", "int8", "int8_cache") runs only
+    on the transformer families' greedy fast step (not "fused", not
+    "generic"), as in the JAX package.
     ``plain=True`` runs every kernel's plain version instead (the CLI's
     ``--beam_gather jnp``). ``early_stop``
     leaves the decode loop once every sequence (every beam) has finished;
     for greedy it also sorts the input by image aspect ratio so that
     similar lengths share a batch, and the output keeps the input's order.
     """
-    from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder
-
     if decode_type not in ("greedy", "beam"):
         raise ValueError(f"decode_type {decode_type!r}")
     if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r}")
     if kv_quant not in KV_QUANT:
         raise ValueError(f"kv_quant {kv_quant!r}")
-    if kv_quant != "none" and (decode_type != "greedy" or kernel == "fused"):
+    if kv_quant != "none" and (decode_type != "greedy" or kernel in ("fused", "generic")):
         raise ValueError("kv_quant runs only on the fast greedy decode path "
-                         "(greedy, non-fused kernel), as in the JAX package")
+                         "(greedy, non-fused kernel, not generic), as in the JAX package")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_inference: CUDA was asked for and no CUDA card "
@@ -163,7 +202,7 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model, options, vocab, _ = load_model_from_checkpoint(
         checkpoint_path, device=device, dtype=dtype)
-    fast = build_fast_decoder(model)
+    fast = build_fast(model)
     tables = (RuleTables.build(vocab, device)
               if decoding_manager and decode_type == "greedy" else None)
     sort_by_size = early_stop and decode_type == "greedy"
@@ -185,7 +224,8 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
             tokens = beam_decode_images(
                 model, fast, images, num_steps, beam_width=beam_width,
                 eos_id=vocab.eos_id, early_stop=early_stop,
-                plain=plain or kernel == "jnp")
+                plain=plain or kernel == "jnp",
+                kernel=beam_kernel(kernel))
         tokens = tokens.cpu().numpy()
         count = batch["count"]
         strs = id_to_string(tokens[:count], vocab.id_to_token,

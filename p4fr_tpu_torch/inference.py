@@ -1,12 +1,17 @@
-"""Inference CLI of the PyTorch port (single model, greedy or beam):
+"""Inference CLI of the PyTorch port (one model, greedy or beam; or an
+ensemble):
 
     python -m p4fr_tpu_torch.inference --checkpoint model.pth \\
         --file_path input.txt --output_dir ./outputs \\
         [--batch_size 32] [--max_sequence 230] [--decoding_manager true] \\
         [--decode_type greedy|beam] [--beam_width 3] \\
-        [--beam_gather auto|pallas|jnp] [--kernel auto|pallas_v2|jnp|fused] \\
+        [--beam_gather auto|pallas|jnp] \\
+        [--kernel auto|pallas_v2|jnp|fused|generic] \\
         [--kv_quant none|int8|int8_cache] [--early_stop false] \\
         [--device cuda|cpu]
+    python -m p4fr_tpu_torch.inference --inference_type ensemble \\
+        --checkpoint satrn.pth aster.pth swin.pth --file_path input.txt \\
+        [--kernel auto|jnp|fused|generic] [--decoding_manager true] ...
 
 The arguments are those of the JAX package's ``inference.py``, plus
 ``--device``: the port runs on the CUDA card unless ``--device cpu`` is
@@ -21,22 +26,28 @@ versions (``run_inference(plain=True)``). Greedy's ``--kernel``:
   kernel's plain PyTorch version on whatever device runs (the encoder
   keeps its kernels); also the way to run a decoder whose head width the
   kernels refuse;
-- ``fused``: the whole greedy step in one CUDA launch.
+- ``fused``: the whole greedy step in one CUDA launch;
+- ``generic``: the model's own module step (``decode_step``), no kernel in
+  the decode.
 
-Beam runs the same search for each, as in the JAX CLI, ``jnp`` on the
-kernels' plain versions. ``--kv_quant`` (greedy, not ``fused``, never the
-default): ``int8`` makes each layer's cross K/V int8 with per-(row,
+EfficientASTER greedy runs its fused LSTM step under every ``--kernel`` but
+``generic``. Beam runs its fast search for ``auto`` and ``pallas_v2``,
+``jnp`` on the kernels' plain versions, and the module step for ``generic``
+and (as the JAX CLI maps it) ``fused``. The ensemble averages the members'
+softmax each step (``p4fr_tpu_torch/infer/ensemble.py``; ``fused`` runs as
+``auto`` there). ``--kv_quant`` (greedy, not ``fused`` or ``generic``, never
+the default): ``int8`` makes each layer's cross K/V int8 with per-(row,
 position) scales, ``int8_cache`` the self-attention cache too; with
 ``auto``/``pallas_v2`` the layer-step kernel's int8 forms read them (on
 the CPU its plain version). Under ``jnp`` the cross K/V is dequantized
 once and the self cache stays in the model's type, as in the JAX package,
-so ``int8_cache`` there quantizes the cross K/V alone. Options the port
-does not run yet are rejected with the ROADMAP item that ports them;
-compatibility shims (``--tokens_path``, ``--max_cache``) are accepted and
-unused, as in the JAX CLI. The checkpoint is a
-reference-format ``.pth`` of an EfficientSATRN or a SwinTRN (``network``
-``SWIN``); the JAX package's ``convert_pth --export`` writes one from a
-native checkpoint.
+so ``int8_cache`` there quantizes the cross K/V alone; EfficientASTER
+refuses it, as in the JAX package. Options the port does not run yet are
+rejected with the ROADMAP item that ports them; compatibility shims
+(``--tokens_path``, ``--max_cache``) are accepted and unused, as in the JAX
+CLI. A checkpoint is a reference-format ``.pth`` of an EfficientSATRN, a
+SwinTRN (``network`` ``SWIN``) or an EfficientASTER; the JAX package's
+``convert_pth --export`` writes one from a native checkpoint.
 """
 
 import argparse
@@ -44,11 +55,8 @@ import sys
 
 # option -> (values the port supports, ROADMAP item that ports the rest)
 _NOT_YET = {
-    "inference_type": (("single",), "Queue 1: ensemble"),
-    "kernel": (("auto", "pallas_v2", "jnp", "fused"),
-               "Queue 1 item 4: the generic step"),
-    "data_parallel": ((False,), "Queue 1: parallelism"),
-    "preprocess": (("device",), "Queue 1: device resize"),
+    "data_parallel": ((False,), "Queue 1 item 13: parallelism"),
+    "preprocess": (("device",), "Queue 1 item 10: preprocess options"),
 }
 
 
@@ -100,12 +108,16 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not args.checkpoint:
         parser.error("--checkpoint is required")
-    if len(args.checkpoint) > 1:
+    if args.inference_type == "single" and len(args.checkpoint) > 1:
         parser.error("single inference takes exactly one --checkpoint")
     if args.kv_quant != "none" and (args.kernel == "fused"
                                     or args.decode_type != "greedy"):
         parser.error("--kv_quant runs only on the non-fused greedy path "
                      "(as in the JAX CLI)")
+    if args.kv_quant != "none" and (args.kernel == "generic"
+                                    or args.inference_type == "ensemble"):
+        parser.error("--kv_quant runs on the fast step, not on --kernel generic's "
+                     "module step nor in an ensemble")
     for name, (supported, item) in _NOT_YET.items():
         value = getattr(args, name)
         if value not in supported:
@@ -117,6 +129,15 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA card is visible; pass --device cpu to run on "
                      "the CPU")
+
+    if args.inference_type == "ensemble":
+        from p4fr_tpu_torch.infer.ensemble import run_ensemble
+
+        return run_ensemble(
+            args.checkpoint, args.file_path, args.output_dir,
+            batch_size=args.batch_size, max_sequence=args.max_sequence,
+            decoding_manager=args.decoding_manager, max_cache=args.max_cache,
+            early_stop=args.early_stop, kernel=args.kernel, device=args.device)
 
     from p4fr_tpu_torch.infer.single import run_inference
 

@@ -195,3 +195,22 @@ class TransformerDecoder(nn.Module):
                                  f"step {pos}")
             tgt = layer.step(tgt, kv, layer_cache)
         return self.generator(tgt[:, 0])
+
+
+class DecodeContract:
+    """The unified decode contract of the transformer families, over
+    ``self.decoder`` (a ``TransformerDecoder``): what ``decoding/greedy.py``
+    (``--kernel generic``), beam's generic branch, the ensemble and
+    training's AR-sampled branch drive."""
+
+    def precompute_src(self, src: torch.Tensor):
+        return self.decoder.precompute_src(src)
+
+    def init_decode_cache(self, batch: Optional[int] = None,
+                          max_steps: Optional[int] = None) -> Tuple[LayerCache, ...]:
+        """An empty cache of per-step lists (``batch`` and ``max_steps``
+        fix nothing: the lists grow a slot each step)."""
+        return self.decoder.init_cache()
+
+    def decode_step(self, token: torch.Tensor, pos: int, src_kv, cache) -> torch.Tensor:
+        return self.decoder.step(token, pos, src_kv, cache)

@@ -1,7 +1,7 @@
 """Model registry: network name -> torch model, port of
-``p4fr_tpu/models/registry.py``. The EfficientSATRN and SwinTRN families
-are ported; the other names raise and point at the ROADMAP item that ports
-them."""
+``p4fr_tpu/models/registry.py``. The EfficientSATRN, SwinTRN and
+EfficientASTER families are ported; LiteSATRN raises and points at the
+ROADMAP item that ports it."""
 
 from __future__ import annotations
 
@@ -11,8 +11,6 @@ from p4fr_tpu_torch.data.vocab import Vocab
 
 NOT_PORTED = {  # network -> the ROADMAP item that ports it
     "LiteSATRN": "ROADMAP.md Queue 1: LiteSATRN (ShallowCNN)",
-    "EfficientASTER": "ROADMAP.md Queue 1: EfficientASTER",
-    "ASTER": "ROADMAP.md Queue 1: EfficientASTER",
 }
 
 
@@ -29,6 +27,11 @@ def get_network(name: str, options, vocab: Vocab, dtype=torch.float32,
         from p4fr_tpu_torch.models.swin import swin_from_options
 
         model = swin_from_options(options, len(vocab), vocab.pad_id, vocab.sos_id)
+        return model.to(device=device, dtype=dtype).eval()
+    if name in ("EfficientASTER", "ASTER"):
+        from p4fr_tpu_torch.models.aster import aster_from_options
+
+        model = aster_from_options(options, len(vocab), vocab.pad_id, vocab.sos_id)
         return model.to(device=device, dtype=dtype).eval()
     if name in NOT_PORTED:
         raise NotImplementedError(

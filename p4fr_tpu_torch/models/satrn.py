@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from p4fr_tpu_torch.models.batchnorm import BatchNorm2d
-from p4fr_tpu_torch.models.common import TransformerDecoder
+from p4fr_tpu_torch.models.common import DecodeContract, TransformerDecoder
 from p4fr_tpu_torch.models.efficientnetv2 import EfficientNetV2Backbone
 from p4fr_tpu_torch.ops.attention import MultiHeadAttention
 from p4fr_tpu_torch.ops.posenc import sinusoid_concat
@@ -136,7 +136,7 @@ class SATRNEncoder(nn.Module):
         return x.reshape(b, h * w, c)
 
 
-class SATRN(nn.Module):
+class SATRN(DecodeContract, nn.Module):
     """Encoder-decoder SATRN on the EfficientNetV2 backbone."""
 
     def __init__(self, num_classes: int, pad_id: int, sos_id: int,
@@ -171,15 +171,6 @@ class SATRN(nn.Module):
         """Teacher-forced logits: standardized images [B, H, W, C], text
         [B, L] -> [B, L, V]."""
         return self.decoder(self.encode(images), text)
-
-    def precompute_src(self, src: torch.Tensor):
-        return self.decoder.precompute_src(src)
-
-    def init_decode_cache(self):
-        return self.decoder.init_cache()
-
-    def decode_step(self, token: torch.Tensor, pos: int, src_kv, cache) -> torch.Tensor:
-        return self.decoder.step(token, pos, src_kv, cache)
 
 
 def satrn_from_options(options, num_classes: int, pad_id: int, sos_id: int) -> SATRN:

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from p4fr_tpu_torch.models.common import TransformerDecoder
+from p4fr_tpu_torch.models.common import DecodeContract, TransformerDecoder
 from p4fr_tpu_torch.ops.swin_attention import (
     fused_window_attention,
     fused_window_attention_ref,
@@ -250,8 +250,9 @@ class SwinEncoder(nn.Module):
         return self.norm(x)
 
 
-class SwinTRN(nn.Module):
-    """Swin encoder + the transformer decoder (inference)."""
+class SwinTRN(DecodeContract, nn.Module):
+    """Swin encoder + the transformer decoder (inference), with the unified
+    decode contract (``models.common.DecodeContract``)."""
 
     def __init__(self, num_classes: int, pad_id: int, sos_id: int,
                  input_height: int, input_width: int, dec_src_dim: int,

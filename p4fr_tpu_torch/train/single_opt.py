@@ -58,6 +58,8 @@ from p4fr_tpu_torch.utils.metrics import (
 NOT_TRAINABLE = {  # network -> the ROADMAP item that trains it
     "SWIN": "ROADMAP.md Queue 1: SwinTRN training",
     "SwinTRN": "ROADMAP.md Queue 1: SwinTRN training",
+    "EfficientASTER": "ROADMAP.md Queue 1: EfficientASTER training",
+    "ASTER": "ROADMAP.md Queue 1: EfficientASTER training",
 }
 HISTORY_KEYS = (
     "train_losses", "train_symbol_accuracy", "train_sentence_accuracy",

@@ -1,8 +1,9 @@
 """Weight bridge: JAX parameter trees -> a reference-named torch state dict.
 
 The port's own copy of the export direction of
-``p4fr_tpu/utils/convert_pth.py``, reduced to the EfficientSATRN and SwinTRN
-names (the Swin hub-weight rules are not copied).
+``p4fr_tpu/utils/convert_pth.py``, reduced to the EfficientSATRN, SwinTRN
+and EfficientASTER names (the Swin hub-weight and timm rules are not
+copied).
 The rule tables map each reference torch key (regex) to a flax path
 template and a layout transform; ``export_state_dict`` inverts them, so the
 result is exactly the reference ``.pth`` layout the port's modules load:
@@ -13,8 +14,11 @@ result is exactly the reference ``.pth`` layout the port's modules load:
 - BatchNorm weight/bias      <- scale/bias; running stats <- batch_stats
 - LayerNorm weight           <- scale
 
-"drop" rules (``num_batches_tracked``) have no inverse: the modules rebuild
-those buffers themselves.
+"drop" rules (``num_batches_tracked``; EfficientASTER's dead ``conv2``
+stage) have no inverse: the modules rebuild those buffers themselves, and
+``DeepCNN`` drops the ``conv2`` keys of a reference ``.pth`` on load. A
+one-layer ASTER decoder keeps a bare LSTM cell at ``rnn.`` (the reference
+names the cells ``rnn.{i}.`` only for more than one layer).
 """
 
 from __future__ import annotations
@@ -230,11 +234,51 @@ def swin_rules() -> List[Rule]:
     return rules
 
 
+def aster_rules() -> List[Rule]:
+    """EfficientASTER: DeepCNN (the V2-S blocks and the convRelu tail), the
+    BiLSTM (torch ``l{k}[_reverse]`` -> ``l{k}_{fwd,bwd}/cell``), the
+    projection, and the attention decoder."""
+    rules: List[Rule] = []
+    cnn = r"encoder\.cnn"
+    f = "encoder/cnn"
+    rules += _conv_rules(rf"{cnn}\.conv_stem", rf"{f}/conv_stem")
+    rules += _norm_rules(rf"{cnn}\.bn1", rf"{f}/bn1")
+    rules += _efficientnet_rules(rf"{cnn}\.eff_blocks", rf"{f}/blocks")
+    # a conv2 stage the reference's forward never calls: dead weights
+    rules += [(rf"{cnn}\.conv2\..*$", "", _identity, "drop")]
+    rules += _conv_rules(rf"{cnn}\.conv1\.conv4", rf"{f}/conv1")
+    rules += _norm_rules(rf"{cnn}\.conv1\.batchnorm4", rf"{f}/conv1_bn")
+    rules += _conv_rules(rf"{cnn}\.conv3\.conv6", rf"{f}/conv3")
+    rules += _norm_rules(rf"{cnn}\.conv3\.batchnorm6", rf"{f}/conv3_bn")
+    for k in range(2):
+        for suffix, d in (("", "fwd"), ("_reverse", "bwd")):
+            for w in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                rules.append((rf"encoder\.blstm\.{w}_l{k}{suffix}$",
+                              f"encoder/blstm/l{k}_{d}/cell/{w}", _identity, "params"))
+    rules += _linear_rules(r"encoder\.proj", "encoder/proj")
+    ac = r"decoder\.attention_cell"
+    rules += [(r"decoder\.embedding\.weight$", "embedding/embedding", _identity,
+               "params")]
+    rules += _linear_rules(rf"{ac}\.i2h", "attention_cell/i2h")
+    rules += _linear_rules(rf"{ac}\.h2h", "attention_cell/h2h")
+    rules += _linear_rules(rf"{ac}\.score", "attention_cell/score")
+    for w in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+        rules.append((rf"{ac}\.rnn\.(\d+)\.{w}$", rf"attention_cell/cell\1/{w}",
+                      _identity, "params"))
+        # one-layer decoders keep a bare cell at .rnn
+        rules.append((rf"{ac}\.rnn\.{w}$", rf"attention_cell/cell0/{w}", _identity,
+                      "params"))
+    rules += _linear_rules(r"decoder\.generator", "generator")
+    return rules
+
+
 def rules_for(network: str) -> List[Rule]:
     if network in ("EfficientSATRN", "MySATRN"):
         return satrn_rules()
     if network in ("SWIN", "SwinTRN"):
         return swin_rules()
+    if network in ("EfficientASTER", "ASTER"):
+        return aster_rules()
     if network in NOT_PORTED:
         raise NotImplementedError(
             f"no weight-bridge rules for {network!r} in p4fr_tpu_torch yet "
@@ -313,6 +357,11 @@ def export_state_dict(
                 break
         else:
             unmatched.append(path)
+    if network in ("EfficientASTER", "ASTER") and not any(
+            k.startswith("decoder.attention_cell.rnn.1.") for k in sd):
+        # one decoder layer: the reference's bare LSTMCell at .rnn
+        sd = {k.replace("decoder.attention_cell.rnn.0.", "decoder.attention_cell.rnn."): v
+              for k, v in sd.items()}
     return sd, unmatched
 
 

@@ -9,7 +9,10 @@ has no meaning here. Cases: W=1 and W=3 at fixed length; early stop on a
 generator biased towards ``<EOS>`` (so that every beam finishes before the
 last step), which must also equal the port's own full-length run; and
 ``stop_override`` against JAX's ``stop_override="arg"`` with the same
-stops. Beyond that: W=1 equals the port's greedy up to each row's first
+stops; the generic branch (``kernel="generic"``, the model's module step,
+its list caches reordered by ``index_select``) at W=3 and with early stop,
+against JAX's generic branch, and (once) generic greedy against JAX's
+``make_greedy_fn``. Beyond that: W=1 equals the port's greedy up to each row's first
 ``<EOS>``, the replay of a search picks its own record again, and the CLI
 writes the JAX CLI's ``output.csv``.
 """
@@ -217,3 +220,30 @@ def test_beam_cli_output_matches_jax(slice_models, tmp_path, beam_gather):
     got = (tmp_path / "out_torch" / "output.csv").read_text()
     assert len(got.splitlines()) == n
     assert got == want
+
+
+@pytest.mark.parametrize("early_stop,bias", [(False, 0.0), (True, EOS_BIAS)],
+                         ids=["w3", "w3_early_stop"])
+def test_generic_beam_and_greedy_match_jax(slice_models, beam_models, early_stop, bias):
+    from p4fr_tpu.decoding import manager as jax_dm
+    from p4fr_tpu.decoding.greedy import make_greedy_fn
+    from p4fr_tpu_torch.decoding.manager import RuleTables
+
+    vocab, jmodel, _, _, images, _ = slice_models
+    variables, model, fast = beam_models[bias]
+    std = jax_standardize(jnp.asarray(images), out_dtype=jnp.float32)
+    want = np.asarray(jax.jit(make_beam_fn(
+        jmodel, max_steps=STEPS, beam_width=3, eos_id=vocab.eos_id,
+        kernel="generic", gather_kernel="jnp", early_stop=early_stop))(variables, std))
+    got = beam_decode_images(model, fast, torch.from_numpy(images), STEPS, beam_width=3,
+                             eos_id=vocab.eos_id, early_stop=early_stop,
+                             kernel="generic").numpy()
+    np.testing.assert_array_equal(got, want)
+    if early_stop:
+        return
+    want = np.asarray(jax.jit(make_greedy_fn(
+        jmodel, max_steps=STEPS, tables=jax_dm.RuleTables.build(vocab),
+        return_outputs=False))(variables, std))
+    got = decode_images(model, fast, torch.from_numpy(images), RuleTables.build(vocab),
+                        STEPS, kernel="generic").numpy()
+    np.testing.assert_array_equal(got, want)

@@ -251,33 +251,41 @@ def test_cli_fused_output_matches_jax(slice_models, tmp_path):
 ], ids=["pallas_v2", "jnp", "generic", "fused_kv_quant"])
 def test_cli_rejects_kernels_not_ported(argv, slice_models, tmp_path, capsys,
                                         monkeypatch):
-    """``generic`` (ROADMAP Queue 1 item 4) and ``--kv_quant`` with ``fused``
-    are refused; ``pallas_v2`` runs kernel 3's step, as ``auto`` does, and
-    ``jnp`` each layer's plain step (``greedy_decode(use_jnp=True)``), each
-    writing ``--kernel auto``'s ``output.csv``."""
+    """``--kv_quant`` with ``fused`` is refused; ``pallas_v2`` runs kernel
+    3's step, as ``auto`` does, ``jnp`` each layer's plain step
+    (``greedy_decode(use_jnp=True)``) and ``generic`` the model's module
+    step (``greedy.make_greedy_fn``, never ``greedy_decode``), each writing
+    ``--kernel auto``'s ``output.csv``."""
     from p4fr_tpu_torch import inference
     from p4fr_tpu_torch.infer import single
 
     inp, _, pth, _ = native_and_pth(slice_models, tmp_path, n=3)
     base = ["--checkpoint", pth, "--file_path", str(inp), "--batch_size", "4",
             "--max_sequence", "4", "--device", "cpu"]
-    if argv[1] in ("generic", "fused"):
+    if argv[1] == "fused":
         with pytest.raises(SystemExit):
             inference.main(base + argv)
-        err = capsys.readouterr().err
-        assert ("ROADMAP.md Queue 1 item 4" in err) or ("non-fused" in err)
+        assert "non-fused" in capsys.readouterr().err
         return
     inference.main(base + ["--output_dir", str(tmp_path / "auto")])
-    calls = []
+    calls, module_calls = [], []
 
     def greedy_decode(*args, **kw):
         calls.append(kw["use_jnp"])
         return single_greedy(*args, **kw)
 
-    single_greedy = single.greedy_decode
+    def make_greedy_fn(*args, **kw):
+        module_calls.append(args[0])
+        return single_make_greedy_fn(*args, **kw)
+
+    single_greedy, single_make_greedy_fn = single.greedy_decode, single.make_greedy_fn
     monkeypatch.setattr(single, "greedy_decode", greedy_decode)
+    monkeypatch.setattr(single, "make_greedy_fn", make_greedy_fn)
     inference.main(base + argv + ["--output_dir", str(tmp_path / "k")])
-    assert calls and set(calls) == {argv[1] == "jnp"}
+    if argv[1] == "generic":
+        assert module_calls and not calls
+    else:
+        assert calls and set(calls) == {argv[1] == "jnp"} and not module_calls
     assert ((tmp_path / "k" / "output.csv").read_text()
             == (tmp_path / "auto" / "output.csv").read_text())
 

@@ -266,7 +266,7 @@ def test_cli_kv_quant_output_matches_jax(slice_models, tmp_path, flags):  # noqa
 @pytest.mark.parametrize("argv,reason", [
     (["--kv_quant", "int8", "--decode_type", "beam"], "non-fused greedy"),
     (["--kv_quant", "int8_cache", "--kernel", "fused"], "non-fused greedy"),
-    (["--kernel", "generic"], "ROADMAP.md Queue 1 item 4"),
+    (["--kernel", "generic", "--kv_quant", "int8"], "not on --kernel generic"),
 ], ids=["beam", "fused", "generic"])
 def test_cli_refusals_name_their_reason(argv, reason, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -225,15 +225,15 @@ def test_cli_output_matches_jax(slice_models, tmp_path):
 
 
 def test_cli_rejects_what_is_not_ported(tmp_path, capsys):
-    """Ensembles are still to port: the CLI refuses them with the ROADMAP
-    item."""
+    """Parallelism is still to port: the CLI refuses ``--data_parallel``
+    with the ROADMAP item (ensembles, refused here before, are ported)."""
     from p4fr_tpu_torch import inference
 
     with pytest.raises(SystemExit) as exc:
-        inference.main(["--inference_type", "ensemble", "--checkpoint", "x.pth",
+        inference.main(["--data_parallel", "true", "--checkpoint", "x.pth",
                         "--file_path", "in.txt", "--device", "cpu"])
     assert exc.value.code != 0
-    assert "ROADMAP.md Queue 1: ensemble" in capsys.readouterr().err
+    assert "ROADMAP.md Queue 1 item 13: parallelism" in capsys.readouterr().err
 
 
 def test_entry_points_run_on_cuda_unless_asked(slice_models, tmp_path, monkeypatch):
@@ -256,9 +256,17 @@ def test_entry_points_run_on_cuda_unless_asked(slice_models, tmp_path, monkeypat
 
 @pytest.mark.parametrize("network", ["LiteSATRN", "EfficientASTER", "ASTER"])
 def test_registry_names_the_roadmap_item(vocab, network):
-    """The families still unported raise with their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_network(network, CONFIGS, vocab)
+    """What is still unported raises with its ROADMAP item: LiteSATRN in the
+    registry; for the ASTER family, ported for inference, its training."""
+    from p4fr_tpu_torch.train.single_opt import check_trainable
+    from p4fr_tpu_torch.utils.flags import ConfigNode
+
+    if network == "LiteSATRN":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_network(network, CONFIGS, vocab)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: EfficientASTER"):
+        check_trainable(ConfigNode({"network": network}))
 
 
 def test_export_state_dict_matches_jax(slice_models):
@@ -275,7 +283,7 @@ def test_export_state_dict_matches_jax(slice_models):
         assert got[key].dtype == want[key].dtype, key
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export_state_dict("EfficientASTER", {})
+        export_state_dict("LiteSATRN", {})
 
 
 @pytest.mark.parametrize("port,jax_pkg", [
@@ -358,6 +366,36 @@ greedy = decode_images(model, fast, images, tables, 4)
 fused = decode_images(model, fast, images, tables, 4, kernel="fused")
 assert greedy.shape == fused.shape == (2, 4)
 
+from p4fr_tpu_torch.decoding.fast_aster import fast_aster_greedy
+from p4fr_tpu_torch.decoding.greedy import make_greedy_fn
+from p4fr_tpu_torch.infer.ensemble import ensemble_decode
+from p4fr_tpu_torch.infer.single import build_fast
+from p4fr_tpu_torch.models.aster import ASTER
+
+satrn, _, _, _ = load_model_from_checkpoint(%(pth)r, device="cpu")
+aster_configs = %(aster_configs)r
+model = get_network("EfficientASTER", aster_configs, vocab)
+assert isinstance(model, ASTER)
+path = save_checkpoint(%(aster_pth)r, model, network="EfficientASTER",
+                       configs=aster_configs, vocab=vocab)
+model, _, vocab, _ = load_model_from_checkpoint(path, device="cpu")
+fast = build_fast(model)
+images = torch.randint(0, 256, (2, 64, 128, 3), dtype=torch.uint8)
+greedy = decode_images(model, fast, images, tables, 4)
+generic = decode_images(model, fast, images, tables, 4, kernel="generic")
+src = encode_images(model, images)
+assert torch.equal(fast_aster_greedy(fast, src, max_steps=4, sos_id=model.sos_id,
+                                     tables=tables), greedy)
+from p4fr_tpu_torch.ops.preprocess import standardize
+tokens, outputs = make_greedy_fn(model, max_steps=4, tables=tables)(
+    standardize(images, out_dtype=model.dtype))
+assert torch.equal(tokens, generic) and outputs.shape == (2, 4, model.num_classes)
+beam = beam_decode_images(model, fast, images, 4, beam_width=3, eos_id=vocab.eos_id)
+members = [(satrn, build_fast(satrn)), (model, fast)]
+ens = ensemble_decode(members, [encode_images(satrn, images), src], max_steps=4,
+                      tables=tables)
+assert greedy.shape == generic.shape == beam.shape == ens.shape == (2, 4)
+
 from p4fr_tpu_torch.train.schedules import cosine_warmup_restarts
 from p4fr_tpu_torch.train.steps import build_optimizer, make_eval_step, make_train_step
 from p4fr_tpu_torch.utils.checkpoint import save_checkpoint
@@ -392,7 +430,12 @@ def test_port_imports_no_jax(tmp_path):
     greedy path and the v3
     step's replay pick kernel 3's path's tokens; then a tiny SwinTRN (heads
     of 64 in its decoder) saves, loads and decodes 4 greedy steps both
-    ways; and the training path (the train modules import with yaml and
+    ways; a tiny EfficientASTER saves, loads and decodes 4 greedy steps
+    through its fused step and through the module step (``--kernel
+    generic``, also from the images with ``make_greedy_fn``, its outputs
+    returned) and 4 beam steps,
+    and an ensemble of the SATRN and the ASTER decodes 4 steps; and the
+    training path (the train modules import with yaml and
     wandb refused too): a teacher-forced and an AR-sampled AdamW step, a
     validation step and a ``.pth`` with the trainer's state, saved and
     loaded."""
@@ -400,11 +443,14 @@ def test_port_imports_no_jax(tmp_path):
                     tmp_path / "p4fr_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    from test_torch_aster import CONFIGS as ASTER_CONFIGS
     from test_torch_swin import CONFIGS as SWIN_CONFIGS
 
     code = ISOLATED % {"configs": CONFIGS, "pth": str(tmp_path / "m.pth"),
                        "swin_configs": SWIN_CONFIGS,
-                       "swin_pth": str(tmp_path / "swin.pth")}
+                       "swin_pth": str(tmp_path / "swin.pth"),
+                       "aster_configs": ASTER_CONFIGS,
+                       "aster_pth": str(tmp_path / "aster.pth")}
     res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          env=dict(os.environ, PYTHONPATH=str(tmp_path)),
                          capture_output=True, text=True)

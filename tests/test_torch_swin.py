@@ -17,7 +17,16 @@ attention in interpret mode). Inputs come from numpy seeds. Held:
   atol 1e-4 (two stages of f32 sums), 10 greedy steps with the manager
   token for token, per-step logits atol 1e-4;
 - the CLI on an exported SWIN ``.pth`` with ``--device cpu`` writes JAX's
-  ``output.csv``.
+  ``output.csv``;
+- the unified decode contract (``precompute_src``, ``init_decode_cache``,
+  ``decode_step``): ``--kernel generic`` greedy with the manager gives the
+  tokens of JAX's ``make_greedy_fn`` over the module step, and its replayed
+  logits meet the fast path's within 1e-4; the port's ``make_greedy_fn``
+  from the images gives JAX's tokens and recorded (masked) probabilities,
+  atol 1e-4;
+- beam search, W=1, W=3, and W=3 with early stop on a generator biased
+  towards ``<EOS>``: JAX's ``make_beam_fn`` tokens, through the fast step
+  and through the generic branch (exact: beam search compares exactly).
 """
 
 import os
@@ -40,9 +49,10 @@ from p4fr_tpu.ops.pallas.preprocess import standardize as jax_standardize
 from p4fr_tpu.ops.pallas.swin_attention import fused_window_attention as jax_fwa
 from p4fr_tpu.utils.flags import Flags
 from p4fr_tpu_torch.decoding.fast_step import build_fast_decoder
+from p4fr_tpu_torch.decoding.greedy import make_greedy_fn as port_make_greedy_fn
 from p4fr_tpu_torch.decoding.manager import RuleTables
-from p4fr_tpu_torch.decoding.replay import replay_logits
-from p4fr_tpu_torch.infer.single import decode_images, encode_images
+from p4fr_tpu_torch.decoding.replay import replay_generic, replay_logits
+from p4fr_tpu_torch.infer.single import beam_decode_images, decode_images, encode_images
 from p4fr_tpu_torch.models import swin
 from p4fr_tpu_torch.models.registry import get_network
 from p4fr_tpu_torch.ops import _build
@@ -244,3 +254,53 @@ def test_swin_cli_output_matches_jax(swin_models, tmp_path):
     assert len(got.splitlines()) == len(names)
     assert any(line.split("\t")[1].strip() for line in got.splitlines())
     assert got == want
+
+
+def test_generic_greedy_matches_jax(swin_models):
+    from p4fr_tpu.decoding.greedy import make_greedy_fn
+
+    vocab, jmodel, variables, tmodel, images = swin_models
+    std = jax_standardize(jnp.asarray(images), out_dtype=jnp.float32)
+    want, want_probs = (np.asarray(a) for a in jax.jit(make_greedy_fn(
+        jmodel, max_steps=STEPS, tables=jax_dm.RuleTables.build(vocab)))(variables, std))
+    tables = RuleTables.build(vocab)
+    tokens, probs = port_make_greedy_fn(tmodel, max_steps=STEPS, tables=tables)(
+        torch.from_numpy(np.array(std)))
+    np.testing.assert_array_equal(tokens.numpy(), want)
+    np.testing.assert_allclose(probs.numpy(), want_probs, rtol=0, atol=1e-4)
+    fast = build_fast_decoder(tmodel)
+    timages = torch.from_numpy(images)
+    got = decode_images(tmodel, fast, timages, tables, STEPS, kernel="generic")
+    np.testing.assert_array_equal(got.numpy(), want)
+    memory = encode_images(tmodel, timages)
+    logits, picks = replay_generic(tmodel, memory, got, sos_id=vocab.sos_id,
+                                   tables=tables)
+    np.testing.assert_array_equal(picks.numpy(), want)
+    fast_logits, _ = replay_logits(fast, memory, got, sos_id=vocab.sos_id, tables=tables)
+    np.testing.assert_allclose(logits.numpy(), fast_logits.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("width,early_stop,bias", [
+    (1, False, 0.0), (3, False, 0.0), (3, True, 4.0),
+], ids=["w1", "w3", "w3_early_stop"])
+def test_swin_beam_matches_jax(swin_models, width, early_stop, bias):
+    from p4fr_tpu.decoding.beam import make_beam_fn
+
+    vocab, jmodel, variables, _, images = swin_models
+    params = jax.tree_util.tree_map(np.array, variables["params"])
+    params["decoder"]["generator"]["bias"][vocab.eos_id] += bias
+    model = get_network("SWIN", CONFIGS, vocab)
+    model.load_state_dict(state_dict_from_jax("SWIN", params), strict=True)
+    fast = build_fast_decoder(model)
+    std = jax_standardize(jnp.asarray(images), out_dtype=jnp.float32)
+    for kernel in ("jnp", "generic"):
+        want = np.asarray(jax.jit(make_beam_fn(
+            jmodel, max_steps=STEPS, beam_width=width, eos_id=vocab.eos_id,
+            kernel=kernel, gather_kernel="jnp", early_stop=early_stop))(
+                {"params": params}, std))
+        got = beam_decode_images(model, fast, torch.from_numpy(images), STEPS,
+                                 beam_width=width, eos_id=vocab.eos_id,
+                                 early_stop=early_stop, kernel=kernel).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=kernel)
+    if early_stop:
+        assert (got[:, -1] == model.pad_id).all()  # every beam finished early
