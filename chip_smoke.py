@@ -24,7 +24,10 @@ with a non-zero exit and no result line:
    decoder shape (hidden 512, heads of 64, 4 layers, 144 source tokens),
    and the decoder-layer step (kernel 3, a thread-block cluster of C CTAs
    per 4 rows) also at beam's 768 rows and at SwinTRN beam's 96 rows
-   (heads of 64): one shape per cluster size that a main path takes. Before the checks, each shape's cluster size, the
+   (heads of 64): one shape per cluster size that a main path takes; kernels 3
+   and 6 also at LiteSATRN's decoder (B=256, hidden 128, heads of 32, FF
+   512, 2 layers, 128 source tokens), and kernel 3 at its beam's 768 rows.
+   Before the checks, each shape's cluster size, the
    card's resident clusters of each size (``cudaOccupancyMaxActiveClusters``)
    and each kernel-3 instance's registers and local memory are printed,
    and the same for the fused step (kernel 6, also a cluster of C CTAs
@@ -97,9 +100,11 @@ with a non-zero exit and no result line:
    row), and 4c. SwinTRN beam W=3, B=32 (4 x 231 launches of kernel 3 at 96
    rows and of kernel 4 over [96, 231, 1024], 24 of kernel 5): the replay
    gate of phase 4.
-3g. EfficientSATRN greedy ``kernel="generic"`` (the module step), B=32:
-   no decoder-kernel launch; replayed on its tokens it picks them again,
-   and its logits meet the plain fast path's replay.
+3g. EfficientSATRN greedy through the module step (``decoding/greedy.py::
+   make_greedy_fn``, the library call; the CLI's ``--kernel generic`` runs
+   the plain fast step, as JAX's does), B=32: no decoder-kernel launch;
+   replayed on its tokens it picks them again, and its logits meet the
+   plain fast path's replay.
 3h. The ensemble of EfficientSATRN + EfficientASTER + SwinTRN, B=32, each
    reading one seeded image batch resized to its own input size, manager
    on, ``kernel="auto"``: 3 launches of kernel 1, 24 of kernel 5, (3 + 4) x
@@ -107,6 +112,17 @@ with a non-zero exit and no result line:
    again, and its mean f32 probabilities meet the plain path's within
    TOL_ENSEMBLE_PROBS_F32; a one-member ensemble (no manager) gives that
    member's greedy tokens.
+3i. LiteSATRN (LiteSATRN.yaml: the ShallowCNN stem at /16, 128x256 u8, the
+   2-layer 128-wide decoder) at full width, B=32, f32, manager on, seeded
+   random weights written as the JAX package's native msgpack file and read
+   back with strict=True: greedy ``auto`` (1 launch of kernel 1, 2 x 231 of
+   kernel 3, none of kernel 2) and ``fused`` (231 of kernel 6, none of
+   kernel 3), each replayed on its tokens against the plain path;
+   ``generic`` (no decoder-kernel launch) gives ``jnp``'s tokens; beam W=3
+   and phase 4's replay gate.
+4d. The flagship's beam (B=32) under ``--beam_gather auto`` and ``jnp``:
+   3 x 231 launches of kernel 3 under both, of kernel 4 under ``auto``
+   alone; the same tokens.
 5. Timing in bf16 (printed only): each kernel vs its twin and, where one
    PyTorch call computes the same function, that call (kernel 2 per shape:
    its plan, launch A and launch B, the block beside its bound, the
@@ -134,7 +150,10 @@ with a non-zero exit and no result line:
    beside its bound; in turns with flagship greedy, images/s of
    EfficientASTER greedy and beam (B=256), the SATRN+ASTER ensemble (B=256)
    and the three-member ensemble (B=32 and B=256), with each ensemble
-   call's peak memory.
+   call's peak memory. Kernel 3 at LiteSATRN's B=256 and 768 rows and
+   kernel 6 at its B=256, each beside its bound and plain version; in
+   turns with flagship greedy, LiteSATRN greedy (``auto``, ``fused``) and
+   beam images/s at B=256.
 6. One JSON line of per-kernel results (with each kernel's least time on
    the card, from this run's shapes), then the device line.
 7. Training EfficientSATRN at full width (run before the result lines;
@@ -151,6 +170,16 @@ with a non-zero exit and no result line:
    forced and AR-sampled step times, validation images/s, peak memory, a
    profile of one teacher-forced step, and 20 steps on one batch that must
    lower the loss.
+7b. Distillation (run before the result lines): the LiteSATRN student from
+   its native file, the flagship as teacher written as a native file and
+   loaded as the trainer loads it. The teacher's greedy logits through
+   kernels 2 and 3 (28 and 3 x 231 launches, f32, B=16) against its plain
+   path within 1e-3; one teacher-forced and one AR-sampled f32
+   distillation step on the card against the port on the CPU (B=2,
+   dropout off, the CPU replaying the card's student and teacher picks)
+   within ``TOL_TRAIN_*``; then, in bf16 autocast at B=32, the step times,
+   the teacher's share, images/s, peak memory, and 20 steps on one batch
+   that must lower the loss.
 """
 
 import copy
@@ -243,6 +272,30 @@ ASTER_CONFIGS = {
 }
 ENSEMBLE_BATCH = 32  # the ensemble's gates
 
+# LiteSATRN.yaml's model values, written out: the ShallowCNN stem at /16, so
+# a 128x256 input gives 8x16 = 128 source tokens; the 256-wide encoder's
+# memory projects to the 128-wide decoder's cross K|V
+LITE_H, LITE_W = 128, 256
+LITE_CONFIGS = {
+    "network": "LiteSATRN",
+    "input_size": {"height": LITE_H, "width": LITE_W},
+    "SATRN": {
+        "encoder": {"hidden_dim": 256, "filter_dim": 256, "layer_num": 1,
+                    "head_num": 4},
+        "decoder": {"src_dim": 256, "hidden_dim": 128, "filter_dim": 512,
+                    "layer_num": 2, "head_num": 4},
+    },
+    "data": {"rgb": 3},
+    "dropout_rate": 0.1,
+    "tpu": {"compute_dtype": "bfloat16", "reference_parity": True},
+}
+LITE_BATCH = 32  # LiteSATRN.yaml's batch_size: its gates and its training timing
+# kernels 3 and 6 at LiteSATRN's decoder (heads of 32) at B=256, and kernel 3
+# at its beam's 768 rows
+LITE_DECODER = dict(b=KERNEL_BATCH, hidden=128, heads=4, filter_dim=512, layers=2,
+                    s_len=128, fused_gate="fused_greedy_step")
+LITE_BEAM_DECODER = dict(LITE_DECODER, b=E2E_TIME_BATCH * BEAM_WIDTH)
+
 # stride-1 MBConv shapes of the main path at B=256:
 # (name, H, W, Cin, Cout, expand, blocks on the path)
 MBCONV_SHAPES = [
@@ -308,6 +361,15 @@ BF16_ATOL = {"standardize": 1e-6, "mbconv": 1.5e-3, "decoder_layer": 2e-3,
 # with the mean unrounded (every image's gates move) and ~0.25 with h2
 # rounded first (PERF.md, Findings).
 BF16_GATED_SHARE = {"mbconv": 1e-3}
+# The tiled form's gated operand is formed as the projection loads it and
+# never stored, so its output is held the same way: the median over the
+# images of the share of output elements that differ from the twin's cast
+# reads 7.9e-4 - 9.3e-4 for the sound kernel at EfficientASTER's three tiled
+# shapes (seeds 0-2), 5.0e-2 - 6.2e-2 with the pooled mean unrounded, 0.10
+# with the residual added after the cast and 0.30-0.33 with h2 rounded
+# before the gate, two of which pass the output gate above (PERF.md,
+# Findings).
+BF16_OUT_SHARE = {"mbconv_tiled": 5e-3}
 BF16_MEAN_ATOL = {"fused_greedy_step": 5e-4, "fused_greedy_step_swin": 1.2e-3,
                   "decoder_stack_v3": 2e-3, "swin_attention": 4e-4}
 TOL_LOGITS_F32 = 1e-3  # e2e logits, f32, 28 blocks + 3 x 231 layer steps
@@ -512,11 +574,12 @@ def check_kernels(dev, dtype, errors, seed=SEED):
     del images, got
 
     check_mbconv(dev, dtype, errors, misses, seed)
-    for shape in (SATRN_DECODER, SWIN_DECODER, BEAM_DECODER, SWIN_BEAM_DECODER):
+    for shape in (SATRN_DECODER, SWIN_DECODER, BEAM_DECODER, SWIN_BEAM_DECODER,
+                  LITE_DECODER, LITE_BEAM_DECODER):
         check_layer(dev, dtype, errors, misses, seed, shape)
     for rows, feat in GATHER_SHAPES:
         check_beam_gather(dev, dtype, errors, misses, seed, rows, feat)
-    for shape in (SATRN_DECODER, SWIN_DECODER):
+    for shape in (SATRN_DECODER, SWIN_DECODER, LITE_DECODER):
         check_fused_step(dev, dtype, errors, misses, seed, shape)
     check_swin_attention(dev, dtype, errors, misses, seed)
     for shape in (SATRN_DECODER, SWIN_DECODER):
@@ -561,17 +624,21 @@ def mbconv_report(dev):
                 raise AssertionError(f"kernel 2 at {name} takes the {p.path} path")
 
 
-def check_mbconv(dev, dtype, errors, misses, seed):
+def check_mbconv(dev, dtype, errors, misses, seed, paths=("cluster", "tiled")):
     """Kernel 2 vs its plain version (``mbconv_block_ref`` on the same
     operands, in f32) at the four stride-1 shapes of the flagship's encode,
     B=256, on the cluster path, and at EfficientASTER's four (B=8): stages 3
-    and 4 on the tiled path, stage 5 on the cluster path; a per-image
-    channel offset gives each image its own SE gate. f32 within TOL_F32
-    (``errors`` keeps the tiled path's apart, as ``mbconv_tiled``); bf16 by ``compare_bf16`` with
-    ``BF16_ATOL["mbconv"]``, and on the cluster path launch A's gated
-    operand by ``gated_share`` within ``BF16_GATED_SHARE["mbconv"]``. bf16
-    returns the largest excess over the cast, the largest mean abs error
-    and the largest gated share."""
+    and 4 on the tiled path, stage 5 on the cluster path (the shapes of
+    ``paths`` alone); a per-image channel offset gives each image its own
+    SE gate. f32 within TOL_F32 (``errors`` keeps the tiled path's apart,
+    as ``mbconv_tiled``); bf16 by ``compare_bf16`` with
+    ``BF16_ATOL["mbconv"]``, on the cluster path launch A's gated operand
+    by ``gated_share`` within ``BF16_GATED_SHARE["mbconv"]``, and on the
+    tiled path the output by its share of elements that differ from the
+    twin's cast (``gated_share``) within ``BF16_OUT_SHARE["mbconv_tiled"]``.
+    bf16 returns the largest excess over the cast, the largest mean abs
+    error, the largest gated share and the tiled path's largest output
+    share."""
     from p4fr_tpu_torch.ops.mbconv import (
         block_plan,
         expand_gate_ref,
@@ -582,10 +649,12 @@ def check_mbconv(dev, dtype, errors, misses, seed):
     )
 
     gen = torch.Generator().manual_seed(seed + 30)
-    worst = {"excess": 0.0, "mean": 0.0, "share": 0.0}
+    worst = {"excess": 0.0, "mean": 0.0, "share": 0.0, "out_share": 0.0}
     shapes = ([(*shape, "cluster", KERNEL_BATCH) for shape in MBCONV_SHAPES]
               + [(*shape, MBCONV_TILED_BATCH) for shape in MBCONV_ASTER])
     for name, h, w, cin, cout, expand, _, path, b in shapes:
+        if path not in paths:
+            continue
         block = mbconv_block(cin, cout, expand, gen, dev)
         folded = fold_mbconv_params(block, dtype)
         x = (torch.randn(b, h, w, cin, generator=gen)
@@ -615,6 +684,14 @@ def check_mbconv(dev, dtype, errors, misses, seed):
                 if not share <= limit:
                     misses.append(f"{tag} launch A: gated share {share:.3e} > {limit:.1e}")
                 worst["share"] = max(worst["share"], share)
+            else:
+                share = gated_share(got, want.to(dtype))
+                limit = BF16_OUT_SHARE["mbconv_tiled"]
+                print(f"  {tag} out: elements differing from the twin's cast, median "
+                      f"share an image {share:.3e} (limit {limit:.1e})")
+                if not share <= limit:
+                    misses.append(f"{tag} out: share {share:.3e} > {limit:.1e}")
+                worst["out_share"] = max(worst["out_share"], share)
         del x, got, want
     return worst
 
@@ -636,7 +713,9 @@ def cluster_report(dev):
           "clusters of C = 1/2/4/8/16, registers and local bytes a thread]")
     for label, shape in (("SwinTRN", SWIN_DECODER), ("flagship", SATRN_DECODER),
                          ("beam rows", BEAM_DECODER),
-                         ("SwinTRN beam rows", SWIN_BEAM_DECODER)):
+                         ("SwinTRN beam rows", SWIN_BEAM_DECODER),
+                         ("LiteSATRN", LITE_DECODER),
+                         ("LiteSATRN beam rows", LITE_BEAM_DECODER)):
         hid, heads, ff = shape["hidden"], shape["heads"], shape["filter_dim"]
         for entry, form in FORMS.items():
             for dt in (torch.float32, torch.bfloat16):
@@ -718,7 +797,8 @@ def fused_cluster_report():
     print("[kernel 6: cluster size per shape, its resident clusters of C = "
           "1/2/4/8/16, registers and local bytes a thread]")
     vp = padded_vocab(len(Vocab.from_files([TOKENS_PATH])))
-    for label, shape in (("SwinTRN", SWIN_DECODER), ("flagship", SATRN_DECODER)):
+    for label, shape in (("SwinTRN", SWIN_DECODER), ("flagship", SATRN_DECODER),
+                         ("LiteSATRN", LITE_DECODER)):
         hid, heads, ff = shape["hidden"], shape["heads"], shape["filter_dim"]
         for bf16 in (False, True):
             c = fused_cluster(shape["b"], hid, heads, ff, vp, bf16)
@@ -728,7 +808,7 @@ def fused_cluster_report():
                   f"{'bfloat16' if bf16 else 'float32'}: C={c}; resident clusters "
                   f"{[q[0] for q in per_c.values()]}; the launched instance {per_c[c][1]} "
                   f"registers, {per_c[c][2]} bytes of local memory a thread")
-            if c == 1:
+            if c == 1 and label != "LiteSATRN":
                 raise AssertionError(f"kernel 6 at {label} B={shape['b']} launches no "
                                      "cluster")
 
@@ -1958,18 +2038,23 @@ def swin_beam_path(ckpt, dev):
 # ---------------------------------------------------------------- phases 3g, 3h
 
 def generic_path(ckpt, dev):
-    """EfficientSATRN greedy ``--kernel generic`` (the module step) at B=32,
-    f32, manager on: no decoder kernel launches; replayed on its tokens it
-    picks them again, and its logits meet the plain fast path's replay."""
+    """EfficientSATRN greedy through the module step (``make_greedy_fn``, the
+    library call; the CLI's ``--kernel generic`` runs the plain fast step
+    on this family) at B=32, f32, manager on: no decoder kernel launches;
+    replayed on its tokens it picks them again, and its logits meet the
+    plain fast path's replay."""
+    from p4fr_tpu_torch.decoding.greedy import make_greedy_fn
     from p4fr_tpu_torch.decoding.replay import replay_generic, replay_logits
-    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.infer.single import encode_images
     from p4fr_tpu_torch.ops import _build
 
     model, fast, tables, images = path_images(ckpt, dev)
-    print(f"[generic path: EfficientSATRN greedy --kernel generic, B={E2E_CHECK_BATCH}, "
-          f"256x512 u8, {STEPS} steps, manager on, f32, TF32 off]")
+    print(f"[generic path: EfficientSATRN greedy through the module step "
+          f"(make_greedy_fn), B={E2E_CHECK_BATCH}, 256x512 u8, {STEPS} steps, manager "
+          f"on, f32, TF32 off]")
     _build.reset_launches()
-    tokens = decode_images(model, fast, images, tables, STEPS, kernel="generic")
+    tokens = make_greedy_fn(model, max_steps=STEPS, tables=tables, from_memory=True,
+                            return_outputs=False)(encode_images(model, images))
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"  launches {json.dumps(launches)}")
@@ -2081,6 +2166,23 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def layer_ops(b, hid, ff, s_len, pos):
+    """Operations of one decoder layer's step at ``pos`` over ``b`` rows:
+    the products and the attention over ``pos + 1`` slots and ``s_len``
+    source tokens."""
+    return (2 * b * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
+            + 4 * b * hid * (pos + 1 + s_len))
+
+
+def layer_cost(x, cache, src, weights, pos):
+    """(bytes, operations) of one kernel-3 step at ``pos``: x in and out,
+    the cache prefix read and slot ``pos`` written, the cross K|V, every
+    weight; ``layer_ops``."""
+    nb = (2 * nbytes(x) + nbytes(cache[:, :pos + 1]) + nbytes(cache[:, pos]) + nbytes(src)
+          + nbytes(*weights[:18]))
+    return nb, layer_ops(*x.shape, weights.w_ff0.shape[1], src.shape[1], pos)
+
+
 def fused_cost(token, mstate, caches, cross, params, pos):
     """(bytes, operations) of one kernel-6 step at ``pos``: token and state
     in and out, the logits out, every layer's cache prefix read and slot
@@ -2091,8 +2193,7 @@ def fused_cost(token, mstate, caches, cross, params, pos):
     ff, vp = params.w_ff0.shape[2], params.w_gen.shape[1]
     nb = (2 * nbytes(token, mstate) + b * vp * 4 + nbytes(caches[:, :pos + 1])
           + nbytes(cross) + nbytes(*params[:20]))
-    ops = (nl * (2 * b * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
-                 + 4 * b * hid * (pos + 1 + s_len)) + 2 * b * hid * vp)
+    ops = nl * layer_ops(b, hid, ff, s_len, pos) + 2 * b * hid * vp
     return nb, ops
 
 
@@ -2241,12 +2342,7 @@ def timing(ckpt, dev, card):
     pos, hid, ff, s_len = 115, 256, 1024, 128
     x, cache, src, weights = decoder_inputs(bf, gen, dev, pos, b=KERNEL_BATCH)
     b = x.shape[0]
-    # one layer step: x in, out, the cache prefix read, slot pos written, src
-    # K|V, weights
-    layer_bytes = (2 * nbytes(x) + nbytes(cache[:, :pos + 1]) + nbytes(cache[:, pos])
-                   + nbytes(src) + nbytes(*weights[:18]))
-    layer_ops = (2 * b * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
-                 + 4 * b * hid * (pos + 1 + s_len))
+    layer_bytes, layer_ops = layer_cost(x, cache, src, weights, pos)
     report("decoder_layer", f"B={b} pos={pos} L={STEPS} S={s_len} per layer step",
            cuda_ms(lambda: decoder_layer_step(x, pos, cache, src, weights, head_num=8,
                                               cache_outputs=True), iters=50),
@@ -2266,9 +2362,7 @@ def timing(ckpt, dev, card):
                                             cache_outputs=True), iters=50)
     pb = cuda_ms(lambda: layer_step_ref(xb, pos, cacheb, srcb, weightsb, head_num=8,
                                         cache_outputs=True), iters=20)
-    bb, byb = bound(2 * nbytes(xb) + nbytes(cacheb[:, :pos + 1]) + nbytes(cacheb[:, pos])
-                    + nbytes(srcb) + nbytes(*weightsb[:18]),
-                    layer_ops * xb.shape[0] // b, BF16_TENSOR_OPS_PER_S)
+    bb, byb = bound(*layer_cost(xb, cacheb, srcb, weightsb, pos), BF16_TENSOR_OPS_PER_S)
     print(f"  decoder_layer beam rows B={xb.shape[0]} pos={pos} L={STEPS} S={s_len} per "
           f"layer step: kernel {kb:.4f} ms, plain {pb:.4f} ms, bound {bb:.4f} ms by "
           f"{byb} ({card})")
@@ -2502,11 +2596,7 @@ def swin_timing(ckpt, dev, card, times):
                                        head_num=shape["heads"], cache_outputs=True),
                 iters=50)
     hid, ff = shape["hidden"], shape["filter_dim"]
-    b, by = bound(2 * nbytes(x) + nbytes(cache[:, :pos + 1]) + nbytes(cache[:, pos])
-                  + nbytes(src) + nbytes(*weights[:18]),
-                  2 * x.shape[0] * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
-                  + 4 * x.shape[0] * hid * (pos + 1 + shape["s_len"]),
-                  BF16_TENSOR_OPS_PER_S)
+    b, by = bound(*layer_cost(x, cache, src, weights, pos), BF16_TENSOR_OPS_PER_S)
     print(f"  decoder_layer SwinTRN shape B={x.shape[0]} H={hid} (heads of "
           f"{hid // shape['heads']}) F={ff} pos={pos} L={STEPS} S={shape['s_len']} per "
           f"layer step: kernel {k:.4f} ms, plain {p:.4f} ms, bound {b:.4f} ms by {by} "
@@ -2564,8 +2654,7 @@ def swin_timing(ckpt, dev, card, times):
     # cross K|V, every weight
     b7, by7 = bound(2 * nbytes(x) + nbytes(stack_caches[:, :, :pos + 1])
                     + nbytes(stack_caches[:, :, pos]) + nbytes(cross) + nbytes(*stacked),
-                    nl * (2 * x.shape[0] * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
-                          + 4 * x.shape[0] * hid * (pos + 1 + shape["s_len"])),
+                    nl * layer_ops(x.shape[0], hid, ff, shape["s_len"], pos),
                     BF16_TENSOR_OPS_PER_S)
     c7 = v3_step_cluster(x, shape["heads"], ff)
     print(f"  decoder_stack_v3 SwinTRN shape B={shape['b']} H={hid} (heads of "
@@ -2670,14 +2759,12 @@ def aster_timing(ckpts, dev, card, times):
                               filter_dim=ff)
 
     x, cache, src, weights = layer_set()
-    nb = (2 * nbytes(x) + nbytes(cache[:, :pos + 1]) + nbytes(cache[:, pos]) + nbytes(src)
-          + nbytes(*weights[:18]))
+    nb, ops = layer_cost(x, cache, src, weights, pos)
     sets = cold_sets(layer_set, (x, cache, src, weights), nb)
     kw = dict(head_num=shape["heads"], cache_outputs=True)
     k = rotating_ms(lambda x, c, s, w: decoder_layer_step(x, pos, c, s, w, **kw), sets, 50)
     p = rotating_ms(lambda x, c, s, w: layer_step_ref(x, pos, c, s, w, **kw), sets, 20)
-    b, by = bound(nb, 2 * x.shape[0] * (6 * hid * hid + 2 * hid * ff + 2 * hid * hid)
-                  + 4 * x.shape[0] * hid * (pos + 1 + s_len), BF16_TENSOR_OPS_PER_S)
+    b, by = bound(nb, ops, BF16_TENSOR_OPS_PER_S)
     print(f"  decoder_layer SwinTRN beam rows B={x.shape[0]} H={hid} (heads of "
           f"{hid // shape['heads']}) pos={pos} L={STEPS} S={s_len} per layer step, "
           f"{len(sets)} operand sets in turn (cold L2): kernel {k:.4f} ms, plain "
@@ -2737,6 +2824,236 @@ def aster_timing(ckpts, dev, card, times):
         if label.startswith("ensemble"):
             print(f"  peak device memory of the {label.strip()} call at B={batch}: "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+# ---------------------------------------------------------------- phase 3i
+
+def build_lite_checkpoint():
+    """LiteSATRN at LiteSATRN.yaml's full size, seeded random weights and
+    BatchNorm statistics, written as the JAX package's native msgpack file
+    (``save_native_checkpoint``); read back (``load_model_from_checkpoint``,
+    strict=True), every entry must equal the model's."""
+    from p4fr_tpu_torch.data.vocab import TOKENS_PATH, Vocab
+    from p4fr_tpu_torch.models.registry import get_network
+    from p4fr_tpu_torch.utils.checkpoint import (
+        checkpoint_format,
+        load_model_from_checkpoint,
+        save_native_checkpoint,
+    )
+
+    vocab = Vocab.from_files([TOKENS_PATH])
+    torch.manual_seed(SEED + 30)
+    model = get_network("LiteSATRN", LITE_CONFIGS, vocab)
+    random_bn_stats(model, torch.Generator().manual_seed(SEED + 31))
+    path = save_native_checkpoint(model, network="LiteSATRN", configs=LITE_CONFIGS,
+                                  vocab=vocab, dir="smoke",
+                                  prefix=os.path.join(REPO, "build", "p4fr_tpu_torch"))
+    again, _, _, _ = load_model_from_checkpoint(path, "cpu")
+    same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                 again.state_dict().values()))
+    print(f"[LiteSATRN: native checkpoint {os.path.basename(path)} "
+          f"({os.path.getsize(path) / 2**20:.1f} MiB, {checkpoint_format(path)}), read back "
+          f"with strict=True: every entry equal {same}]")
+    if not same or checkpoint_format(path) != "native":
+        raise AssertionError("the native LiteSATRN checkpoint does not read back")
+    return path
+
+
+def native_teacher(ckpt):
+    """The flagship's seeded checkpoint rewritten as a native file, as a
+    user's JAX-trained teacher comes."""
+    from p4fr_tpu_torch.utils.checkpoint import (
+        load_model_from_checkpoint,
+        save_native_checkpoint,
+    )
+
+    model, configs, vocab, _ = load_model_from_checkpoint(ckpt, "cpu")
+    return save_native_checkpoint(model, network="EfficientSATRN", configs=configs,
+                                  vocab=vocab, dir="smoke/teacher",
+                                  prefix=os.path.join(REPO, "build", "p4fr_tpu_torch"))
+
+
+def lite_path(ckpt, dev):
+    """LiteSATRN served at full width from its native file, B=32, f32,
+    manager on: greedy ``auto`` (1 launch of kernel 1, 2 x 231 of kernel 3,
+    no kernel 2) and ``fused`` (231 of kernel 6, no kernel 3), each replayed
+    on its tokens against the plain path; ``generic`` (the plain fast step:
+    kernel 1 alone) gives ``jnp``'s tokens; beam W=3 (2 x 231 launches of
+    kernels 3 and 4) and its replay gate."""
+    from p4fr_tpu_torch.decoding.replay import replay_fused, replay_logits
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
+
+    model, fast, tables, vocab = load_path_model(ckpt, dev)
+    images = u8_images(torch.Generator().manual_seed(SEED + 32), LITE_BATCH, LITE_H,
+                       LITE_W, dev)
+    layers, v = LITE_DECODER["layers"], model.num_classes
+    print(f"[LiteSATRN path: greedy, B={LITE_BATCH}, {LITE_H}x{LITE_W} u8, decoder "
+          f"{LITE_DECODER['hidden']} wide, {layers} layers, {STEPS} steps, manager on, "
+          f"f32, TF32 off]")
+    mem_p = encode_images(model, images, plain=True)
+    launches = {}
+    for kernel, want in (("auto", {"standardize": 1, "decoder_layer": layers * STEPS}),
+                         ("fused", {"standardize": 1, "fused_greedy_step": STEPS})):
+        _build.reset_launches()
+        tokens = decode_images(model, fast, images, tables, STEPS, kernel=kernel)
+        torch.cuda.synchronize()
+        launches[kernel] = dict(_build.LAUNCHES)
+        print(f"  --kernel {kernel} launches {json.dumps(launches[kernel])}")
+        check_launches(launches[kernel], want, at_least=())
+        if tokens.shape != (LITE_BATCH, STEPS) or not bool(
+                ((tokens >= 0) & (tokens < v)).all()):
+            raise AssertionError(f"bad LiteSATRN {kernel} tokens {tuple(tokens.shape)}")
+        mem_k = encode_images(model, images)
+        if kernel == "fused":
+            k_logits, k_picks = replay_fused(fast, mem_k, tokens, sos_id=model.sos_id,
+                                             vocab_size=v, tables=tables)
+        else:
+            k_logits, k_picks = replay_logits(fast, mem_k, tokens, sos_id=model.sos_id,
+                                              tables=tables)
+        p_logits, _ = replay_logits(fast, mem_p, tokens, sos_id=model.sos_id,
+                                    tables=tables, plain=True)
+        torch.cuda.synchronize()
+        replay_gate(f"LiteSATRN {kernel}", k_logits, k_picks, tokens, p_logits)
+        print(f"  {len(torch.unique(tokens))} distinct tokens")
+    _build.reset_launches()
+    generic = decode_images(model, fast, images, tables, STEPS, kernel="generic")
+    torch.cuda.synchronize()
+    launches["generic"] = dict(_build.LAUNCHES)
+    check_launches(launches["generic"], {"standardize": 1}, at_least=())
+    same = torch.equal(generic, decode_images(model, fast, images, tables, STEPS,
+                                              kernel="jnp"))
+    print(f"  --kernel generic launches {json.dumps(launches['generic'])}: the plain fast "
+          f"step, tokens equal --kernel jnp's {same}")
+    if not same:
+        raise AssertionError("LiteSATRN --kernel generic differs from --kernel jnp")
+    print(f"[LiteSATRN beam path: W={BEAM_WIDTH}, B={LITE_BATCH}, {LITE_H}x{LITE_W} u8, "
+          f"{STEPS} steps, f32, TF32 off]")
+    launches["beam"] = beam_gate("LiteSATRN", model, fast, images, vocab.eos_id, {
+        "standardize": 1, "decoder_layer": layers * STEPS, "beam_gather": layers * STEPS})
+    return launches
+
+
+# ---------------------------------------------------------------- phase 4, --beam_gather
+
+def beam_gather_path(ckpt, dev):
+    """The flagship's beam W=3 at B=32, f32, under ``--beam_gather auto``
+    and ``jnp``: kernel 3 3 x 231 times under both, kernel 4 3 x 231 times
+    under ``auto`` and never under ``jnp`` (its plain version reorders),
+    kernels 1 and 2 unchanged; the same tokens."""
+    from p4fr_tpu_torch.infer.single import beam_decode_images
+    from p4fr_tpu_torch.ops import _build
+
+    model, fast, _, vocab = load_path_model(ckpt, dev)
+    images = u8_images(torch.Generator().manual_seed(SEED + 4), E2E_CHECK_BATCH, 256, 512,
+                       dev)
+    print(f"[beam --beam_gather auto vs jnp: EfficientSATRN W={BEAM_WIDTH}, "
+          f"B={E2E_CHECK_BATCH}, {STEPS} steps, f32]")
+    tokens = {}
+    for gather in ("auto", "jnp"):
+        _build.reset_launches()
+        tokens[gather] = beam_decode_images(model, fast, images, STEPS,
+                                            beam_width=BEAM_WIDTH, eos_id=vocab.eos_id,
+                                            beam_gather=gather)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        print(f"  --beam_gather {gather} launches {json.dumps(launches)}")
+        check_launches(launches, {"standardize": 1, "mbconv": 28, "decoder_layer": 3 * STEPS,
+                                  "beam_gather": 3 * STEPS if gather == "auto" else 0})
+    same = torch.equal(tokens["auto"], tokens["jnp"])
+    print(f"  tokens equal {same}")
+    if not same:
+        raise AssertionError("--beam_gather jnp changes the beam's tokens")
+
+
+def lite_timing(ckpts, dev, card):
+    """bf16, printed only: kernel 3 at LiteSATRN's B=256 and its beam's 768
+    rows, and kernel 6 at B=256 (2 layers), pos 115, each beside its bound
+    and its plain version; then images/s in turns: flagship greedy and
+    LiteSATRN greedy (``auto``, ``fused``) and beam W=3, at B=256."""
+    from p4fr_tpu_torch.infer.single import beam_decode_images, decode_images
+    from p4fr_tpu_torch.ops.decoder_layer import decoder_layer_step, layer_step_ref
+    from p4fr_tpu_torch.ops.fused_decode import (
+        fused_greedy_step,
+        fused_greedy_step_ref,
+        step_cluster,
+    )
+
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 33)
+    pos = 115
+    print(f"[LiteSATRN timing, bf16, CUDA events, card: {card}]")
+    # each one's operands are timed over cold_sets, rotated past L2 (kernel
+    # 3's at B=256 take ~33 MB, which L2 would hold), as the path reads each
+    # layer's cache and weights in turn
+    for shape in (LITE_DECODER, LITE_BEAM_DECODER):
+        hid, ff, s_len, heads = (shape["hidden"], shape["filter_dim"], shape["s_len"],
+                                 shape["heads"])
+
+        def layer_set():
+            return decoder_inputs(bf, gen, dev, pos, b=shape["b"], hidden=hid, s_len=s_len,
+                                  filter_dim=ff)
+
+        first = layer_set()
+        nb, ops = layer_cost(*first, pos)
+        sets = cold_sets(layer_set, first, nb)
+        kw = dict(head_num=heads, cache_outputs=True)
+        k = rotating_ms(lambda x, c, s, w: decoder_layer_step(x, pos, c, s, w, **kw), sets, 50)
+        p = rotating_ms(lambda x, c, s, w: layer_step_ref(x, pos, c, s, w, **kw), sets, 20)
+        b, by = bound(nb, ops, BF16_TENSOR_OPS_PER_S)
+        print(f"  decoder_layer LiteSATRN B={shape['b']} H={hid} (heads of "
+              f"{hid // heads}) F={ff} pos={pos} L={STEPS} S={s_len} per layer step, "
+              f"{len(sets)} operand sets in turn (cold L2): kernel {k:.4f} ms, plain "
+              f"{p:.4f} ms, bound {b:.4f} ms by {by} ({card})")
+        del first, sets
+    shape = LITE_DECODER
+    nl, hid, ff, heads = shape["layers"], shape["hidden"], shape["filter_dim"], shape["heads"]
+    params, _ = fused_params(bf, gen, dev, nl, hid, ff, heads)
+    cache_gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+
+    def step_set():
+        """(token, caches, cross, manager state): all but the weights."""
+        return (torch.randint(0, params.vocab_size, (shape["b"],), generator=gen).int().to(dev),
+                torch.randn(nl, STEPS, shape["b"], 2 * hid, generator=cache_gen,
+                            device=dev).to(bf),
+                torch.randn(nl, shape["b"], shape["s_len"], 2 * hid, generator=gen).to(dev, bf),
+                random_mstate(gen, shape["b"], params, dev))
+
+    first = step_set()
+    token, caches, cross, mstate = first
+    nb, ops = fused_cost(token, mstate, caches, cross, params, pos)
+    sets = cold_sets(step_set, first, nb)
+    k6 = rotating_ms(lambda t, c, x, m: fused_greedy_step(t, pos, c, x, m, params,
+                                                          use_manager=True), sets, 50)
+    p6 = rotating_ms(lambda t, c, x, m: fused_greedy_step_ref(t, pos, c, x, m, params,
+                                                              use_manager=True), sets, 20)
+    b6, by6 = bound(nb, ops, BF16_TENSOR_OPS_PER_S)
+    print(f"  fused_greedy_step LiteSATRN B={shape['b']} H={hid} {nl} layers "
+          f"C={step_cluster(caches, params)} pos={pos} L={STEPS} S={shape['s_len']}, "
+          f"manager on, per step, {len(sets)} operand sets in turn (cold L2): kernel "
+          f"{k6:.4f} ms, plain {p6:.4f} ms, bound {b6:.4f} ms by {by6} ({card})")
+    del params, first, token, caches, cross, mstate, sets
+
+    satrn, lite = (load_path_model(c, dev, bf) for c in ckpts)
+    tables, eos_id = satrn[2], satrn[3].eos_id
+    big = u8_images(gen, E2E_TIME_BATCH, 256, 512, dev)
+    small = u8_images(gen, E2E_TIME_BATCH, LITE_H, LITE_W, dev)
+    paths = {
+        "flagship greedy": (lambda n: decode_images(satrn[0], satrn[1], big, tables, n),
+                            "greedy --kernel auto, manager on,"),
+        "LiteSATRN greedy": (lambda n: decode_images(lite[0], lite[1], small, tables, n),
+                             "greedy --kernel auto, manager on,"),
+        "LiteSATRN fused": (lambda n: decode_images(lite[0], lite[1], small, tables, n,
+                                                    kernel="fused"),
+                            "greedy --kernel fused, manager on,"),
+        "LiteSATRN beam": (lambda n: beam_decode_images(lite[0], lite[1], small, n,
+                                                        beam_width=BEAM_WIDTH,
+                                                        eos_id=eos_id),
+                           f"beam W={BEAM_WIDTH},"),
+    }
+    for label in list(paths) * 2:
+        fn, what = paths[label]
+        e2e(label, fn, E2E_TIME_BATCH, card, what)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -3111,6 +3428,235 @@ def train_phase(ckpt, dev, card):
     train_timing(ckpt, dev, card)
 
 
+# ---------------------------------------------------------------- phase 7b
+
+DISTILL_GATE_BATCH = 2  # the card-vs-CPU gate (the CPU runs both models)
+
+
+def distiller(ckpt, teacher_ckpt, dev, *, dropout=True, dtype=torch.float32,
+              total=TRAIN_GATE_TOTAL):
+    """(student, optimizer, distillation step, vocab, teacher): the LiteSATRN
+    student from its native file in train mode with f32 weights, AdamW with
+    LiteSATRN.yaml's values (those of EfficientSATRN.yaml) and the cosine
+    schedule over ``total`` steps; the teacher loaded as the trainer loads
+    it (``distillation.load_teacher``), in ``dtype``."""
+    from p4fr_tpu_torch.train.distillation import load_teacher, make_distill_step
+    from p4fr_tpu_torch.train.schedules import cosine_warmup_restarts
+    from p4fr_tpu_torch.train.steps import build_optimizer
+    from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
+
+    student, _, vocab, _ = load_model_from_checkpoint(ckpt, dev, torch.float32)
+    if not dropout:
+        for m in student.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+    teacher, _, _, _ = load_teacher(teacher_ckpt, dev, dtype)
+    opt = build_optimizer("adamw", student.parameters(),
+                          cosine_warmup_restarts(TRAIN_LR, total),
+                          weight_decay=TRAIN_WD, max_grad_norm=TRAIN_CLIP)
+    step = make_distill_step(student.train(), teacher, opt, compute_dtype=dtype)
+    return student, opt, step, vocab, teacher
+
+
+def distill_batch(b, vocab, gen, dev):
+    """(student images [b, 128, 256, 3], teacher images [b, 256, 512, 3],
+    labels [b, 232]): host-normalized synthetic images and
+    ``train_batch``'s labels."""
+    teacher_images, text = train_batch(b, vocab, gen, dev)
+    student_images = torch.randn(b, LITE_H, LITE_W, 3, generator=gen).to(dev)
+    return student_images, teacher_images, text
+
+
+def distill_gate(ckpt, teacher_ckpt, dev):
+    """The teacher's greedy logits through kernels 2 and 3 against its plain
+    path (f32, B=16, replayed on its own picks, 28 and 3 x 231 launches);
+    then one teacher-forced and one AR-sampled f32 distillation step on the
+    card and on the CPU (B=2, dropout off; the AR step from the CPU's state
+    after the first; the CPU replaying the card's student and teacher
+    picks), held by ``gate_train_step``."""
+    from p4fr_tpu_torch.ops import _build
+    from p4fr_tpu_torch.infer.single import build_fast
+    from p4fr_tpu_torch.train.distillation import load_teacher
+    from p4fr_tpu_torch.train.steps import greedy_logits
+
+    teacher, _, vocab, _ = load_teacher(teacher_ckpt, dev, torch.float32)
+    fast = build_fast(teacher)
+    images, _ = train_batch(TRAIN_EVAL_BATCH, vocab, torch.Generator().manual_seed(SEED + 40),
+                            dev)
+    print(f"[distillation teacher: EfficientSATRN from its native file, greedy without "
+          f"the manager, f32, TF32 off, B={TRAIN_EVAL_BATCH}, {STEPS} steps]")
+    _build.reset_launches()
+    k_logits = greedy_logits(teacher, fast, images, STEPS)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches {json.dumps(launches)}")
+    check_launches(launches, {"mbconv": 28, "decoder_layer": 3 * STEPS})
+    picks = k_logits.argmax(dim=-1)
+    p_logits = greedy_logits(teacher, fast, images, STEPS, plain=True, picks=picks)
+    err = (k_logits - p_logits).abs().max().item()
+    print(f"  teacher logits kernel vs plain (the kernel path's picks fed): max_abs_err "
+          f"{err:.3e} (bound {TOL_LOGITS_F32:.1e}); max |logit| "
+          f"{p_logits.abs().max().item():.3e}")
+    if not bool(torch.isfinite(k_logits).all()) or not err <= TOL_LOGITS_F32:
+        raise AssertionError("the teacher's kernel logits disagree with its plain path")
+    del teacher, fast, images, k_logits, p_logits
+
+    print(f"[distillation gate: LiteSATRN student f32, TF32 off, B={DISTILL_GATE_BATCH}, "
+          f"labels {TRAIN_LABEL_LEN}, AdamW clip {TRAIN_CLIP}, T=10 alpha=0.1, card vs CPU]")
+    cpu = distiller(ckpt, teacher_ckpt, "cpu", dropout=False)
+    card = distiller(ckpt, teacher_ckpt, dev, dropout=False)
+    s_images, t_images, text = distill_batch(DISTILL_GATE_BATCH, cpu[3],
+                                             torch.Generator().manual_seed(SEED + 41), "cpu")
+    t_picks = greedy_logits(card[4], build_fast(card[4]), t_images.to(dev),
+                            TRAIN_LABEL_LEN - 1).argmax(dim=-1).cpu()
+    misses = []
+    lr = cpu[1].lr()
+    t0 = time.perf_counter()
+    want, _ = cpu[2](s_images, t_images, text, True, teacher_picks=t_picks)
+    t1 = time.perf_counter()
+    got, _ = card[2](s_images.to(dev), t_images.to(dev), text.to(dev), True)
+    gate_train_step("distillation teacher-forced", cpu, card, want, got, lr, misses)
+    card[0].load_state_dict(cpu[0].state_dict())
+    card[1].load_state_dict(*copy.deepcopy(cpu[1].state_dict()).values())
+    lr = cpu[1].lr()
+    got, picks = card[2](s_images.to(dev), t_images.to(dev), text.to(dev), False)
+    t2 = time.perf_counter()
+    want, _ = cpu[2](s_images, t_images, text, False, picks=picks.cpu(),
+                     teacher_picks=t_picks)
+    t3 = time.perf_counter()
+    gate_train_step("distillation AR-sampled", cpu, card, want, got, lr, misses)
+    print(f"  CPU steps: teacher-forced {t1 - t0:.1f} s, AR-sampled {t3 - t2:.1f} s")
+    if misses:
+        raise AssertionError("distillation gate, card vs CPU: " + "; ".join(misses))
+
+
+def split_device_time(prof, name):
+    """(ms of the device ops launched inside the CPU-side range ``name``, ms
+    of the others, ms of those whose launch is not in the trace, each
+    part's top 3 ops as (name, (ms, count))) of a ``torch.profiler``
+    trace. A device op and the runtime call that launched it (``cu*``, on
+    the CPU) share CUPTI's correlation id; the kernels that ``ctypes``
+    launches belong to no aten op, so the range's own ``device_time_total``
+    misses them."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    ranges = [e.time_range for e in events if e.name == name and e.device_type == cpu]
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == cpu and e.name.startswith("cu")}
+    parts = {"teacher": {}, "student": {}, "unmatched": {}}
+    for e in events:
+        if (e.device_type != cuda or e.is_user_annotation or e.name == name
+                or e.name.startswith("Optimizer.")):
+            continue
+        at = launched.get(e.id)
+        part = ("unmatched" if at is None else "teacher"
+                if any(r.start <= at <= r.end for r in ranges) else "student")
+        ms, n = parts[part].get(e.name, (0.0, 0))
+        parts[part][e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    totals = [sum(ms for ms, _ in ops.values()) for ops in parts.values()]
+    top = {part: sorted(ops.items(), key=lambda kv: -kv[1][0])[:3]
+           for part, ops in parts.items() if ops}
+    return (*totals, top)
+
+
+def distill_timing(ckpt, teacher_ckpt, dev, card):
+    """bf16 autocast, dropout on, B=32 (LiteSATRN.yaml's batch): the
+    teacher-forced and AR-sampled distillation step times, each split
+    inside the step into the teacher's greedy pass and the student's part
+    (forward, loss, backward, update) by CUDA events and the host clock
+    at the step's start, where the teacher's pass returns, and where the
+    step returns; a profile of one teacher-forced step with each part's
+    device op time (``split_device_time``); images/s and peak memory; the loss over 20
+    teacher-forced steps on one batch, which must fall."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from p4fr_tpu_torch.train import distillation
+
+    print(f"[distillation timing: LiteSATRN student, EfficientSATRN teacher, bf16 "
+          f"autocast, f32 weights, dropout on, B={LITE_BATCH} ({card})]")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, step, vocab, _ = distiller(ckpt, teacher_ckpt, dev, dtype=torch.bfloat16,
+                                     total=10 * TRAIN_LOSS_STEPS)
+    s_images, t_images, text = distill_batch(LITE_BATCH, vocab,
+                                             torch.Generator().manual_seed(SEED + 42), dev)
+
+    def mark():
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event, time.perf_counter()
+
+    marks = []
+    teacher_pass = distillation.greedy_logits
+
+    def marked_teacher_pass(*args, **kwargs):  # the step's own teacher pass
+        with record_function("distill.teacher"):
+            out = teacher_pass(*args, **kwargs)
+        marks.append(mark())
+        return out
+
+    def timed(teacher_forced, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            marks.clear()
+            (e0, h0) = mark()
+            metrics, _ = step(s_images, t_images, text, teacher_forced)
+            (e2, h2) = mark()
+            loss = metrics["loss"].item()  # synchronizes
+            wall = time.perf_counter() - h0
+            (e1, h1), = marks
+            out.append(dict(wall=wall * 1e3, loss=loss,
+                            teacher_dev=e0.elapsed_time(e1), student_dev=e1.elapsed_time(e2),
+                            teacher_host=(h1 - h0) * 1e3, student_host=(h2 - h1) * 1e3))
+        return out
+
+    def median(runs, key):
+        vals = sorted(r[key] for r in runs)
+        return vals[len(vals) // 2]
+
+    distillation.greedy_logits = marked_teacher_pass
+    try:
+        tf = timed(True, TRAIN_LOSS_STEPS)
+        ar = timed(False, 3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            marks.clear()
+            step(s_images, t_images, text, True)
+            torch.cuda.synchronize()
+    finally:
+        distillation.greedy_logits = teacher_pass
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for label, runs in (("teacher-forced", tf[2:]), ("AR-sampled", ar[1:])):
+        wall, t_dev, s_dev = (median(runs, k) for k in ("wall", "teacher_dev", "student_dev"))
+        print(f"  B={LITE_BATCH} {label} step: {wall:.2f} ms on the host clock (median of "
+              f"{len(runs)}), {LITE_BATCH / wall * 1e3:.2f} images/s; inside it, on the "
+              f"device's clock (CUDA events, idle gaps included): the teacher's greedy pass "
+              f"{t_dev:.2f} ms, the student's forward, loss, backward and update "
+              f"{s_dev:.2f} ms, the teacher's share {100 * t_dev / (t_dev + s_dev):.1f}%; on "
+              f"the host's clock, issue to return: teacher {median(runs, 'teacher_host'):.2f} "
+              f"ms, student {median(runs, 'student_host'):.2f} ms ({card})")
+    teacher_ms, student_ms, unmatched_ms, top = split_device_time(prof, "distill.teacher")
+    print(f"  profiled teacher-forced step, device op time (each op matched to its "
+          f"launch by its correlation id): the teacher's {teacher_ms:.3f} ms, the "
+          f"student's {student_ms:.3f} ms, launch not found {unmatched_ms:.3f} ms; peak "
+          f"memory {peak:.2f} GiB ({card})")
+    for part, ops in top.items():
+        print(f"    {part}'s top device ops (ms, launches): " + "; ".join(
+            f"{ms:.3f} {n} {name[:60]}" for name, (ms, n) in ops))
+    losses = [r["loss"] for r in tf]
+    print(f"  loss over {len(losses)} teacher-forced steps on one batch: "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} ({', '.join(f'{x:.3f}' for x in losses)})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("20 distillation steps on one batch did not lower the loss")
+
+
+def distill_phase(ckpt, teacher_ckpt, dev, card):
+    distill_gate(ckpt, teacher_ckpt, dev)
+    torch.cuda.empty_cache()
+    distill_timing(ckpt, teacher_ckpt, dev, card)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -3156,16 +3702,24 @@ def main():
         swin_beam_path(swin_ckpt, dev)
         generic_path(ckpt, dev)
         ensemble_path((ckpt, aster_ckpt, swin_ckpt), dev)
+        lite_ckpt = build_lite_checkpoint()
+        lite_path(lite_ckpt, dev)
+        beam_gather_path(ckpt, dev)
         torch.cuda.empty_cache()
         times = timing(ckpt, dev, card)
         torch.cuda.empty_cache()
         swin_timing(swin_ckpt, dev, card, times)
         torch.cuda.empty_cache()
         aster_timing((ckpt, aster_ckpt, swin_ckpt), dev, card, times)
+        torch.cuda.empty_cache()
+        lite_timing((ckpt, lite_ckpt), dev, card)
     torch.cuda.empty_cache()
     train_phase(ckpt, dev, card)
+    torch.cuda.empty_cache()
+    distill_phase(lite_ckpt, native_teacher(ckpt), dev, card)
 
-    bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax"))
+    bad = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "p4fr_tpu"))
     if bad:
         raise AssertionError(f"the port imported {bad}")
     sources = {

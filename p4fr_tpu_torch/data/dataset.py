@@ -1,5 +1,6 @@
 """Datasets, the port's copy of ``split_gt``, ``load_image``,
-``LoadDataset`` and ``LoadEvalDataset`` from ``p4fr_tpu/data/dataset.py``.
+``LoadDataset``, ``LoadEvalDataset`` and ``DistillationDataset`` from
+``p4fr_tpu/data/dataset.py``.
 
 Ground truth is a TSV of ``image_name\tlatex tokens``; ``split_gt`` joins
 it against ``data_info.txt`` (CSV with image_name,fold columns):
@@ -116,3 +117,28 @@ class LoadEvalDataset(LoadDataset):
         with Image.open(self.data[i]["path"]) as im:
             w, h = im.size
         return w / max(h, 1)
+
+
+class DistillationDataset(LoadDataset):
+    """The same image under the student's and the teacher's transforms
+    (``p4fr_tpu/data/dataset.py::DistillationDataset``): items carry
+    ``student_image`` and ``teacher_image``."""
+
+    def __init__(self, groundtruth: Sequence[Tuple[str, str]],
+                 token_paths: Sequence[str], *, crop: bool = False,
+                 student_transform=None, teacher_transform=None, rgb: int = 3):
+        super().__init__(groundtruth, token_paths, crop=crop, transform=None, rgb=rgb)
+        self.student_transform = student_transform
+        self.teacher_transform = teacher_transform
+
+    def __getitem__(self, i: int) -> Dict:
+        item = self.data[i]
+        image = load_image(item["path"], self.rgb, self.crop)
+        return {
+            "path": item["path"],
+            "truth": item["truth"],
+            "student_image": (self.student_transform(image)
+                              if self.student_transform else image),
+            "teacher_image": (self.teacher_transform(image)
+                              if self.teacher_transform else image),
+        }

@@ -3,8 +3,10 @@
 
 - labels are padded with ``-1`` to a fixed ``max_label_len`` (the trainers
   map -1 to the pad id);
-- the images stack to one [B, H, W, C] array: u8 stays u8 (the inference
-  feed), anything else becomes f32 (the host-normalized training feed);
+- the images stack to one [B, H, W, C] array per ``image_keys`` entry
+  (``"image"``; distillation's ``"student_image"`` and
+  ``"teacher_image"``): u8 stays u8 (the inference feed), anything else
+  becomes f32 (the host-normalized training feed);
 - training shuffles with a generator seeded once (its state runs on from
   epoch to epoch) and drops the last short batch; otherwise the last short
   batch is padded up to full size, and ``batch["count"]`` says how many
@@ -18,14 +20,15 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 
 PREFETCH = 4
 
 
-def collate(items: List[Dict], max_label_len: int) -> Dict:
+def collate(items: List[Dict], max_label_len: int,
+            image_keys: Sequence[str] = ("image",)) -> Dict:
     """Stack a list of dataset items into fixed-shape arrays."""
     batch: Dict = {
         "path": [d["path"] for d in items],
@@ -39,8 +42,9 @@ def collate(items: List[Dict], max_label_len: int) -> Dict:
         ids = d["truth"]["encoded"][:max_label_len]
         encoded[i, : len(ids)] = ids
     batch["truth"]["encoded"] = encoded
-    images = np.stack([d["image"] for d in items])
-    batch["image"] = images if images.dtype == np.uint8 else images.astype(np.float32)
+    for key in image_keys:
+        images = np.stack([d[key] for d in items])
+        batch[key] = images if images.dtype == np.uint8 else images.astype(np.float32)
     return batch
 
 
@@ -50,7 +54,7 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, *, max_label_len: int = 232,
                  sort_key=None, shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, image_keys: Sequence[str] = ("image",)):
         if sort_key is not None and shuffle:
             raise ValueError("sort_key and shuffle are mutually exclusive")
         self.dataset = dataset
@@ -58,6 +62,7 @@ class DataLoader:
         self.max_label_len = max_label_len
         self.sort_key = sort_key
         self.shuffle, self.drop_last = shuffle, drop_last
+        self.image_keys = tuple(image_keys)
         self.rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -79,7 +84,7 @@ class DataLoader:
         items = [self.dataset[int(i)] for i in chunk]
         count = len(items)
         items = items + [items[-1]] * (self.batch_size - count)
-        batch = collate(items, self.max_label_len)
+        batch = collate(items, self.max_label_len, self.image_keys)
         batch["count"] = count
         return batch
 

@@ -163,14 +163,15 @@ class Stepper(NamedTuple):
 
 
 def beam_stepper(decoder, src: torch.Tensor, width: int, max_len: int,
-                 plain: bool = False) -> Stepper:
+                 plain: bool = False, plain_gather: bool = False) -> Stepper:
     """The branch for ``decoder``: a ``FastDecoder`` (the transformer fast
-    step over kernels 3 and 4; ``plain`` runs their plain versions), a
-    ``FastAster`` (ASTER's fused LSTM step) or a model (its module step,
-    the generic branch), over ``src`` [B, S, C] repeated per beam."""
+    step over kernels 3 and 4; ``plain`` runs both plain versions,
+    ``plain_gather`` kernel 4's alone), a ``FastAster`` (ASTER's fused LSTM
+    step) or a model (its module step, the generic branch), over ``src``
+    [B, S, C] repeated per beam."""
     if isinstance(decoder, FastDecoder):
         cross_kv, cache = beam_buffers(decoder, src, width, max_len)
-        gather = cache_gather(width, plain)
+        gather = cache_gather(width, plain or plain_gather)
 
         def step(token, t):
             return fast_decode_step(decoder, token, t, cross_kv, cache, plain=plain)
@@ -212,7 +213,7 @@ def beam_search(decoder, src: torch.Tensor, *, max_steps: int,
                 beam_width: int, sos_id: int, eos_id: int, pad_id: int,
                 early_stop: bool = False,
                 stop_override: Optional[torch.Tensor] = None,
-                plain: bool = False) -> BeamTrace:
+                plain: bool = False, plain_gather: bool = False) -> BeamTrace:
     """Beam search from encoder memory ``src`` [B, S, C] through the branch
     of ``decoder`` (``beam_stepper``).
 
@@ -222,13 +223,15 @@ def beam_search(decoder, src: torch.Tensor, *, max_steps: int,
     ``stop_override`` ([B], requires ``early_stop``): benchmarking hook;
     every beam of sample i is forced finished once ``t >= stop_override[i]``,
     so the early exit fires on a chosen length distribution even with
-    random weights. ``plain=True`` runs every kernel's plain version.
+    random weights. ``plain=True`` runs every kernel's plain version;
+    ``plain_gather=True`` the parent-beam reorder's alone (JAX's
+    ``gather_kernel="jnp"``).
     """
     if stop_override is not None and not early_stop:
         raise ValueError("stop_override requires early_stop=True (the "
                          "fixed-length loop would ignore the stop steps)")
     batch, width, dev = src.shape[0], beam_width, src.device
-    stepper = beam_stepper(decoder, src, width, max_steps, plain)
+    stepper = beam_stepper(decoder, src, width, max_steps, plain, plain_gather)
     token = torch.full((batch * width,), sos_id, dtype=torch.int64, device=dev)
     state = init_beam_state(batch, width, dev)
     tokens = torch.full((max_steps, batch, width), pad_id, dtype=torch.int64,

@@ -5,8 +5,7 @@ Two halves:
 
 - ``decode_images`` (greedy, kernel 3 per layer or, with
   ``kernel="fused"``, kernel 6 per step; ``kv_quant`` int8 operands for
-  kernel 3; ASTER's fused LSTM step; with ``kernel="generic"`` the model's
-  own module step) and ``beam_decode_images``: u8
+  kernel 3; ASTER's fused LSTM step) and ``beam_decode_images``: u8
   [B, H, W, C] images -> tokens, in pure torch (standardize on the card,
   encode, decode). They need nothing beyond torch and numpy.
 - ``run_inference``: the file-driven CLI path. It runs the port's eval
@@ -18,12 +17,16 @@ Two halves:
 Decode length is ``max_sequence + 1`` steps, the reference's dummy-GT
 trick. Ensembles are ``infer/ensemble.py``.
 
-Routing follows the JAX package's ``run_inference``: ASTER greedy takes
-its fused LSTM step under every ``kernel`` but ``generic`` and refuses
+Routing follows the JAX package's ``run_inference``: greedy on a
+transformer family under ``generic`` runs the plain fast step, as ``jnp``
+does (JAX's ``resolve_kernel`` passes "generic" on to
+``make_fast_greedy_fn(use_pallas_v2=False)``), and takes ``kv_quant``;
+ASTER greedy takes its fused LSTM step under every ``kernel`` but
+``generic``, where it runs the model's module step, and refuses
 ``kv_quant``; beam takes the module step (JAX's generic branch) under
-``generic`` and, as JAX's CLI maps it, ``fused``. One deviation:
-``generic`` greedy on a transformer family runs the module step, where
-JAX's CLI runs its plain fast step, so ``kv_quant`` is refused with it.
+``generic`` and, as JAX's CLI maps it, ``fused``. ``beam_gather="jnp"``
+swaps kernel 4 (the parent-beam reorder) alone for its plain version, as
+JAX's ``make_beam_fn(gather_kernel=)`` does.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
 
 KERNELS = ("auto", "pallas_v2", "jnp", "fused", "generic")  # --kernel choices
+BEAM_GATHERS = ("auto", "pallas", "jnp")  # --beam_gather choices
 
 
 def build_fast(model):
@@ -78,37 +82,37 @@ def decode_images(model, fast, images: torch.Tensor,
     ``fast`` is ``build_fast(model)``.
     ``kernel``: "auto" (and "pallas_v2", JAX's name for the same kernel)
     runs each layer's step (kernel 3) and the manager's ``sift`` as
-    separate ops; "jnp" runs each layer's plain step instead
-    (``greedy_decode(use_jnp=True)``), the encoder keeping its kernels;
-    "fused" runs the whole step in one launch (kernel 6,
-    ``decoding/fused_greedy.py``); "generic" runs the model's module step
-    (``greedy.make_greedy_fn``, no kernel in the decode). An ASTER model
-    (``fast`` a ``FastAster``) runs its fused LSTM step under every kernel
-    but "generic". ``kv_quant`` ("int8", "int8_cache"; not with "fused",
-    "generic" or ASTER) as ``greedy_decode`` takes it. With ``plain=True``
+    separate ops; "jnp" (and "generic", as JAX's CLI maps it) runs each
+    layer's plain step instead (``greedy_decode(use_jnp=True)``), the
+    encoder keeping its kernels; "fused" runs the whole step in one launch
+    (kernel 6, ``decoding/fused_greedy.py``). An ASTER model (``fast`` a
+    ``FastAster``) runs its fused LSTM step under every kernel but
+    "generic", and the model's module step (``greedy.make_greedy_fn``) under
+    it. ``kv_quant`` ("int8", "int8_cache"; not with "fused" or ASTER) as
+    ``greedy_decode`` takes it. With ``plain=True``
     every kernel's plain twin (and the composed MBConv modules) runs
     instead, on whatever device the tensors are on.
     """
     if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r}")
-    if kv_quant != "none" and (kernel in ("fused", "generic")
-                               or isinstance(fast, FastAster)):
+    if kv_quant != "none" and (kernel == "fused" or isinstance(fast, FastAster)):
         raise ValueError("kv_quant runs only on the fast greedy step of the "
-                         "transformer families (not fused, not generic), as in "
-                         "the JAX package")
+                         "transformer families (not fused), as in the JAX package")
     src = encode_images(model, images, plain=plain)
-    if kernel == "generic":
-        return make_greedy_fn(model, max_steps=steps, tables=tables, from_memory=True,
-                              return_outputs=False, early_stop_eos=early_stop_eos
-                              )(src, stop_override=stop_override)
     loop = dict(max_steps=steps, sos_id=model.sos_id, tables=tables,
                 early_stop_eos=early_stop_eos, stop_override=stop_override)
     if isinstance(fast, FastAster):
+        if kernel == "generic":
+            return make_greedy_fn(model, max_steps=steps, tables=tables,
+                                  from_memory=True, return_outputs=False,
+                                  early_stop_eos=early_stop_eos
+                                  )(src, stop_override=stop_override)
         return fast_aster_greedy(fast, src, **loop)
     kw = dict(loop, plain=plain)
     if kernel == "fused":
         return fused_greedy_decode(fast, src, vocab_size=model.num_classes, **kw)
-    return greedy_decode(fast, src, use_jnp=kernel == "jnp", kv_quant=kv_quant, **kw)
+    return greedy_decode(fast, src, use_jnp=kernel in ("jnp", "generic"),
+                         kv_quant=kv_quant, **kw)
 
 
 def beam_kernel(kernel: str) -> str:
@@ -122,18 +126,24 @@ def beam_kernel(kernel: str) -> str:
 def beam_decode_images(model, fast, images: torch.Tensor, steps: int, *,
                        beam_width: int, eos_id: int, early_stop: bool = False,
                        stop_override: Optional[torch.Tensor] = None,
-                       plain: bool = False, kernel: str = "auto") -> torch.Tensor:
+                       plain: bool = False, kernel: str = "auto",
+                       beam_gather: str = "auto") -> torch.Tensor:
     """Beam search: u8 [B, H, W, C] on the model's device -> [B, steps]
     int64 tokens of each image's best hypothesis
     (``decoding/beam.py``; no DecodingManager, as in the JAX CLI), through
     ``fast`` (``build_fast(model)``) or, with ``kernel="generic"``, the
-    model's module step."""
+    model's module step. ``beam_gather``: "auto" or "pallas" reorder the
+    parent beams' caches through kernel 4, "jnp" through its plain version
+    (every other kernel unchanged)."""
+    if beam_gather not in BEAM_GATHERS:
+        raise ValueError(f"beam_gather {beam_gather!r}")
     trace = beam_search(
         model if kernel == "generic" else fast,
         encode_images(model, images, plain=plain), max_steps=steps,
         beam_width=beam_width, sos_id=model.sos_id, eos_id=eos_id,
         pad_id=model.pad_id, early_stop=early_stop,
         stop_override=stop_override, plain=plain,
+        plain_gather=beam_gather == "jnp",
     )
     return best_tokens(trace)
 
@@ -165,7 +175,7 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
                   decode_type: str = "greedy", beam_width: int = 3,
                   decoding_manager: bool = True, early_stop: bool = False,
                   plain: bool = False, kernel: str = "auto",
-                  kv_quant: str = "none", device="cuda"
+                  kv_quant: str = "none", beam_gather: str = "auto", device="cuda"
                   ) -> List[Tuple[str, str]]:
     """Inference over an ``input.txt`` of image names; writes
     ``output.csv``. Runs on the CUDA card in bf16 unless the caller passes
@@ -178,10 +188,11 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
     for "auto" and "pallas_v2", "jnp" on every kernel's plain version (as
     ``plain=True``), and the module step for "generic" and, as the JAX CLI
     maps it, "fused". ``kv_quant`` ("none", "int8", "int8_cache") runs only
-    on the transformer families' greedy fast step (not "fused", not
-    "generic"), as in the JAX package.
-    ``plain=True`` runs every kernel's plain version instead (the CLI's
-    ``--beam_gather jnp``). ``early_stop``
+    on the transformer families' greedy fast step (not "fused"), as in the
+    JAX package. ``beam_gather`` (beam): "auto" and "pallas" reorder the
+    parent beams' caches through kernel 4, "jnp" through its plain version
+    alone. ``plain=True`` runs every kernel's plain version instead.
+    ``early_stop``
     leaves the decode loop once every sequence (every beam) has finished;
     for greedy it also sorts the input by image aspect ratio so that
     similar lengths share a batch, and the output keeps the input's order.
@@ -192,9 +203,9 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
         raise ValueError(f"kernel {kernel!r}")
     if kv_quant not in KV_QUANT:
         raise ValueError(f"kv_quant {kv_quant!r}")
-    if kv_quant != "none" and (decode_type != "greedy" or kernel in ("fused", "generic")):
+    if kv_quant != "none" and (decode_type != "greedy" or kernel == "fused"):
         raise ValueError("kv_quant runs only on the fast greedy decode path "
-                         "(greedy, non-fused kernel, not generic), as in the JAX package")
+                         "(greedy, non-fused kernel), as in the JAX package")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_inference: CUDA was asked for and no CUDA card "
@@ -225,7 +236,7 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
                 model, fast, images, num_steps, beam_width=beam_width,
                 eos_id=vocab.eos_id, early_stop=early_stop,
                 plain=plain or kernel == "jnp",
-                kernel=beam_kernel(kernel))
+                kernel=beam_kernel(kernel), beam_gather=beam_gather)
         tokens = tokens.cpu().numpy()
         count = batch["count"]
         strs = id_to_string(tokens[:count], vocab.id_to_token,

@@ -16,27 +16,26 @@ ensemble):
 The arguments are those of the JAX package's ``inference.py``, plus
 ``--device``: the port runs on the CUDA card unless ``--device cpu`` is
 given, and exits with an error where CUDA is asked for and absent. The
-port has no Pallas: ``--beam_gather auto`` and ``pallas`` both take the
-CUDA kernels, and ``jnp`` runs a beam search on the kernels' plain PyTorch
-versions (``run_inference(plain=True)``). Greedy's ``--kernel``:
+port has no Pallas: ``--beam_gather auto`` and ``pallas`` both reorder the
+parent beams' caches with the CUDA gather kernel, and ``jnp`` with its
+plain PyTorch version, every other kernel of the beam search unchanged (as
+JAX's flag picks the reorder alone). Greedy's ``--kernel``:
 
 - ``auto`` and ``pallas_v2`` (JAX's name for the same kernel): one
   layer-step kernel launch per layer, the manager as separate ops;
-- ``jnp``: the JAX package's plain fast step, each layer through the
-  kernel's plain PyTorch version on whatever device runs (the encoder
-  keeps its kernels); also the way to run a decoder whose head width the
-  kernels refuse;
-- ``fused``: the whole greedy step in one CUDA launch;
-- ``generic``: the model's own module step (``decode_step``), no kernel in
-  the decode.
+- ``jnp``, and ``generic`` as the JAX CLI maps it: the JAX package's plain
+  fast step, each layer through the kernel's plain PyTorch version on
+  whatever device runs (the encoder keeps its kernels); also the way to
+  run a decoder whose head width the kernels refuse;
+- ``fused``: the whole greedy step in one CUDA launch.
 
 EfficientASTER greedy runs its fused LSTM step under every ``--kernel`` but
-``generic``. Beam runs its fast search for ``auto`` and ``pallas_v2``,
+``generic``, and its own module step (``decode_step``) under it. Beam runs its fast search for ``auto`` and ``pallas_v2``,
 ``jnp`` on the kernels' plain versions, and the module step for ``generic``
 and (as the JAX CLI maps it) ``fused``. The ensemble averages the members'
 softmax each step (``p4fr_tpu_torch/infer/ensemble.py``; ``fused`` runs as
-``auto`` there). ``--kv_quant`` (greedy, not ``fused`` or ``generic``, never
-the default): ``int8`` makes each layer's cross K/V int8 with per-(row,
+``auto`` there). ``--kv_quant`` (greedy, not ``fused``, not an ensemble,
+never the default): ``int8`` makes each layer's cross K/V int8 with per-(row,
 position) scales, ``int8_cache`` the self-attention cache too; with
 ``auto``/``pallas_v2`` the layer-step kernel's int8 forms read them (on
 the CPU its plain version). Under ``jnp`` the cross K/V is dequantized
@@ -45,9 +44,10 @@ so ``int8_cache`` there quantizes the cross K/V alone; EfficientASTER
 refuses it, as in the JAX package. Options the port does not run yet are
 rejected with the ROADMAP item that ports them; compatibility shims
 (``--tokens_path``, ``--max_cache``) are accepted and unused, as in the JAX
-CLI. A checkpoint is a reference-format ``.pth`` of an EfficientSATRN, a
-SwinTRN (``network`` ``SWIN``) or an EfficientASTER; the JAX package's
-``convert_pth --export`` writes one from a native checkpoint.
+CLI. A checkpoint is a reference-format ``.pth`` or the JAX package's
+native msgpack ``.ckpt`` (read by the port's own codec, without flax), of a
+LiteSATRN, an EfficientSATRN, a SwinTRN (``network`` ``SWIN``) or an
+EfficientASTER.
 """
 
 import argparse
@@ -71,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--inference_type", default="single",
                         choices=["single", "ensemble"])
     parser.add_argument("--checkpoint", nargs="*", default=[],
-                        help="checkpoint path (reference-format .pth)")
+                        help="checkpoint path (reference-format .pth or "
+                        "native msgpack .ckpt)")
     parser.add_argument("--max_sequence", type=int, default=230)
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument("--decode_type", default="greedy",
@@ -89,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["none", "int8", "int8_cache"])
     parser.add_argument("--beam_gather", default="auto",
                         choices=["auto", "pallas", "jnp"],
-                        help="beam only; jnp: the kernels' plain versions")
+                        help="beam only; jnp: the gather kernel's plain version")
     parser.add_argument("--early_stop", type=str2bool, default=False,
                         help="exit the decode loop once every sequence "
                         "emits <EOS> (output-equivalent)")
@@ -114,10 +115,9 @@ def main(argv=None):
                                     or args.decode_type != "greedy"):
         parser.error("--kv_quant runs only on the non-fused greedy path "
                      "(as in the JAX CLI)")
-    if args.kv_quant != "none" and (args.kernel == "generic"
-                                    or args.inference_type == "ensemble"):
-        parser.error("--kv_quant runs on the fast step, not on --kernel generic's "
-                     "module step nor in an ensemble")
+    if args.kv_quant != "none" and args.inference_type == "ensemble":
+        parser.error("--kv_quant runs on the single model's fast step, not in "
+                     "an ensemble")
     for name, (supported, item) in _NOT_YET.items():
         value = getattr(args, name)
         if value not in supported:
@@ -146,8 +146,8 @@ def main(argv=None):
         batch_size=args.batch_size, max_sequence=args.max_sequence,
         decode_type=args.decode_type, beam_width=args.beam_width,
         decoding_manager=args.decoding_manager, early_stop=args.early_stop,
-        plain=args.decode_type == "beam" and args.beam_gather == "jnp",
-        kernel=args.kernel, kv_quant=args.kv_quant, device=args.device,
+        kernel=args.kernel, kv_quant=args.kv_quant, beam_gather=args.beam_gather,
+        device=args.device,
     )
 
 

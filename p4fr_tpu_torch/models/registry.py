@@ -1,7 +1,7 @@
 """Model registry: network name -> torch model, port of
-``p4fr_tpu/models/registry.py``. The EfficientSATRN, SwinTRN and
-EfficientASTER families are ported; LiteSATRN raises and points at the
-ROADMAP item that ports it."""
+``p4fr_tpu/models/registry.py``. Every family of the JAX package is
+ported: the SATRN family (EfficientSATRN, its alias MySATRN, and
+LiteSATRN), SwinTRN and EfficientASTER."""
 
 from __future__ import annotations
 
@@ -9,19 +9,16 @@ import torch
 
 from p4fr_tpu_torch.data.vocab import Vocab
 
-NOT_PORTED = {  # network -> the ROADMAP item that ports it
-    "LiteSATRN": "ROADMAP.md Queue 1: LiteSATRN (ShallowCNN)",
-}
-
 
 def get_network(name: str, options, vocab: Vocab, dtype=torch.float32,
                 device="cpu"):
     """An eval-mode model on ``device`` in ``dtype`` (random weights until
     a state dict is loaded)."""
-    if name in ("EfficientSATRN", "MySATRN"):  # MySATRN: reference alias
+    if name in ("LiteSATRN", "EfficientSATRN", "MySATRN"):  # MySATRN: reference alias
         from p4fr_tpu_torch.models.satrn import satrn_from_options
 
-        model = satrn_from_options(options, len(vocab), vocab.pad_id, vocab.sos_id)
+        model = satrn_from_options(options, len(vocab), vocab.pad_id, vocab.sos_id,
+                                   network=name)
         return model.to(device=device, dtype=dtype).eval()
     if name in ("SWIN", "SwinTRN"):
         from p4fr_tpu_torch.models.swin import swin_from_options
@@ -33,8 +30,4 @@ def get_network(name: str, options, vocab: Vocab, dtype=torch.float32,
 
         model = aster_from_options(options, len(vocab), vocab.pad_id, vocab.sos_id)
         return model.to(device=device, dtype=dtype).eval()
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"network {name!r} is not ported to p4fr_tpu_torch yet "
-            f"({NOT_PORTED[name]})")
     raise NotImplementedError(f"Unknown network: {name}")

@@ -1,11 +1,13 @@
-"""EfficientSATRN, port of ``p4fr_tpu/models/satrn.py`` (EfficientNet
-backbone only; the LiteSATRN ``ShallowCNN`` stem comes later).
+"""The SATRN family, port of ``p4fr_tpu/models/satrn.py``: EfficientSATRN
+and LiteSATRN.
 
-An EfficientNetV2-S backbone at /32, a gated 2D positional encoding, N
-self-attention encoder layers with a convolutional feed-forward, and the
-transformer decoder of ``models.common``. Parameter names are the
-reference's (the backbone sits at ``encoder.shallow_cnn`` as in
-EfficientSATRN.py) so reference ``.pth`` files load with ``strict=True``.
+A CNN stem (EfficientSATRN: the EfficientNetV2-S backbone at /32;
+LiteSATRN: ``ShallowCNN``, four conv-BN-ReLU-maxpool stages at /16), a
+gated 2D positional encoding, N self-attention encoder layers with a
+convolutional feed-forward, and the transformer decoder of
+``models.common``. Parameter names are the reference's (either stem sits
+at ``encoder.shallow_cnn``, as in EfficientSATRN.py and LiteSATRN.py) so
+reference ``.pth`` files load with ``strict=True``.
 
 Reference-parity quirks kept:
 
@@ -15,7 +17,8 @@ Reference-parity quirks kept:
   raw ``reshape(b, c, h, w)`` (LiteSATRN.py:251) — torch's own NCHW
   layout, so the scrambled view needs no transpose here;
 - encoder BatchNorm eps is 1e-5, with flax's train-mode statistics
-  (``models/batchnorm.py``).
+  (``models/batchnorm.py``); ShallowCNN's too (the EfficientNet
+  backbone's is 1e-3), and its convs pad 1 on each side.
 
 Dropout sits where the JAX module has it, at ``dropout`` (the config's
 ``dropout_rate``): on the 2D PE's gate MLP, inside every attention (its
@@ -27,9 +30,10 @@ the decoder's PE; the decoder FF's is pinned (``models.common``).
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from p4fr_tpu_torch.models.batchnorm import BatchNorm2d
@@ -40,6 +44,29 @@ from p4fr_tpu_torch.ops.posenc import sinusoid_concat
 
 ENC_BN_EPS = 1e-5
 LN_EPS = 1e-5
+
+
+class ShallowCNN(nn.Module):
+    """LiteSATRN's stem (LiteSATRN.py:21-70): 4 x (conv3x3 pad 1 without
+    bias, BatchNorm eps 1e-5, ReLU, maxpool 2/2), widths hidden/2 then
+    hidden, at /16."""
+
+    def __init__(self, hidden_size: int, in_chans: int = 3):
+        super().__init__()
+        widths = [hidden_size // 2] + [hidden_size] * 3
+        for i, width in enumerate(widths):
+            setattr(self, f"conv{i}", nn.Conv2d(in_chans, width, 3, padding=1,
+                                                bias=False))
+            setattr(self, f"batch_norm{i}", BatchNorm2d(width, ENC_BN_EPS))
+            in_chans = width
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """x [B, C, H, W] -> [B, hidden, H/16, W/16]; no kernel serves it,
+        so ``plain`` changes nothing."""
+        for i in range(4):
+            x = getattr(self, f"batch_norm{i}")(getattr(self, f"conv{i}")(x))
+            x = F.max_pool2d(torch.relu(x), 2, 2)
+        return x
 
 
 class AdaptivePositionalEncoding2D(nn.Module):
@@ -105,20 +132,28 @@ class SATRNEncoderLayer(nn.Module):
 
 
 class SATRNEncoder(nn.Module):
-    """EfficientNet stem + adaptive 2D PE + N layers -> [B, HW, C] memory."""
+    """CNN stem + adaptive 2D PE + N layers -> [B, HW, C] memory.
+    ``backbone``: "shallow" (ShallowCNN, /16) or "efficientnetv2s" (/32,
+    or the product of the reduced ``backbone_stages``' strides)."""
 
     def __init__(self, input_height: int, input_width: int, hidden_dim: int,
                  filter_dim: int, head_num: int, layer_num: int, dropout: float = 0.1,
                  in_chans: int = 3, scrambled_ff: bool = True,
-                 backbone_stages: Any = None):
+                 backbone_stages: Any = None, backbone: str = "efficientnetv2s"):
         super().__init__()
-        self.shallow_cnn = EfficientNetV2Backbone(hidden_dim, in_chans,
-                                                  backbone_stages)
-        stride = 32
-        if backbone_stages is not None:
-            stride = 2  # stem
-            for row in backbone_stages:
-                stride *= row[2]
+        if backbone == "shallow":
+            self.shallow_cnn = ShallowCNN(hidden_dim, in_chans)
+            stride = 16
+        elif backbone == "efficientnetv2s":
+            self.shallow_cnn = EfficientNetV2Backbone(hidden_dim, in_chans,
+                                                      backbone_stages)
+            stride = 32
+            if backbone_stages is not None:
+                stride = 2  # stem
+                for row in backbone_stages:
+                    stride *= row[2]
+        else:
+            raise ValueError(f"unknown backbone: {backbone}")
         self.positional_encoding = AdaptivePositionalEncoding2D(
             hidden_dim, input_height // stride, input_width // stride, dropout)
         self.attention_layers = nn.ModuleList(
@@ -137,7 +172,8 @@ class SATRNEncoder(nn.Module):
 
 
 class SATRN(DecodeContract, nn.Module):
-    """Encoder-decoder SATRN on the EfficientNetV2 backbone."""
+    """Encoder-decoder SATRN; ``backbone`` picks Lite ("shallow") or
+    Efficient ("efficientnetv2s")."""
 
     def __init__(self, num_classes: int, pad_id: int, sos_id: int,
                  input_height: int, input_width: int, enc_hidden_dim: int,
@@ -145,14 +181,15 @@ class SATRN(DecodeContract, nn.Module):
                  dec_src_dim: int, dec_hidden_dim: int, dec_filter_dim: int,
                  dec_layer_num: int, dec_head_num: int, dropout: float = 0.1,
                  in_chans: int = 3,
-                 reference_parity: bool = True, backbone_stages: Any = None):
+                 reference_parity: bool = True, backbone_stages: Any = None,
+                 backbone: str = "efficientnetv2s"):
         super().__init__()
         self.num_classes, self.pad_id, self.sos_id = num_classes, pad_id, sos_id
         self.reference_parity = reference_parity
         self.encoder = SATRNEncoder(
             input_height, input_width, enc_hidden_dim, enc_filter_dim,
             enc_head_num, enc_layer_num, dropout, in_chans, reference_parity,
-            backbone_stages,
+            backbone_stages, backbone,
         )
         self.decoder = TransformerDecoder(
             num_classes, dec_src_dim, dec_hidden_dim, dec_filter_dim,
@@ -173,8 +210,13 @@ class SATRN(DecodeContract, nn.Module):
         return self.decoder(self.encode(images), text)
 
 
-def satrn_from_options(options, num_classes: int, pad_id: int, sos_id: int) -> SATRN:
-    """Build an EfficientSATRN from a reference-schema config dict."""
+def satrn_from_options(options, num_classes: int, pad_id: int, sos_id: int,
+                       network: Optional[str] = None) -> SATRN:
+    """Build a SATRN from a reference-schema config dict. The stem follows
+    ``network`` (default: the config's), as in the JAX package:
+    EfficientSATRN (and its alias MySATRN) the EfficientNet backbone,
+    anything else ShallowCNN."""
+    network = network or options.get("network")
     enc, dec = options["SATRN"]["encoder"], options["SATRN"]["decoder"]
     tpu = options.get("tpu") or {}
     stages = enc.get("backbone_stages")
@@ -190,4 +232,6 @@ def satrn_from_options(options, num_classes: int, pad_id: int, sos_id: int) -> S
         in_chans=int((options.get("data") or {}).get("rgb", 3)),
         reference_parity=bool(tpu.get("reference_parity", True)),
         backbone_stages=None if stages is None else tuple(tuple(r) for r in stages),
+        backbone=("efficientnetv2s" if network in ("EfficientSATRN", "MySATRN")
+                  else "shallow"),
     )

@@ -1,24 +1,26 @@
 """Train CLI of the PyTorch port (``python -m p4fr_tpu_torch.train``):
 
     python -m p4fr_tpu_torch.train --train_type single_opt|dual_opt \\
-        --config_file p4fr_tpu_torch/configs/EfficientSATRN.yaml \\
+        --config_file p4fr_tpu_torch/configs/LiteSATRN.yaml \\
         [--max_label_len 232] [--device cuda|cpu] \\
         [--project_name p --exp_name e]
+    python -m p4fr_tpu_torch.train --train_type distillation \\
+        --config_file p4fr_tpu_torch/configs/LiteSATRN.yaml \\
+        --teacher_ckpt teacher.pth|teacher.ckpt [--device cuda|cpu]
 
 The arguments are those of the JAX package's ``train.py``, plus
 ``--device``: training runs on the CUDA card unless ``--device cpu`` is
 given, and exits with an error where CUDA is asked for and absent.
-``--train_type distillation`` is refused with the ROADMAP item that ports
-it (its student, LiteSATRN, is not ported), as is a network the port
-cannot train yet (SwinTRN).
+Distillation requires ``--teacher_ckpt`` (a reference ``.pth`` or the JAX
+package's native ``.ckpt``), and no other regime takes it, with the JAX
+CLI's messages; a teacher whose vocabulary differs in size from the
+student's is refused. A network the port cannot train yet (SwinTRN,
+EfficientASTER) is refused with its ROADMAP item.
 """
 
 import argparse
 import importlib
 import sys
-
-# train type -> the ROADMAP item that ports it
-_NOT_YET = {"distillation": "ROADMAP.md Queue 1: distillation (needs item 7, LiteSATRN)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -27,10 +29,11 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["single_opt", "dual_opt", "distillation"],
                         help="training regime")
     parser.add_argument("--config_file",
-                        default="p4fr_tpu_torch/configs/EfficientSATRN.yaml",
+                        default="p4fr_tpu_torch/configs/LiteSATRN.yaml",
                         help="YAML model/config file")
     parser.add_argument("--teacher_ckpt", default=None,
-                        help="teacher checkpoint (distillation)")
+                        help="teacher checkpoint (required for --train_type "
+                        "distillation)")
     parser.add_argument("--project_name", default=None, help="W&B project")
     parser.add_argument("--exp_name", default=None, help="W&B experiment name")
     parser.add_argument("--max_label_len", type=int, default=232,
@@ -43,10 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.train_type in _NOT_YET:
-        parser.error(f"--train_type {args.train_type} is not ported to "
-                     f"p4fr_tpu_torch yet ({_NOT_YET[args.train_type]})")
-    if args.teacher_ckpt:
+    if args.train_type == "distillation" and not args.teacher_ckpt:
+        parser.error("--train_type distillation requires --teacher_ckpt")
+    if args.train_type != "distillation" and args.teacher_ckpt:
         parser.error("--teacher_ckpt is only valid with --train_type distillation")
 
     import torch
@@ -65,7 +67,12 @@ def main(argv=None):
     if args.project_name or args.exp_name:
         kwargs["wandb_kwargs"] = {"project": args.project_name, "name": args.exp_name}
     module = importlib.import_module(f"p4fr_tpu_torch.train.{args.train_type}")
-    return module.main(options, **kwargs)
+    if args.train_type != "distillation":
+        return module.main(options, **kwargs)
+    try:
+        return module.main(options, teacher_ckpt=args.teacher_ckpt, **kwargs)
+    except module.VocabMismatch as exc:
+        parser.error(str(exc))
 
 
 if __name__ == "__main__":

@@ -7,12 +7,18 @@ loop with train steps and greedy validation, best-checkpoint gating on
 0.9 * sentence accuracy + 0.1 * (1 - WER), ``log.txt`` and the JSONL
 records, and resume from ``options.checkpoint``.
 
-``train`` is the loop both regimes run; ``dual_opt`` differs only in the
-optimizer it builds. The run is on the CUDA card unless the caller passes
+``train`` is the loop every regime runs; ``dual_opt`` differs only in the
+optimizer it builds, ``distillation`` in its loaders and its step. The run is on the CUDA card unless the caller passes
 ``device="cpu"``; without CUDA and without that, it refuses. The port
 trains EfficientSATRN; other networks are refused with the ROADMAP item
 that ports them. Checkpoints are the reference-format ``.pth``
 (``utils/checkpoint.py``) at ``{prefix}/checkpoints/{network}_best_model.pth``.
+``options.checkpoint`` may also name the JAX package's native file: one
+without ``opt_state`` (the port's ``save_native_checkpoint`` writes such)
+resumes its weights, batch statistics, epoch, teacher-forcing position and
+histories with a fresh optimizer, the schedules at epoch x batches per
+epoch, as the JAX trainer does; one with an optax ``opt_state`` is
+refused (``RESUME_OPT_STATE``).
 """
 
 from __future__ import annotations
@@ -41,7 +47,11 @@ from p4fr_tpu_torch.train.steps import (
     make_eval_step,
     make_train_step,
 )
-from p4fr_tpu_torch.utils.checkpoint import save_checkpoint
+from p4fr_tpu_torch.utils.checkpoint import (
+    HISTORY_KEYS,
+    read_checkpoint,
+    save_checkpoint,
+)
 from p4fr_tpu_torch.utils.flags import Flags
 from p4fr_tpu_torch.utils.logging import (
     ExperimentLogger,
@@ -61,11 +71,7 @@ NOT_TRAINABLE = {  # network -> the ROADMAP item that trains it
     "EfficientASTER": "ROADMAP.md Queue 1: EfficientASTER training",
     "ASTER": "ROADMAP.md Queue 1: EfficientASTER training",
 }
-HISTORY_KEYS = (
-    "train_losses", "train_symbol_accuracy", "train_sentence_accuracy",
-    "train_wer", "validation_losses", "validation_symbol_accuracy",
-    "validation_sentence_accuracy", "validation_wer", "lr", "grad_norm",
-)
+RESUME_OPT_STATE = "ROADMAP.md Queue 1: resume a JAX trainer's optimizer state"
 
 
 def set_seed(seed: int = 21) -> None:
@@ -155,35 +161,68 @@ def _lr_record(optimizer: ScheduledOptimizer, step: int):
 
 
 def resume(path: str, model, optimizer: ScheduledOptimizer,
-           tf_scheduler: Optional[TeacherForcingScheduler] = None) -> Dict:
+           tf_scheduler: Optional[TeacherForcingScheduler] = None,
+           steps_per_epoch: int = 0) -> Dict:
     """Load a trainer's ``.pth`` into ``model`` (``strict=True``), the
     optimizer and its schedules' position and, if given, the
-    teacher-forcing scheduler -> the loaded dict."""
-    loaded = torch.load(path, map_location="cpu", weights_only=True)
+    teacher-forcing scheduler -> the loaded dict. A native checkpoint
+    without ``opt_state`` leaves the optimizer fresh and sets its update
+    count to its epoch x ``steps_per_epoch``; one with it is refused."""
+    loaded = read_checkpoint(path)
+    native = "params" in loaded
+    if native and loaded.get("opt_state"):
+        raise NotImplementedError(
+            f"{path} carries the JAX trainer's optax opt_state; resuming it "
+            f"is not ported to p4fr_tpu_torch yet ({RESUME_OPT_STATE})")
     model.load_state_dict(loaded["model"], strict=True)
-    if loaded.get("optimizer"):
+    if native:
+        optimizer.count = int(loaded.get("epoch", 0)) * steps_per_epoch
+    elif loaded.get("optimizer"):
         optimizer.load_state_dict(loaded["optimizer"], loaded["scheduler"])
     if tf_scheduler is not None and loaded.get("tf_scheduler"):
         tf_scheduler.load_state_dict(loaded["tf_scheduler"])
     return loaded
 
 
-def train(options, build: Callable[[torch.nn.Module, object, int], ScheduledOptimizer],
-          *, device="cuda", max_label_len: int = 232, log_dir: Optional[str] = None,
-          wandb_kwargs: Optional[Dict] = None, header: str = "") -> Dict:
-    """The epoch loop. ``build(model, options, total_steps)`` makes the
-    optimizer. Returns {"best_metric", "model", "optimizer", "histories",
-    "checkpoint"} (the last best checkpoint's path, or None)."""
-    check_trainable(options)
-    dev = resolve_device(device)
-    set_seed(options.seed)
-    dtype = compute_dtype(options)
+def default_loaders(options, max_label_len: int):
+    """(train_loader, train_dataset, valid_loader, valid_dataset) with the
+    config's train and validation transforms."""
     height, width = options.input_size.height, options.input_size.width
-    train_loader, train_dataset, valid_loader, _ = dataset_loader(
+    return dataset_loader(
         options,
         get_train_transforms(height, width, options.data.rgb, seed=options.seed),
         get_valid_transforms(height, width, options.data.rgb, normalize=True),
         max_label_len=max_label_len)
+
+
+def default_step(model, optimizer: ScheduledOptimizer, pad_id: int,
+                 dtype: torch.dtype, dev: torch.device) -> Callable:
+    """``step(batch, text, teacher_forced)`` -> (metrics, sequences): one
+    ``make_train_step`` update on the batch's ``image``."""
+    train_step = make_train_step(model, optimizer, pad_id, compute_dtype=dtype)
+
+    def step(batch, text, teacher_forced):
+        return train_step(torch.from_numpy(batch["image"]).to(dev), text, teacher_forced)
+
+    return step
+
+
+def train(options, build: Callable[[torch.nn.Module, object, int], ScheduledOptimizer],
+          *, device="cuda", max_label_len: int = 232, log_dir: Optional[str] = None,
+          wandb_kwargs: Optional[Dict] = None, header: str = "",
+          loaders: Callable = default_loaders,
+          make_step: Callable = default_step) -> Dict:
+    """The epoch loop. ``build(model, options, total_steps)`` makes the
+    optimizer, ``loaders(options, max_label_len)`` the loaders (after the
+    seed is set), ``make_step(model, optimizer, pad_id, dtype, device)``
+    the update a batch makes. Returns {"best_metric", "model",
+    "optimizer", "histories", "checkpoint"} (the last best checkpoint's
+    path, or None)."""
+    check_trainable(options)
+    dev = resolve_device(device)
+    set_seed(options.seed)
+    dtype = compute_dtype(options)
+    train_loader, train_dataset, valid_loader, _ = loaders(options, max_label_len)
     vocab = train_dataset.vocab
     pad_id = vocab.pad_id
     configs = options.to_dict()
@@ -197,12 +236,13 @@ def train(options, build: Callable[[torch.nn.Module, object, int], ScheduledOpti
     start_epoch = 0
     histories: Dict = {k: [] for k in HISTORY_KEYS}
     if options.checkpoint:
-        loaded = resume(options.checkpoint, model, optimizer, tf_scheduler)
+        loaded = resume(options.checkpoint, model, optimizer, tf_scheduler,
+                        len(train_loader))
         start_epoch = int(loaded.get("epoch", 0))
         for k in histories:
             histories[k] = list(loaded.get(k) or [])
 
-    train_step = make_train_step(model, optimizer, pad_id, compute_dtype=dtype)
+    train_step = make_step(model, optimizer, pad_id, dtype, dev)
     logger = ExperimentLogger(log_dir or os.path.join(options.prefix, "logs"),
                               use_wandb=wandb_kwargs is not None,
                               wandb_kwargs=wandb_kwargs)
@@ -218,10 +258,9 @@ def train(options, build: Callable[[torch.nn.Module, object, int], ScheduledOpti
         for batch in train_loader:
             tf_ratio = tf_scheduler.step()
             teacher_forced = py_rng.random() < tf_ratio
-            images = torch.from_numpy(batch["image"]).to(dev)
             text = batch_text(batch, pad_id, dev)
             step_idx = optimizer.count  # the update this batch makes
-            metrics, sequences = train_step(images, text, teacher_forced)
+            metrics, sequences = train_step(batch, text, teacher_forced)
             loss = float(metrics["loss"])
             lr, extra = _lr_record(optimizer, step_idx)
             write_step_log(logger, step_idx, lr, tf_ratio, loss=loss, extra=extra)

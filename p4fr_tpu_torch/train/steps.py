@@ -14,10 +14,12 @@
 Training runs through the plain modules (cuDNN and cuBLAS on the card); the
 compute type is ``torch.autocast`` over the forward, with f32 master
 weights, f32 optimizer state and the loss in f32. Validation
-(``make_eval_step``) runs the model in eval mode: the encoder through
-kernel 2 and each AR step through kernel 3 (``decoding.fast_step``) over
-fused weights read from the current parameters, or every kernel's plain
-version with ``plain=True``.
+(``make_eval_step``) and a distillation teacher (``train/distillation.py``)
+run ``greedy_logits``: the model in eval mode, the encoder through kernel 2
+and each AR step through kernel 3 (``decoding.fast_step``) over fused
+weights read from the current parameters (an ASTER model: its fused LSTM
+step, ``decoding.fast_aster``), or every kernel's plain version with
+``plain=True``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from p4fr_tpu_torch.decoding.fast_aster import FastAster, aster_step
 from p4fr_tpu_torch.decoding.fast_step import (
     FastDecoder,
     build_fast_decoder,
@@ -204,11 +207,41 @@ def cast_fast_decoder(fast: FastDecoder, dtype: torch.dtype) -> FastDecoder:
         w_gen=fast.w_gen.to(dtype), b_gen=fast.b_gen.to(dtype))
 
 
+@torch.no_grad()
+def greedy_logits(model, fast, images: torch.Tensor, steps: int, *,
+                  plain: bool = False, compute_dtype: torch.dtype = torch.float32,
+                  picks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy over ``steps`` steps without the manager, from standardized
+    ``images`` [B, H, W, C] -> logits [B, steps, V] f32. The encoder runs
+    under ``compute_dtype``'s autocast; ``fast`` is the model's fused
+    decoder (a ``FastDecoder``: kernel 3 per layer; a ``FastAster``: the
+    fused LSTM step), in the type the decode runs in. The model must be in
+    eval mode. ``picks`` [B, >= steps - 1] replays another run's argmax
+    picks in place of this run's."""
+    with autocast(images.device, compute_dtype):
+        src = model.encode(images, plain=plain)
+    if isinstance(fast, FastAster):
+        step = aster_step(fast, src.to(fast.w_gen.dtype))
+    else:
+        cross_kv, cache = decode_buffers(fast, src, steps)
+
+        def step(token, t):
+            return fast_decode_step(fast, token, t, cross_kv, cache, plain=plain)
+    token = torch.full((images.shape[0],), model.sos_id, dtype=torch.int64,
+                       device=images.device)
+    logits = []
+    for t in range(steps):
+        step_logits = step(token, t)
+        logits.append(step_logits)
+        token = step_logits.argmax(dim=-1) if picks is None else picks[:, t]
+    return torch.stack(logits, dim=1)
+
+
 def make_eval_step(model, pad_id: int, *, plain: bool = False,
                    compute_dtype: torch.dtype = torch.float32) -> Callable:
     """-> ``eval_step(images, text)`` -> (loss, sequences [B, L-1], logits
-    [B, L-1, V] f32): greedy over ``L - 1`` steps without the manager, in
-    eval mode, and the CE of its logits.
+    [B, L-1, V] f32): ``greedy_logits`` over ``L - 1`` steps in eval mode,
+    and the CE of its logits.
 
     The fused decoder weights are read here, once: make the step again
     after the parameters change (the trainer does, at every validation).
@@ -221,21 +254,10 @@ def make_eval_step(model, pad_id: int, *, plain: bool = False,
         was_training = model.training
         model.eval()
         try:
-            with autocast(images.device, compute_dtype):
-                src = model.encode(images, plain=plain)
-            steps = text.shape[1] - 1
-            cross_kv, cache = decode_buffers(fast, src, steps)
-            token = torch.full((images.shape[0],), model.sos_id,
-                               dtype=torch.int64, device=images.device)
-            logits = []
-            for t in range(steps):
-                step_logits = fast_decode_step(fast, token, t, cross_kv, cache,
-                                               plain=plain)
-                logits.append(step_logits)
-                token = step_logits.argmax(dim=-1)
+            logits = greedy_logits(model, fast, images, text.shape[1] - 1,
+                                   plain=plain, compute_dtype=compute_dtype)
         finally:
             model.train(was_training)
-        logits = torch.stack(logits, dim=1)
         loss = cross_entropy_ignore_pad(logits, text[:, 1:], pad_id)
         return loss, logits.argmax(dim=-1), logits
 

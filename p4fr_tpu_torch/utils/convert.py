@@ -1,12 +1,15 @@
-"""Weight bridge: JAX parameter trees -> a reference-named torch state dict.
+"""Weight bridge between JAX parameter trees and reference-named torch
+state dicts, both ways.
 
-The port's own copy of the export direction of
-``p4fr_tpu/utils/convert_pth.py``, reduced to the EfficientSATRN, SwinTRN
-and EfficientASTER names (the Swin hub-weight and timm rules are not
-copied).
+The port's own copy of the rule tables of
+``p4fr_tpu/utils/convert_pth.py`` for every family (LiteSATRN,
+EfficientSATRN, SwinTRN, EfficientASTER; the Swin hub-weight and timm
+rules of the pretrained-backbone bootstrap are not copied).
 The rule tables map each reference torch key (regex) to a flax path
-template and a layout transform; ``export_state_dict`` inverts them, so the
-result is exactly the reference ``.pth`` layout the port's modules load:
+template and a layout transform. ``export_state_dict`` inverts them, so the
+result is exactly the reference ``.pth`` layout the port's modules load;
+``flax_trees`` applies them forward, giving the ``params`` and
+``batch_stats`` trees of the JAX package's native checkpoint:
 
 - Linear  weight [O,I]       <- kernel [I,O] (transpose)
 - Conv2d  weight [O,I,kh,kw] <- kernel [kh,kw,I,O]
@@ -28,8 +31,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-
-from p4fr_tpu_torch.models.registry import NOT_PORTED
 
 # ---------------------------------------------------------------------------
 # forward transforms (torch layout -> flax layout) and their inverses
@@ -161,17 +162,23 @@ def _efficientnet_rules(torch_root: str, flax_root: str) -> List[Rule]:
     return rules
 
 
-def satrn_rules() -> List[Rule]:
-    """EfficientSATRN: the EfficientNetV2 wrapper, the 2D PE, the SATRN
-    encoder layers and the transformer decoder."""
+def satrn_rules(backbone: str = "efficientnetv2s") -> List[Rule]:
+    """The SATRN family: the stem (LiteSATRN's ShallowCNN for
+    ``backbone="shallow"``, else EfficientSATRN's EfficientNetV2 wrapper),
+    the 2D PE, the SATRN encoder layers and the transformer decoder."""
     root = r"encoder\.shallow_cnn"
-    froot = "encoder/efficientnet"
     rules: List[Rule] = []
-    rules += _conv_rules(rf"{root}\.conv_stem", rf"{froot}/conv_stem")
-    rules += _norm_rules(rf"{root}\.bn1", rf"{froot}/bn1")
-    rules += _efficientnet_rules(rf"{root}\.eff_block", rf"{froot}/blocks")
-    rules += _conv_rules(rf"{root}\.conv_last", rf"{froot}/conv_last")
-    rules += _norm_rules(rf"{root}\.bn2", rf"{froot}/bn2")
+    if backbone == "shallow":
+        for i in range(4):
+            rules += _conv_rules(rf"{root}\.conv{i}", f"encoder/shallow_cnn/conv{i}")
+            rules += _norm_rules(rf"{root}\.batch_norm{i}", f"encoder/shallow_cnn/bn{i}")
+    else:
+        froot = "encoder/efficientnet"
+        rules += _conv_rules(rf"{root}\.conv_stem", rf"{froot}/conv_stem")
+        rules += _norm_rules(rf"{root}\.bn1", rf"{froot}/bn1")
+        rules += _efficientnet_rules(rf"{root}\.eff_block", rf"{froot}/blocks")
+        rules += _conv_rules(rf"{root}\.conv_last", rf"{froot}/conv_last")
+        rules += _norm_rules(rf"{root}\.bn2", rf"{froot}/bn2")
 
     pe = r"encoder\.positional_encoding"
     rules += _linear_rules(rf"{pe}\.dense0", "encoder/positional_encoding/dense0")
@@ -273,16 +280,14 @@ def aster_rules() -> List[Rule]:
 
 
 def rules_for(network: str) -> List[Rule]:
+    if network == "LiteSATRN":
+        return satrn_rules("shallow")
     if network in ("EfficientSATRN", "MySATRN"):
         return satrn_rules()
     if network in ("SWIN", "SwinTRN"):
         return swin_rules()
     if network in ("EfficientASTER", "ASTER"):
         return aster_rules()
-    if network in NOT_PORTED:
-        raise NotImplementedError(
-            f"no weight-bridge rules for {network!r} in p4fr_tpu_torch yet "
-            f"({NOT_PORTED[network]})")
     raise NotImplementedError(network)
 
 
@@ -373,3 +378,40 @@ def state_dict_from_jax(network: str, params, batch_stats: Optional[Dict] = None
     if unmatched:
         raise ValueError(f"{len(unmatched)} JAX paths have no rule: {unmatched[:8]}")
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# forward direction: reference-named state dict -> flax trees
+# ---------------------------------------------------------------------------
+
+
+def _set_path(tree: Dict, path: str, value: np.ndarray) -> None:
+    parts = path.split("/")
+    node = tree
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = value
+
+
+def flax_trees(network: str, state_dict: Dict[str, torch.Tensor]
+               ) -> Tuple[Dict, Dict]:
+    """A torch state dict -> the flax (``params``, ``batch_stats``) trees of
+    the JAX model, numpy leaves, floating tensors as f32 (the JAX
+    package's ``convert_state_dict``). Raises if a torch key has no rule."""
+    compiled = [(re.compile(pat), repl, t, coll) for pat, repl, t, coll
+                in rules_for(network)]
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    unmatched: List[str] = []
+    for key, value in state_dict.items():
+        value = value.detach().cpu()
+        arr = (value.float() if value.is_floating_point() else value).numpy()
+        for pat, repl, transform, coll in compiled:
+            if pat.match(key):
+                if coll != "drop":
+                    _set_path(trees[coll], pat.sub(repl, key), transform(arr))
+                break
+        else:
+            unmatched.append(key)
+    if unmatched:
+        raise ValueError(f"{len(unmatched)} torch keys have no rule: {unmatched[:8]}")
+    return trees["params"], trees["batch_stats"]

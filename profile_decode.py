@@ -11,7 +11,8 @@ Loads chip_smoke.py's seeded EfficientSATRN at full width in bf16 (B=256
 231 steps; greedy with the DecodingManager, through
 kernel 3 per layer (EfficientASTER: its fused LSTM step) or, with
 ``fused``, the whole step in one launch as ``--kernel fused`` runs it,
-with ``generic`` the model's module step, with ``v1`` kernel 8 per layer
+with ``generic`` as the CLI's ``--kernel generic`` runs it (the plain fast
+step; EfficientASTER's module step), with ``v1`` kernel 8 per layer
 (``greedy_decode(use_v1=True)``), with ``v3`` kernel 7 per step
 (``chip_smoke.v3_greedy`` over ``make_v3_step``); beam W=3 without the
 manager, as the CLI runs them (``--kernel`` as the CLI's: ``auto`` the fast

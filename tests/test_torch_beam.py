@@ -200,8 +200,8 @@ def test_beam_cache_follows_each_hypothesis(slice_models, beam_models, bias):
 
 @pytest.mark.parametrize("beam_gather", ["auto", "jnp"])
 def test_beam_cli_output_matches_jax(slice_models, tmp_path, beam_gather):
-    """``--beam_gather jnp`` takes the kernels' plain versions; on the CPU
-    both settings must write the JAX CLI's output."""
+    """``--beam_gather jnp`` takes the gather kernel's plain version; on the
+    CPU both settings must write the JAX CLI's output."""
     from p4fr_tpu.infer.single import run_inference as jax_run_inference
 
     inp, native, pth, n = native_and_pth(slice_models, tmp_path)
@@ -247,3 +247,36 @@ def test_generic_beam_and_greedy_match_jax(slice_models, beam_models, early_stop
     got = decode_images(model, fast, torch.from_numpy(images), RuleTables.build(vocab),
                         STEPS, kernel="generic").numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("beam_gather", ["auto", "jnp"])
+def test_beam_gather_jnp_swaps_the_gather_alone(slice_models, tmp_path, monkeypatch,
+                                                beam_gather):
+    """The CLI's ``--beam_gather jnp`` reaches ``beam_search`` as
+    ``plain_gather=True`` with ``plain=False`` (kernels 1, 2 and 3 keep
+    their wrappers), and the reorder goes through kernel 4's plain
+    version: the recorded ``cache_gather`` calls say so."""
+    from p4fr_tpu_torch import inference
+    from p4fr_tpu_torch.decoding import beam
+    from p4fr_tpu_torch.infer import single
+
+    inp, _, pth, _ = native_and_pth(slice_models, tmp_path, n=2)
+    searches, gathers = [], []
+    search, gather = single.beam_search, beam.cache_gather
+
+    def beam_search(*args, **kw):
+        searches.append((kw["plain"], kw["plain_gather"]))
+        return search(*args, **kw)
+
+    def cache_gather(width, plain):
+        gathers.append(plain)
+        return gather(width, plain)
+
+    monkeypatch.setattr(single, "beam_search", beam_search)
+    monkeypatch.setattr(beam, "cache_gather", cache_gather)
+    inference.main(["--checkpoint", pth, "--file_path", str(inp), "--output_dir",
+                    str(tmp_path / "out"), "--batch_size", "2", "--max_sequence", "3",
+                    "--decode_type", "beam", "--beam_gather", beam_gather,
+                    "--device", "cpu"])
+    jnp_gather = beam_gather == "jnp"
+    assert searches == [(False, jnp_gather)] and gathers == [jnp_gather]

@@ -252,10 +252,10 @@ def test_cli_fused_output_matches_jax(slice_models, tmp_path):
 def test_cli_rejects_kernels_not_ported(argv, slice_models, tmp_path, capsys,
                                         monkeypatch):
     """``--kv_quant`` with ``fused`` is refused; ``pallas_v2`` runs kernel
-    3's step, as ``auto`` does, ``jnp`` each layer's plain step
-    (``greedy_decode(use_jnp=True)``) and ``generic`` the model's module
-    step (``greedy.make_greedy_fn``, never ``greedy_decode``), each writing
-    ``--kernel auto``'s ``output.csv``."""
+    3's step, as ``auto`` does, and ``jnp`` and ``generic`` (as JAX's CLI
+    maps it) each layer's plain step (``greedy_decode(use_jnp=True)``,
+    never the module step of ``greedy.make_greedy_fn``), each writing
+    ``--kernel auto``'s ``output.csv``, which is ``--kernel jnp``'s."""
     from p4fr_tpu_torch import inference
     from p4fr_tpu_torch.infer import single
 
@@ -282,10 +282,7 @@ def test_cli_rejects_kernels_not_ported(argv, slice_models, tmp_path, capsys,
     monkeypatch.setattr(single, "greedy_decode", greedy_decode)
     monkeypatch.setattr(single, "make_greedy_fn", make_greedy_fn)
     inference.main(base + argv + ["--output_dir", str(tmp_path / "k")])
-    if argv[1] == "generic":
-        assert module_calls and not calls
-    else:
-        assert calls and set(calls) == {argv[1] == "jnp"} and not module_calls
+    assert calls and set(calls) == {argv[1] in ("jnp", "generic")} and not module_calls
     assert ((tmp_path / "k" / "output.csv").read_text()
             == (tmp_path / "auto" / "output.csv").read_text())
 

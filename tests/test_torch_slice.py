@@ -256,14 +256,20 @@ def test_entry_points_run_on_cuda_unless_asked(slice_models, tmp_path, monkeypat
 
 @pytest.mark.parametrize("network", ["LiteSATRN", "EfficientASTER", "ASTER"])
 def test_registry_names_the_roadmap_item(vocab, network):
-    """What is still unported raises with its ROADMAP item: LiteSATRN in the
-    registry; for the ASTER family, ported for inference, its training."""
+    """What is still unported raises with its ROADMAP item: for LiteSATRN,
+    which the registry builds (a SATRN on the ShallowCNN stem), the
+    pretrained-backbone bootstrap; for the ASTER family, ported for
+    inference, its training."""
+    from p4fr_tpu_torch.models.satrn import ShallowCNN
     from p4fr_tpu_torch.train.single_opt import check_trainable
     from p4fr_tpu_torch.utils.flags import ConfigNode
 
     if network == "LiteSATRN":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_network(network, CONFIGS, vocab)
+        model = get_network(network, dict(CONFIGS, network=network), vocab)
+        assert isinstance(model.encoder.shallow_cnn, ShallowCNN)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1: pretrained-backbone bootstrap"):
+            check_trainable(ConfigNode({"network": network, "pretrained": "x.pth"}))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: EfficientASTER"):
         check_trainable(ConfigNode({"network": network}))
@@ -282,8 +288,8 @@ def test_export_state_dict_matches_jax(slice_models):
     for key in want:
         assert got[key].dtype == want[key].dtype, key
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export_state_dict("LiteSATRN", {})
+    with pytest.raises(NotImplementedError, match="NoSuchNetwork"):
+        export_state_dict("NoSuchNetwork", {})
 
 
 @pytest.mark.parametrize("port,jax_pkg", [
@@ -299,8 +305,8 @@ def test_port_data_files_equal_the_jax_packages(port, jax_pkg):
 ISOLATED = r"""
 import importlib, importlib.abc, importlib.machinery, pkgutil, sys
 
-REFUSED = ("jax", "jaxlib", "flax", "p4fr_tpu", "cv2", "PIL", "pandas", "yaml",
-           "wandb")
+REFUSED = ("jax", "jaxlib", "flax", "msgpack", "p4fr_tpu", "cv2", "PIL", "pandas",
+           "yaml", "wandb")
 
 # an import of a refused name fails; a probe for it (find_spec, as
 # torch.optim's dynamo import makes for pandas) finds a spec, imports nothing
@@ -415,12 +421,27 @@ path = save_checkpoint(%(pth)r, model, network="EfficientSATRN", configs=configs
                        vocab=vocab, epoch=1, train_state=opt.state_dict())
 model, _, vocab, ckpt = load_model_from_checkpoint(path, device="cpu")
 assert ckpt["scheduler"] == {"step": 2}
+
+# a native checkpoint the JAX package wrote, read by the port's own codec
+from p4fr_tpu_torch.utils.checkpoint import checkpoint_format, save_native_checkpoint
+
+assert checkpoint_format(%(native)r) == "native"
+model, _, vocab, ckpt = load_model_from_checkpoint(%(native)r, device="cpu")
+assert ckpt["network"] == "EfficientSATRN" and ckpt["opt_state"] is None
+native_greedy = decode_images(model, build_fast_decoder(model),
+                              torch.randint(0, 256, (2, 64, 128, 3), dtype=torch.uint8),
+                              tables, 4)
+path = save_native_checkpoint(model, network="EfficientSATRN", configs=configs,
+                              vocab=vocab, prefix=%(tmp)r)
+again, _, _, _ = load_model_from_checkpoint(path, device="cpu")
+assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                             again.state_dict().values()))
 assert not [k for k in sys.modules if k.split(".")[0] in REFUSED]
 print("ok")
 """
 
 
-def test_port_imports_no_jax(tmp_path):
+def test_port_imports_no_jax(slice_models, tmp_path):
     """The port runs from a copy of ``p4fr_tpu_torch/`` and ``chip_smoke.py``
     alone, with jax, flax and ``p4fr_tpu`` refused (and cv2, PIL and
     pandas, which the card's host lacks): every module and ``chip_smoke``
@@ -438,19 +459,30 @@ def test_port_imports_no_jax(tmp_path):
     training path (the train modules import with yaml and
     wandb refused too): a teacher-forced and an AR-sampled AdamW step, a
     validation step and a ``.pth`` with the trainer's state, saved and
-    loaded."""
+    loaded; and a native checkpoint that the JAX package wrote before the
+    copy loads (msgpack refused too), decodes, and saves and loads back
+    through the port's native writer."""
     shutil.copytree(os.path.join(REPO, "p4fr_tpu_torch"),
                     tmp_path / "p4fr_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    from p4fr_tpu.utils.checkpoint import make_checkpoint, save_checkpoint
     from test_torch_aster import CONFIGS as ASTER_CONFIGS
+
+    vocab, _, variables, _, _, _ = slice_models
+    native = save_checkpoint(make_checkpoint(
+        network="EfficientSATRN", epoch=0, params=variables["params"],
+        batch_stats=variables["batch_stats"], opt_state=None, configs=CONFIGS,
+        token_to_id=vocab.token_to_id, id_to_token=vocab.id_to_token),
+        dir="native", prefix=str(tmp_path))
     from test_torch_swin import CONFIGS as SWIN_CONFIGS
 
     code = ISOLATED % {"configs": CONFIGS, "pth": str(tmp_path / "m.pth"),
                        "swin_configs": SWIN_CONFIGS,
                        "swin_pth": str(tmp_path / "swin.pth"),
                        "aster_configs": ASTER_CONFIGS,
-                       "aster_pth": str(tmp_path / "aster.pth")}
+                       "aster_pth": str(tmp_path / "aster.pth"),
+                       "native": native, "tmp": str(tmp_path / "port")}
     res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          env=dict(os.environ, PYTHONPATH=str(tmp_path)),
                          capture_output=True, text=True)

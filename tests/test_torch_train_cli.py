@@ -10,8 +10,9 @@ validation batches an epoch) and the tiny EfficientSATRN of
 - resuming from it (``checkpoint:`` in the config, ``num_epochs: 2``) runs
   exactly one more epoch, from the saved optimizer and schedule state;
 - ``dual_opt`` trains one epoch with its two parameter groups;
-- what is refused: distillation and SwinTRN (with their ROADMAP items),
-  and CUDA asked for where there is none.
+- what is refused: distillation without ``--teacher_ckpt`` (the JAX CLI's
+  message), SwinTRN (with its ROADMAP item), and CUDA asked for where there
+  is none.
 """
 
 import json
@@ -129,7 +130,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
         cli("--train_type", "distillation", "--config_file", "x.yaml",
             "--device", "cpu")
     assert exc.value.code != 0
-    assert "ROADMAP.md Queue 1: distillation" in capsys.readouterr().err
+    assert "--train_type distillation requires --teacher_ckpt" in capsys.readouterr().err
 
     swin = write_config(tmp_path, dict(train_options(tmp_path), network="SWIN"))
     with pytest.raises(SystemExit):

@@ -122,11 +122,11 @@ def port_model(vocab, params, batch_stats):
 
 
 def assert_state_matches(model, params, batch_stats, param_atol, what,
-                         noise=None, lr_sum=0.0):
+                         noise=None, lr_sum=0.0, network="EfficientSATRN"):
     """Every entry of the port's state dict against JAX's, bridged; the
     elements ``noise`` marks and the running statistics within the bounds
     ``lr_sum`` sets (module docstring)."""
-    want, unmatched = export_state_dict("EfficientSATRN", params, batch_stats)
+    want, unmatched = export_state_dict(network, params, batch_stats)
     assert unmatched == []
     got = model.state_dict()
     for key, value in want.items():

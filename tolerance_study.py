@@ -3,14 +3,15 @@
 and (kernel 6) where the sound kernel's error comes from.
 
     python3 tolerance_study.py [--kernel fused_greedy_step|swin_attention|
-        decoder_layer|decoder_layer_v1|decoder_stack_v3|decoder_layer_int8|mbconv]
-        [--shape satrn|swin] [--seeds 0 1 2 3 4] [--faults]
+        decoder_layer|decoder_layer_v1|decoder_stack_v3|decoder_layer_int8|mbconv|
+        mbconv_tiled] [--shape satrn|swin|lite] [--seeds 0 1 2 3 4] [--faults]
 
 Needs one CUDA card; the kernels build from the checkout on first use.
 ``--shape swin`` runs kernel 6's part 1 (and the faults' copies) at
 SwinTRN's decoder shape (``chip_smoke.SWIN_DECODER``: B=32, hidden 512,
-heads of 64, 4 layers) instead of the flagship's; part 2 stays at the
-flagship's. With ``--kernel swin_attention`` (kernel 5) part 1 runs
+heads of 64, 4 layers) instead of the flagship's, ``--shape lite`` at
+LiteSATRN's (``chip_smoke.LITE_DECODER``: B=256, hidden 128, heads of 32, 2
+layers); part 2 stays at the flagship's. With ``--kernel swin_attention`` (kernel 5) part 1 runs
 ``chip_smoke.check_swin_attention`` (each Swin-B stage at B=32, shift mask
 on and off, 8 checks) and prints per seed the bf16 check's largest excess
 over the cast and largest mean abs error; part 2 is kernel 6's only; part
@@ -54,7 +55,17 @@ largest median share of launch A's gated elements that differ from the
 twin's, and each dtype's missed checks; part 3 plants h2 rounded before the gate, the last
 rank's SE partial dropped from the exchange, the depthwise reading a row
 back after it was overwritten, the pooled mean left unrounded and the
-residual added after the cast, in ``csrc/mbconv.cu``.
+residual added after the cast, in ``csrc/mbconv.cu``. With ``--kernel
+mbconv_tiled`` (kernel 2's three-launch tiled form) part 1 runs
+``chip_smoke.check_mbconv`` at EfficientASTER's three tiled shapes (B=8) and
+prints per seed the f32 check's largest error, the bf16 check's largest
+excess over the cast, mean abs error and output share (``BF16_OUT_SHARE``),
+each dtype's missed checks, and phase 3f's gate: DeepCNN's f32 features at
+full width through the kernels against the plain blocks; part 3 plants h2
+rounded before the gate, the pooled mean left unrounded, the last tile's SE
+partial dropped, the depthwise reading a wrong halo row and the residual
+added after the cast, in ``csrc/mbconv_tiled.cu``. cuDNN's TF32 is off, as
+in the smoke.
 
 1. ``chip_smoke.check_fused_step`` (B=256, full width, pos 0/1/115/230,
    manager on and off, 24 checks, and the tie across the generator's first
@@ -263,6 +274,35 @@ FAULTS = {
         "residual_after_cast": ("mbconv.cu", "for (int e = 0; e < 8; ++e) v[e] += rv[e];",
                                 "for (int e = 0; e < 8; ++e) v[e] = round_t<T>(v[e]) + rv[e];"),
     },
+    # kernel 2's three-launch tiled form (csrc/mbconv_tiled.cu), which
+    # EfficientASTER's stage-3 and stage-4 blocks run
+    "mbconv_tiled": {
+        # h2 rounded to the activation type before the gate multiplies it
+        "h2_rounded_before_gate": (
+            "mbconv_tiled.cu",
+            "          __floats2bfloat162_rn(ar[j].x * gr[j].x, ar[j].y * gr[j].y),\n"
+            "          __floats2bfloat162_rn(ar[j].z * gr[j].z, ar[j].w * gr[j].w)};\n",
+            "          __floats2bfloat162_rn(round_t<bf16>(ar[j].x) * gr[j].x,\n"
+            "                                round_t<bf16>(ar[j].y) * gr[j].y),\n"
+            "          __floats2bfloat162_rn(round_t<bf16>(ar[j].z) * gr[j].z,\n"
+            "                                round_t<bf16>(ar[j].w) * gr[j].w)};\n"),
+        "pooled_unrounded": ("mbconv_tiled.cu",
+                             "pooled[c] = round_t<T>(s / static_cast<float>(S));",
+                             "pooled[c] = s / static_cast<float>(S);"),
+        # the last spatial tile's channel sums left out of the pooled mean
+        "se_partial_dropped": ("mbconv_tiled.cu", "for (int t = 0; t < tiles; ++t)",
+                               "for (int t = 0; t < tiles - 1; ++t)"),
+        # the depthwise reads the halo tile's second-to-last row where it
+        # should read its last (the row below the output tile)
+        "halo_row_wrong": (
+            "mbconv_tiled.cu",
+            "a = fmaf(es[((oy + dy) * HWD + ox + dx) * LD + c], wdw[dy * 3 + dx], a);",
+            "a = fmaf(es[(min(oy + dy, TH) * HWD + ox + dx) * LD + c], wdw[dy * 3 + dx], a);"),
+        # the projection rounded to the activation type before the residual
+        # is added (two roundings)
+        "residual_after_cast": ("mbconv_tiled.cu", "  if (res) v += to_f(res[o]);",
+                                "  if (res) v = round_t<T>(v) + to_f(res[o]);"),
+    },
     # kernel 7: kernel 3's cluster body once per layer, chained
     "decoder_stack_v3": {
         # layer l runs on layer l-1's weights
@@ -338,7 +378,7 @@ def swin_readings(dev, seeds):
           f"{swin_encode_ms(dev):.4f} ms", flush=True)
 
 
-SHAPES = {"satrn": cs.SATRN_DECODER, "swin": cs.SWIN_DECODER}
+SHAPES = {"satrn": cs.SATRN_DECODER, "swin": cs.SWIN_DECODER, "lite": cs.LITE_DECODER}
 LAYER_CHECKS = {"decoder_layer": cs.check_layer, "decoder_layer_v1": cs.check_layer_v1,
                 "decoder_stack_v3": cs.check_stack_v3}
 
@@ -392,6 +432,39 @@ def mbconv_readings(dev, seeds):
               f"{missed[torch.bfloat16]} bf16 and "
               f"{missed[torch.float32]} f32 of {len(cs.MBCONV_SHAPES) + 1} checks each",
               flush=True)
+
+
+def tiled_readings(dev, seeds):
+    """Kernel 2's tiled form: per seed the f32 check's largest error and the
+    bf16 check's largest excess over the cast, mean abs error and output
+    share at EfficientASTER's three tiled shapes (B=8), and each dtype's
+    missed checks; then phase 3f's gate: DeepCNN's f32 features at full
+    width (B=32, 256x1024) through the kernels against the plain blocks,
+    relative to their largest value."""
+    from p4fr_tpu_torch.infer.single import encode_images
+
+    model, _, _, _ = cs.load_path_model(cs.build_aster_checkpoint(), dev)
+    for seed in seeds:
+        missed, r, errors = {}, {}, {}
+        for dt in (torch.float32, torch.bfloat16):
+            misses = []
+            r = cs.check_mbconv(dev, dt, errors, misses, seed, paths=("tiled",))
+            missed[dt] = len(misses)
+        images = cs.u8_images(torch.Generator().manual_seed(seed + 22), cs.E2E_CHECK_BATCH,
+                              cs.ASTER_H, cs.ASTER_W, dev)
+        features = []
+        hook = model.encoder.cnn.register_forward_hook(lambda m, i, out: features.append(out))
+        for plain in (False, True):
+            encode_images(model, images, plain=plain)
+        hook.remove()
+        feat_k, feat_p = features
+        rel = ((feat_k - feat_p).abs().max() / feat_p.abs().max()).item()
+        n = sum(path == "tiled" for *_, path in cs.MBCONV_ASTER)
+        print(f"READING seed {seed}: f32 max abs {errors['mbconv_tiled']:.3e}; bf16 beyond "
+              f"the cast {r['excess']:.3e}; mean abs {r['mean']:.3e}; out share "
+              f"{r['out_share']:.3e}; missed {missed[torch.bfloat16]} bf16 and "
+              f"{missed[torch.float32]} f32 of {n} checks each; DeepCNN f32 features "
+              f"relative {rel:.3e} (gate {cs.TOL_ASTER_FEATURES_F32:.0e})", flush=True)
 
 
 def readings(dev, seeds, shape):
@@ -565,12 +638,15 @@ def main(argv=None):
         return 2
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(cs.card_line(), flush=True)
     with torch.no_grad():
         if args.kernel == "swin_attention":
             swin_readings(dev, args.seeds)
         elif args.kernel == "mbconv":
             mbconv_readings(dev, args.seeds)
+        elif args.kernel == "mbconv_tiled":
+            tiled_readings(dev, args.seeds)
         elif args.kernel in LAYER_CHECKS:
             layer_readings(dev, args.seeds, args.kernel, SHAPES[args.shape])
         elif args.kernel == "decoder_layer_int8":
