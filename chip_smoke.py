@@ -123,6 +123,18 @@ with a non-zero exit and no result line:
 4d. The flagship's beam (B=32) under ``--beam_gather auto`` and ``jnp``:
    3 x 231 launches of kernel 3 under both, of kernel 4 under ``auto``
    alone; the same tokens.
+3j. The preprocess feeds (``--preprocess device_resize`` and ``host``),
+   f32: B=32 seeded u8 images of seeded sizes (42-384 rows, 69-1024
+   columns) edge-replicated onto one 384x1024 canvas; ``resize_standardize``
+   to 256x512 on the card against the same function on the CPU (1e-5) and
+   against the host path (0.03, JAX's bound; the host path is
+   ``host_resize``, a numpy stand-in for cv2's INTER_LINEAR, which the
+   card's host lacks, then normalize), and its bf16 time; the flagship's greedy from each feed
+   (no kernel 1, 28 launches of kernel 2, 3 x 231 of kernel 3) with phase
+   3's replay gate; the three-member ensemble from the one canvas, each
+   member resized on the card to its own input: no kernel 1, each member's
+   memory against its plain path, and the mean probabilities' replay gate
+   (TOL_ENSEMBLE_PROBS_F32). Its wall time is printed.
 5. Timing in bf16 (printed only): each kernel vs its twin and, where one
    PyTorch call computes the same function, that call (kernel 2 per shape:
    its plan, launch A and launch B, the block beside its bound, the
@@ -169,7 +181,8 @@ with a non-zero exit and no result line:
    update by hand; then, in bf16 autocast at B=16 and B=64, the teacher-
    forced and AR-sampled step times, validation images/s, peak memory, a
    profile of one teacher-forced step, and 20 steps on one batch that must
-   lower the loss.
+   lower the loss. The card's train-mode steps launch no kernel (no kernel
+   has a backward). Its wall time is printed.
 7b. Distillation (run before the result lines): the LiteSATRN student from
    its native file, the flagship as teacher written as a native file and
    loaded as the trainer loads it. The teacher's greedy logits through
@@ -180,6 +193,19 @@ with a non-zero exit and no result line:
    within ``TOL_TRAIN_*``; then, in bf16 autocast at B=32, the step times,
    the teacher's share, images/s, peak memory, and 20 steps on one batch
    that must lower the loss.
+7c. Phase 7's gates and timing for EfficientASTER at full width
+   (EfficientASTER.yaml, 256x1024, seeded weights from phase 3f's .pth,
+   labels padded to 232, 231 AR steps): the card-vs-CPU f32 steps (B=2),
+   validation through kernel 2's two forms (14 + 14 launches, no decoder
+   kernel) against its plain version, the bitwise resume, the dual_opt
+   update, bf16 timing at B=16 (the config's batch_size) and the falling
+   loss.
+7d. The same for SwinTRN (SWIN.yaml, Swin-B/384, phase 3b's .pth): its
+   train mode takes kernel 5's plain twin under autograd, so its train
+   steps launch no kernel, and validation launches 24 of kernel 5 and
+   4 x 231 of kernel 3. Then kernel 5's and kernel 2's entry points,
+   handed an input that requires grad with grad mode on, must raise a
+   ValueError naming the plain route, and launch under ``no_grad``.
 """
 
 import copy
@@ -188,6 +214,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -2966,6 +2993,184 @@ def beam_gather_path(ckpt, dev):
         raise AssertionError("--beam_gather jnp changes the beam's tokens")
 
 
+# ---------------------------------------------------------------- phase 3j
+
+PRE_CANVAS = (384, 1024)  # the canvas of phase 3j's mixed-size batch
+# resize_standardize on the card against the same function on the CPU, f32:
+# two contractions over at most 1024 taps, in another summation order
+TOL_RESIZE_F32 = 1e-5
+# against the host path (cv2's resize, u8 fixed point, then normalize): the
+# JAX package's own bound (tests/test_device_resize.py), 1 u8 step over the
+# tightest channel's std (1 / 255 / 0.225 = 0.0174) with margin
+TOL_RESIZE_HOST = 0.03
+# the flagship's encoder memory after 28 blocks and 2 SATRN layers in f32,
+# in another summation order on each path
+TOL_MEMORY_F32 = 1e-3
+
+
+def host_resize(image, height, width):
+    """``cv2.resize(image, (width, height), interpolation=INTER_LINEAR)`` in
+    numpy, for a host without cv2: half-pixel sample positions clamped to
+    the image, bilinear weights in f64, rounded to u8 (cv2 rounds in 11-bit
+    fixed point, within one step of this; ``tests/
+    test_torch_preprocess_options.py`` holds the two together)."""
+    import numpy as np
+
+    def axis(n_out, n_in):
+        pos = np.clip((np.arange(n_out) + 0.5) * n_in / n_out - 0.5, 0, n_in - 1)
+        lo = np.floor(pos).astype(np.int64)
+        return lo, np.minimum(lo + 1, n_in - 1), pos - lo
+
+    (y0, y1, fy), (x0, x1, fx) = axis(height, image.shape[0]), axis(width, image.shape[1])
+    img = image.astype(np.float64)
+    rows = img[y0] * (1 - fy)[:, None, None] + img[y1] * fy[:, None, None]
+    out = rows[:, x0] * (1 - fx)[None, :, None] + rows[:, x1] * fx[None, :, None]
+    return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
+
+
+def canvas_batch(gen, b, canvas=PRE_CANVAS):
+    """(canvas [b, Hc, Wc, 3] u8, orig_hw [b, 2] int32, the images): b
+    seeded u8 images of seeded sizes, 32 to Hc rows and 64 to Wc columns
+    (down- and up-scaled alike to every member's input), the first filling
+    the canvas, each edge-replicated onto it (``to_canvas``)."""
+    import numpy as np
+
+    from p4fr_tpu_torch.data.augment import to_canvas
+
+    hs = torch.randint(32, canvas[0] + 1, (b,), generator=gen)
+    ws = torch.randint(64, canvas[1] + 1, (b,), generator=gen)
+    hs[0], ws[0] = canvas
+    images = [torch.randint(0, 256, (int(h), int(w), 3), generator=gen,
+                            dtype=torch.uint8).numpy() for h, w in zip(hs, ws)]
+    canvases, hws = zip(*(to_canvas(im, *canvas) for im in images))
+    return np.stack(canvases), np.array(hws, np.int32), images
+
+
+def host_feed(images, height, width):
+    """The ``--preprocess host`` feed of ``images``: resized on the host and
+    normalized (``data/augment.py::normalize``), f32 [B, H, W, 3]."""
+    import numpy as np
+
+    from p4fr_tpu_torch.data.augment import normalize
+
+    return torch.from_numpy(np.stack([normalize(host_resize(im, height, width))
+                                      for im in images]))
+
+
+def feed_path(label, model, fast, tables, feed):
+    """Greedy through the kernels from a standardized f32 ``feed`` (no kernel
+    1: 28 launches of kernel 2, 3 x 231 of kernel 3), then the replay gate
+    against the plain path on the same feed."""
+    from p4fr_tpu_torch.decoding.replay import replay_logits
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    tokens = decode_images(model, fast, feed, tables, STEPS)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  --preprocess {label}: launches {json.dumps(launches)}")
+    check_launches(launches, {"mbconv": 28, "decoder_layer": 3 * STEPS})
+    if tokens.shape != (feed.shape[0], STEPS) or not bool(
+            ((tokens >= 0) & (tokens < model.num_classes)).all()):
+        raise AssertionError(f"bad {label} tokens {tuple(tokens.shape)}")
+    k_logits, k_picks = replay_logits(fast, encode_images(model, feed), tokens,
+                                      sos_id=model.sos_id, tables=tables)
+    p_logits, _ = replay_logits(fast, encode_images(model, feed, plain=True), tokens,
+                                sos_id=model.sos_id, tables=tables, plain=True)
+    torch.cuda.synchronize()
+    replay_gate(f"--preprocess {label}", k_logits, k_picks, tokens, p_logits)
+
+
+def preprocess_path(ckpts, dev, card):
+    """``--preprocess device_resize`` and ``host`` at full width, B=32, f32:
+    ``resize_standardize`` of a seeded mixed-size canvas batch on the card
+    against the same function on the CPU and against the host path; the
+    flagship's greedy from each feed (no kernel 1) with the replay gate;
+    the three-member ensemble from one shared canvas, each member resized
+    to its own input on the card: its memory against its plain path, the
+    launch counts, and the mean probabilities' replay gate."""
+    from p4fr_tpu_torch.decoding.replay import replay_ensemble
+    from p4fr_tpu_torch.infer.ensemble import ensemble_decode
+    from p4fr_tpu_torch.infer.single import encode_images, resize_feed
+    from p4fr_tpu_torch.ops import _build
+    from p4fr_tpu_torch.ops.preprocess import resize_standardize
+
+    h, w = CONFIGS["input_size"]["height"], CONFIGS["input_size"]["width"]
+    canvas, orig_hw, images = canvas_batch(torch.Generator().manual_seed(SEED + 50),
+                                           E2E_CHECK_BATCH)
+    print(f"[preprocess options: B={E2E_CHECK_BATCH} u8 images of {int(orig_hw[:, 0].min())}"
+          f"-{int(orig_hw[:, 0].max())} rows and {int(orig_hw[:, 1].min())}-"
+          f"{int(orig_hw[:, 1].max())} columns on a {PRE_CANVAS[0]}x{PRE_CANVAS[1]} canvas, "
+          f"f32, TF32 off]")
+    canvas_d = torch.from_numpy(canvas).to(dev)
+    hw_d = torch.from_numpy(orig_hw).to(dev)
+    resized = resize_standardize(canvas_d, hw_d, h, w, out_dtype=torch.float32)
+    on_cpu = resize_standardize(torch.from_numpy(canvas), torch.from_numpy(orig_hw), h, w,
+                                out_dtype=torch.float32).to(dev)
+    host = host_feed(images, h, w).to(dev)
+    misses = []
+    compare(f"resize_standardize to {h}x{w}, card vs CPU", resized, on_cpu,
+            dict(atol=TOL_RESIZE_F32, rtol=0), misses)
+    compare(f"resize_standardize to {h}x{w}, card vs the host path", resized, host,
+            dict(atol=TOL_RESIZE_HOST, rtol=0), misses)
+    if misses:
+        raise AssertionError("resize_standardize: " + "; ".join(misses))
+    bf16_ms = cuda_ms(lambda: resize_standardize(canvas_d, hw_d, h, w), iters=20)
+    print(f"  resize_standardize B={E2E_CHECK_BATCH} to {h}x{w} bf16: {bf16_ms:.4f} ms "
+          f"(plain torch, two batched products; {card})")
+
+    model, fast, tables, _ = load_path_model(ckpts[0], dev)
+    print(f"[preprocess options: EfficientSATRN greedy, B={E2E_CHECK_BATCH}, {STEPS} steps, "
+          f"manager on, f32, TF32 off]")
+    feed_path("device_resize", model, fast, tables, resized)
+    feed_path("host", model, fast, tables, host)
+    del model, fast
+
+    loaded = [load_path_model(ckpt, dev) for ckpt in ckpts]
+    members = [(model, fast) for model, fast, _, _ in loaded]
+    configs = (CONFIGS, ASTER_CONFIGS, SWIN_CONFIGS)
+    print(f"[preprocess options: the ensemble of EfficientSATRN + EfficientASTER + "
+          f"SwinTRN from one canvas (--preprocess device_resize), B={E2E_CHECK_BATCH}, "
+          f"{STEPS} steps, manager on, kernel auto, f32, TF32 off]")
+    _build.reset_launches()
+    memories = [encode_images(model, resize_feed(model, cfg, canvas_d, hw_d))
+                for (model, _), cfg in zip(members, configs)]
+    tokens = ensemble_decode(members, memories, max_steps=STEPS, tables=tables)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches {json.dumps(launches)}")
+    check_launches(launches, {
+        "mbconv": 28 + ASTER_ENCODE["mbconv"], "mbconv_tiled": ASTER_ENCODE["mbconv_tiled"],
+        "swin_attention": sum(st[1] for st in SWIN_STAGES),
+        "decoder_layer": (CONFIGS["SATRN"]["decoder"]["layer_num"]
+                          + SWIN_CONFIGS["SATRN"]["decoder"]["layer_num"]) * STEPS})
+    mem_p = []
+    for (model, _), cfg, mem_k, tol in zip(members, configs, memories, (
+            TOL_MEMORY_F32, TOL_ASTER_MEMORY_F32, TOL_SWIN_MEMORY_F32)):
+        mem_p.append(encode_images(model, resize_feed(model, cfg, canvas_d, hw_d),
+                                   plain=True))
+        print(f"  {cfg['network']} at {cfg['input_size']['height']}x"
+              f"{cfg['input_size']['width']}:")
+        memory_gate(cfg["network"], mem_k, mem_p[-1], tuple(mem_p[-1].shape), tol)
+    if tokens.shape != (E2E_CHECK_BATCH, STEPS):
+        raise AssertionError(f"bad ensemble tokens {tuple(tokens.shape)}")
+    k_probs, k_picks = replay_ensemble(members, memories, tokens, sos_id=tables.sos_id,
+                                       tables=tables)
+    p_probs, _ = replay_ensemble(members, mem_p, tokens, sos_id=tables.sos_id,
+                                 tables=tables, plain=True)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(k_probs).all()) and torch.equal(k_picks, tokens)):
+        raise AssertionError("replaying the device_resize ensemble does not pick its tokens")
+    worst = (k_probs - p_probs).abs().max().item()
+    print(f"  replay: the ensemble picks its own {STEPS}-step tokens again; mean "
+          f"probabilities kernel vs plain: max_abs_err {worst:.3e} (bound "
+          f"{TOL_ENSEMBLE_PROBS_F32:.1e}); {len(torch.unique(tokens))} distinct tokens")
+    if not worst <= TOL_ENSEMBLE_PROBS_F32:
+        raise AssertionError("device_resize ensemble probabilities disagree with the plain "
+                             "path")
+
+
 def lite_timing(ckpts, dev, card):
     """bf16, printed only: kernel 3 at LiteSATRN's B=256 and its beam's 768
     rows, and kernel 6 at B=256 (2 layers), pos 115, each beside its bound
@@ -3094,10 +3299,11 @@ TOL_TRAIN_PICK_GAP = 1e-4
 TOL_DUAL_F32 = 1e-6  # the first Adam update against its hand computation
 
 
-def train_batch(b, vocab, gen, dev):
-    """Synthetic host-normalized images [b, 256, 512, 3] f32 and labels
-    [b, 232]: <SOS>, 1 to 230 random tokens, <EOS>, <PAD>*."""
-    size = CONFIGS["input_size"]
+def train_batch(b, vocab, gen, dev, configs=CONFIGS):
+    """Synthetic host-normalized images [b, H, W, 3] f32 at ``configs``'
+    input size and labels [b, 232]: <SOS>, 1 to 230 random tokens, <EOS>,
+    <PAD>*."""
+    size = configs["input_size"]
     images = torch.randn(b, size["height"], size["width"], 3, generator=gen)
     text = torch.full((b, TRAIN_LABEL_LEN), vocab.pad_id, dtype=torch.int64)
     text[:, 0] = vocab.sos_id
@@ -3113,7 +3319,9 @@ def trainer(ckpt, dev, *, dropout=True, dtype=torch.float32, total=TRAIN_GATE_TO
     """(model, optimizer, train step, vocab) from the smoke's seeded
     checkpoint, the model in train mode with f32 weights: AdamW with the
     config's values and the cosine schedule over ``total`` steps, or with
-    ``dual`` the dual-optimizer regime's two Adam groups."""
+    ``dual`` the dual-optimizer regime's two Adam groups. ``dropout=False``
+    sets every dropout and DropPath rate to 0."""
+    from p4fr_tpu_torch.models.swin import DropPath
     from p4fr_tpu_torch.train.dual_opt import build_dual_optimizer
     from p4fr_tpu_torch.train.schedules import cosine_warmup_restarts
     from p4fr_tpu_torch.train.steps import build_optimizer, make_train_step
@@ -3124,6 +3332,8 @@ def trainer(ckpt, dev, *, dropout=True, dtype=torch.float32, total=TRAIN_GATE_TO
         for m in model.modules():
             if isinstance(m, torch.nn.Dropout):
                 m.p = 0.0
+            elif isinstance(m, DropPath):
+                m.rate = 0.0
     if dual:
         opt = build_dual_optimizer(model, DUAL_ENC_LR, DUAL_DEC_LR, total,
                                    max_grad_norm=TRAIN_CLIP)
@@ -3190,31 +3400,59 @@ def gate_train_step(label, cpu, card, want, got, lr, misses):
           f"{worst['stats']:.3e} (tol {TOL_TRAIN_STATS:.0e})")
 
 
-def train_gate(ckpt, dev):
+class TrainFamily(NamedTuple):
+    """A family's training phase: ``label`` (printed), its checkpoint's
+    ``network`` and ``configs``, ``eval_launches`` (one validation step's
+    launches at B=16 over TRAIN_LABEL_LEN - 1 steps from a host-normalized
+    feed, so no kernel 1) and ``time_batches`` (the bf16 timing batches)."""
+    label: str
+    network: str
+    configs: dict
+    eval_launches: dict
+    time_batches: tuple
+
+
+FLAGSHIP_TRAIN = TrainFamily("EfficientSATRN", "EfficientSATRN", CONFIGS,
+                             {"mbconv": 28, "decoder_layer": 3 * (TRAIN_LABEL_LEN - 1)},
+                             TRAIN_TIME_BATCHES)
+
+
+def train_gate(ckpt, dev, family=FLAGSHIP_TRAIN):
     """One teacher-forced and one AR-sampled f32 step, B=2, dropout off, on
     the card and in the port on the CPU: the first from the checkpoint's
     weights on both sides, the second from the CPU's state after the first;
-    loss, grad norm, gradients, every parameter and BatchNorm statistic."""
+    loss, grad norm, gradients, every parameter and BatchNorm statistic.
+    The card's train-mode steps launch no kernel (they have no backward)."""
+    from p4fr_tpu_torch.ops import _build
     from p4fr_tpu_torch.train.steps import ar_sampled_logits, cross_entropy_ignore_pad
 
-    print(f"[training gate: EfficientSATRN f32, TF32 off, B={TRAIN_GATE_BATCH}, "
+    print(f"[training gate: {family.label} f32, TF32 off, B={TRAIN_GATE_BATCH}, "
           f"labels {TRAIN_LABEL_LEN}, AdamW clip {TRAIN_CLIP}, card vs CPU]")
     cpu, card = trainer(ckpt, "cpu", dropout=False), trainer(ckpt, dev, dropout=False)
     pad_id = cpu[3].pad_id
     images, text = train_batch(TRAIN_GATE_BATCH, cpu[3],
-                               torch.Generator().manual_seed(SEED + 20), "cpu")
+                               torch.Generator().manual_seed(SEED + 20), "cpu",
+                               family.configs)
     misses = []
     lr = cpu[1].lr()
     t0 = time.perf_counter()
     want, _ = cpu[2](images, text, True)
     t1 = time.perf_counter()
+    _build.reset_launches()
     got, _ = card[2](images.to(dev), text.to(dev), True)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"  the card's teacher-forced step (train mode) launches {json.dumps(launches)}")
+    check_launches(launches, {}, at_least=())
     gate_train_step("teacher-forced", cpu, card, want, got, lr, misses)
 
     card[0].load_state_dict(cpu[0].state_dict())
     card[1].load_state_dict(*copy.deepcopy(cpu[1].state_dict()).values())
     lr = cpu[1].lr()
+    _build.reset_launches()
     got, picks = card[2](images.to(dev), text.to(dev), False)
+    torch.cuda.synchronize()
+    check_launches(dict(_build.LAUNCHES), {}, at_least=())
     picks = picks.cpu()
     t2 = time.perf_counter()
     logits = ar_sampled_logits(cpu[0], images, text.shape[1] - 1, picks=picks)
@@ -3239,25 +3477,27 @@ def train_gate(ckpt, dev):
     return card
 
 
-def eval_gate(model, vocab, dev):
-    """``make_eval_step`` in f32 through kernels 2 and 3 against the same
-    step with ``plain=True``, B=16, 231 steps: the launch counts, then every
-    step's logits while the two greedy sequences agree; where they part, the
-    plain path's top two logits lie within the tolerance (a near tie)."""
+def eval_gate(model, vocab, dev, family=FLAGSHIP_TRAIN):
+    """``make_eval_step`` in f32 through the kernels (``family.
+    eval_launches``) against the same step with ``plain=True``, B=16, 231
+    steps: the launch counts, then every step's logits while the two greedy
+    sequences agree; where they part, the plain path's top two logits lie
+    within the tolerance (a near tie)."""
     from p4fr_tpu_torch.ops import _build
     from p4fr_tpu_torch.train.steps import make_eval_step
 
     images, text = train_batch(TRAIN_EVAL_BATCH, vocab,
-                               torch.Generator().manual_seed(SEED + 21), dev)
+                               torch.Generator().manual_seed(SEED + 21), dev,
+                               family.configs)
     steps = TRAIN_LABEL_LEN - 1
-    print(f"[validation gate: make_eval_step, f32, B={TRAIN_EVAL_BATCH}, {steps} "
-          f"steps, after the training gate's two updates]")
+    print(f"[validation gate: {family.label} make_eval_step, f32, B={TRAIN_EVAL_BATCH}, "
+          f"{steps} steps, after the training gate's two updates]")
     _build.reset_launches()
     loss_k, seq_k, logits_k = make_eval_step(model, vocab.pad_id)(images, text)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"  launches {json.dumps(launches)}")
-    check_launches(launches, {"mbconv": 28, "decoder_layer": 3 * steps})
+    check_launches(launches, family.eval_launches, at_least=())
     if not model.training:
         raise AssertionError("make_eval_step left the model in eval mode")
     loss_p, seq_p, logits_p = make_eval_step(model, vocab.pad_id, plain=True)(images, text)
@@ -3277,7 +3517,7 @@ def eval_gate(model, vocab, dev):
         raise AssertionError("validation logits disagree with the plain path")
 
 
-def resume_gate(ckpt, dev):
+def resume_gate(ckpt, dev, family=FLAGSHIP_TRAIN):
     """A trainer takes a step, saves a ``.pth`` with its optimizer and
     schedule state and takes another; a fresh trainer resumed from the file
     takes that step too (the same dropout seed): every parameter and
@@ -3285,17 +3525,18 @@ def resume_gate(ckpt, dev):
     from p4fr_tpu_torch.train.single_opt import resume
     from p4fr_tpu_torch.utils.checkpoint import save_checkpoint
 
-    print(f"[resume gate: f32, B={TRAIN_RESUME_BATCH}, dropout on, cuDNN "
+    print(f"[resume gate: {family.label} f32, B={TRAIN_RESUME_BATCH}, dropout on, cuDNN "
           f"deterministic]")
     torch.backends.cudnn.deterministic = True
     try:
         model, opt, step, vocab = trainer(ckpt, dev)
         images, text = train_batch(TRAIN_RESUME_BATCH, vocab,
-                                   torch.Generator().manual_seed(SEED + 22), dev)
+                                   torch.Generator().manual_seed(SEED + 22), dev,
+                                   family.configs)
         torch.manual_seed(SEED + 23)
         step(images, text, True)
         path = os.path.join(REPO, "build", "p4fr_tpu_torch", "smoke", "resume.pth")
-        save_checkpoint(path, model, network="EfficientSATRN", configs=CONFIGS,
+        save_checkpoint(path, model, network=family.network, configs=family.configs,
                         vocab=vocab, epoch=1, train_state=opt.state_dict())
         torch.manual_seed(SEED + 24)
         want, _ = step(images, text, True)
@@ -3314,18 +3555,19 @@ def resume_gate(ckpt, dev):
         raise AssertionError(f"the resumed step differs: {differ[:5]}")
 
 
-def dual_gate(ckpt, dev):
+def dual_gate(ckpt, dev, family=FLAGSHIP_TRAIN):
     """One teacher-forced f32 step of the dual-optimizer regime: each
     parameter moved by its group's lr (encoder 5e-4, decoder 2e-4) as the
     first Adam update, p - lr * g / (|g| + 1e-8), computes by hand from the
     clipped gradient."""
     from p4fr_tpu_torch.train.dual_opt import label_fn
 
-    print(f"[dual_opt gate: f32, B={TRAIN_GATE_BATCH}, encoder lr {DUAL_ENC_LR}, "
-          f"decoder lr {DUAL_DEC_LR}, clip {TRAIN_CLIP} per group]")
+    print(f"[dual_opt gate: {family.label} f32, B={TRAIN_GATE_BATCH}, encoder lr "
+          f"{DUAL_ENC_LR}, decoder lr {DUAL_DEC_LR}, clip {TRAIN_CLIP} per group]")
     model, opt, step, vocab = trainer(ckpt, dev, dropout=False, dual=True)
     images, text = train_batch(TRAIN_GATE_BATCH, vocab,
-                               torch.Generator().manual_seed(SEED + 25), dev)
+                               torch.Generator().manual_seed(SEED + 25), dev,
+                               family.configs)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     step(images, text, True)
     lrs = {"encoder": DUAL_ENC_LR, "decoder": DUAL_DEC_LR}
@@ -3344,23 +3586,25 @@ def dual_gate(ckpt, dev):
         raise AssertionError("dual_opt's update is not each group's first Adam update")
 
 
-def train_timing(ckpt, dev, card):
+def train_timing(ckpt, dev, card, family=FLAGSHIP_TRAIN):
     """bf16 autocast, dropout on: the teacher-forced and AR-sampled step
-    times, validation images/s and peak memory at B=16 and B=64 (host clock
-    around steps that end in a synchronize), a profile of one teacher-forced
-    step at B=16, and the loss over 20 steps on one fixed batch, which must
-    fall."""
+    times, validation images/s and peak memory at each of ``family.
+    time_batches`` (host clock around steps that end in a synchronize), a
+    profile of one teacher-forced step at the first, and the loss over 20
+    steps on one fixed batch there, which must fall."""
     from torch.profiler import ProfilerActivity, profile
 
     from p4fr_tpu_torch.train.steps import make_eval_step
 
-    print(f"[training timing: bf16 autocast, f32 weights, dropout on ({card})]")
-    for b in TRAIN_TIME_BATCHES:
+    print(f"[training timing: {family.label}, bf16 autocast, f32 weights, dropout on "
+          f"({card})]")
+    for b in family.time_batches:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model, opt, step, vocab = trainer(ckpt, dev, dtype=torch.bfloat16,
                                           total=10 * TRAIN_LOSS_STEPS)
-        images, text = train_batch(b, vocab, torch.Generator().manual_seed(SEED + 26), dev)
+        images, text = train_batch(b, vocab, torch.Generator().manual_seed(SEED + 26), dev,
+                                   family.configs)
 
         def timed(teacher_forced, n):
             out = []
@@ -3371,7 +3615,7 @@ def train_timing(ckpt, dev, card):
                 out.append((time.perf_counter() - t0, loss))
             return out
 
-        n_tf = TRAIN_LOSS_STEPS if b == TRAIN_TIME_BATCHES[0] else 6
+        n_tf = TRAIN_LOSS_STEPS if b == family.time_batches[0] else 6
         tf = timed(True, n_tf)
         ar = timed(False, 3)
         tf_ms = sorted(t for t, _ in tf[2:])[len(tf[2:]) // 2] * 1e3
@@ -3389,7 +3633,7 @@ def train_timing(ckpt, dev, card):
               f"(median of {len(ar) - 1}), {b / ar_ms * 1e3:.2f} images/s; validation "
               f"({TRAIN_LABEL_LEN - 1} greedy steps) {eval_s * 1e3:.2f} ms, "
               f"{b / eval_s:.2f} images/s; peak memory {peak:.2f} GiB")
-        if b == TRAIN_TIME_BATCHES[0]:
+        if b == family.time_batches[0]:
             losses = [loss for _, loss in tf]
             print(f"  loss over {len(losses)} teacher-forced steps on one batch: "
                   f"{losses[0]:.4f} -> {losses[-1]:.4f} "
@@ -3418,14 +3662,70 @@ def train_timing(ckpt, dev, card):
         del model, opt, step
 
 
-def train_phase(ckpt, dev, card):
-    model, _, _, vocab = train_gate(ckpt, dev)
-    eval_gate(model, vocab, dev)
+def train_phase(ckpt, dev, card, family=FLAGSHIP_TRAIN):
+    t0 = time.perf_counter()
+    model, _, _, vocab = train_gate(ckpt, dev, family)
+    eval_gate(model, vocab, dev, family)
     del model
-    resume_gate(ckpt, dev)
-    dual_gate(ckpt, dev)
+    resume_gate(ckpt, dev, family)
+    dual_gate(ckpt, dev, family)
     torch.cuda.empty_cache()
-    train_timing(ckpt, dev, card)
+    train_timing(ckpt, dev, card, family)
+    print(f"[training {family.label}: {time.perf_counter() - t0:.1f} s]")
+
+
+# ---------------------------------------------------------------- phases 7c, 7d
+
+# EfficientASTER validation: kernel 2's two forms, as in phase 3f's encode
+# (no kernel 1: a host-normalized feed), and no decoder kernel (the fused
+# LSTM step is plain torch, as in the JAX package)
+ASTER_TRAIN = TrainFamily("EfficientASTER", "EfficientASTER", ASTER_CONFIGS,
+                          {"mbconv": ASTER_ENCODE["mbconv"],
+                           "mbconv_tiled": ASTER_ENCODE["mbconv_tiled"]}, (16,))
+# SwinTRN validation: 24 launches of kernel 5 and 4 x 231 of kernel 3; its
+# train mode runs kernel 5's plain twin under autograd, no kernel
+SWIN_TRAIN = TrainFamily("SwinTRN", "SWIN", SWIN_CONFIGS,
+                         {"swin_attention": sum(st[1] for st in SWIN_STAGES),
+                          "decoder_layer": SWIN_DECODER["layers"] * (TRAIN_LABEL_LEN - 1)},
+                         (16,))
+
+
+def grad_refusal_gate(dev):
+    """Kernel 5's and kernel 2's entry points, handed an input that requires
+    grad with grad mode on, raise a ValueError naming the plain route
+    (their outputs would carry no gradient); the same calls under
+    ``no_grad`` launch."""
+    from p4fr_tpu_torch.ops import _build
+    from p4fr_tpu_torch.ops.mbconv import fold_mbconv_params, fused_mbconv, fused_mbconv_chain
+    from p4fr_tpu_torch.ops.swin_attention import fused_window_attention
+
+    gen = torch.Generator().manual_seed(SEED + 60)
+    _, _, _, _, c, heads = SWIN_STAGES[3]
+    qkv, bias, _ = swin_stage_inputs(torch.float32, gen, dev, SWIN_STAGES[3], b=2)
+    block = mbconv_block(256, 256, 6, gen, dev)
+    folded = fold_mbconv_params(block, torch.float32)
+    x = torch.randn(2, 8, 16, 256, generator=gen).to(dev)
+    calls = {
+        "fused_window_attention": lambda t: fused_window_attention(
+            t, bias, None, heads=heads, scale=(c // heads) ** -0.5),
+        "fused_mbconv": lambda t: fused_mbconv(t, folded, residual=True),
+        "fused_mbconv_chain": lambda t: fused_mbconv_chain(t, [folded], [True]),
+    }
+    print("[kernel entry points with an input that requires grad, grad mode on]")
+    for name, call in calls.items():
+        arg = (qkv if name == "fused_window_attention" else x).clone().requires_grad_()
+        try:
+            call(arg)
+        except ValueError as exc:
+            print(f"  {name}: ValueError: {exc}")
+        else:
+            raise AssertionError(f"{name} took an input that requires grad")
+        _build.reset_launches()
+        with torch.no_grad():
+            call(arg)
+        torch.cuda.synchronize()
+        if not sum(_build.LAUNCHES.values()):
+            raise AssertionError(f"{name} under no_grad launched nothing")
 
 
 # ---------------------------------------------------------------- phase 7b
@@ -3705,6 +4005,9 @@ def main():
         lite_ckpt = build_lite_checkpoint()
         lite_path(lite_ckpt, dev)
         beam_gather_path(ckpt, dev)
+        t_pre = time.perf_counter()
+        preprocess_path((ckpt, aster_ckpt, swin_ckpt), dev, card)
+        print(f"[phase 3j: {time.perf_counter() - t_pre:.1f} s]")
         torch.cuda.empty_cache()
         times = timing(ckpt, dev, card)
         torch.cuda.empty_cache()
@@ -3717,6 +4020,11 @@ def main():
     train_phase(ckpt, dev, card)
     torch.cuda.empty_cache()
     distill_phase(lite_ckpt, native_teacher(ckpt), dev, card)
+    torch.cuda.empty_cache()
+    train_phase(aster_ckpt, dev, card, ASTER_TRAIN)
+    torch.cuda.empty_cache()
+    train_phase(swin_ckpt, dev, card, SWIN_TRAIN)
+    grad_refusal_gate(dev)
 
     bad = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "p4fr_tpu"))

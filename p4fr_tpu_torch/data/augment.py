@@ -6,7 +6,11 @@
   -> ImageNet Normalize, f32 HWC (``get_train_transforms``);
 - eval: Resize (bilinear) -> u8 HWC, which the inference feed
   standardizes on the card (``ops/preprocess.py``), or with
-  ``normalize=True`` the host-normalized f32 the trainers validate on.
+  ``normalize=True`` the host-normalized f32 the trainers validate on and
+  ``--preprocess host`` feeds; or, with ``canvas=(Hc, Wc)``, no resize at
+  all: the raw u8 image edge-replicated onto a fixed canvas and its valid
+  (h, w) (``to_canvas``), which ``--preprocess device_resize`` resizes on
+  the card (``ops/preprocess.py::resize_standardize``).
 
 cv2 is imported inside the functions that call it, so importing this
 module needs none of it.
@@ -14,7 +18,7 @@ module needs none of it.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -81,19 +85,41 @@ def grid_distortion(image: np.ndarray, rng: np.random.Generator,
                      borderMode=cv2.BORDER_CONSTANT, borderValue=0)
 
 
+def to_canvas(image: np.ndarray, canvas_h: int, canvas_w: int
+              ) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """Raw u8 image -> (its edge-replicated [canvas_h, canvas_w, C] canvas,
+    its (h, w)). The device resize samples at most half a pixel past the
+    valid region, so the replicated edge reproduces cv2's boundary clamp."""
+    if image.ndim == 2:
+        image = image[:, :, None]
+    h, w = image.shape[:2]
+    if h > canvas_h or w > canvas_w:
+        raise ValueError(f"image {h}x{w} exceeds the canvas {canvas_h}x{canvas_w}")
+    out = np.pad(image, ((0, canvas_h - h), (0, canvas_w - w), (0, 0)), mode="edge")
+    return np.ascontiguousarray(out), (h, w)
+
+
 class Transform:
     """Resize to (height, width); with ``train`` the two augmentations, each
     with probability ``AUG_PROB`` from a generator seeded by ``seed``; with
-    ``normalize`` f32 ImageNet-normalized out, else u8. HWC out."""
+    ``normalize`` f32 ImageNet-normalized out, else u8. HWC out. With
+    ``canvas`` (eval only, u8 only) ``(to_canvas(image), (h, w))`` instead."""
 
     def __init__(self, height: int, width: int, *, train: bool = False,
-                 rgb: int = 3, seed: Optional[int] = None, normalize: bool = False):
+                 rgb: int = 3, seed: Optional[int] = None, normalize: bool = False,
+                 canvas: Optional[Tuple[int, int]] = None):
+        if canvas is not None and (train or normalize):
+            raise ValueError("canvas mode is eval-only and implies "
+                             "normalize=False (device-side standardize)")
         self.height, self.width = height, width
         self.train, self.rgb = train, rgb
         self.rng = np.random.default_rng(seed)
         self.normalize = normalize
+        self.canvas = canvas
 
-    def __call__(self, image: np.ndarray) -> np.ndarray:
+    def __call__(self, image: np.ndarray):
+        if self.canvas is not None:
+            return to_canvas(image, *self.canvas)
         image = resize(image, self.height, self.width)
         if self.train:
             if self.rng.random() < AUG_PROB:
@@ -111,5 +137,5 @@ def get_train_transforms(height, width, rgb=3, seed=None) -> Transform:
     return Transform(height, width, train=True, rgb=rgb, seed=seed, normalize=True)
 
 
-def get_valid_transforms(height, width, rgb=3, normalize=False) -> Transform:
-    return Transform(height, width, rgb=rgb, normalize=normalize)
+def get_valid_transforms(height, width, rgb=3, normalize=False, canvas=None) -> Transform:
+    return Transform(height, width, rgb=rgb, normalize=normalize, canvas=canvas)

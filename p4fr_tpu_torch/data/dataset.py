@@ -89,6 +89,9 @@ class LoadDataset:
         item = dict(self.data[i])
         image = load_image(item["path"], self.rgb, self.crop)
         item["image"] = image if self.transform is None else self.transform(image)
+        if isinstance(item["image"], tuple):  # canvas mode: the device resize's extent
+            item["image"], hw = item["image"]
+            item["orig_hw"] = np.array(hw, np.int32)
         return item
 
 

@@ -6,7 +6,8 @@
 - the images stack to one [B, H, W, C] array per ``image_keys`` entry
   (``"image"``; distillation's ``"student_image"`` and
   ``"teacher_image"``): u8 stays u8 (the inference feed), anything else
-  becomes f32 (the host-normalized training feed);
+  becomes f32 (the host-normalized feed); a canvas feed's extents stack to
+  ``batch["orig_hw"]`` [B, 2] int32;
 - training shuffles with a generator seeded once (its state runs on from
   epoch to epoch) and drops the last short batch; otherwise the last short
   batch is padded up to full size, and ``batch["count"]`` says how many
@@ -45,6 +46,8 @@ def collate(items: List[Dict], max_label_len: int,
     for key in image_keys:
         images = np.stack([d[key] for d in items])
         batch[key] = images if images.dtype == np.uint8 else images.astype(np.float32)
+    if "orig_hw" in items[0]:  # the canvas feed: each image's valid (h, w)
+        batch["orig_hw"] = np.stack([d["orig_hw"] for d in items]).astype(np.int32)
     return batch
 
 

@@ -16,10 +16,17 @@ inside and the averaging needs each member's probabilities; an ASTER
 member through its fused LSTM step; under "generic" every member through
 its module step. The members must share the vocabulary.
 
-``run_ensemble`` is the CLI path: each member loads its own checkpoint and
-reads the images through the port's eval pipeline at its own
-``input_size`` and ``data.rgb``; ``output.csv`` as in the JAX package.
-``max_cache`` is accepted and unused (every memory stays on the card).
+``run_ensemble`` is the CLI path: each member loads its own checkpoint;
+under ``preprocess`` "device" (u8, kernel 1 per member) and "host"
+(cv2-normalized f32) each member reads the images through the port's eval
+pipeline at its own ``input_size`` and ``data.rgb``; under
+"device_resize" the host loads each image once onto one shared canvas
+(``single.canvas_for`` over every listed image) and each member resizes
+that batch on the card to its own ``input_size``
+(``single.resize_feed``): one image decode and one host-to-device copy per
+image instead of one per member, so the members must agree on
+``data.rgb``. ``output.csv`` as in the JAX package. ``max_cache`` is
+accepted and unused (every memory stays on the card).
 """
 
 from __future__ import annotations
@@ -35,11 +42,17 @@ from p4fr_tpu_torch.decoding import manager as dm
 from p4fr_tpu_torch.decoding.fast_aster import FastAster, aster_step
 from p4fr_tpu_torch.decoding.fast_step import decode_buffers, fast_decode_step
 from p4fr_tpu_torch.decoding.greedy import greedy_loop, module_step
-from p4fr_tpu_torch.infer.single import KERNELS, build_eval_loader, build_fast, encode_images
+from p4fr_tpu_torch.infer.single import (
+    KERNELS,
+    PREPROCESS,
+    build_eval_loader,
+    build_fast,
+    encode_images,
+    resize_feed,
+)
 
 # option -> the ROADMAP item that ports it
-NOT_YET = {"preprocess": "ROADMAP.md Queue 1 item 10: preprocess options",
-           "data_parallel": "ROADMAP.md Queue 1 item 13: parallelism"}
+NOT_YET = {"data_parallel": "ROADMAP.md Queue 1 item 13: parallelism"}
 
 
 def _member_step(model, fast, memory: torch.Tensor, steps: int, kernel: str,
@@ -110,13 +123,13 @@ def run_ensemble(checkpoint_paths: Sequence[str], file_path: str, output_dir: st
     """Ensemble inference over an ``input.txt`` of image names; writes
     ``output.csv``. On the CUDA card in bf16 unless the caller passes
     ``device="cpu"`` (f32); raises if CUDA is asked for and absent.
-    ``preprocess`` other than "device" and ``data_parallel`` are refused
-    with their ROADMAP items."""
+    ``preprocess``: "device", "device_resize" or "host" (the module
+    docstring). ``data_parallel`` is refused with its ROADMAP item."""
     from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
     del max_cache
-    if preprocess != "device":
-        raise NotImplementedError(f"--preprocess {preprocess}: {NOT_YET['preprocess']}")
+    if preprocess not in PREPROCESS:
+        raise ValueError(f"preprocess {preprocess!r}")
     if data_parallel:
         raise NotImplementedError(f"--data_parallel: {NOT_YET['data_parallel']}")
     device = torch.device(device)
@@ -129,17 +142,30 @@ def run_ensemble(checkpoint_paths: Sequence[str], file_path: str, output_dir: st
     vocab = loaded[0][2]
     if any(v.token_to_id != vocab.token_to_id for _, _, v, _ in loaded):
         raise ValueError("ensemble members must share the vocabulary")
+    options_list = [options for _, options, _, _ in loaded]
+    if preprocess == "device_resize" and len({o["data"]["rgb"] for o in options_list}) > 1:
+        raise ValueError("--preprocess device_resize shares ONE raw canvas batch "
+                         "across members; members must agree on data.rgb")
     members = [(model, build_fast(model)) for model, _, _, _ in loaded]
     tables = dm.RuleTables.build(vocab, device) if decoding_manager else None
-    loaders = [build_eval_loader(file_path, options, vocab, batch_size, max_sequence)
-               for _, options, _, _ in loaded]
+    loader_options = options_list[:1] if preprocess == "device_resize" else options_list
+    loaders = [build_eval_loader(file_path, options, vocab, batch_size, max_sequence,
+                                 host_normalize=preprocess == "host",
+                                 device_resize=preprocess == "device_resize")
+               for options in loader_options]
     num_steps = max_sequence + 1  # reference ensemble num_steps
 
     results: List[Tuple[str, str]] = []
     start = time.perf_counter()
     for batches in zip(*loaders):
-        memories = [encode_images(model, torch.from_numpy(b["image"]).to(device))
-                    for (model, _), b in zip(members, batches)]
+        if preprocess == "device_resize":
+            canvas = torch.from_numpy(batches[0]["image"]).to(device)
+            orig_hw = torch.from_numpy(batches[0]["orig_hw"]).to(device)
+            feeds = [resize_feed(model, options, canvas, orig_hw)
+                     for (model, _), options in zip(members, options_list)]
+        else:
+            feeds = [torch.from_numpy(b["image"]).to(device) for b in batches]
+        memories = [encode_images(model, feed) for (model, _), feed in zip(members, feeds)]
         tokens = ensemble_decode(
             members, memories, max_steps=num_steps, tables=tables,
             early_stop_eos=vocab.eos_id if early_stop else None,

@@ -10,9 +10,14 @@ Two halves:
   encode, decode). They need nothing beyond torch and numpy.
 - ``run_inference``: the file-driven CLI path. It runs the port's eval
   data pipeline (``data/{dataset,loader,augment}.py``, which reach cv2 and
-  PIL lazily, on this path only), feeds resized u8 batches, and writes
-  ``{output_dir}/output.csv`` with ``file_path\\tprediction`` rows, as the
-  JAX CLI does.
+  PIL lazily, on this path only) under one of JAX's three ``preprocess``
+  feeds, and writes ``{output_dir}/output.csv`` with
+  ``file_path\\tprediction`` rows, as the JAX CLI does: "device" ships
+  host-resized u8 batches and standardizes them on the card (kernel 1);
+  "device_resize" ships each raw u8 image on an edge-replicated canvas
+  with its valid (h, w), and resizes and standardizes on the card
+  (``ops/preprocess.py::resize_standardize``, plain torch, no kernel 1);
+  "host" ships the cv2-normalized f32 batch (no kernel 1).
 
 Decode length is ``max_sequence + 1`` steps, the reference's dummy-GT
 trick. Ensembles are ``infer/ensemble.py``.
@@ -45,12 +50,13 @@ from p4fr_tpu_torch.decoding.fast_step import KV_QUANT, build_fast_decoder, gree
 from p4fr_tpu_torch.decoding.greedy import make_greedy_fn
 from p4fr_tpu_torch.decoding.fused_greedy import fused_greedy_decode
 from p4fr_tpu_torch.decoding.manager import RuleTables
-from p4fr_tpu_torch.ops.preprocess import standardize, standardize_ref
+from p4fr_tpu_torch.ops.preprocess import resize_standardize, standardize, standardize_ref
 from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
 
 KERNELS = ("auto", "pallas_v2", "jnp", "fused", "generic")  # --kernel choices
 BEAM_GATHERS = ("auto", "pallas", "jnp")  # --beam_gather choices
+PREPROCESS = ("device", "device_resize", "host")  # --preprocess choices
 
 
 def build_fast(model):
@@ -63,10 +69,25 @@ def build_fast(model):
 
 def encode_images(model, images: torch.Tensor, *, plain: bool = False
                   ) -> torch.Tensor:
-    """u8 [B, H, W, C] -> encoder memory [B, S, C] in the model's dtype
-    (standardize, then ``model.encode``)."""
-    std = (standardize_ref if plain else standardize)(images, out_dtype=model.dtype)
-    return model.encode(std, plain=plain)
+    """[B, H, W, C] -> encoder memory [B, S, C] in the model's dtype. A u8
+    feed is standardized first (kernel 1 on the card); a floating feed is
+    taken as standardized already (the host-normalized feed, or
+    ``resize_standardize``'s output) and only cast to the model's type."""
+    if images.dtype == torch.uint8:
+        images = (standardize_ref if plain else standardize)(images, out_dtype=model.dtype)
+    return model.encode(images.to(model.dtype), plain=plain)
+
+
+def input_hw(options) -> Tuple[int, int]:
+    """The model's (height, width) from its config."""
+    return options["input_size"]["height"], options["input_size"]["width"]
+
+
+def resize_feed(model, options, canvas: torch.Tensor, orig_hw: torch.Tensor
+                ) -> torch.Tensor:
+    """A canvas batch resized and standardized on its device to the model's
+    input size, in the model's type (``--preprocess device_resize``)."""
+    return resize_standardize(canvas, orig_hw, *input_hw(options), out_dtype=model.dtype)
 
 
 @torch.no_grad()
@@ -76,7 +97,8 @@ def decode_images(model, fast, images: torch.Tensor,
                   stop_override: Optional[torch.Tensor] = None,
                   plain: bool = False, kernel: str = "auto",
                   kv_quant: str = "none") -> torch.Tensor:
-    """Greedy: u8 [B, H, W, C] on the model's device -> [B, steps] int64
+    """Greedy: [B, H, W, C] images on the model's device (u8, or a
+    standardized floating feed: ``encode_images``) -> [B, steps] int64
     tokens.
 
     ``fast`` is ``build_fast(model)``.
@@ -128,8 +150,9 @@ def beam_decode_images(model, fast, images: torch.Tensor, steps: int, *,
                        stop_override: Optional[torch.Tensor] = None,
                        plain: bool = False, kernel: str = "auto",
                        beam_gather: str = "auto") -> torch.Tensor:
-    """Beam search: u8 [B, H, W, C] on the model's device -> [B, steps]
-    int64 tokens of each image's best hypothesis
+    """Beam search: [B, H, W, C] images on the model's device (as
+    ``decode_images`` takes them) -> [B, steps] int64 tokens of each
+    image's best hypothesis
     (``decoding/beam.py``; no DecodingManager, as in the JAX CLI), through
     ``fast`` (``build_fast(model)``) or, with ``kernel="generic"``, the
     model's module step. ``beam_gather``: "auto" or "pallas" reorder the
@@ -148,9 +171,30 @@ def beam_decode_images(model, fast, images: torch.Tensor, steps: int, *,
     return best_tokens(trace)
 
 
+def canvas_for(paths, round_to: int = 8) -> Tuple[int, int]:
+    """The canvas (Hc, Wc) that holds every image: the largest height and
+    width read from the image headers (no pixel decode), after the
+    reference's rotate-if-h/w>2 rule (``data/dataset.py::load_image``),
+    each rounded up to a multiple of ``round_to``."""
+    from PIL import Image
+
+    max_h = max_w = 1
+    for p in paths:
+        with Image.open(p) as im:
+            w, h = im.size
+        if h / w > 2:
+            h, w = w, h
+        max_h, max_w = max(max_h, h), max(max_w, w)
+    return -(-max_h // round_to) * round_to, -(-max_w // round_to) * round_to
+
+
 def build_eval_loader(file_path: str, options, vocab, batch_size: int,
-                      max_sequence: int, *, sort_by_size: bool = False):
-    """The JAX CLI's eval loader with the u8 feed (no host normalize)."""
+                      max_sequence: int, *, sort_by_size: bool = False,
+                      host_normalize: bool = False, device_resize: bool = False):
+    """The JAX CLI's eval loader: u8 batches resized on the host (the
+    default), cv2-normalized f32 with ``host_normalize``, or with
+    ``device_resize`` the raw u8 images on one canvas (``canvas_for`` over
+    every listed image) and ``batch["orig_hw"]``."""
     from p4fr_tpu_torch.data.augment import get_valid_transforms
     from p4fr_tpu_torch.data.dataset import LoadEvalDataset
     from p4fr_tpu_torch.data.loader import DataLoader
@@ -160,10 +204,12 @@ def build_eval_loader(file_path: str, options, vocab, batch_size: int,
     with open(file_path, "r") as fd:
         rows = [r for r in csv.reader(fd, delimiter="\t") if r]
     test_data = [(os.path.join(root, r[0]), r[0], dummy_gt.strip()) for r in rows]
-    transform = get_valid_transforms(options["input_size"]["height"],
-                                     options["input_size"]["width"])
+    rgb = options["data"]["rgb"]
+    transform = get_valid_transforms(
+        *input_hw(options), rgb, normalize=host_normalize,
+        canvas=canvas_for(p for p, _, _ in test_data) if device_resize else None)
     dataset = LoadEvalDataset(test_data, vocab.token_to_id, vocab.id_to_token,
-                              transform=transform, rgb=options["data"]["rgb"])
+                              transform=transform, rgb=rgb)
     return DataLoader(
         dataset, batch_size, max_label_len=max_sequence + 2,
         sort_key=dataset.size_proxy if sort_by_size else None,
@@ -175,8 +221,8 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
                   decode_type: str = "greedy", beam_width: int = 3,
                   decoding_manager: bool = True, early_stop: bool = False,
                   plain: bool = False, kernel: str = "auto",
-                  kv_quant: str = "none", beam_gather: str = "auto", device="cuda"
-                  ) -> List[Tuple[str, str]]:
+                  kv_quant: str = "none", beam_gather: str = "auto",
+                  preprocess: str = "device", device="cuda") -> List[Tuple[str, str]]:
     """Inference over an ``input.txt`` of image names; writes
     ``output.csv``. Runs on the CUDA card in bf16 unless the caller passes
     ``device="cpu"`` (f32); raises if CUDA is asked for and absent.
@@ -191,8 +237,9 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
     on the transformer families' greedy fast step (not "fused"), as in the
     JAX package. ``beam_gather`` (beam): "auto" and "pallas" reorder the
     parent beams' caches through kernel 4, "jnp" through its plain version
-    alone. ``plain=True`` runs every kernel's plain version instead.
-    ``early_stop``
+    alone. ``preprocess``: the feed, "device", "device_resize" or "host"
+    (the module docstring). ``plain=True`` runs every kernel's plain
+    version instead. ``early_stop``
     leaves the decode loop once every sequence (every beam) has finished;
     for greedy it also sorts the input by image aspect ratio so that
     similar lengths share a batch, and the output keeps the input's order.
@@ -203,6 +250,8 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
         raise ValueError(f"kernel {kernel!r}")
     if kv_quant not in KV_QUANT:
         raise ValueError(f"kv_quant {kv_quant!r}")
+    if preprocess not in PREPROCESS:
+        raise ValueError(f"preprocess {preprocess!r}")
     if kv_quant != "none" and (decode_type != "greedy" or kernel == "fused"):
         raise ValueError("kv_quant runs only on the fast greedy decode path "
                          "(greedy, non-fused kernel), as in the JAX package")
@@ -217,15 +266,20 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
     tables = (RuleTables.build(vocab, device)
               if decoding_manager and decode_type == "greedy" else None)
     sort_by_size = early_stop and decode_type == "greedy"
-    loader = build_eval_loader(file_path, options, vocab, batch_size,
-                               max_sequence, sort_by_size=sort_by_size)
+    loader = build_eval_loader(file_path, options, vocab, batch_size, max_sequence,
+                               sort_by_size=sort_by_size,
+                               host_normalize=preprocess == "host",
+                               device_resize=preprocess == "device_resize")
     num_steps = max_sequence + 1  # reference: len(dummy encoded) - 1
 
     results: List[Tuple[str, str]] = []
     start = time.perf_counter()
     n_images = 0
     for batch in loader:
-        images = torch.from_numpy(batch["image"]).to(device)
+        images = torch.from_numpy(batch["image"]).to(device)  # u8, or host f32
+        if preprocess == "device_resize":
+            images = resize_feed(model, options, images,
+                                 torch.from_numpy(batch["orig_hw"]).to(device))
         if decode_type == "greedy":
             tokens = decode_images(
                 model, fast, images, tables, num_steps,

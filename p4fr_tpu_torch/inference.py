@@ -8,7 +8,7 @@ ensemble):
         [--beam_gather auto|pallas|jnp] \\
         [--kernel auto|pallas_v2|jnp|fused|generic] \\
         [--kv_quant none|int8|int8_cache] [--early_stop false] \\
-        [--device cuda|cpu]
+        [--preprocess device|device_resize|host] [--device cuda|cpu]
     python -m p4fr_tpu_torch.inference --inference_type ensemble \\
         --checkpoint satrn.pth aster.pth swin.pth --file_path input.txt \\
         [--kernel auto|jnp|fused|generic] [--decoding_manager true] ...
@@ -41,7 +41,11 @@ position) scales, ``int8_cache`` the self-attention cache too; with
 the CPU its plain version). Under ``jnp`` the cross K/V is dequantized
 once and the self cache stays in the model's type, as in the JAX package,
 so ``int8_cache`` there quantizes the cross K/V alone; EfficientASTER
-refuses it, as in the JAX package. Options the port does not run yet are
+refuses it, as in the JAX package. ``--preprocess`` picks the feed, single
+and ensemble alike: ``device`` (host-resized u8, standardized on the card),
+``device_resize`` (raw u8 on one canvas, resized and standardized on the
+card; in an ensemble one canvas for every member, which must agree on
+``data.rgb``) or ``host`` (cv2-normalized f32). Options the port does not run yet are
 rejected with the ROADMAP item that ports them; compatibility shims
 (``--tokens_path``, ``--max_cache``) are accepted and unused, as in the JAX
 CLI. A checkpoint is a reference-format ``.pth`` or the JAX package's
@@ -56,7 +60,6 @@ import sys
 # option -> (values the port supports, ROADMAP item that ports the rest)
 _NOT_YET = {
     "data_parallel": ((False,), "Queue 1 item 13: parallelism"),
-    "preprocess": (("device",), "Queue 1 item 10: preprocess options"),
 }
 
 
@@ -137,7 +140,8 @@ def main(argv=None):
             args.checkpoint, args.file_path, args.output_dir,
             batch_size=args.batch_size, max_sequence=args.max_sequence,
             decoding_manager=args.decoding_manager, max_cache=args.max_cache,
-            early_stop=args.early_stop, kernel=args.kernel, device=args.device)
+            early_stop=args.early_stop, kernel=args.kernel,
+            preprocess=args.preprocess, device=args.device)
 
     from p4fr_tpu_torch.infer.single import run_inference
 
@@ -147,7 +151,7 @@ def main(argv=None):
         decode_type=args.decode_type, beam_width=args.beam_width,
         decoding_manager=args.decoding_manager, early_stop=args.early_stop,
         kernel=args.kernel, kv_quant=args.kv_quant, beam_gather=args.beam_gather,
-        device=args.device,
+        preprocess=args.preprocess, device=args.device,
     )
 
 

@@ -1,5 +1,4 @@
-"""EfficientASTER, port of ``p4fr_tpu/models/aster.py`` (inference; the
-teacher-forced ``decode_train`` is training's and comes with it).
+"""EfficientASTER, port of ``p4fr_tpu/models/aster.py``.
 
 - ``DeepCNN``: the EfficientNetV2-S blocks (``models/efficientnetv2.py``,
   whose stride-1 MBConv runs take kernel 2) behind a VALID stem, then the
@@ -11,8 +10,16 @@ teacher-forced ``decode_train`` is training's and comes with it).
 - ``AttentionCell``: Bahdanau attention ``score(tanh(i2h(src) + h2h(h)))``
   feeding stacked LSTM cells over ``[context; embedding]``;
 - ``ASTER``: the unified decode contract (``encode``, ``precompute_src``,
-  ``init_decode_cache``, ``decode_step``) that ``decoding/greedy.py`` and
-  beam's generic branch drive; ``decoding/fast_aster.py`` is its fused form.
+  ``init_decode_cache``, ``decode_step``) that ``decoding/greedy.py``,
+  beam's generic branch and training's AR-sampled branch drive
+  (``decoding/fast_aster.py`` is its fused form), and the teacher-forced
+  ``forward`` = ``decode_train(encode(images), text)``.
+
+Training runs the same modules in train mode: the V2-S stem and blocks
+and the tail's BatchNorms take flax's batch statistics
+(``models/batchnorm.py``), kernel 2 stays off (``EfficientNetV2Blocks``
+runs the composed blocks in train mode), the BiLSTM is ``nn.LSTM`` under
+autograd, and no path has a dropout site, as in the JAX package.
 
 Parameter names are the reference's (EfficientASTER.py): ``encoder.cnn.
 {conv_stem, bn1, eff_blocks, conv1.conv4, conv1.batchnorm4, conv3.conv6,
@@ -194,13 +201,34 @@ class ASTER(nn.Module):
 
     def decode_step(self, token: torch.Tensor, pos: int, src_kv, cache) -> torch.Tensor:
         """One AR step: token [B] -> logits [B, V]; ``cache`` takes the new
-        (h, c) of every layer. Position-free, no dropout."""
+        (h, c) of every layer (its list entries are replaced, no tensor is
+        written in place, so autograd keeps every step). Position-free, no
+        dropout."""
         del pos
         dec = self.decoder
         hidden, _ = dec.attention_cell(cache, src_kv[0], src_kv[1], dec.embedding(token))
         for layer, state in zip(cache, hidden):
             layer[:] = state
         return dec.generator(hidden[-1][0])
+
+    def decode_train(self, src: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced logits [B, L, V] from memory ``src`` [B, S, C] and
+        the input tokens ``text`` [B, L]: column ``t`` feeds step ``t``
+        (JAX scans the columns with ``nn.scan``; a loop over L here)."""
+        dec = self.decoder
+        src_kv = self.precompute_src(src)
+        hidden = self.init_decode_cache(text.shape[0])
+        embedded = dec.embedding(text)
+        logits = []
+        for t in range(text.shape[1]):
+            hidden, _ = dec.attention_cell(hidden, src_kv[0], src_kv[1], embedded[:, t])
+            logits.append(dec.generator(hidden[-1][0]))
+        return torch.stack(logits, dim=1)
+
+    def forward(self, images: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced logits: standardized images [B, H, W, C] and
+        input tokens [B, L] -> [B, L, V]."""
+        return self.decode_train(self.encode(images), text)
 
 
 def aster_from_options(options, num_classes: int, pad_id: int, sos_id: int) -> ASTER:

@@ -199,9 +199,15 @@ class TransformerDecoder(nn.Module):
 
 class DecodeContract:
     """The unified decode contract of the transformer families, over
-    ``self.decoder`` (a ``TransformerDecoder``): what ``decoding/greedy.py``
-    (``--kernel generic``), beam's generic branch, the ensemble and
-    training's AR-sampled branch drive."""
+    ``self.encode`` and ``self.decoder`` (a ``TransformerDecoder``): what
+    ``decoding/greedy.py`` (``--kernel generic``), beam's generic branch,
+    the ensemble and training's AR-sampled branch drive, and the
+    teacher-forced ``forward`` training's other branch runs."""
+
+    def forward(self, images: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced logits: standardized images [B, H, W, C], text
+        [B, L] -> [B, L, V]."""
+        return self.decoder(self.encode(images), text)
 
     def precompute_src(self, src: torch.Tensor):
         return self.decoder.precompute_src(src)

@@ -204,11 +204,6 @@ class SATRN(DecodeContract, nn.Module):
     def encode(self, images: torch.Tensor, plain: bool = False) -> torch.Tensor:
         return self.encoder(images, plain)
 
-    def forward(self, images: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced logits: standardized images [B, H, W, C], text
-        [B, L] -> [B, L, V]."""
-        return self.decoder(self.encode(images), text)
-
 
 def satrn_from_options(options, num_classes: int, pad_id: int, sos_id: int,
                        network: Optional[str] = None) -> SATRN:

@@ -4,7 +4,12 @@ the transformer decoder of ``models.common``.
 The encoder (patch 4, embed 128, depths (2, 2, 18, 2), heads (4, 8, 16,
 32), window 12, a learned ``absolute_pos_embed``) turns a 384x384 image
 into a [B, 144, 1024] memory. Its blocks' window attention is kernel 5
-(``ops/swin_attention.py``). Parameter names are the reference's
+(``ops/swin_attention.py``) in eval mode (validation, a distillation
+teacher, inference); in train mode it is the kernel's plain twin
+``fused_window_attention_ref`` under autograd, the function JAX's jnp path
+computes (kernel 5 has no backward, and the JAX package trains through its
+jnp attention off the TPU). That is routing by mode, not a fallback: an
+eval-mode kernel that fails raises. Parameter names are the reference's
 (``encoder.layers.{s}.blocks.{i}.attn.qkv`` ...), so reference ``.pth``
 files load with ``strict=True``; the reference's persistent buffers
 (``attn.relative_position_index``, a shifted block's ``attn_mask``) and its
@@ -17,10 +22,16 @@ exceeds the window (the 12x12 last stage has one window and no shift); the
 shift mask fills -100.0; PatchMerging concatenates ``[0::2, 0::2]``,
 ``[1::2, 0::2]``, ``[0::2, 1::2]``, ``[1::2, 1::2]`` and its Linear has no
 bias; the window attention scales by ``head_dim ** -0.5`` (the decoder by
-``sqrt(hidden)``); GELU is exact; every LayerNorm has eps 1e-5. The
-encoder is for inference only: its DropPath and dropout are the identity
-(SwinTRN training is a later item). The decoder's dropout sites take the
-JAX module's rates (``dropout_rate``, the FF's pinned 0.1).
+``sqrt(hidden)``); GELU is exact; every LayerNorm has eps 1e-5.
+
+Stochastic depth (``DropPath``) is JAX's: block ``i`` of the
+``sum(depths)`` takes rate ``linspace(0, drop_path_rate, sum(depths))[i]``
+(``SWIN.drop_path_rate``, JAX's default 0.1) on both residual branches, a
+per-sample keep mask in train mode, the identity in eval mode. The
+encoder's other dropout sites (the attention's probabilities and
+projection, the MLP's two) have rate 0 in JAX's encoder, so the port has
+no module for them. The decoder's dropout sites take the JAX module's
+rates (``dropout_rate``, the FF's pinned 0.1).
 """
 
 from __future__ import annotations
@@ -80,8 +91,36 @@ def shift_attn_mask(h: int, ww: int, w: int, shift: int) -> np.ndarray:
     return np.where(diff != 0, SHIFT_MASK_FILL, 0.0).astype(np.float32)
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth on a residual branch
+    (``p4fr_tpu/models/swin.py::DropPath``): in train mode with ``rate`` >
+    0, each sample's branch is kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``, else zeroed; the identity otherwise. The
+    keep mask is drawn from the default generator on the input's device (as
+    ``nn.Dropout`` draws, so ``torch.manual_seed`` replays it), or passed as
+    ``keep`` [B] bool."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        p_keep = 1.0 - self.rate
+        if keep is None:
+            keep = torch.rand(x.shape[0], device=x.device) < p_keep
+        keep = keep.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+        return torch.where(keep, x / p_keep, torch.zeros_like(x))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
 class WindowAttention(nn.Module):
-    """W-MSA with a relative position bias over one window's tokens."""
+    """W-MSA with a relative position bias over one window's tokens: kernel
+    5 in eval mode, its plain twin under autograd in train mode (the module
+    docstring)."""
 
     def __init__(self, dim: int, window: int, num_heads: int):
         super().__init__()
@@ -108,7 +147,8 @@ class WindowAttention(nn.Module):
         # gathered on every call, so a later load_state_dict is never stale
         bias = self.relative_position_bias_table[self.rel_index]
         bias = bias.reshape(n, n, self.num_heads).permute(2, 0, 1)
-        attend = fused_window_attention_ref if plain else fused_window_attention
+        attend = (fused_window_attention_ref if plain or self.training
+                  else fused_window_attention)
         out = attend(self.qkv(x), bias, mask, heads=self.num_heads, scale=self.scale)
         return self.proj(out)
 
@@ -127,13 +167,15 @@ class SwinBlock(nn.Module):
     """(Shifted-)window attention and an MLP, each with a pre-norm residual."""
 
     def __init__(self, dim: int, resolution: Tuple[int, int], num_heads: int,
-                 window: int, shift: int, mlp_ratio: float = 4.0):
+                 window: int, shift: int, mlp_ratio: float = 4.0,
+                 drop_path: float = 0.0):
         super().__init__()
         self.resolution, self.window, self.shift = resolution, window, shift
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttention(dim, window, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.drop_path = DropPath(drop_path)  # both branches, a mask each
         mask = (torch.from_numpy(shift_attn_mask(*resolution, window, shift))
                 if shift > 0 else None)
         self.register_buffer("shift_mask", mask, persistent=False)
@@ -153,8 +195,8 @@ class SwinBlock(nn.Module):
         y = window_reverse(y, self.window, h, ww)
         if self.shift > 0:
             y = torch.roll(y, (self.shift, self.shift), dims=(1, 2))
-        x = x + y.reshape(b, l, c)
-        return x + self.mlp(self.norm2(x))
+        x = x + self.drop_path(y.reshape(b, l, c))
+        return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
 class PatchMerging(nn.Module):
@@ -211,19 +253,21 @@ class SwinEncoder(nn.Module):
                  patch_size: int = 4, embed_dim: int = 128,
                  depths: Sequence[int] = (2, 2, 18, 2),
                  num_heads: Sequence[int] = (4, 8, 16, 32), window: int = 12,
-                 ape: bool = True):
+                 ape: bool = True, drop_path_rate: float = 0.1):
         super().__init__()
         self.patch_embed = PatchEmbed(in_chans, embed_dim, patch_size)
         res = (input_height // patch_size, input_width // patch_size)
         self.absolute_pos_embed = nn.Parameter(nn.init.trunc_normal_(
             torch.empty(1, res[0] * res[1], embed_dim), std=0.02)) if ape else None
+        rates = iter(np.linspace(0, drop_path_rate, sum(depths)).tolist())
         stages = []
         dim = embed_dim
         for s, depth in enumerate(depths):
             win = min(window, res[0], res[1])
             blocks = [
                 SwinBlock(dim, res, num_heads[s], win,
-                          0 if i % 2 == 0 or min(res) <= win else win // 2)
+                          0 if i % 2 == 0 or min(res) <= win else win // 2,
+                          drop_path=next(rates))
                 for i in range(depth)
             ]
             last = s == len(depths) - 1
@@ -251,8 +295,9 @@ class SwinEncoder(nn.Module):
 
 
 class SwinTRN(DecodeContract, nn.Module):
-    """Swin encoder + the transformer decoder (inference), with the unified
-    decode contract (``models.common.DecodeContract``)."""
+    """Swin encoder + the transformer decoder, with the unified decode
+    contract (``models.common.DecodeContract``) and the teacher-forced
+    ``forward(images, text)``."""
 
     def __init__(self, num_classes: int, pad_id: int, sos_id: int,
                  input_height: int, input_width: int, dec_src_dim: int,
@@ -261,13 +306,14 @@ class SwinTRN(DecodeContract, nn.Module):
                  reference_parity: bool = True, enc_embed_dim: int = 128,
                  enc_depths: Sequence[int] = (2, 2, 18, 2),
                  enc_num_heads: Sequence[int] = (4, 8, 16, 32),
-                 enc_window: int = 12, enc_ape: bool = True):
+                 enc_window: int = 12, enc_ape: bool = True,
+                 enc_drop_path_rate: float = 0.1):
         super().__init__()
         self.num_classes, self.pad_id, self.sos_id = num_classes, pad_id, sos_id
         self.encoder = SwinEncoder(input_height, input_width, in_chans,
                                    embed_dim=enc_embed_dim, depths=enc_depths,
                                    num_heads=enc_num_heads, window=enc_window,
-                                   ape=enc_ape)
+                                   ape=enc_ape, drop_path_rate=enc_drop_path_rate)
         self.decoder = TransformerDecoder(
             num_classes, dec_src_dim, dec_hidden_dim, dec_filter_dim,
             dec_head_num, dec_layer_num, pad_id, sos_id, dropout,
@@ -283,15 +329,15 @@ class SwinTRN(DecodeContract, nn.Module):
 
 def swin_from_options(options, num_classes: int, pad_id: int, sos_id: int) -> SwinTRN:
     """Build a SwinTRN from a reference-schema config dict; a ``SWIN:``
-    section may override the encoder's embed_dim, depths, num_heads, window
-    and ape (drop_path_rate is read and unused: inference only)."""
+    section may override the encoder's embed_dim, depths, num_heads,
+    window, drop_path_rate (default 0.1, as JAX's) and ape."""
     dec = options["SATRN"]["decoder"]
     tpu = options.get("tpu") or {}
     swin = options.get("SWIN") or {}
     enc = {}
     for key, field in (("embed_dim", "enc_embed_dim"), ("depths", "enc_depths"),
                        ("num_heads", "enc_num_heads"), ("window", "enc_window"),
-                       ("ape", "enc_ape")):
+                       ("drop_path_rate", "enc_drop_path_rate"), ("ape", "enc_ape")):
         val = swin.get(key)
         if val is not None:
             enc[field] = tuple(val) if isinstance(val, (list, tuple)) else val

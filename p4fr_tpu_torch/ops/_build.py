@@ -242,3 +242,15 @@ def stream_ptr(device) -> int:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def refuse_grad(what: str, plain: str, *tensors) -> None:
+    """Raise where a kernel would drop gradients: grad mode is on and a
+    tensor it reads requires grad. The kernels have no backward, and their
+    outputs are fresh tensors without a ``grad_fn``; ``plain`` names the
+    differentiable route to take instead."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise ValueError(f"{what}: an input requires grad and the kernel has no "
+                         f"backward; {plain}")

@@ -30,6 +30,9 @@ from p4fr_tpu_torch.ops import _build
 BN_EPS = 1e-3  # timm effnet BN eps (models/efficientnetv2.py)
 
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
+# the differentiable route a grad-requiring caller takes (``_build.refuse_grad``)
+_PLAIN_ROUTE = ("run the composed MBConv modules (a train-mode EfficientNetV2Blocks, "
+                "or plain=True)")
 _ACT_TYPED = ("pw_w", "pwl_w", "se_rw", "se_ew")  # the rest is f32
 
 
@@ -377,12 +380,14 @@ def fused_mbconv(x: torch.Tensor, folded: Dict[str, torch.Tensor], *,
     shape whose map no cluster of 16 can hold takes the three launches of
     ``csrc/mbconv_tiled.cu`` (h2 through device memory in f32), counted as
     ``mbconv_tiled``. One launch count per block; a build or launch failure
-    raises. CPU tensor: ``mbconv_block_ref``.
+    raises. CPU tensor: ``mbconv_block_ref``. With grad mode on, an input
+    that requires grad raises (``_build.refuse_grad``).
     """
     if x.device.type == "cpu":
         return mbconv_block_ref(x, folded, residual)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mbconv: unsupported device {x.device}")
+    _build.refuse_grad("fused_mbconv", _PLAIN_ROUTE, x, *folded.values())
     _check(x, folded, residual)
     plan = block_plan(x, folded)
     if plan.path == "tiled":
@@ -401,7 +406,12 @@ def fused_mbconv_chain(x: torch.Tensor,
                        folded_list: Sequence[Dict[str, torch.Tensor]],
                        residuals: Sequence[bool]) -> torch.Tensor:
     """A run of stride-1 MBConv(+SE) blocks, one after another, on an
-    NHWC tensor. Chaining blocks inside one launch is later work."""
+    NHWC tensor. Chaining blocks inside one launch is later work. On a CUDA
+    tensor every operand is checked by ``_build.refuse_grad`` before the
+    first launch."""
+    if x.device.type == "cuda":
+        _build.refuse_grad("fused_mbconv_chain", _PLAIN_ROUTE, x,
+                           *(t for folded in folded_list for t in folded.values()))
     for folded, residual in zip(folded_list, residuals):
         x = fused_mbconv(x, folded, residual=bool(residual))
     return x

@@ -78,3 +78,55 @@ def standardize(images: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
     _build.check(code, "standardize")
     _build.LAUNCHES["standardize"] += 1
     return out
+
+
+def _resize_weights(valid: torch.Tensor, out_size: int, in_size: int) -> torch.Tensor:
+    """[B, out_size, in_size] f32 linear-interpolation weights along one axis
+    for per-image valid extents ``valid`` [B] (f32), as
+    ``jax.image.scale_and_translate``'s ``compute_weight_mat`` builds them
+    (triangle kernel, no antialias, zero translation): output ``i`` samples
+    input position ``(i + 0.5) / scale - 0.5`` with ``scale = out / valid``;
+    each row is normalised by its sum, which clamps a sample that falls
+    before the first pixel to it. ``1 / scale`` is ``valid * (1 / out)``
+    with the reciprocal rounded to f32, the form XLA gives JAX's
+    ``1 / (out / valid)``, so the sample positions are JAX's bit for bit."""
+    inv_scale = valid * float(np.float32(1.0) / np.float32(out_size))
+    grid = torch.arange(out_size, dtype=torch.float32, device=valid.device) + 0.5
+    sample = grid[None] * inv_scale[:, None] - 0.5  # [B, out]
+    taps = torch.arange(in_size, dtype=torch.float32, device=valid.device)
+    w = (1.0 - (sample[..., None] - taps).abs()).clamp_min(0.0)
+    total = w.sum(dim=-1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[..., None], w, torch.zeros_like(w))
+
+
+def resize_standardize(canvas_u8: torch.Tensor, orig_hw: torch.Tensor, height: int,
+                       width: int, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Per-image bilinear resize and ImageNet standardization on the device:
+    ``canvas_u8`` [B, Hc, Wc, C] u8 (each image edge-replicated onto one
+    canvas, ``data/augment.py::to_canvas``), ``orig_hw`` [B, 2] its valid
+    (h, w) -> [B, height, width, C] ``out_dtype``.
+
+    Port of ``p4fr_tpu/ops/pallas/preprocess.py::resize_standardize``,
+    which is no Pallas kernel (``jax.image.scale_and_translate`` at HIGHEST
+    precision), so this is plain torch: cv2's INTER_LINEAR half-pixel
+    convention without antialias, a scale per image, as two batched
+    contractions over per-image weight matrices [B, height, Hc] and
+    [B, width, Wc] built on the tensors' device from ``orig_hw`` (no loop
+    per image), in f32; then ``(x / 255 - mean) / std`` with
+    ``stats_for(C)`` and one cast. The edge-replicated canvas stands in for
+    cv2's boundary clamp, so the host cv2 path differs by its u8
+    fixed-point rounding alone."""
+    b, hc, wc, c = canvas_u8.shape
+    hw = orig_hw.to(device=canvas_u8.device, dtype=torch.float32)
+    w_rows = _resize_weights(hw[:, 0], height, hc)  # [B, height, Hc]
+    w_cols = _resize_weights(hw[:, 1], width, wc)   # [B, width, Wc]
+    x = canvas_u8.to(torch.float32).reshape(b, hc, wc * c)
+    x = torch.bmm(w_rows, x).reshape(b, height, wc, c)
+    x = x.permute(0, 2, 1, 3).reshape(b, wc, height * c)
+    x = torch.bmm(w_cols, x).reshape(b, width, height, c).permute(0, 2, 1, 3)
+    mean, std = (torch.from_numpy(v).to(canvas_u8.device) for v in stats_for(c))
+    return ((x / 255.0 - mean) / std).to(out_dtype).contiguous()

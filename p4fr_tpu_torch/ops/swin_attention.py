@@ -65,12 +65,16 @@ def fused_window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     CTA per (window, head) with the head's q, k and v in shared memory and
     the scores in registers; bf16 computes both products with ``mma.sync``
     on the tensor cores, f32 on the CUDA cores; ``bias`` and ``mask`` are
-    taken in f32. CPU tensor: ``fused_window_attention_ref``.
+    taken in f32. CPU tensor: ``fused_window_attention_ref``. With grad
+    mode on, an input that requires grad raises (``_build.refuse_grad``).
     """
     if qkv.device.type == "cpu":
         return fused_window_attention_ref(qkv, bias, mask, heads=heads, scale=scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_window_attention: unsupported device {qkv.device}")
+    _build.refuse_grad("fused_window_attention", "train through "
+                       "fused_window_attention_ref (a train-mode WindowAttention does)",
+                       qkv, bias, mask)
     if qkv.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_window_attention: dtype {qkv.dtype} unsupported")
     if qkv.dim() != 3 or qkv.shape[2] % 3:

@@ -14,8 +14,10 @@ given, and exits with an error where CUDA is asked for and absent.
 Distillation requires ``--teacher_ckpt`` (a reference ``.pth`` or the JAX
 package's native ``.ckpt``), and no other regime takes it, with the JAX
 CLI's messages; a teacher whose vocabulary differs in size from the
-student's is refused. A network the port cannot train yet (SwinTRN,
-EfficientASTER) is refused with its ROADMAP item.
+student's is refused. Every family trains under every regime (LiteSATRN,
+EfficientSATRN, SwinTRN with ``configs/SWIN.yaml``, EfficientASTER with
+``configs/EfficientASTER.yaml``); a config that sets ``pretrained:`` is
+refused with its ROADMAP item.
 """
 
 import argparse

@@ -9,9 +9,10 @@ records, and resume from ``options.checkpoint``.
 
 ``train`` is the loop every regime runs; ``dual_opt`` differs only in the
 optimizer it builds, ``distillation`` in its loaders and its step. The run is on the CUDA card unless the caller passes
-``device="cpu"``; without CUDA and without that, it refuses. The port
-trains EfficientSATRN; other networks are refused with the ROADMAP item
-that ports them. Checkpoints are the reference-format ``.pth``
+``device="cpu"``; without CUDA and without that, it refuses. Every family
+trains (EfficientSATRN, LiteSATRN, SwinTRN, EfficientASTER); a config that
+asks for the pretrained-backbone bootstrap is refused with its ROADMAP
+item. Checkpoints are the reference-format ``.pth``
 (``utils/checkpoint.py``) at ``{prefix}/checkpoints/{network}_best_model.pth``.
 ``options.checkpoint`` may also name the JAX package's native file: one
 without ``opt_state`` (the port's ``save_native_checkpoint`` writes such)
@@ -65,12 +66,6 @@ from p4fr_tpu_torch.utils.metrics import (
     word_error_rate,
 )
 
-NOT_TRAINABLE = {  # network -> the ROADMAP item that trains it
-    "SWIN": "ROADMAP.md Queue 1: SwinTRN training",
-    "SwinTRN": "ROADMAP.md Queue 1: SwinTRN training",
-    "EfficientASTER": "ROADMAP.md Queue 1: EfficientASTER training",
-    "ASTER": "ROADMAP.md Queue 1: EfficientASTER training",
-}
 RESUME_OPT_STATE = "ROADMAP.md Queue 1: resume a JAX trainer's optimizer state"
 
 
@@ -101,10 +96,7 @@ def load_options(options_or_path):
 
 
 def check_trainable(options) -> None:
-    network = options.network
-    if network in NOT_TRAINABLE:
-        raise NotImplementedError(f"training {network!r} is not ported to "
-                                  f"p4fr_tpu_torch yet ({NOT_TRAINABLE[network]})")
+    """Refuse what the trainers do not port yet: a ``pretrained:`` backbone."""
     if options.get("pretrained") is not None:
         raise NotImplementedError(
             "the pretrained-backbone bootstrap is not ported to p4fr_tpu_torch "

@@ -28,13 +28,9 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from p4fr_tpu_torch.decoding.fast_aster import FastAster, aster_step
-from p4fr_tpu_torch.decoding.fast_step import (
-    FastDecoder,
-    build_fast_decoder,
-    decode_buffers,
-    fast_decode_step,
-)
+from p4fr_tpu_torch.decoding.fast_aster import FastAster, FastAsterCell, aster_step
+from p4fr_tpu_torch.decoding.fast_step import decode_buffers, fast_decode_step
+from p4fr_tpu_torch.infer.single import build_fast
 from p4fr_tpu_torch.ops.decoder_layer import LayerWeights
 from p4fr_tpu_torch.train.schedules import Schedule
 
@@ -70,7 +66,7 @@ def ar_sampled_logits(model, images: torch.Tensor, num_steps: int,
     that two devices differentiate one graph."""
     src = model.encode(images)
     src_kv = model.precompute_src(src)
-    cache = model.init_decode_cache()
+    cache = model.init_decode_cache(images.shape[0], num_steps)
     token = torch.full((images.shape[0],), model.sos_id, dtype=torch.int64,
                        device=images.device)
     logits = []
@@ -197,8 +193,13 @@ def make_train_step(model, optimizer: ScheduledOptimizer, pad_id: int, *,
     return train_step
 
 
-def cast_fast_decoder(fast: FastDecoder, dtype: torch.dtype) -> FastDecoder:
-    """The fused weights in ``dtype`` (validation in the compute type)."""
+def cast_fast(fast, dtype: torch.dtype):
+    """A fused decoder (``FastDecoder`` or ``FastAster``) with its weights in
+    ``dtype`` (validation in the compute type)."""
+    if isinstance(fast, FastAster):
+        tensors = {k: v.to(dtype) for k, v in fast._asdict().items() if torch.is_tensor(v)}
+        return fast._replace(**tensors, cells=tuple(
+            FastAsterCell(*(t.to(dtype) for t in cell)) for cell in fast.cells))
     return fast._replace(
         embed_scaled=fast.embed_scaled.to(dtype),
         pos_encoding=fast.pos_encoding.to(dtype),
@@ -247,7 +248,7 @@ def make_eval_step(model, pad_id: int, *, plain: bool = False,
     after the parameters change (the trainer does, at every validation).
     The encoder's kernel-2 operands re-fold by themselves
     (``MBConv.folded``)."""
-    fast = cast_fast_decoder(build_fast_decoder(model), compute_dtype)
+    fast = cast_fast(build_fast(model), compute_dtype)
 
     @torch.no_grad()
     def eval_step(images: torch.Tensor, text: torch.Tensor):

@@ -18,7 +18,7 @@ weights bridged with ``strict=True``, each encoding its own images. Held:
   --device cpu`` on the exported ``.pth`` files (SATRN at 64x128, ASTER at
   64x160: each member reads the images at its own size) writes the
   ``output.csv`` of JAX's ``run_ensemble`` on the native checkpoints; the
-  options still to port are refused with their ROADMAP items.
+  options still to port (parallelism) are refused with their ROADMAP items.
 """
 
 import os
@@ -145,15 +145,19 @@ def test_ensemble_cli_matches_jax(members, vocab, tmp_path):
 
 
 def test_ensemble_refusals_name_their_roadmap_items(capsys):
+    """Parallelism alone is still refused (item 13); the preprocess options
+    (item 10) run (``test_torch_preprocess_options.py``)."""
     from p4fr_tpu_torch import inference
+    from p4fr_tpu_torch.infer import ensemble
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        run_ensemble(["a.pth"], "in.txt", "out", preprocess="host", device="cpu")
+    assert set(inference._NOT_YET) == set(ensemble.NOT_YET) == {"data_parallel"}
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         run_ensemble(["a.pth"], "in.txt", "out", data_parallel=True, device="cpu")
+    with pytest.raises(ValueError, match="preprocess 'cv2'"):
+        run_ensemble(["a.pth"], "in.txt", "out", preprocess="cv2", device="cpu")
     with pytest.raises(SystemExit) as exc:
         inference.main(["--inference_type", "ensemble", "--checkpoint", "a.pth",
                         "b.pth", "--file_path", "in.txt", "--device", "cpu",
-                        "--preprocess", "device_resize"])
+                        "--preprocess", "device_resize", "--data_parallel", "true"])
     assert exc.value.code != 0
-    assert "ROADMAP.md Queue 1 item 10" in capsys.readouterr().err
+    assert "ROADMAP.md Queue 1 item 13" in capsys.readouterr().err

@@ -256,10 +256,10 @@ def test_entry_points_run_on_cuda_unless_asked(slice_models, tmp_path, monkeypat
 
 @pytest.mark.parametrize("network", ["LiteSATRN", "EfficientASTER", "ASTER"])
 def test_registry_names_the_roadmap_item(vocab, network):
-    """What is still unported raises with its ROADMAP item: for LiteSATRN,
-    which the registry builds (a SATRN on the ShallowCNN stem), the
-    pretrained-backbone bootstrap; for the ASTER family, ported for
-    inference, its training."""
+    """What is still unported raises with its ROADMAP item: every family
+    trains, and a ``pretrained:`` backbone is refused naming the
+    pretrained-backbone bootstrap (LiteSATRN, which the registry builds as a
+    SATRN on the ShallowCNN stem, and the ASTER family alike)."""
     from p4fr_tpu_torch.models.satrn import ShallowCNN
     from p4fr_tpu_torch.train.single_opt import check_trainable
     from p4fr_tpu_torch.utils.flags import ConfigNode
@@ -267,12 +267,10 @@ def test_registry_names_the_roadmap_item(vocab, network):
     if network == "LiteSATRN":
         model = get_network(network, dict(CONFIGS, network=network), vocab)
         assert isinstance(model.encoder.shallow_cnn, ShallowCNN)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1: pretrained-backbone bootstrap"):
-            check_trainable(ConfigNode({"network": network, "pretrained": "x.pth"}))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: EfficientASTER"):
-        check_trainable(ConfigNode({"network": network}))
+    check_trainable(ConfigNode({"network": network}))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1: pretrained-backbone bootstrap"):
+        check_trainable(ConfigNode({"network": network, "pretrained": "x.pth"}))
 
 
 def test_export_state_dict_matches_jax(slice_models):
@@ -422,6 +420,31 @@ path = save_checkpoint(%(pth)r, model, network="EfficientSATRN", configs=configs
 model, _, vocab, ckpt = load_model_from_checkpoint(path, device="cpu")
 assert ckpt["scheduler"] == {"step": 2}
 
+# the preprocess options: a canvas feed resized on the device, and the
+# SwinTRN and EfficientASTER trainers' steps
+import numpy as np
+from p4fr_tpu_torch.data.augment import to_canvas
+from p4fr_tpu_torch.infer.single import resize_feed
+
+pairs = [to_canvas(torch.randint(0, 256, (h, w, 3), dtype=torch.uint8).numpy(), 80, 160)
+         for h, w in ((50, 100), (64, 160))]
+feed = resize_feed(satrn, configs, torch.from_numpy(np.stack([c for c, _ in pairs])),
+                   torch.tensor([hw for _, hw in pairs]))
+assert feed.shape == (2, 64, 128, 3)
+assert decode_images(satrn, build_fast(satrn), feed, tables, 4).shape == (2, 4)
+for network, family_configs, hw in (("SWIN", swin_configs, (32, 32)),
+                                    ("EfficientASTER", aster_configs, (64, 128))):
+    model = get_network(network, family_configs, vocab).train()
+    opt = build_optimizer("adamw", model.parameters(), cosine_warmup_restarts(5e-4, 10),
+                          weight_decay=1e-6, max_grad_norm=2.0)
+    step = make_train_step(model, opt, vocab.pad_id)
+    images = torch.randn(2, *hw, 3)
+    for teacher_forced in (True, False):
+        metrics, seq = step(images, text, teacher_forced)
+        assert seq.shape == (2, 5) and bool(torch.isfinite(metrics["loss"]))
+    loss, seq, logits = make_eval_step(model, vocab.pad_id)(images, text)
+    assert seq.shape == (2, 5) and model.training
+
 # a native checkpoint the JAX package wrote, read by the port's own codec
 from p4fr_tpu_torch.utils.checkpoint import checkpoint_format, save_native_checkpoint
 
@@ -459,7 +482,9 @@ def test_port_imports_no_jax(slice_models, tmp_path):
     training path (the train modules import with yaml and
     wandb refused too): a teacher-forced and an AR-sampled AdamW step, a
     validation step and a ``.pth`` with the trainer's state, saved and
-    loaded; and a native checkpoint that the JAX package wrote before the
+    loaded; a canvas feed resized on the device (``resize_feed``) decodes;
+    the SwinTRN and the EfficientASTER each take a teacher-forced and an
+    AR-sampled step and a validation step; and a native checkpoint that the JAX package wrote before the
     copy loads (msgpack refused too), decodes, and saves and loads back
     through the port's native writer."""
     shutil.copytree(os.path.join(REPO, "p4fr_tpu_torch"),

@@ -11,8 +11,8 @@ validation batches an epoch) and the tiny EfficientSATRN of
   exactly one more epoch, from the saved optimizer and schedule state;
 - ``dual_opt`` trains one epoch with its two parameter groups;
 - what is refused: distillation without ``--teacher_ckpt`` (the JAX CLI's
-  message), SwinTRN (with its ROADMAP item), and CUDA asked for where there
-  is none.
+  message), a ``pretrained:`` backbone (with its ROADMAP item), and CUDA
+  asked for where there is none.
 """
 
 import json
@@ -132,10 +132,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
     assert exc.value.code != 0
     assert "--train_type distillation requires --teacher_ckpt" in capsys.readouterr().err
 
-    swin = write_config(tmp_path, dict(train_options(tmp_path), network="SWIN"))
+    pretrained = write_config(tmp_path, dict(train_options(tmp_path), pretrained="x.pth"))
     with pytest.raises(SystemExit):
-        cli("--train_type", "single_opt", "--config_file", swin, "--device", "cpu")
-    assert "ROADMAP.md Queue 1: SwinTRN training" in capsys.readouterr().err
+        cli("--train_type", "single_opt", "--config_file", pretrained, "--device", "cpu")
+    assert "ROADMAP.md Queue 1: pretrained-backbone bootstrap" in capsys.readouterr().err
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
