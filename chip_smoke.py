@@ -206,6 +206,18 @@ with a non-zero exit and no result line:
    4 x 231 of kernel 3. Then kernel 5's and kernel 2's entry points,
    handed an input that requires grad with grad mode on, must raise a
    ValueError naming the plain route, and launch under ``no_grad``.
+7e. Training's start and restart: the flagship and SwinTRN (Swin-B/384)
+   each bootstrapped at full width from a seeded synthetic timm- or
+   hub-keyed file written under build/ (the file's load and the graft
+   timed), every grafted tensor equal to the file's on the card, then
+   validation's eval step on the grafted model through kernels 2 (28
+   blocks) or 5 (24 windows) and 3 against its plain path; a trainer's
+   step resumed from a native file with its optax optimizer state, for
+   AdamW with clip and for dual_opt, equal bit for bit to the
+   uninterrupted step (f32, cuDNN deterministic); the C++ edit distance
+   equal to the NumPy DP on seeded pairs, and ``word_error_rate``'s host
+   time over one B=256 batch of 231-token strings, C++ against NumPy.
+   Its wall time is printed.
 """
 
 import copy
@@ -3477,7 +3489,8 @@ def train_gate(ckpt, dev, family=FLAGSHIP_TRAIN):
     return card
 
 
-def eval_gate(model, vocab, dev, family=FLAGSHIP_TRAIN):
+def eval_gate(model, vocab, dev, family=FLAGSHIP_TRAIN,
+              after="the training gate's two updates"):
     """``make_eval_step`` in f32 through the kernels (``family.
     eval_launches``) against the same step with ``plain=True``, B=16, 231
     steps: the launch counts, then every step's logits while the two greedy
@@ -3491,7 +3504,7 @@ def eval_gate(model, vocab, dev, family=FLAGSHIP_TRAIN):
                                family.configs)
     steps = TRAIN_LABEL_LEN - 1
     print(f"[validation gate: {family.label} make_eval_step, f32, B={TRAIN_EVAL_BATCH}, "
-          f"{steps} steps, after the training gate's two updates]")
+          f"{steps} steps, after {after}]")
     _build.reset_launches()
     loss_k, seq_k, logits_k = make_eval_step(model, vocab.pad_id)(images, text)
     torch.cuda.synchronize()
@@ -3726,6 +3739,205 @@ def grad_refusal_gate(dev):
         torch.cuda.synchronize()
         if not sum(_build.LAUNCHES.values()):
             raise AssertionError(f"{name} under no_grad launched nothing")
+
+
+# ---------------------------------------------------------------- phase 7e
+
+WER_BATCH, WER_TOKENS = 256, 231  # one validation batch of full-length strings
+EDIT_PAIRS = 500  # seeded pairs of the C++-vs-NumPy equality gate
+
+
+def pretrained_file(family, seed):
+    """A seeded synthetic pretrained file at full width: a freshly built
+    ``family`` model's backbone (its own initialisation from ``seed``,
+    random BatchNorm statistics) under timm's key names (``blocks.*``) or the
+    Swin hub's (``patch_embed.*``, ``layers.*``, ``norm.*``, no
+    ``absolute_pos_embed``), with keys the converter drops (timm's stem,
+    head and classifier; the hub's head and derived buffers), written under
+    ``build/`` -> (path, the file's state dict, its ``pretrained`` entry)."""
+    from p4fr_tpu_torch.data.vocab import TOKENS_PATH, Vocab
+    from p4fr_tpu_torch.models.registry import get_network
+
+    swin = family.network == "SWIN"
+    torch.manual_seed(seed)
+    model = get_network(family.network, family.configs, Vocab.from_files([TOKENS_PATH]))
+    random_bn_stats(model, torch.Generator().manual_seed(seed + 1))
+    prefix, file_prefix = (("encoder.", "") if swin
+                           else ("encoder.shallow_cnn.eff_block.", "blocks."))
+    sd = {file_prefix + k[len(prefix):]: v.detach().clone()
+          for k, v in model.state_dict().items()
+          if k.startswith(prefix) and k != "encoder.absolute_pos_embed"}
+    gen = torch.Generator().manual_seed(seed + 2)
+    if swin:
+        dim = model.encoder.norm.weight.shape[0]
+        sd.update({"head.weight": torch.randn(1000, dim, generator=gen),
+                   "head.bias": torch.zeros(1000),
+                   "layers.0.blocks.0.attn.relative_position_index":
+                       torch.zeros(SWIN_WINDOW ** 2, SWIN_WINDOW ** 2, dtype=torch.int64),
+                   "layers.0.blocks.1.attn_mask": torch.zeros(64, SWIN_WINDOW ** 2,
+                                                              SWIN_WINDOW ** 2)})
+    else:
+        sd.update({"conv_stem.weight": torch.randn(24, 3, 3, 3, generator=gen),
+                   "bn1.weight": torch.ones(24), "bn1.bias": torch.zeros(24),
+                   "conv_head.weight": torch.randn(1280, 256, 1, 1, generator=gen),
+                   "classifier.weight": torch.randn(1000, 1280, generator=gen),
+                   "classifier.bias": torch.zeros(1000)})
+    path = os.path.join(REPO, "build", "p4fr_tpu_torch", "smoke",
+                        f"{family.network}_pretrained_seed{seed}.pth")
+    torch.save(sd, path)
+    return path, sd, ("swin" if swin else "efficientnetv2")
+
+
+def bootstrap_gate(ckpt, dev, card, family, seed):
+    """A trainer's fresh model on the card, its backbone grafted from a
+    seeded synthetic file at full width (``bootstrap_pretrained``: the
+    file's load and the graft timed on the host clock): every grafted
+    tensor equals the file's; then validation's eval step on the grafted
+    model through the kernels against its plain path (``eval_gate``)."""
+    from p4fr_tpu_torch.utils.convert import bootstrap_pretrained, pretrained_key_map
+
+    path, sd, entry = pretrained_file(family, seed)
+    model, _, _, vocab = trainer(ckpt, dev)
+    mapping, dropped, unmatched = pretrained_key_map(family.network, sd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = bootstrap_pretrained(model, family.network, {entry: path})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    state = model.state_dict()
+    differ = [k for f, k in mapping.items() if not torch.equal(state[k].cpu(), sd[f])]
+    mbytes = os.path.getsize(path) / 2 ** 20
+    print(f"[bootstrap: {family.label} from a seeded {entry} file ({mbytes:.1f} MiB, "
+          f"{len(sd)} keys, {len(dropped)} dropped, {len(unmatched)} unmatched), "
+          f"file load + graft {seconds * 1e3:.1f} ms on the host clock ({card})]")
+    print(f"  {len(written)} model tensors written, {len(mapping)} from the file: "
+          f"{len(differ)} differ from the file on the card")
+    if differ or unmatched or not mapping:
+        raise AssertionError(f"the bootstrap's tensors differ: {differ[:5]} {unmatched[:5]}")
+    eval_gate(model, vocab, dev, family, after="the bootstrap")
+    del model
+
+
+def native_resume_gate(ckpt, dev, dual=False, family=FLAGSHIP_TRAIN):
+    """``resume_gate`` through the JAX package's native file with the
+    optimizer's optax ``opt_state`` (``save_native_checkpoint(optimizer=)``):
+    the resumed step equals the uninterrupted one bit for bit, f32, every
+    parameter, statistic and moment (``num_batches_tracked``, which the
+    native format does not carry, aside)."""
+    from p4fr_tpu_torch.train.single_opt import resume
+    from p4fr_tpu_torch.utils.checkpoint import save_native_checkpoint
+
+    form = "dual_opt's two Adam groups" if dual else f"AdamW clip {TRAIN_CLIP}"
+    print(f"[native resume gate: {family.label} {form}, f32, B={TRAIN_RESUME_BATCH}, "
+          f"dropout on, cuDNN deterministic, opt_state in the native file]")
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, opt, step, vocab = trainer(ckpt, dev, dual=dual)
+        images, text = train_batch(TRAIN_RESUME_BATCH, vocab,
+                                   torch.Generator().manual_seed(SEED + 72), dev,
+                                   family.configs)
+        torch.manual_seed(SEED + 73)
+        step(images, text, True)
+        t0 = time.perf_counter()
+        path = save_native_checkpoint(
+            model, network=family.network, configs=family.configs, vocab=vocab, epoch=1,
+            optimizer=opt, dir="native_resume",
+            prefix=os.path.join(REPO, "build", "p4fr_tpu_torch", "smoke"))
+        t1 = time.perf_counter()
+        torch.manual_seed(SEED + 74)
+        want, _ = step(images, text, True)
+        model2, opt2, step2, _ = trainer(ckpt, dev, dual=dual)
+        t2 = time.perf_counter()
+        resume(path, model2, opt2)
+        t3 = time.perf_counter()
+        torch.manual_seed(SEED + 74)
+        got, _ = step2(images, text, True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    sd, sd2 = model.state_dict(), model2.state_dict()
+    differ = [k for k in sd if not k.endswith("num_batches_tracked")
+              and not torch.equal(sd[k], sd2[k])]
+    moments = [(opt.optimizer.state[p][k], opt2.optimizer.state[q][k])
+               for p, q in zip(model.parameters(), model2.parameters())
+               for k in opt.optimizer.state[p]]
+    moments_differ = sum(not torch.equal(a.cpu(), b.cpu()) for a, b in moments)
+    print(f"  native file {os.path.getsize(path) / 2 ** 20:.1f} MiB: write "
+          f"{(t1 - t0) * 1e3:.1f} ms, resume {(t3 - t2) * 1e3:.1f} ms (host clock); resumed "
+          f"step: loss {got['loss'].item():.6f} vs {want['loss'].item():.6f}, {len(differ)} "
+          f"of {len(sd)} state entries and {moments_differ} of {len(moments)} optimizer "
+          f"entries differ; update count {opt2.count} vs {opt.count}")
+    if (differ or moments_differ or not torch.equal(got["loss"], want["loss"])
+            or opt2.count != opt.count):
+        raise AssertionError(f"the step resumed from the native file differs: {differ[:5]}")
+
+
+def editdistance_gate(card):
+    """The C++ edit distance against the NumPy dynamic programme on seeded
+    pairs (exactly), then ``word_error_rate``'s host time over one
+    validation batch of full-length strings, C++ against the NumPy DP."""
+    from p4fr_tpu_torch.data.vocab import TOKENS_PATH, Vocab
+    from p4fr_tpu_torch.native import edit_distance_batch, library
+    from p4fr_tpu_torch.utils.metrics import edit_distance, word_error_rate
+
+    t0 = time.perf_counter()
+    library()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(SEED + 75)
+    pairs = []
+    for _ in range(EDIT_PAIRS):  # short alphabets, so that tokens match
+        alphabet = int(torch.randint(1, 7, (), generator=gen))
+        na, nb = torch.randint(0, WER_TOKENS, (2,), generator=gen).tolist()
+        pairs.append((torch.randint(0, alphabet, (na,), generator=gen).tolist(),
+                      torch.randint(0, alphabet, (nb,), generator=gen).tolist()))
+    pairs += [([], []), ([1], []), ([], [2, 3])]
+    native = edit_distance_batch(pairs).tolist()
+    plain = [edit_distance(a, b) for a, b in pairs]
+    wrong = sum(x != y for x, y in zip(native, plain))
+    tokens = list(Vocab.from_files([TOKENS_PATH]).token_to_id)
+
+    def sentence():
+        ids = torch.randint(3, len(tokens), (WER_TOKENS,), generator=gen).tolist()
+        return "".join(f"{tokens[i]} " for i in ids)
+
+    out = [sentence() for _ in range(WER_BATCH)]
+    gt = [sentence() for _ in range(WER_BATCH)]
+
+    def numpy_wer():
+        return sum(edit_distance(o.split(" "), g.split(" "))
+                   / max(len(o.split(" ")), len(g.split(" "))) for o, g in zip(out, gt)
+                   ) / len(out)
+
+    def median_ms(fn, runs):
+        times = []
+        for _ in range(runs):
+            t = time.perf_counter()
+            value = fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return sorted(times)[runs // 2], value
+
+    cpp_ms, cpp = median_ms(lambda: word_error_rate(out, gt), 7)
+    np_ms, ref = median_ms(numpy_wer, 3)
+    print(f"[C++ edit distance: built/loaded in {build_s:.2f} s; {len(pairs)} seeded pairs, "
+          f"{wrong} differ from the NumPy DP; word_error_rate over B={WER_BATCH} pairs of "
+          f"{WER_TOKENS}-token strings: C++ {cpp_ms:.2f} ms, NumPy DP {np_ms:.2f} ms (host "
+          f"clock, median; {card}); WER {cpp:.6f} vs {ref:.6f}]")
+    if wrong or abs(cpp - ref) > 1e-12:
+        raise AssertionError("the C++ edit distance disagrees with the NumPy DP")
+
+
+def start_and_restart_phase(ckpt, swin_ckpt, dev, card):
+    """Phase 7e: the pretrained bootstrap (flagship, SwinTRN), resume from
+    a native file with its optimizer state (AdamW with clip, dual_opt),
+    and the C++ edit distance."""
+    t0 = time.perf_counter()
+    bootstrap_gate(ckpt, dev, card, FLAGSHIP_TRAIN, SEED + 70)
+    torch.cuda.empty_cache()
+    bootstrap_gate(swin_ckpt, dev, card, SWIN_TRAIN, SEED + 76)
+    torch.cuda.empty_cache()
+    native_resume_gate(ckpt, dev)
+    native_resume_gate(ckpt, dev, dual=True)
+    editdistance_gate(card)
+    print(f"[phase 7e: {time.perf_counter() - t0:.1f} s]")
 
 
 # ---------------------------------------------------------------- phase 7b
@@ -4025,6 +4237,8 @@ def main():
     torch.cuda.empty_cache()
     train_phase(swin_ckpt, dev, card, SWIN_TRAIN)
     grad_refusal_gate(dev)
+    torch.cuda.empty_cache()
+    start_and_restart_phase(ckpt, swin_ckpt, dev, card)
 
     bad = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "p4fr_tpu"))

@@ -16,8 +16,11 @@ package's native ``.ckpt``), and no other regime takes it, with the JAX
 CLI's messages; a teacher whose vocabulary differs in size from the
 student's is refused. Every family trains under every regime (LiteSATRN,
 EfficientSATRN, SwinTRN with ``configs/SWIN.yaml``, EfficientASTER with
-``configs/EfficientASTER.yaml``); a config that sets ``pretrained:`` is
-refused with its ROADMAP item.
+``configs/EfficientASTER.yaml``). A config's ``pretrained: {efficientnetv2:
+timm.pth}`` (EfficientSATRN, EfficientASTER) or ``{swin: hub.pth}``
+(SwinTRN) grafts that backbone into the fresh model; its ``checkpoint:``
+resumes a ``.pth`` or a JAX trainer's native ``.ckpt``, optimizer state
+included.
 """
 
 import argparse
@@ -57,14 +60,9 @@ def main(argv=None):
 
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA card is visible; pass --device cpu to run on the CPU")
-    from p4fr_tpu_torch.train import single_opt
     from p4fr_tpu_torch.utils.flags import Flags
 
     options = Flags(args.config_file).get()
-    try:
-        single_opt.check_trainable(options)
-    except NotImplementedError as exc:
-        parser.error(str(exc))
     kwargs = {"max_label_len": args.max_label_len, "device": args.device}
     if args.project_name or args.exp_name:
         kwargs["wandb_kwargs"] = {"project": args.project_name, "name": args.exp_name}

@@ -150,7 +150,6 @@ def main(options_or_path, *, teacher_ckpt: str, device="cuda",
          max_label_len: int = 232, log_dir: Optional[str] = None,
          wandb_kwargs: Optional[Dict] = None):
     options = so.load_options(options_or_path)
-    so.check_trainable(options)
     dev = so.resolve_device(device)
     dtype = so.compute_dtype(options)
     teacher, teacher_options, teacher_vocab, teacher_network = load_teacher(

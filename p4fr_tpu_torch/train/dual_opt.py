@@ -18,7 +18,7 @@ import torch
 
 from p4fr_tpu_torch.train import single_opt as so
 from p4fr_tpu_torch.train.schedules import constant_with_warmup, cosine_warmup_restarts
-from p4fr_tpu_torch.train.steps import ScheduledOptimizer
+from p4fr_tpu_torch.train.steps import OptaxLayout, ScheduledOptimizer
 
 
 def dual_schedules(enc_lr: float, dec_lr: float, total_steps: int, *,
@@ -48,7 +48,9 @@ def build_dual_optimizer(model: torch.nn.Module, enc_lr: float, dec_lr: float,
                            lr=0.0, betas=(0.9, 0.999), eps=1e-8)
     schedules = dual_schedules(enc_lr, dec_lr, total_steps,
                                warmup_ratio=warmup_ratio, cycles=cycles)
-    return ScheduledOptimizer(opt, schedules, max_grad_norm=max_grad_norm)
+    return ScheduledOptimizer(opt, schedules, max_grad_norm=max_grad_norm,
+                              layout=OptaxLayout("adam", clip=max_grad_norm is not None,
+                                                 labels=("encoder", "decoder")))
 
 
 def _build(model, options, total_steps: int) -> ScheduledOptimizer:

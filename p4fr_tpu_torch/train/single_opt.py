@@ -10,16 +10,18 @@ records, and resume from ``options.checkpoint``.
 ``train`` is the loop every regime runs; ``dual_opt`` differs only in the
 optimizer it builds, ``distillation`` in its loaders and its step. The run is on the CUDA card unless the caller passes
 ``device="cpu"``; without CUDA and without that, it refuses. Every family
-trains (EfficientSATRN, LiteSATRN, SwinTRN, EfficientASTER); a config that
-asks for the pretrained-backbone bootstrap is refused with its ROADMAP
-item. Checkpoints are the reference-format ``.pth``
-(``utils/checkpoint.py``) at ``{prefix}/checkpoints/{network}_best_model.pth``.
-``options.checkpoint`` may also name the JAX package's native file: one
-without ``opt_state`` (the port's ``save_native_checkpoint`` writes such)
-resumes its weights, batch statistics, epoch, teacher-forcing position and
-histories with a fresh optimizer, the schedules at epoch x batches per
-epoch, as the JAX trainer does; one with an optax ``opt_state`` is
-refused (``RESUME_OPT_STATE``).
+trains (EfficientSATRN, LiteSATRN, SwinTRN, EfficientASTER). A config with
+``pretrained:`` grafts the public backbone weights it names into the fresh
+model before any resume, as the JAX trainers do
+(``utils/convert.py::bootstrap_pretrained``). Checkpoints are the
+reference-format ``.pth`` (``utils/checkpoint.py``) at
+``{prefix}/checkpoints/{network}_best_model.pth``.
+``options.checkpoint`` may also name the JAX package's native file: its
+weights, batch statistics, epoch, teacher-forcing position and histories
+resume, and its optax ``opt_state`` into the optimizer. A nil ``opt_state``
+leaves the optimizer fresh, its update count and every schedule at 0, as
+the JAX trainer's ``optimizer.init`` does; in both cases the logged step
+starts at epoch x batches per epoch, as JAX's ``state.step`` does.
 """
 
 from __future__ import annotations
@@ -50,9 +52,11 @@ from p4fr_tpu_torch.train.steps import (
 )
 from p4fr_tpu_torch.utils.checkpoint import (
     HISTORY_KEYS,
+    optimizer_routes,
     read_checkpoint,
     save_checkpoint,
 )
+from p4fr_tpu_torch.utils.convert import bootstrap_pretrained
 from p4fr_tpu_torch.utils.flags import Flags
 from p4fr_tpu_torch.utils.logging import (
     ExperimentLogger,
@@ -65,9 +69,6 @@ from p4fr_tpu_torch.utils.metrics import (
     symbol_accuracy,
     word_error_rate,
 )
-
-RESUME_OPT_STATE = "ROADMAP.md Queue 1: resume a JAX trainer's optimizer state"
-
 
 def set_seed(seed: int = 21) -> None:
     random.seed(seed)
@@ -93,14 +94,6 @@ def load_options(options_or_path):
     if hasattr(options_or_path, "to_dict"):
         return options_or_path
     return Flags(options_or_path).get()
-
-
-def check_trainable(options) -> None:
-    """Refuse what the trainers do not port yet: a ``pretrained:`` backbone."""
-    if options.get("pretrained") is not None:
-        raise NotImplementedError(
-            "the pretrained-backbone bootstrap is not ported to p4fr_tpu_torch "
-            "yet (ROADMAP.md Queue 1: pretrained-backbone bootstrap)")
 
 
 def batch_text(batch: Dict, pad_id: int, device: torch.device) -> torch.Tensor:
@@ -153,22 +146,18 @@ def _lr_record(optimizer: ScheduledOptimizer, step: int):
 
 
 def resume(path: str, model, optimizer: ScheduledOptimizer,
-           tf_scheduler: Optional[TeacherForcingScheduler] = None,
-           steps_per_epoch: int = 0) -> Dict:
-    """Load a trainer's ``.pth`` into ``model`` (``strict=True``), the
-    optimizer and its schedules' position and, if given, the
-    teacher-forcing scheduler -> the loaded dict. A native checkpoint
-    without ``opt_state`` leaves the optimizer fresh and sets its update
-    count to its epoch x ``steps_per_epoch``; one with it is refused."""
+           tf_scheduler: Optional[TeacherForcingScheduler] = None) -> Dict:
+    """Load a trainer's ``.pth`` or a native file into ``model``
+    (``strict=True``), the optimizer and its schedules' position and, if
+    given, the teacher-forcing scheduler -> the loaded dict. A native
+    file's optax ``opt_state`` restores into the optimizer; a nil one
+    leaves it fresh (update count 0), as JAX's trainer does."""
     loaded = read_checkpoint(path)
-    native = "params" in loaded
-    if native and loaded.get("opt_state"):
-        raise NotImplementedError(
-            f"{path} carries the JAX trainer's optax opt_state; resuming it "
-            f"is not ported to p4fr_tpu_torch yet ({RESUME_OPT_STATE})")
     model.load_state_dict(loaded["model"], strict=True)
-    if native:
-        optimizer.count = int(loaded.get("epoch", 0)) * steps_per_epoch
+    if "params" in loaded:  # native
+        if loaded.get("opt_state"):
+            optimizer.load_optax_state(loaded["opt_state"],
+                                       optimizer_routes(loaded["network"], model))
     elif loaded.get("optimizer"):
         optimizer.load_state_dict(loaded["optimizer"], loaded["scheduler"])
     if tf_scheduler is not None and loaded.get("tf_scheduler"):
@@ -210,7 +199,6 @@ def train(options, build: Callable[[torch.nn.Module, object, int], ScheduledOpti
     the update a batch makes. Returns {"best_metric", "model",
     "optimizer", "histories", "checkpoint"} (the last best checkpoint's
     path, or None)."""
-    check_trainable(options)
     dev = resolve_device(device)
     set_seed(options.seed)
     dtype = compute_dtype(options)
@@ -219,6 +207,8 @@ def train(options, build: Callable[[torch.nn.Module, object, int], ScheduledOpti
     pad_id = vocab.pad_id
     configs = options.to_dict()
     model = get_network(options.network, configs, vocab, device=dev).train()
+    if options.get("pretrained") is not None:
+        bootstrap_pretrained(model, options.network, options.pretrained)
 
     total_steps = len(train_loader) * options.num_epochs
     optimizer = build(model, options, total_steps)
@@ -227,12 +217,14 @@ def train(options, build: Callable[[torch.nn.Module, object, int], ScheduledOpti
         options.teacher_forcing_ratio.tf_min)
     start_epoch = 0
     histories: Dict = {k: [] for k in HISTORY_KEYS}
+    log_step = 0  # the step the logged learning rate reads
     if options.checkpoint:
-        loaded = resume(options.checkpoint, model, optimizer, tf_scheduler,
-                        len(train_loader))
+        loaded = resume(options.checkpoint, model, optimizer, tf_scheduler)
         start_epoch = int(loaded.get("epoch", 0))
         for k in histories:
             histories[k] = list(loaded.get(k) or [])
+        log_step = (start_epoch * len(train_loader) if "params" in loaded
+                    else optimizer.count)
 
     train_step = make_step(model, optimizer, pad_id, dtype, dev)
     logger = ExperimentLogger(log_dir or os.path.join(options.prefix, "logs"),
@@ -251,11 +243,11 @@ def train(options, build: Callable[[torch.nn.Module, object, int], ScheduledOpti
             tf_ratio = tf_scheduler.step()
             teacher_forced = py_rng.random() < tf_ratio
             text = batch_text(batch, pad_id, dev)
-            step_idx = optimizer.count  # the update this batch makes
             metrics, sequences = train_step(batch, text, teacher_forced)
             loss = float(metrics["loss"])
-            lr, extra = _lr_record(optimizer, step_idx)
-            write_step_log(logger, step_idx, lr, tf_ratio, loss=loss, extra=extra)
+            lr, extra = _lr_record(optimizer, log_step)
+            write_step_log(logger, log_step, lr, tf_ratio, loss=loss, extra=extra)
+            log_step += 1
             _accumulate(agg, loss, batch_metrics(
                 sequences.cpu().numpy(), text.cpu().numpy(), vocab, pad_id))
         train_metrics = run_epoch_metrics(agg)
@@ -272,7 +264,7 @@ def train(options, build: Callable[[torch.nn.Module, object, int], ScheduledOpti
                 vocab, pad_id))
         valid_metrics = run_epoch_metrics(vagg)
 
-        lr_now, extra = _lr_record(optimizer, optimizer.count)
+        lr_now, extra = _lr_record(optimizer, log_step)
         for key, val in (
             ("train_losses", train_metrics["loss"]),
             ("train_symbol_accuracy", train_metrics["symbol_accuracy"]),

@@ -9,7 +9,10 @@
 - the optimizer clips by global norm as optax does (``max_norm / norm``
   only where ``norm >= max_norm``, no epsilon), per parameter group, and
   reads each group's learning rate (and Adam's beta1) from its schedule at
-  the number of updates made so far, before the update.
+  the number of updates made so far, before the update;
+- its state reads and writes optax's tree (``ScheduledOptimizer.
+  optax_state`` / ``load_optax_state``), the layout of the JAX trainer's
+  ``opt_state`` for each optimizer it builds (``OptaxLayout``).
 
 Training runs through the plain modules (cuDNN and cuBLAS on the card); the
 compute type is ``torch.autocast`` over the forward, with f32 master
@@ -24,8 +27,9 @@ step, ``decoding.fast_aster``), or every kernel's plain version with
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from p4fr_tpu_torch.decoding.fast_aster import FastAster, FastAsterCell, aster_step
@@ -33,6 +37,7 @@ from p4fr_tpu_torch.decoding.fast_step import decode_buffers, fast_decode_step
 from p4fr_tpu_torch.infer.single import build_fast
 from p4fr_tpu_torch.ops.decoder_layer import LayerWeights
 from p4fr_tpu_torch.train.schedules import Schedule
+from p4fr_tpu_torch.utils.convert import _set_path
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -77,6 +82,47 @@ def ar_sampled_logits(model, images: torch.Tensor, num_steps: int,
     return torch.stack(logits, dim=1)
 
 
+class OptaxLayout(NamedTuple):
+    """Where the JAX trainer's optax state keeps what a ``ScheduledOptimizer``
+    keeps (``p4fr_tpu/train/steps.py::build_optimizer``, ``dual_opt.py::
+    build_dual_optimizer``): ``name`` adam, adamw or adadelta; ``clip``, a
+    ``clip_by_global_norm`` chained before it; ``inject``, the Adam family
+    under ``inject_hyperparams`` with a beta1 schedule (``weight_decay`` is
+    then one of its hyperparameters); ``labels``, the ``multi_transform``
+    label of each parameter group (None: one chain over every parameter),
+    each group's chain an ``optax.chain`` even without the clip."""
+    name: str
+    clip: bool = False
+    inject: bool = False
+    weight_decay: float = 0.0
+    labels: Optional[Tuple[str, ...]] = None
+
+
+# optax's moment names -> torch's, per optimizer
+_MOMENTS = {"adam": (("mu", "exp_avg"), ("nu", "exp_avg_sq")),
+            "adadelta": (("e_g", "square_avg"), ("e_x", "acc_delta"))}
+_MOMENTS["adamw"] = _MOMENTS["adam"]
+# a parameter's route into the optax tree: (flax path, forward layout
+# transform, its inverse) (``utils/convert.py::param_routes``)
+Route = Tuple[str, Callable, Callable]
+
+
+def _seq(*states) -> Dict:
+    """A tuple of optax states as flax's state dict gives it."""
+    return {str(i): st for i, st in enumerate(states)}
+
+
+def _leaf(tree: Dict, path: str):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def _jax_label(top: str) -> str:
+    """``dual_opt.build_dual_optimizer``'s label of a top-level params key."""
+    return "encoder" if top == "encoder" else "decoder"
+
+
 class ScheduledOptimizer:
     """A torch optimizer whose groups each carry a learning-rate schedule
     (and, for Adam, an optional beta1 schedule), clipped per group by
@@ -84,18 +130,21 @@ class ScheduledOptimizer:
 
     ``state_dict`` gives the reference checkpoint's ``optimizer`` (the
     torch optimizer's state dict) and ``scheduler`` (the update count the
-    schedules read) entries."""
+    schedules read) entries; ``optax_state`` and ``load_optax_state`` the
+    JAX trainer's ``opt_state`` in the optimizer's ``layout``."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  schedules: Sequence[Schedule],
                  b1_schedules: Optional[Sequence[Optional[Schedule]]] = None,
-                 max_grad_norm: Optional[float] = None):
+                 max_grad_norm: Optional[float] = None,
+                 layout: Optional[OptaxLayout] = None):
         if len(schedules) != len(optimizer.param_groups):
             raise ValueError("one schedule per parameter group")
         self.optimizer = optimizer
         self.schedules = list(schedules)
         self.b1_schedules = list(b1_schedules or [None] * len(schedules))
         self.max_grad_norm = max_grad_norm
+        self.layout = layout
         self.count = 0  # updates made so far
 
     def zero_grad(self) -> None:
@@ -140,6 +189,129 @@ class ScheduledOptimizer:
         self.optimizer.load_state_dict(optimizer_state)
         self.count = int(scheduler_state["step"])
 
+    def _layout(self) -> OptaxLayout:
+        if self.layout is None:
+            raise ValueError("this optimizer has no optax layout")
+        return self.layout
+
+    def _group_labels(self, routes: Dict[torch.Tensor, Route]):
+        """Each group's label (None for one chain), checked against the JAX
+        trainer's routing of every parameter."""
+        labels = self._layout().labels
+        if labels is None:
+            return [None]
+        for label, group in zip(labels, self.optimizer.param_groups):
+            for p in group["params"]:
+                if _jax_label(routes[p][0].split("/")[0]) != label:
+                    raise ValueError(f"{routes[p][0]} is not in the JAX "
+                                     f"trainer's {label} group")
+        return list(labels)
+
+    def optax_state(self, routes: Dict[torch.Tensor, Route]) -> Dict:
+        """The optax ``opt_state`` of this optimizer, as flax's
+        ``to_state_dict(optimizer.init(params))`` lays it out, numpy leaves:
+        each parameter's moments at its flax path in flax's layout, the
+        Adam count from torch's per-parameter ``step``, every schedule count
+        from ``count``. ``routes``: each parameter's route."""
+        layout = self._layout()
+        labels = self._group_labels(routes)
+        tops = sorted({path.split("/")[0] for path, _, _ in routes.values()})
+        states = {}
+        for index, (label, group) in enumerate(zip(labels, self.optimizer.param_groups)):
+            moments = {name: {} for name, _ in _MOMENTS[layout.name]}
+            steps = set()
+            for p in group["params"]:
+                path, forward, _ = routes[p]
+                st = self.optimizer.state.get(p, {})
+                steps.add(int(st["step"]) if "step" in st else 0)
+                for name, torch_name in _MOMENTS[layout.name]:
+                    value = (st[torch_name].detach().float().cpu().numpy() if st
+                             else np.zeros(tuple(p.shape), np.float32))
+                    _set_path(moments[name], path, forward(value))
+            if len(steps) > 1:
+                raise ValueError(f"the parameters' update counts differ: {sorted(steps)}")
+            if label is not None:  # multi_transform masks the other group's subtrees
+                moments = {name: {top: (tree.get(top, {}) if _jax_label(top) == label
+                                        else {}) for top in tops}
+                           for name, tree in moments.items()}
+            states[label] = self._chain_state(index, moments, steps.pop() if steps else 0)
+        if labels == [None]:
+            return states[None]
+        return {"inner_states": {label: {"inner_state": states[label]}
+                                 for label in labels}}
+
+    def _chain_state(self, index: int, moments: Dict, step: int) -> Dict:
+        """Parameter group ``index``'s chain, its moments and Adam count
+        given."""
+        layout = self._layout()
+        count = np.asarray(self.count, np.int32)
+        if layout.name == "adadelta":
+            core = _seq({}, moments, {"count": count})
+        else:
+            adam = {"count": np.asarray(step, np.int32), **moments}
+            tail = ({},) if layout.name == "adamw" else ()
+            if layout.inject:
+                # the hyperparameters of the last update (the schedules at the
+                # count before it), or of init
+                at = max(self.count - 1, 0)
+                group = self.optimizer.param_groups[index]
+                hyper = {"learning_rate": self.schedules[index](at),
+                         "b1": self.b1_schedules[index](at),
+                         "b2": group["betas"][1], "eps": group["eps"], "eps_root": 0.0}
+                if layout.name == "adamw":
+                    hyper["weight_decay"] = layout.weight_decay
+                core = {"count": count,
+                        "hyperparams": {k: np.asarray(v, np.float32)
+                                        for k, v in hyper.items()},
+                        "hyperparams_states": {"b1": {"count": count},
+                                               "learning_rate": {"count": count}},
+                        "inner_state": _seq(adam, *tail, {})}
+            else:
+                core = _seq(adam, *tail, {"count": count})
+        if layout.clip:
+            return _seq({}, core)
+        return _seq(core) if layout.labels is not None else core
+
+    def load_optax_state(self, opt_state: Dict, routes: Dict[torch.Tensor, Route]) -> None:
+        """Restore an optax ``opt_state`` (numpy leaves, this optimizer's
+        layout) into the torch optimizer: the moments through each
+        parameter's inverse layout transform, torch's ``step`` from the Adam
+        count (Adadelta: the schedule's), ``count`` from the schedules'."""
+        layout = self._layout()
+        labels = self._group_labels(routes)
+        torch_state = self.optimizer.state_dict()
+        counts = set()
+        for label, group, indices in zip(labels, self.optimizer.param_groups,
+                                         (g["params"] for g in torch_state["param_groups"])):
+            tree = (opt_state if label is None
+                    else opt_state["inner_states"][label]["inner_state"])
+            if layout.clip:
+                tree = tree["1"]
+            elif layout.labels is not None:
+                tree = tree["0"]
+            if layout.name == "adadelta":
+                moments, count = tree["1"], int(tree["2"]["count"])
+                step = count
+            elif layout.inject:
+                moments, count = tree["inner_state"]["0"], int(tree["count"])
+                step = int(moments["count"])
+            else:
+                moments, step = tree["0"], int(tree["0"]["count"])
+                count = int(tree[str(len(tree) - 1)]["count"])
+            counts.add(count)
+            for p, index in zip(group["params"], indices):
+                path, _, inverse = routes[p]
+                st = {"step": torch.tensor(float(step))}
+                for name, torch_name in _MOMENTS[layout.name]:
+                    # a copy: the file's leaves may be read-only views of its bytes
+                    st[torch_name] = torch.from_numpy(np.array(
+                        inverse(np.asarray(_leaf(moments[name], path))), np.float32))
+                torch_state["state"][index] = st
+        if len(counts) > 1:
+            raise ValueError(f"the groups' schedule counts differ: {sorted(counts)}")
+        self.optimizer.load_state_dict(torch_state)
+        self.count = counts.pop()
+
 
 def build_optimizer(name: str, params, schedule: Schedule, *,
                     weight_decay: float = 0.0,
@@ -153,6 +325,9 @@ def build_optimizer(name: str, params, schedule: Schedule, *,
     ignores it, as the JAX package does."""
     params = list(params)
     name = name.lower()
+    layout = OptaxLayout(name, clip=max_grad_norm is not None,
+                         inject=b1_schedule is not None and name != "adadelta",
+                         weight_decay=weight_decay)
     if name == "adam":
         opt = torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
     elif name == "adamw":
@@ -164,7 +339,7 @@ def build_optimizer(name: str, params, schedule: Schedule, *,
         b1_schedule = None
     else:
         raise NotImplementedError(f"optimizer {name}")
-    return ScheduledOptimizer(opt, [schedule], [b1_schedule], max_grad_norm)
+    return ScheduledOptimizer(opt, [schedule], [b1_schedule], max_grad_norm, layout)
 
 
 def make_train_step(model, optimizer: ScheduledOptimizer, pad_id: int, *,

@@ -31,8 +31,12 @@ two apart by the file's first bytes and reads a native file with the
 port's own codec (``utils/msgpack_io.py``; no flax, no ``msgpack``
 package), then through the weight bridge (``utils/convert.py``).
 ``save_native_checkpoint`` writes one that the JAX package's
-``load_checkpoint`` and ``load_model_from_checkpoint`` read, with
-``opt_state`` nil: the torch optimizer's state has no optax tree.
+``load_checkpoint`` and ``load_model_from_checkpoint`` read; given the
+trainer's optimizer, its ``opt_state`` is the optimizer's state in optax's
+tree (``train/steps.py::ScheduledOptimizer.optax_state``), which JAX's
+``restore_opt_state`` and trainers take; ``ScheduledOptimizer.
+load_optax_state`` reads such a tree back (``optimizer_routes`` gives both
+each parameter's place in it).
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import torch
 from p4fr_tpu_torch.data.vocab import Vocab
 from p4fr_tpu_torch.models.registry import get_network
 from p4fr_tpu_torch.utils import msgpack_io
-from p4fr_tpu_torch.utils.convert import flax_trees, state_dict_from_jax
+from p4fr_tpu_torch.utils.convert import flax_trees, param_routes, state_dict_from_jax
 
 # the metric histories a trainer's checkpoint carries, in either format
 # (``p4fr_tpu/utils/checkpoint.py::default_checkpoint``)
@@ -146,19 +150,30 @@ def load_model_from_checkpoint(path: str, device="cpu", dtype=torch.float32):
     return model, options, vocab, ckpt
 
 
+def optimizer_routes(network: str, model) -> Dict:
+    """Each of ``model``'s parameters -> its route into an optax state tree
+    (flax path, layout transform, inverse)."""
+    named = list(model.named_parameters())
+    routes = param_routes(network, named)
+    return {p: routes[n] for n, p in named}
+
+
 def save_native_checkpoint(model, *, network: str, configs: Dict, vocab: Vocab,
                            epoch: int = 0, histories: Optional[Dict] = None,
-                           tf_scheduler: Optional[Dict] = None,
+                           tf_scheduler: Optional[Dict] = None, optimizer=None,
                            dir: str = "./checkpoints", prefix: str = "") -> str:
     """Write ``{prefix}/{dir}/{network}_best_model.ckpt``, the JAX
     package's native file: the keys of its ``default_checkpoint``, the
-    weights as flax trees, ``opt_state`` nil, ``id_to_token`` with string
-    keys."""
+    weights as flax trees, ``opt_state`` the optax state of ``optimizer``
+    (a ``ScheduledOptimizer``; nil without one), ``id_to_token`` with
+    string keys."""
     params, batch_stats = flax_trees(network, model.state_dict())
+    opt_state = (None if optimizer is None
+                 else optimizer.optax_state(optimizer_routes(network, model)))
     payload: Dict[str, Any] = {"epoch": int(epoch)}
     payload.update({k: list((histories or {}).get(k) or []) for k in HISTORY_KEYS})
     payload.update(
-        params=params, batch_stats=batch_stats, opt_state=None, configs=configs,
+        params=params, batch_stats=batch_stats, opt_state=opt_state, configs=configs,
         token_to_id=dict(vocab.token_to_id),
         id_to_token={str(k): v for k, v in vocab.id_to_token.items()},
         network=network, scheduler={}, tf_scheduler=dict(tf_scheduler or {}))

@@ -3,8 +3,9 @@ state dicts, both ways.
 
 The port's own copy of the rule tables of
 ``p4fr_tpu/utils/convert_pth.py`` for every family (LiteSATRN,
-EfficientSATRN, SwinTRN, EfficientASTER; the Swin hub-weight and timm
-rules of the pretrained-backbone bootstrap are not copied).
+EfficientSATRN, SwinTRN, EfficientASTER), and of the pretrained-backbone
+bootstrap's tables for timm's EfficientNetV2-S blocks and Microsoft's Swin
+hub file (``bootstrap_pretrained``, at the end of this file).
 The rule tables map each reference torch key (regex) to a flax path
 template and a layout transform. ``export_state_dict`` inverts them, so the
 result is exactly the reference ``.pth`` layout the port's modules load;
@@ -327,41 +328,55 @@ def _torch_key(pattern: str, groups: Dict[int, str]) -> str:
     return re.sub(r"\\(.)", r"\1", s)
 
 
-def export_state_dict(
-    network: str, params: Dict, batch_stats: Optional[Dict] = None
-) -> Tuple[Dict[str, np.ndarray], List[str]]:
-    """flax (params, batch_stats) -> (reference-named numpy state dict,
-    unmatched flax paths)."""
+def _inverted_rules(network: str):
+    """The network's rules, inverted: (flax regex, backref order, torch
+    regex, inverse transform) for each non-"drop" rule."""
     inverted = []
     for pat, repl, transform, coll in rules_for(network):
         if coll == "drop" or not repl:
             continue
         flax_re, order = _invert_rule(pat, repl)
         inverted.append((flax_re, order, pat, _INV_TRANSFORM[transform]))
+    return inverted
 
-    def flatten(tree, prefix=""):
-        out = {}
-        for k, v in (tree or {}).items():
-            path = f"{prefix}/{k}" if prefix else k
-            if isinstance(v, dict):
-                out.update(flatten(v, path))
-            else:
-                out[path] = np.asarray(v)
-        return out
 
-    flat = flatten(params)
-    flat.update(flatten(batch_stats))
+def _torch_route(path: str, inverted) -> Optional[Tuple[str, Callable]]:
+    """A flax path -> (reference torch key, inverse transform), or None."""
+    for flax_re, order, pat, inv in inverted:
+        m = flax_re.match(path)
+        if m:
+            return _torch_key(pat, dict(zip(order, m.groups()))), inv
+    return None
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict -> {"a/b/c": leaf}."""
+    out = {}
+    for k, v in (tree or {}).items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def export_state_dict(
+    network: str, params: Dict, batch_stats: Optional[Dict] = None
+) -> Tuple[Dict[str, np.ndarray], List[str]]:
+    """flax (params, batch_stats) -> (reference-named numpy state dict,
+    unmatched flax paths)."""
+    inverted = _inverted_rules(network)
+    flat = _flatten(params)
+    flat.update(_flatten(batch_stats))
     sd: Dict[str, np.ndarray] = {}
     unmatched: List[str] = []
     for path, arr in flat.items():
-        for flax_re, order, pat, inv in inverted:
-            m = flax_re.match(path)
-            if m:
-                groups = {n: g for n, g in zip(order, m.groups())}
-                sd[_torch_key(pat, groups)] = inv(arr)
-                break
-        else:
+        route = _torch_route(path, inverted)
+        if route is None:
             unmatched.append(path)
+        else:
+            sd[route[0]] = route[1](arr)
     if network in ("EfficientASTER", "ASTER") and not any(
             k.startswith("decoder.attention_cell.rnn.1.") for k in sd):
         # one decoder layer: the reference's bare LSTMCell at .rnn
@@ -393,25 +408,313 @@ def _set_path(tree: Dict, path: str, value: np.ndarray) -> None:
     node[parts[-1]] = value
 
 
+def _match(rules: List[Rule], keys) -> Tuple[Dict[str, Tuple[str, str, Callable]], List[str]]:
+    """Each torch key -> (collection, flax path, forward transform) by the
+    first rule it matches ("drop" keys: collection "drop", no path), and
+    the keys no rule matches."""
+    compiled = [(re.compile(pat), repl, t, coll) for pat, repl, t, coll in rules]
+    routes, unmatched = {}, []
+    for key in keys:
+        for pat, repl, transform, coll in compiled:
+            if pat.match(key):
+                routes[key] = (coll, pat.sub(repl, key) if coll != "drop" else "",
+                               transform)
+                break
+        else:
+            unmatched.append(key)
+    return routes, unmatched
+
+
+def _routes(network: str, keys) -> Dict[str, Tuple[str, str, Callable]]:
+    """``_match`` by the network's rules; raises if a key has no rule."""
+    routes, unmatched = _match(rules_for(network), keys)
+    if unmatched:
+        raise ValueError(f"{len(unmatched)} torch keys have no rule: {unmatched[:8]}")
+    return routes
+
+
 def flax_trees(network: str, state_dict: Dict[str, torch.Tensor]
                ) -> Tuple[Dict, Dict]:
     """A torch state dict -> the flax (``params``, ``batch_stats``) trees of
     the JAX model, numpy leaves, floating tensors as f32 (the JAX
     package's ``convert_state_dict``). Raises if a torch key has no rule."""
-    compiled = [(re.compile(pat), repl, t, coll) for pat, repl, t, coll
-                in rules_for(network)]
     trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
-    unmatched: List[str] = []
-    for key, value in state_dict.items():
-        value = value.detach().cpu()
+    for key, (coll, path, transform) in _routes(network, state_dict).items():
+        if coll == "drop":
+            continue
+        value = state_dict[key].detach().cpu()
         arr = (value.float() if value.is_floating_point() else value).numpy()
-        for pat, repl, transform, coll in compiled:
-            if pat.match(key):
-                if coll != "drop":
-                    _set_path(trees[coll], pat.sub(repl, key), transform(arr))
-                break
-        else:
-            unmatched.append(key)
-    if unmatched:
-        raise ValueError(f"{len(unmatched)} torch keys have no rule: {unmatched[:8]}")
+        _set_path(trees[coll], path, transform(arr))
     return trees["params"], trees["batch_stats"]
+
+
+def param_routes(network: str, named_parameters) -> Dict[str, Tuple[str, Callable, Callable]]:
+    """Each trainable parameter's name -> (its flax path in ``params``, the
+    forward transform, its inverse): the layout an optax state tree keeps
+    the parameter's moments in. Raises if a parameter lands elsewhere."""
+    names = [name for name, _ in named_parameters]
+    routes = {}
+    for name, (coll, path, transform) in _routes(network, names).items():
+        if coll != "params":
+            raise ValueError(f"parameter {name} has no place in the flax params tree")
+        routes[name] = (path, transform, _INV_TRANSFORM[transform])
+    return routes
+
+
+# ---------------------------------------------------------------------------
+# the pretrained-backbone bootstrap (``p4fr_tpu/utils/convert_pth.py``
+# :412-683): timm's tf_efficientnetv2_s blocks and Microsoft's
+# swin_base_patch4_window12_384_22k.pth, downloaded offline, converted by the
+# JAX package's rules to its flax subtree and grafted into a freshly built
+# model through the bridge's inverse, so that the two cannot drift
+# ---------------------------------------------------------------------------
+
+# a transform's effect on a shape (the graft checks shapes, not values)
+_SHAPE = {
+    _identity: lambda s: s,
+    _t_linear: lambda s: s[::-1],
+    _t_conv: lambda s: (s[2], s[3], s[1], s[0]),
+    _t_depthwise: lambda s: (s[2], s[3], s[1], s[0]),
+}
+
+
+def _pattern_skeleton(pattern: str) -> str:
+    """Regex rule pattern -> readable key template for diff hints."""
+    s = pattern.rstrip("$").replace(r"\.", ".")
+    s = re.sub(r"\(\\d\+\)", "N", s)
+    return s.replace("\\", "")
+
+
+def unmatched_report(rules: List[Rule], state_dict: Dict, unmatched: List[str]) -> str:
+    """Each unmatched torch key with its shape and the closest rule
+    templates."""
+    import difflib
+
+    skeletons = sorted({_pattern_skeleton(p) for p, _, _, _ in rules})
+    lines = [f"{len(unmatched)} unmatched torch keys:"]
+    for key in unmatched:
+        shape = tuple(getattr(state_dict.get(key), "shape", ()))
+        close = difflib.get_close_matches(key, skeletons, n=2, cutoff=0.4)
+        lines.append(f"  {key} shape={shape}")
+        lines.append(f"    nearest rule(s): {' | '.join(close) if close else '(no close rule)'}")
+    lines.append(f"({len(state_dict) - len(unmatched)}/{len(state_dict)} keys matched; "
+                 "fix the rule table or pass strict=False/--report to convert what "
+                 "matched)")
+    return "\n".join(lines)
+
+
+def _load_torch_state_dict(src) -> Dict:
+    """A path (``torch.load`` on the CPU, tensors only), a module or a state
+    dict; a hub file's weights nested under ``model`` or ``state_dict`` are
+    unwrapped."""
+    if isinstance(src, str):
+        src = torch.load(src, map_location="cpu", weights_only=True)
+    if hasattr(src, "state_dict"):
+        src = src.state_dict()
+    for key in ("model", "state_dict"):
+        if key in src and isinstance(src[key], dict) and any(
+                hasattr(v, "shape") for v in src[key].values()):
+            src = src[key]
+            break
+    return src
+
+
+def _apply_rules(state_dict: Dict, rules: List[Rule]) -> Tuple[Dict, Dict, List[str]]:
+    """A torch state dict -> (params, batch_stats, unmatched keys) by
+    ``rules``, numpy leaves."""
+    routes, unmatched = _match(rules, state_dict)
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, (coll, path, transform) in routes.items():
+        if coll != "drop":
+            value = state_dict[key]
+            arr = np.asarray(value.detach().cpu().numpy() if hasattr(value, "detach")
+                             else value)
+            _set_path(trees[coll], path, transform(arr))
+    return trees["params"], trees["batch_stats"], unmatched
+
+
+def timm_efficientnetv2_rules() -> List[Rule]:
+    """timm's ``tf_efficientnetv2_s*`` state dict -> the ``EfficientNetV2Blocks``
+    subtree; timm's stem, head and classifier are dropped, as the
+    reference keeps only ``m.blocks``."""
+    rules = [(p, r.lstrip("/"), t, c) for p, r, t, c in _efficientnet_rules(r"blocks", "")]
+    rules += [
+        (r"conv_stem\..*$", "", _identity, "drop"),
+        (r"bn1\..*$", "", _identity, "drop"),
+        (r"conv_head\..*$", "", _identity, "drop"),
+        (r"bn2\..*$", "", _identity, "drop"),
+        (r"classifier\..*$", "", _identity, "drop"),
+    ]
+    return rules
+
+
+def convert_timm_efficientnetv2(src, *, strict: bool = True):
+    """timm EfficientNetV2-S weights (a path, a module or a state dict) ->
+    (params, batch_stats, unmatched) of the ``blocks`` subtree."""
+    state_dict = _load_torch_state_dict(src)
+    rules = timm_efficientnetv2_rules()
+    params, batch_stats, unmatched = _apply_rules(state_dict, rules)
+    if unmatched and strict:
+        raise ValueError("[convert_timm_efficientnetv2] "
+                         + unmatched_report(rules, state_dict, unmatched))
+    return params, batch_stats, unmatched
+
+
+def swin_hub_rules() -> List[Rule]:
+    """Microsoft's ``swin_base_patch4_window12_384_22k.pth`` (unprefixed
+    ``patch_embed.*``, ``layers.*``, ``norm.*``) -> the Swin encoder's
+    subtree; the head, the derived buffers and ``avgpool`` are dropped,
+    and so is an ``absolute_pos_embed`` (the model keeps its own)."""
+    rules: List[Rule] = []
+    rules += _conv_rules(r"patch_embed\.proj", "patch_embed")
+    rules += _ln_rules(r"patch_embed\.norm", "patch_norm")
+    blk = r"layers\.(\d+)\.blocks\.(\d+)"
+    fb = r"stage\1_block\2"
+    rules += _ln_rules(rf"{blk}\.norm1", rf"{fb}/norm1")
+    rules += _linear_rules(rf"{blk}\.attn\.qkv", rf"{fb}/attn/qkv")
+    rules += _linear_rules(rf"{blk}\.attn\.proj", rf"{fb}/attn/proj")
+    rules += [
+        (rf"{blk}\.attn\.relative_position_bias_table$",
+         rf"{fb}/attn/relative_position_bias_table", _identity, "params"),
+        (rf"{blk}\.attn\.relative_position_index$", "", _identity, "drop"),
+        (rf"{blk}\.attn_mask$", "", _identity, "drop"),
+    ]
+    rules += _ln_rules(rf"{blk}\.norm2", rf"{fb}/norm2")
+    rules += _linear_rules(rf"{blk}\.mlp\.fc1", rf"{fb}/mlp_fc1")
+    rules += _linear_rules(rf"{blk}\.mlp\.fc2", rf"{fb}/mlp_fc2")
+    ds = r"layers\.(\d+)\.downsample"
+    rules += _ln_rules(rf"{ds}\.norm", r"stage\1_merge/norm")
+    rules += [(rf"{ds}\.reduction\.weight$", r"stage\1_merge/reduction/kernel",
+               _t_linear, "params")]
+    rules += _ln_rules(r"norm", "norm")
+    rules += [
+        (r"head\..*$", "", _identity, "drop"),
+        (r"absolute_pos_embed$", "", _identity, "drop"),
+        (r"avgpool.*$", "", _identity, "drop"),
+    ]
+    return rules
+
+
+def convert_swin_hub(src, *, strict: bool = True):
+    """Swin hub weights -> (params, batch_stats (always empty: Swin has no
+    BatchNorm), unmatched) of the Swin encoder's subtree."""
+    state_dict = _load_torch_state_dict(src)
+    rules = swin_hub_rules()
+    params, batch_stats, unmatched = _apply_rules(state_dict, rules)
+    if unmatched and strict:
+        raise ValueError("[convert_swin_hub] "
+                         + unmatched_report(rules, state_dict, unmatched))
+    return params, batch_stats, unmatched
+
+
+# graft point of each family's pretrained backbone in the flax variables
+_BACKBONE_PATHS = {
+    "EfficientSATRN": ("encoder", "efficientnet", "blocks"),
+    "MySATRN": ("encoder", "efficientnet", "blocks"),
+    "EfficientASTER": ("encoder", "cnn", "blocks"),
+    "ASTER": ("encoder", "cnn", "blocks"),
+    "SWIN": ("encoder",),
+    "SwinTRN": ("encoder",),
+}
+
+
+def pretrained_key_map(network: str, keys) -> Tuple[Dict[str, str], List[str], List[str]]:
+    """The bootstrap's map of a hub or timm file's ``keys`` onto the
+    ``network`` model's own -> ({file key: model key}, dropped keys,
+    unmatched keys): file key -> the JAX rule -> flax path under the graft
+    point -> the bridge's inverse."""
+    swin = network in ("SWIN", "SwinTRN")
+    routes, unmatched = _match(swin_hub_rules() if swin else timm_efficientnetv2_rules(),
+                               keys)
+    root = "/".join(_BACKBONE_PATHS[network])
+    inverted = _inverted_rules(network)
+    mapping: Dict[str, str] = {}
+    dropped: List[str] = []
+    for key, (coll, path, _) in routes.items():
+        if coll == "drop":
+            dropped.append(key)
+            continue
+        route = _torch_route(f"{root}/{path}", inverted)
+        if route is None:
+            unmatched.append(key)
+        else:
+            mapping[key] = route[0]
+    return mapping, dropped, unmatched
+
+
+def graft_backbone(model: torch.nn.Module, network: str, params: Dict,
+                   batch_stats: Dict, path: Tuple[str, ...]) -> List[str]:
+    """Copy converted pretrained weights into ``model`` in place, at the flax
+    subtree ``path``, through the bridge's inverse -> the model keys
+    written. Every leaf and shape of the subtree must match (the batch
+    statistics too, when given), or it raises before it writes anything."""
+    state = model.state_dict()
+    leaves: Dict[str, Dict[str, tuple]] = {"params": {}, "batch_stats": {}}
+    for key, (coll, flax_path, transform) in _routes(network, state).items():
+        if coll != "drop":
+            leaves[coll][flax_path] = tuple(_SHAPE[transform](tuple(state[key].shape)))
+    root = "/".join(path)
+    for coll, new in (("params", params), ("batch_stats", batch_stats)):
+        if coll == "batch_stats" and not new:
+            continue
+        old = {p[len(root) + 1:]: shape for p, shape in leaves[coll].items()
+               if p.startswith(root + "/")}
+        if not old:
+            raise KeyError(f"[graft_backbone] {coll}: no {root} in model variables")
+        got = {p: tuple(a.shape) for p, a in _flatten(new).items()}
+        if old != got:
+            missing = sorted(set(old) - set(got))[:5]
+            extra = sorted(set(got) - set(old))[:5]
+            shapes = [f"{k}: {old[k]} != {got[k]}" for k in old
+                      if k in got and old[k] != got[k]][:5]
+            raise ValueError(f"[graft_backbone] {coll} mismatch at {root}: "
+                             f"missing={missing} extra={extra} shapes={shapes}")
+    trees = []
+    for new in (params, batch_stats):
+        tree: Dict = {}
+        if new:
+            _set_path(tree, root, new)
+        trees.append(tree)
+    sd, unmatched = export_state_dict(network, *trees)
+    if unmatched:
+        raise ValueError(f"[graft_backbone] {len(unmatched)} flax paths have no "
+                         f"model key: {unmatched[:5]}")
+    with torch.no_grad():
+        for key, value in sd.items():
+            state[key].copy_(torch.from_numpy(value))
+    return sorted(sd)
+
+
+def bootstrap_pretrained(model: torch.nn.Module, network: str, pretrained_cfg) -> List[str]:
+    """Graft offline-downloaded public weights into a freshly built model,
+    in place -> the model keys written. ``pretrained_cfg`` is a mapping
+    with ``efficientnetv2`` (a timm tf_efficientnetv2_s .pth/.bin: the
+    EfficientNet families) or ``swin`` (swin_base_patch4_window12_384_22k.pth:
+    SwinTRN). A set but unusable value raises (a string, a network with no
+    graft point, no entry for the network) rather than train from random
+    weights. SwinTRN keeps its own ``absolute_pos_embed``, which the hub
+    file lacks, as the reference's ``strict=False`` load does."""
+    if not hasattr(pretrained_cfg, "get"):
+        raise ValueError(
+            "pretrained config must be a mapping with keys 'efficientnetv2' "
+            f"and/or 'swin' (got {type(pretrained_cfg).__name__}: "
+            f"{pretrained_cfg!r}); e.g. pretrained: {{efficientnetv2: /path/to/timm.pth}}")
+    path = _BACKBONE_PATHS.get(network)
+    if path is None:
+        raise ValueError(
+            f"network {network!r} has no pretrained-backbone graft point (known: "
+            f"{sorted(_BACKBONE_PATHS)}); remove the 'pretrained' config entry")
+    key = "swin" if network in ("SWIN", "SwinTRN") else "efficientnetv2"
+    src = pretrained_cfg.get(key)
+    if not src:
+        raise ValueError(
+            f"'pretrained' is set but has no {key!r} entry for network {network!r} "
+            f"(got keys {sorted(pretrained_cfg.keys())})")
+    if key == "swin":
+        params, stats, _ = convert_swin_hub(src)
+        own = model.state_dict().get("encoder.absolute_pos_embed")
+        if own is not None and "absolute_pos_embed" not in params:
+            params = dict(params, absolute_pos_embed=own.detach().float().cpu().numpy())
+    else:
+        params, stats, _ = convert_timm_efficientnetv2(src)
+    return graft_backbone(model, network, params, stats, path)

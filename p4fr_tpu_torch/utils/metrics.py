@@ -11,8 +11,10 @@
 - ``final_metric``: 0.9 * sentence_acc + 0.1 * (1 - WER), the competition
   score the trainers gate their best checkpoint on.
 
-The edit distance is the JAX package's NumPy dynamic programme (its C++
-helper is not copied).
+``word_error_rate`` scores through the C++ edit distance
+(``p4fr_tpu_torch/native``, the JAX package's helper, built at first use);
+``edit_distance`` here is its plain version, the JAX package's NumPy
+dynamic programme, which the tests hold the library against.
 """
 
 from __future__ import annotations
@@ -21,12 +23,7 @@ from typing import Sequence
 
 import numpy as np
 
-
-def _intern_ids(a: Sequence, b: Sequence):
-    """Tokens -> int64 ids shared by the two sequences."""
-    table = {}
-    return [np.array([table.setdefault(tok, len(table)) for tok in seq],
-                     dtype=np.int64) for seq in (a, b)]
+from p4fr_tpu_torch.native import edit_distance_batch, intern_ids
 
 
 def edit_distance(a: Sequence, b: Sequence) -> int:
@@ -34,7 +31,7 @@ def edit_distance(a: Sequence, b: Sequence) -> int:
     deletion and substitution elementwise, the insertion chain
     row[j] = min(row[j-1] + 1, tmp[j]) in closed form as
     j + min(i, min_{k<=j}(tmp[k] - k))."""
-    a, b = _intern_ids(a, b)
+    a, b = intern_ids(a, b)
     n, m = len(a), len(b)
     if n == 0 or m == 0:
         return n + m
@@ -54,12 +51,15 @@ def final_metric(sentence_acc: float, word_error_rate: float) -> float:
 def word_error_rate(predicted_outputs: Sequence[str],
                     ground_truths: Sequence[str]) -> float:
     """Mean normalized token edit distance over the batch."""
-    ratios = []
+    pairs, lengths = [], []
     for output, truth in zip(predicted_outputs, ground_truths):
         out_tokens, gt_tokens = output.split(" "), truth.split(" ")
-        ratios.append(edit_distance(out_tokens, gt_tokens)
-                      / max(len(out_tokens), len(gt_tokens)))
-    return float(np.mean(ratios)) if ratios else 0.0
+        pairs.append((out_tokens, gt_tokens))
+        lengths.append(max(len(out_tokens), len(gt_tokens)))
+    if not pairs:
+        return 0.0
+    distances = edit_distance_batch(pairs)
+    return float(np.mean(distances / np.asarray(lengths, dtype=np.float64)))
 
 
 def sentence_acc(predicted_outputs: Sequence[str],

@@ -10,8 +10,10 @@
   with flax's ext hook on the same bytes, a chunked array (flax's
   ``MAX_CHUNK_SIZE`` patched small) and a bfloat16 array among them, and
   its writer against flax's bytes on what a native checkpoint holds;
-- a native file with an optax ``opt_state`` is refused on resume, naming
-  its ROADMAP item; one without resumes weights, epoch and schedule count;
+- a native file with an optax ``opt_state`` resumes it into the optimizer
+  (its counts and moments); one without resumes weights, epoch and the
+  teacher-forcing position with a fresh optimizer, its count at 0 as JAX's
+  ``optimizer.init`` (``test_torch_opt_state`` holds the updates to JAX's);
 - the inference CLI serves a native file: the JAX CLI's ``output.csv``.
 """
 
@@ -160,31 +162,41 @@ def test_codec_matches_msgpack(monkeypatch):
 
 
 def test_resume_from_a_native_file(native, tmp_path):
-    """A native file with an optax ``opt_state`` is refused, naming its
-    ROADMAP item; without one, the weights, epoch and schedule count come
-    back and the optimizer starts fresh."""
-    import optax
-
+    """A native file with an optax ``opt_state`` resumes it: the counts and
+    Adam's moments come back; without one, the weights, epoch and
+    teacher-forcing position come back and the optimizer starts fresh, its
+    count at 0, as JAX's trainer keeps ``optimizer.init``."""
+    from p4fr_tpu.train import schedules as jax_schedules
+    from p4fr_tpu.train import steps as jax_steps
     from p4fr_tpu.utils.checkpoint import make_checkpoint, save_checkpoint
     from p4fr_tpu_torch.models.registry import get_network
     from p4fr_tpu_torch.train import schedules, single_opt, steps
 
     network, configs, vocab, _, variables, path, images, text = native
+    jopt = jax_steps.build_optimizer("adam", jax_schedules.constant_with_warmup(1e-3, 0))
+    opt_state = jopt.init(variables["params"])
+    grads = jax.tree_util.tree_map(np.ones_like, variables["params"])
+    _, opt_state = jax.jit(jopt.update)(grads, opt_state, variables["params"])
     with_opt = save_checkpoint(make_checkpoint(
         network=network, epoch=1, params=variables["params"],
-        batch_stats=variables["batch_stats"],
-        opt_state=optax.adam(1e-3).init(variables["params"]), configs=configs,
+        batch_stats=variables["batch_stats"], opt_state=opt_state, configs=configs,
         token_to_id=vocab.token_to_id, id_to_token=vocab.id_to_token),
         dir="opt", prefix=str(tmp_path))
     model = get_network(network, configs, vocab)
     optimizer = steps.build_optimizer("adam", model.parameters(),
                                       schedules.constant_with_warmup(1e-3, 0))
     tf = schedules.TeacherForcingScheduler(100, 0.8, 0.3)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1: resume a JAX trainer's optimizer state"):
-        single_opt.resume(with_opt, model, optimizer, tf, steps_per_epoch=3)
-    loaded = single_opt.resume(path, model, optimizer, tf, steps_per_epoch=3)
-    assert loaded["epoch"] == 2 and optimizer.count == 6 and tf.i == 6
+    single_opt.resume(with_opt, model, optimizer, tf)
+    assert optimizer.count == 1
+    for st in optimizer.optimizer.state.values():
+        assert int(st["step"]) == 1
+        np.testing.assert_allclose(st["exp_avg"].numpy(), 0.1, rtol=1e-6)
+
+    model = get_network(network, configs, vocab)
+    optimizer = steps.build_optimizer("adam", model.parameters(),
+                                      schedules.constant_with_warmup(1e-3, 0))
+    loaded = single_opt.resume(path, model, optimizer, tf)
+    assert loaded["epoch"] == 2 and optimizer.count == 0 and tf.i == 6
     assert not optimizer.optimizer.state
     want, _, _, _ = load_model_from_checkpoint(path, device="cpu")
     for (k, a), (_, b) in zip(model.state_dict().items(), want.state_dict().items()):

@@ -256,21 +256,26 @@ def test_entry_points_run_on_cuda_unless_asked(slice_models, tmp_path, monkeypat
 
 @pytest.mark.parametrize("network", ["LiteSATRN", "EfficientASTER", "ASTER"])
 def test_registry_names_the_roadmap_item(vocab, network):
-    """What is still unported raises with its ROADMAP item: every family
-    trains, and a ``pretrained:`` backbone is refused naming the
-    pretrained-backbone bootstrap (LiteSATRN, which the registry builds as a
-    SATRN on the ShallowCNN stem, and the ASTER family alike)."""
+    """Every family trains; a ``pretrained:`` value the bootstrap cannot use
+    is refused with the JAX bootstrap's messages: a string for every
+    family, a graft asked of LiteSATRN (which the registry builds as a
+    SATRN on the ShallowCNN stem, no backbone to graft), and an ASTER with
+    no ``efficientnetv2`` entry."""
     from p4fr_tpu_torch.models.satrn import ShallowCNN
-    from p4fr_tpu_torch.train.single_opt import check_trainable
-    from p4fr_tpu_torch.utils.flags import ConfigNode
+    from p4fr_tpu_torch.utils.convert import bootstrap_pretrained
 
+    model = None
     if network == "LiteSATRN":
         model = get_network(network, dict(CONFIGS, network=network), vocab)
         assert isinstance(model.encoder.shallow_cnn, ShallowCNN)
-    check_trainable(ConfigNode({"network": network}))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1: pretrained-backbone bootstrap"):
-        check_trainable(ConfigNode({"network": network, "pretrained": "x.pth"}))
+    with pytest.raises(ValueError, match="pretrained config must be a mapping"):
+        bootstrap_pretrained(model, network, "x.pth")
+    if network == "LiteSATRN":
+        with pytest.raises(ValueError, match="no pretrained-backbone graft point"):
+            bootstrap_pretrained(model, network, {"efficientnetv2": "x.pth"})
+    else:
+        with pytest.raises(ValueError, match="no 'efficientnetv2' entry"):
+            bootstrap_pretrained(model, network, {"swin": "x.pth"})
 
 
 def test_export_state_dict_matches_jax(slice_models):
@@ -459,6 +464,38 @@ path = save_native_checkpoint(model, network="EfficientSATRN", configs=configs,
 again, _, _, _ = load_model_from_checkpoint(path, device="cpu")
 assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
                                              again.state_dict().values()))
+
+# the pretrained-backbone bootstrap from a timm-keyed file, an optimizer's
+# optax state through a native file and back, and the C++ edit distance
+import os
+from p4fr_tpu_torch.native import edit_distance_batch
+from p4fr_tpu_torch.train.single_opt import resume
+from p4fr_tpu_torch.utils.convert import bootstrap_pretrained
+from p4fr_tpu_torch.utils.metrics import edit_distance, word_error_rate
+
+os.makedirs(%(tmp)r, exist_ok=True)
+root = "encoder.shallow_cnn.eff_block."
+model = get_network("EfficientSATRN", configs, vocab).train()
+timm = {"blocks." + k[len(root):]: torch.rand_like(v) for k, v in model.state_dict().items()
+        if k.startswith(root) and v.is_floating_point()}
+torch.save(timm, os.path.join(%(tmp)r, "timm.pth"))
+assert bootstrap_pretrained(model, "EfficientSATRN",
+                            {"efficientnetv2": os.path.join(%(tmp)r, "timm.pth")})
+assert all(torch.equal(model.state_dict()[root + k[len("blocks."):]], v)
+           for k, v in timm.items())
+resumed = get_network("EfficientSATRN", configs, vocab)
+opts = [build_optimizer("adamw", m.parameters(), cosine_warmup_restarts(5e-4, 10),
+                        weight_decay=1e-6, max_grad_norm=2.0) for m in (model, resumed)]
+make_train_step(model, opts[0], vocab.pad_id)(torch.randn(2, 64, 128, 3), text, True)
+path = save_native_checkpoint(model, network="EfficientSATRN", configs=configs, vocab=vocab,
+                              epoch=1, optimizer=opts[0], prefix=os.path.join(%(tmp)r, "opt"))
+resume(path, resumed, opts[1])
+assert opts[1].count == opts[0].count == 1
+assert all(torch.equal(opts[0].optimizer.state[p]["exp_avg_sq"],
+                       opts[1].optimizer.state[q]["exp_avg_sq"])
+           for p, q in zip(model.parameters(), resumed.parameters()))
+assert edit_distance_batch([(["a", "b"], ["b"])]).tolist() == [edit_distance(["a", "b"], ["b"])]
+assert word_error_rate(["a b "], ["a c "]) == 1 / 3
 assert not [k for k in sys.modules if k.split(".")[0] in REFUSED]
 print("ok")
 """
@@ -484,9 +521,12 @@ def test_port_imports_no_jax(slice_models, tmp_path):
     validation step and a ``.pth`` with the trainer's state, saved and
     loaded; a canvas feed resized on the device (``resize_feed``) decodes;
     the SwinTRN and the EfficientASTER each take a teacher-forced and an
-    AR-sampled step and a validation step; and a native checkpoint that the JAX package wrote before the
+    AR-sampled step and a validation step; a native checkpoint that the JAX package wrote before the
     copy loads (msgpack refused too), decodes, and saves and loads back
-    through the port's native writer."""
+    through the port's native writer; and a backbone grafts from a
+    timm-keyed file, an AdamW step's optimizer state goes through a native
+    file into a fresh trainer's optimizer, and the C++ edit distance
+    builds and scores."""
     shutil.copytree(os.path.join(REPO, "p4fr_tpu_torch"),
                     tmp_path / "p4fr_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))

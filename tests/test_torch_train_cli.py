@@ -11,8 +11,8 @@ validation batches an epoch) and the tiny EfficientSATRN of
   exactly one more epoch, from the saved optimizer and schedule state;
 - ``dual_opt`` trains one epoch with its two parameter groups;
 - what is refused: distillation without ``--teacher_ckpt`` (the JAX CLI's
-  message), a ``pretrained:`` backbone (with its ROADMAP item), and CUDA
-  asked for where there is none.
+  message), a ``pretrained:`` that is not a mapping (the bootstrap's
+  message, as JAX's), and CUDA asked for where there is none.
 """
 
 import json
@@ -133,9 +133,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
     assert "--train_type distillation requires --teacher_ckpt" in capsys.readouterr().err
 
     pretrained = write_config(tmp_path, dict(train_options(tmp_path), pretrained="x.pth"))
-    with pytest.raises(SystemExit):
+    with pytest.raises(ValueError, match="pretrained config must be a mapping"):
         cli("--train_type", "single_opt", "--config_file", pretrained, "--device", "cpu")
-    assert "ROADMAP.md Queue 1: pretrained-backbone bootstrap" in capsys.readouterr().err
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
