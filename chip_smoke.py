@@ -171,8 +171,10 @@ with a non-zero exit and no result line:
 7. Training EfficientSATRN at full width (run before the result lines;
    256x512 synthetic host-normalized images, labels padded to 232, seeded
    weights): one teacher-forced and one AR-sampled f32 step on the card
-   against the port on the CPU (B=2, dropout off, each step from one state,
-   the CPU replaying the card's argmax picks): loss, grad norm, gradients,
+   against the port on the CPU (B=2, labels of 64, so 63 AR steps: the
+   CPU's full-width steps cut to make room for phase 8; dropout off, each
+   step from one state, the CPU replaying the card's argmax picks): loss,
+   grad norm, gradients,
    every parameter and BatchNorm statistic within ``TOL_TRAIN_*``; the
    validation step (``make_eval_step``, B=16) through kernels 2 and 3 (28
    and 3 x 231 launches) against its plain version, logits within 1e-3;
@@ -218,8 +220,40 @@ with a non-zero exit and no result line:
    equal to the NumPy DP on seeded pairs, and ``word_error_rate``'s host
    time over one B=256 batch of 231-token strings, C++ against NumPy.
    Its wall time is printed.
+8. The (data, model) mesh (``p4fr_tpu_torch/parallel/``; run before the
+   result lines). Two gloo worlds of two ranks each share the one card
+   (NCCL takes one card a rank); they start first and run while this
+   process, a mesh of one NCCL rank, computes their references:
+   8a. the flagship at full width (B=256, 256x512 u8, 231 steps, manager
+       on, bf16) under ``auto`` and ``fused``: through
+       ``make_sharded_infer_fn`` the tokens equal the decode's without a
+       mesh bit for bit, with the same launches of kernels 1, 2 and 3 or
+       6; ``run_inference(data_parallel=True)`` writes the ``output.csv``
+       of the run without it (its loader replaced by a fixed batch: the
+       host has no PIL or cv2);
+   8b. a 2x1 mesh: each rank's B=128 shard of that decode, and its B=16
+       shard of the three-member ensemble (B=32), bit-equal to this
+       process's decode of those rows; the gathered rows in input order;
+       each rank's launches printed;
+   8c. the train step at full width, B=16, f32, dropout off: one step on
+       the mesh of one rank against ``make_train_step`` within
+       ``TOL_TRAIN_*``; a 2x1 and a 1x2 mesh, 4 steps each (the JAX dry
+       run's schedule, cuDNN deterministic), against this process's
+       replay (``gate_steps``: the losses of every step; the grad norms,
+       each reduced gradient and the state after the first update; every
+       parameter after the last step, within ``TOL_TRAIN_*``), and the
+       replay against itself with nondeterministic cuDNN (the rounding
+       spread, printed by the same function, not gated); the 1x2 mesh's
+       tensor-parallel module-step decode (B=16, f32) equal to the
+       decode's without a mesh, and the kernel path under tensor
+       parallelism refused; then ``dryrun_multichip(2)`` on the card;
+   8d. ``utils/system.py``: the card's memory printed, and a
+       ``profile_trace`` over one B=256 ``auto`` decode that names kernel
+       3's symbol.
+   Its wall time is printed.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -3276,6 +3310,9 @@ def lite_timing(ckpts, dev, card):
 # ---------------------------------------------------------------- phase 7
 
 TRAIN_LABEL_LEN = 232  # labels padded to --max_label_len's default: 231 AR steps
+# the card-vs-CPU gates' labels: 63 AR steps (the CPU runs the full-width model,
+# and those steps were a fifth of the smoke's time; cut to make room for phase 8)
+TRAIN_GATE_LABEL_LEN = 64
 TRAIN_GATE_BATCH = 2   # the card-vs-CPU gate (the CPU runs the full model too)
 TRAIN_EVAL_BATCH = 16  # the validation gate
 TRAIN_RESUME_BATCH = 4
@@ -3311,16 +3348,15 @@ TOL_TRAIN_PICK_GAP = 1e-4
 TOL_DUAL_F32 = 1e-6  # the first Adam update against its hand computation
 
 
-def train_batch(b, vocab, gen, dev, configs=CONFIGS):
+def train_batch(b, vocab, gen, dev, configs=CONFIGS, length=TRAIN_LABEL_LEN):
     """Synthetic host-normalized images [b, H, W, 3] f32 at ``configs``'
-    input size and labels [b, 232]: <SOS>, 1 to 230 random tokens, <EOS>,
-    <PAD>*."""
+    input size and labels [b, length] (232 by default): <SOS>, 1 to
+    length - 2 random tokens, <EOS>, <PAD>*."""
     size = configs["input_size"]
     images = torch.randn(b, size["height"], size["width"], 3, generator=gen)
-    text = torch.full((b, TRAIN_LABEL_LEN), vocab.pad_id, dtype=torch.int64)
+    text = torch.full((b, length), vocab.pad_id, dtype=torch.int64)
     text[:, 0] = vocab.sos_id
-    for i, n in enumerate(torch.randint(1, TRAIN_LABEL_LEN - 1, (b,),
-                                        generator=gen).tolist()):
+    for i, n in enumerate(torch.randint(1, length - 1, (b,), generator=gen).tolist()):
         text[i, 1:1 + n] = torch.randint(3, len(vocab), (n,), generator=gen)
         text[i, 1 + n] = vocab.eos_id
     return images.to(dev), text.to(dev)
@@ -3357,39 +3393,51 @@ def trainer(ckpt, dev, *, dropout=True, dtype=torch.float32, total=TRAIN_GATE_TO
     return model, opt, step, vocab
 
 
-def gate_train_step(label, cpu, card, want, got, lr, misses):
-    """Hold the card's step against the CPU's (the tolerances above)."""
-    readings = {}
-    for key, tol in (("loss", TOL_TRAIN_LOSS), ("grad_norm", TOL_TRAIN_GRAD_NORM)):
-        readings[key] = abs(got[key].item() - want[key].item()) / abs(want[key].item())
-        if not readings[key] <= tol:
-            misses.append(f"{label} {key}: {readings[key]:.3e} > {tol:.1e}")
-    grads = {n: p.grad.cpu() for n, p in card[0].named_parameters()}
-    floor = 1e-5 * torch.stack([p.grad.norm() for p in cpu[0].parameters()]).norm()
+def compare_grads(want, got):
+    """Two readings of one step's gradients ({name: tensor}, on the host) ->
+    ({name: elements parted by more than 10% of ``want``'s}, the worst
+    tensor's |got - want| (L2) relative to its ``want`` norm plus 1e-5 of the
+    global norm, that tensor's name, the share of elements parted)."""
+    floor = 1e-5 * torch.stack([g.norm() for g in want.values()]).norm()
     split, grad_err, worst_tensor, n_split, n_all = {}, -1.0, None, 0, 0
-    for n, p in cpu[0].named_parameters():
-        d = grads[n] - p.grad
-        rel = (d.norm() / (p.grad.norm() + floor)).item()
+    for n, w in want.items():
+        d = got[n] - w
+        rel = (d.norm() / (w.norm() + floor)).item()
         if rel > grad_err:
             grad_err, worst_tensor = rel, n
-        split[n] = d.abs() > 0.1 * p.grad.abs()
+        split[n] = d.abs() > 0.1 * w.abs()
         n_split += int(split[n].sum())
-        n_all += p.numel()
-    share = n_split / n_all
+        n_all += w.numel()
+    return split, grad_err, worst_tensor, n_split / n_all
+
+
+def gate_grads(label, want, got, misses):
+    """``compare_grads`` held to TOL_TRAIN_GRAD and TOL_TRAIN_SPLIT_SHARE ->
+    its result."""
+    split, grad_err, worst_tensor, share = result = compare_grads(want, got)
     if not grad_err <= TOL_TRAIN_GRAD:
         misses.append(f"{label} gradient of {worst_tensor}: {grad_err:.3e} > "
                       f"{TOL_TRAIN_GRAD:.1e}")
     if not share <= TOL_TRAIN_SPLIT_SHARE:
         misses.append(f"{label} split gradient share {share:.3e} > "
                       f"{TOL_TRAIN_SPLIT_SHARE:.1e}")
-    state = {k: v.cpu() for k, v in card[0].state_dict().items()}
+    return result
+
+
+def gate_state(label, want, got, split, lr, misses, stats=True):
+    """Two states after the same updates (state dicts on the host): every
+    parameter element within 2e-6 + 0.1 lr, or 2e-6 + 2 lr where ``split``
+    (its gradient readings parted: Adam moves it by lr times a sign its
+    rounding sets), ``lr`` the learning rates' sum over the updates; the
+    BatchNorm statistics within TOL_TRAIN_STATS of 1 + |x| (printed, not
+    gated, without ``stats``); integer entries equal -> the worst readings."""
     worst = {"params": 0.0, "split params": 0.0, "stats": 0.0}
-    for k, want_v in cpu[0].state_dict().items():
+    for k, want_v in want.items():
         if not want_v.is_floating_point():
-            if not torch.equal(state[k], want_v):
+            if not torch.equal(got[k], want_v):
                 misses.append(f"{label} {k} differs")
             continue
-        d = (state[k] - want_v).abs()
+        d = (got[k] - want_v).abs()
         if k in split:
             tight = ~split[k]
             worst["params"] = max(worst["params"], d[tight].max().item()
@@ -3398,9 +3446,25 @@ def gate_train_step(label, cpu, card, want, got, lr, misses):
             ok = d <= torch.where(split[k], 2e-6 + 2 * lr, 2e-6 + 0.1 * lr)
         else:
             worst["stats"] = max(worst["stats"], (d / (1 + want_v.abs())).max().item())
-            ok = d <= TOL_TRAIN_STATS * (1 + want_v.abs())
-        if not bool(ok.all()):
+            ok = d <= TOL_TRAIN_STATS * (1 + want_v.abs()) if stats else True
+        if not bool(torch.as_tensor(ok).all()):
             misses.append(f"{label} {k}: {d.max().item():.3e} beyond its bound")
+    return worst
+
+
+def gate_train_step(label, cpu, card, want, got, lr, misses):
+    """Hold the card's step against the CPU's (the tolerances above)."""
+    readings = {}
+    for key, tol in (("loss", TOL_TRAIN_LOSS), ("grad_norm", TOL_TRAIN_GRAD_NORM)):
+        readings[key] = abs(got[key].item() - want[key].item()) / abs(want[key].item())
+        if not readings[key] <= tol:
+            misses.append(f"{label} {key}: {readings[key]:.3e} > {tol:.1e}")
+    split, grad_err, worst_tensor, share = gate_grads(
+        label, {n: p.grad for n, p in cpu[0].named_parameters()},
+        {n: p.grad.cpu() for n, p in card[0].named_parameters()}, misses)
+    worst = gate_state(label, cpu[0].state_dict(),
+                       {k: v.cpu() for k, v in card[0].state_dict().items()}, split, lr,
+                       misses)
     print(f"  {label} step (lr {lr:.3e}): loss {want['loss'].item():.6f} rel err "
           f"{readings['loss']:.3e} (tol {TOL_TRAIN_LOSS:.0e}); grad norm "
           f"{want['grad_norm'].item():.4f} rel err {readings['grad_norm']:.3e} (tol "
@@ -3439,12 +3503,12 @@ def train_gate(ckpt, dev, family=FLAGSHIP_TRAIN):
     from p4fr_tpu_torch.train.steps import ar_sampled_logits, cross_entropy_ignore_pad
 
     print(f"[training gate: {family.label} f32, TF32 off, B={TRAIN_GATE_BATCH}, "
-          f"labels {TRAIN_LABEL_LEN}, AdamW clip {TRAIN_CLIP}, card vs CPU]")
+          f"labels {TRAIN_GATE_LABEL_LEN}, AdamW clip {TRAIN_CLIP}, card vs CPU]")
     cpu, card = trainer(ckpt, "cpu", dropout=False), trainer(ckpt, dev, dropout=False)
     pad_id = cpu[3].pad_id
     images, text = train_batch(TRAIN_GATE_BATCH, cpu[3],
                                torch.Generator().manual_seed(SEED + 20), "cpu",
-                               family.configs)
+                               family.configs, TRAIN_GATE_LABEL_LEN)
     misses = []
     lr = cpu[1].lr()
     t0 = time.perf_counter()
@@ -3970,11 +4034,11 @@ def distiller(ckpt, teacher_ckpt, dev, *, dropout=True, dtype=torch.float32,
     return student, opt, step, vocab, teacher
 
 
-def distill_batch(b, vocab, gen, dev):
+def distill_batch(b, vocab, gen, dev, length=TRAIN_LABEL_LEN):
     """(student images [b, 128, 256, 3], teacher images [b, 256, 512, 3],
-    labels [b, 232]): host-normalized synthetic images and
+    labels [b, length]): host-normalized synthetic images and
     ``train_batch``'s labels."""
-    teacher_images, text = train_batch(b, vocab, gen, dev)
+    teacher_images, text = train_batch(b, vocab, gen, dev, length=length)
     student_images = torch.randn(b, LITE_H, LITE_W, 3, generator=gen).to(dev)
     return student_images, teacher_images, text
 
@@ -4014,13 +4078,15 @@ def distill_gate(ckpt, teacher_ckpt, dev):
     del teacher, fast, images, k_logits, p_logits
 
     print(f"[distillation gate: LiteSATRN student f32, TF32 off, B={DISTILL_GATE_BATCH}, "
-          f"labels {TRAIN_LABEL_LEN}, AdamW clip {TRAIN_CLIP}, T=10 alpha=0.1, card vs CPU]")
+          f"labels {TRAIN_GATE_LABEL_LEN}, AdamW clip {TRAIN_CLIP}, T=10 alpha=0.1, card "
+          "vs CPU]")
     cpu = distiller(ckpt, teacher_ckpt, "cpu", dropout=False)
     card = distiller(ckpt, teacher_ckpt, dev, dropout=False)
     s_images, t_images, text = distill_batch(DISTILL_GATE_BATCH, cpu[3],
-                                             torch.Generator().manual_seed(SEED + 41), "cpu")
+                                             torch.Generator().manual_seed(SEED + 41), "cpu",
+                                             TRAIN_GATE_LABEL_LEN)
     t_picks = greedy_logits(card[4], build_fast(card[4]), t_images.to(dev),
-                            TRAIN_LABEL_LEN - 1).argmax(dim=-1).cpu()
+                            TRAIN_GATE_LABEL_LEN - 1).argmax(dim=-1).cpu()
     misses = []
     lr = cpu[1].lr()
     t0 = time.perf_counter()
@@ -4169,6 +4235,442 @@ def distill_phase(ckpt, teacher_ckpt, dev, card):
     distill_timing(ckpt, teacher_ckpt, dev, card)
 
 
+# ---------------------------------------------------------------- phase 8
+
+PARALLEL_BATCH = 256  # 8a and 8b: the flagship decode (8b: 2 ranks x 128 rows)
+PARALLEL_TRAIN_BATCH, PARALLEL_TRAIN_STEPS = 16, 4  # 8c
+# 8c's schedule: the JAX dry run's (AdamW, cosine_warmup_restarts(5e-4, 100):
+# lr 0, 5e-5, 1e-4, 1.5e-4), cuDNN deterministic. Two runs of one program
+# part fast under Adam's sign-like early updates: the two-rank worlds' grad
+# norms part from the replay by up to 1.2e-3 at step 3 and their BatchNorm
+# statistics by 1.3e-3, while after the first update (steps 0 and 1: lr 0
+# leaves the weights of step 0) they read 3e-5 and 0 (H100, 700 W). So the
+# grad norms, gradients and statistics are gated up to that first update,
+# the losses at every step, the parameters after it and after the last step
+# (``gate_steps``)
+PARALLEL_TRAIN_TOTAL = 100
+PARALLEL_TP_BATCH = 16  # 8c: the tensor-parallel module-step decode
+
+
+def fixed_loader(images):
+    """``infer.single.build_eval_loader``'s stand-in for ``run_inference`` on
+    the card's host, which has no PIL or cv2: one batch of the given u8
+    images, named img_0000.png, ..."""
+    names = [f"img_{i:04d}.png" for i in range(images.shape[0])]
+
+    def build(file_path, options, vocab, batch_size, max_sequence, shard=(0, 1), **kw):
+        if batch_size != images.shape[0] or kw.get("device_resize") or kw.get(
+                "host_normalize"):
+            raise ValueError("the fixed loader holds one u8 batch of batch_size rows")
+        index, n = shard  # this rank's rows, as the eval loader reads them
+        return [{"image": images.chunk(n)[index].cpu().numpy(), "count": len(names),
+                 "file_path": names}]
+
+    return build
+
+
+def parallel_decode_gate(ckpt, dev, mesh, card):
+    """8a: the flagship at full width (B=256, 256x512 u8, 231 steps, manager
+    on, bf16) on a mesh of one NCCL rank, under ``auto`` and ``fused``:
+    through ``make_sharded_infer_fn`` the tokens equal the same decode's
+    without a mesh bit for bit, with the same launches of kernels 1, 2 and 3
+    (``auto``) or 6 (``fused``); then ``run_inference(data_parallel=True)``
+    writes the ``output.csv`` of the run without it (a fixed loader of the
+    same images: the host has no PIL or cv2)."""
+    from p4fr_tpu_torch.infer import single
+    from p4fr_tpu_torch.ops import _build
+    from p4fr_tpu_torch.parallel.sharding import make_sharded_infer_fn
+
+    model, fast, tables, _ = load_path_model(ckpt, dev, torch.bfloat16)
+    images = u8_images(torch.Generator().manual_seed(SEED + 80), PARALLEL_BATCH, 256, 512,
+                       dev)
+    print(f"[phase 8a: a mesh of one NCCL rank {mesh.shape}: EfficientSATRN greedy, "
+          f"B={PARALLEL_BATCH}, 256x512 u8, {STEPS} steps, manager on, bf16]")
+    for kernel, want in (("auto", {"standardize": 1, "mbconv": 28,
+                                   "decoder_layer": 3 * STEPS}),
+                         ("fused", {"standardize": 1, "mbconv": 28,
+                                    "fused_greedy_step": STEPS})):
+        def decode(im, kernel=kernel):
+            return single.decode_images(model, fast, im, tables, STEPS, kernel=kernel)
+
+        counts, tokens = [], []
+        for fn in (decode, make_sharded_infer_fn(decode, mesh)):
+            fn(images)  # warm: the first mesh call also sets up NCCL's communicator
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            tokens.append(fn(images).cpu())
+            torch.cuda.synchronize()
+            counts.append(dict(_build.LAUNCHES))
+            dt = time.perf_counter() - t0
+            print(f"  {kernel} {'mesh' if len(tokens) == 2 else 'alone'}: {dt:.3f} s "
+                  f"({card}); launches {json.dumps(counts[-1])}")
+        check_launches(counts[0], want, at_least=())
+        if counts[1] != counts[0] or not torch.equal(tokens[1], tokens[0]):
+            raise AssertionError(f"the mesh of one rank parts from the plain {kernel} "
+                                 "decode")
+        print(f"  {kernel}: tokens bit-equal, launches equal")
+    saved = single.build_eval_loader
+    single.build_eval_loader = fixed_loader(images)
+    try:
+        out = os.path.join(REPO, "build", "p4fr_tpu_torch", "smoke", "parallel")
+        rows = [single.run_inference(ckpt, "input.txt", os.path.join(out, str(dp)),
+                                     batch_size=PARALLEL_BATCH, data_parallel=dp)
+                for dp in (False, True)]
+    finally:
+        single.build_eval_loader = saved
+    texts = [open(os.path.join(out, str(dp), "output.csv")).read() for dp in (False, True)]
+    print(f"  run_inference(data_parallel=True): {len(rows[1])} rows, output.csv equal "
+          f"to the run without it: {texts[0] == texts[1]}")
+    if rows[0] != rows[1] or texts[0] != texts[1] or len(rows[0]) != PARALLEL_BATCH:
+        raise AssertionError("run_inference(data_parallel=True) parts from the plain run")
+
+
+def parallel_rank(rank, world, job):
+    """What a shared-card gloo rank of phase 8b/8c runs (``job``: the
+    checkpoints, the mesh and the parts to run) -> its results, on the host."""
+    from p4fr_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*job["mesh"])
+    out = {"coords": mesh.coords}
+    if job.get("decode"):
+        out.update(rank_decodes(job["ckpts"], dev, mesh))
+    if job.get("train"):
+        out.update(mesh_train(job["ckpts"][0], dev, mesh, rank == 0))
+    if job.get("tp"):
+        out.update(rank_tp_decode(job["ckpts"][0], dev, mesh))
+    return out
+
+
+@torch.no_grad()
+def rank_decodes(ckpts, dev, mesh):
+    """8b on one rank: the flagship decode and the three-member ensemble
+    through ``make_sharded_infer_fn`` -> tokens of every row, launches."""
+    from p4fr_tpu_torch.infer.ensemble import ensemble_decode
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops import _build
+    from p4fr_tpu_torch.parallel.sharding import make_sharded_infer_fn
+
+    out = {}
+    model, fast, tables, _ = load_path_model(ckpts[0], dev, torch.bfloat16)
+    images = u8_images(torch.Generator().manual_seed(SEED + 80), PARALLEL_BATCH, 256, 512,
+                       dev)
+    _build.reset_launches()
+    out["decode"] = make_sharded_infer_fn(
+        lambda im: decode_images(model, fast, im, tables, STEPS), mesh)(images)
+    out["decode_launches"] = dict(_build.LAUNCHES)
+    members = [(m, f) for m, f, _, _ in (load_path_model(c, dev, torch.bfloat16)
+                                        for c in ckpts)]
+    feeds = ensemble_images(torch.Generator().manual_seed(SEED + 81), ENSEMBLE_BATCH,
+                            ENSEMBLE_SIZES, dev)
+
+    def joint(ims):
+        memories = [encode_images(m, im) for (m, _), im in zip(members, ims)]
+        return ensemble_decode(members, memories, max_steps=STEPS, tables=tables)
+
+    _build.reset_launches()
+    out["ensemble"] = make_sharded_infer_fn(joint, mesh)(feeds)
+    out["ensemble_launches"] = dict(_build.LAUNCHES)
+    return out
+
+
+@torch.no_grad()
+def rank_tp_decode(ckpt, dev, mesh):
+    """8c's tensor-parallel module-step decode on one rank, and the kernel
+    path's refusal under tensor parallelism."""
+    from p4fr_tpu_torch.decoding.greedy import make_greedy_fn
+    from p4fr_tpu_torch.infer.single import decode_images
+    from p4fr_tpu_torch.ops.preprocess import standardize
+    from p4fr_tpu_torch.parallel.sharding import make_tp_infer_fn
+
+    out = {}
+    model, _, _, _ = load_path_model(ckpt, dev)
+    images = u8_images(torch.Generator().manual_seed(SEED + 82), PARALLEL_TP_BATCH, 256, 512,
+                       dev)
+    greedy = make_greedy_fn(model, max_steps=STEPS, return_outputs=False)
+
+    def module(fast, im):
+        return greedy(standardize(im, out_dtype=model.dtype))
+
+    out["tp"] = make_tp_infer_fn(module, mesh, model, "EfficientSATRN")(images)
+    try:
+        make_tp_infer_fn(lambda f, im: decode_images(model, f, im, None, 2), mesh, model,
+                         "EfficientSATRN")(images)
+    except ValueError as exc:
+        out["tp_refusal"] = str(exc)
+    return out
+
+
+def step_record(model):
+    """The gradients and the state a train step left in ``model``, on the host."""
+    return ({n: p.grad.cpu() for n, p in model.named_parameters()},
+            {k: v.cpu() for k, v in model.state_dict().items()})
+
+
+def mesh_train(ckpt, dev, mesh, keep, total=PARALLEL_TRAIN_TOTAL, deterministic=True):
+    """``PARALLEL_TRAIN_STEPS`` teacher-forced f32 steps of the flagship
+    through ``make_sharded_train_step`` on ``mesh``, dropout off, cuDNN
+    deterministic (or not: the rounding spread), on one seeded batch of
+    ``PARALLEL_TRAIN_BATCH`` rows, AdamW over a cosine schedule of ``total``
+    steps -> the losses and grad norms ("metrics"), the learning rates
+    and, with ``keep``, every step's reduced gradients ("grads") and the
+    states after the first update and after the last step ("states"), on
+    the host."""
+    from p4fr_tpu_torch.parallel.sharding import make_sharded_train_step
+
+    model, opt, _, vocab = trainer(ckpt, dev, dropout=False, total=total)
+    step = make_sharded_train_step(model, opt, vocab.pad_id, mesh, "EfficientSATRN")
+    images, text = train_batch(PARALLEL_TRAIN_BATCH, vocab,
+                               torch.Generator().manual_seed(SEED + 83), dev)
+    out = {"metrics": [], "lrs": [], "grads": [], "states": {}}
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        for i in range(PARALLEL_TRAIN_STEPS):
+            out["lrs"].append(opt.lr())
+            m = step(images, text)
+            out["metrics"].append((m["loss"].item(), m["grad_norm"].item()))
+            if keep:
+                grads, state = step_record(model)
+                out["grads"].append(grads)
+                if out["lrs"][-1] > 0 and "first" not in out["states"]:
+                    out["states"]["first"] = state
+                if i == PARALLEL_TRAIN_STEPS - 1:
+                    out["states"]["last"] = state
+    finally:
+        torch.backends.cudnn.deterministic = before
+    return out
+
+
+def gate_steps(label, want, got, misses):
+    """Two runs of the same train steps (``mesh_train``'s results) held by
+    ``gate_train_step``'s TOL_TRAIN_* gates:
+
+    - every step's loss within TOL_TRAIN_LOSS;
+    - up to the first update (the first step of nonzero lr; a step of lr 0
+      leaves the weights, so the steps before it read the same weights):
+      the grad norms within TOL_TRAIN_GRAD_NORM, the first update's reduced
+      gradients per tensor within TOL_TRAIN_GRAD and their split share
+      within TOL_TRAIN_SPLIT_SHARE (``gate_grads``), and the state after it
+      by ``gate_state`` (split: parted at any of those steps);
+    - after the last step: every parameter by ``gate_state`` with the
+      elements split at any step and the learning rates' sum. The share of
+      those elements, the grad norms after the first update and the
+      BatchNorm statistics are read, not gated: two runs that differ only
+      in rounding part there too (the replay against itself with
+      nondeterministic cuDNN, printed by this function: 39% of the
+      elements split by step 3; PERF.md).
+    -> the readings."""
+    lrs = want["lrs"]
+    first, last = next(i for i, lr in enumerate(lrs) if lr > 0), len(lrs) - 1
+    pairs = list(zip(want["metrics"], got["metrics"]))
+    r = {"loss": max(abs(g[0] - w[0]) / abs(w[0]) for w, g in pairs),
+         "grad_norm": max(abs(g[1] - w[1]) / abs(w[1]) for w, g in pairs[:first + 1]),
+         "later_grad_norm": max([abs(g[1] - w[1]) / abs(w[1])
+                                 for w, g in pairs[first + 1:]] or [0.0])}
+    for key, tol in (("loss", TOL_TRAIN_LOSS), ("grad_norm", TOL_TRAIN_GRAD_NORM)):
+        if not r[key] <= tol:
+            misses.append(f"{label} {key}: {r[key]:.3e} > {tol:.1e}")
+    splits = []
+    for i, (w, g) in enumerate(zip(want["grads"], got["grads"])):
+        if i == first:
+            split, r["grad"], r["grad_tensor"], r["share"] = gate_grads(
+                f"{label} step {i}", w, g, misses)
+        else:
+            split = compare_grads(w, g)[0]
+        splits.append(split)
+
+    def union(upto):
+        return {n: torch.stack([sp[n] for sp in splits[:upto + 1]]).any(0)
+                for n in splits[0]}
+
+    r["first"] = gate_state(f"{label} after step {first}", want["states"]["first"],
+                            got["states"]["first"], union(first),
+                            sum(lrs[:first + 1]), misses)
+    line = (f"  {label}: losses {[round(m[0], 6) for m in got['metrics']]}, worst rel "
+            f"err {r['loss']:.3e} (tol {TOL_TRAIN_LOSS:.0e}); grad norms of steps 0-{first} "
+            f"{r['grad_norm']:.3e} (tol {TOL_TRAIN_GRAD_NORM:.0e}); step {first}'s "
+            f"gradients: worst tensor {r['grad_tensor']} {r['grad']:.3e} (tol "
+            f"{TOL_TRAIN_GRAD:.0e}), split share {r['share']:.3e} (tol "
+            f"{TOL_TRAIN_SPLIT_SHARE:.0e}); after step {first}: parameters "
+            f"{r['first']['params']:.3e} (bound {2e-6 + 0.1 * sum(lrs[:first + 1]):.3e}), "
+            f"split elements {r['first']['split params']:.3e} (bound "
+            f"{2e-6 + 2 * sum(lrs[:first + 1]):.3e}), BN statistics "
+            f"{r['first']['stats']:.3e} (tol {TOL_TRAIN_STATS:.0e})")
+    if last > first:
+        split = union(last)
+        r["last_share"] = (sum(int(m.sum()) for m in split.values())
+                           / sum(m.numel() for m in split.values()))
+        r["last"] = gate_state(f"{label} after step {last}", want["states"]["last"],
+                               got["states"]["last"], split, sum(lrs), misses,
+                               stats=False)
+        line += (f"; after step {last}: parameters {r['last']['params']:.3e} (bound "
+                 f"{2e-6 + 0.1 * sum(lrs):.3e}), split elements "
+                 f"{r['last']['split params']:.3e} (bound {2e-6 + 2 * sum(lrs):.3e}); read, "
+                 f"not gated: elements split at some step {r['last_share']:.3e}, grad "
+                 f"norms of steps {first + 1}-{last} {r['later_grad_norm']:.3e}, BN "
+                 f"statistics {r['last']['stats']:.3e}")
+    print(line)
+    return r
+
+
+def parallel_phase(ckpts, dev, card):
+    """Phase 8: the mesh (8a-8c above each function) and ``utils/system.py``
+    (8d). 8b and 8c's two-rank worlds share the one card under gloo (NCCL
+    takes one card a rank); both start first and run while this process
+    computes their references."""
+    from p4fr_tpu_torch.infer.ensemble import ensemble_decode
+    from p4fr_tpu_torch.infer.single import decode_images, encode_images
+    from p4fr_tpu_torch.ops.preprocess import standardize
+    from p4fr_tpu_torch.parallel.dryrun import dryrun_multichip, start
+    from p4fr_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from p4fr_tpu_torch.parallel.sharding import make_sharded_train_step
+    from p4fr_tpu_torch.decoding.greedy import make_greedy_fn
+    from p4fr_tpu_torch.utils import system
+
+    t_phase = time.perf_counter()
+    ckpt = ckpts[0]
+    waits = {shape: start(2, parallel_rank, {
+        "ckpts": ckpts, "mesh": shape, "train": True,
+        "decode": shape == (2, 1), "tp": shape == (1, 2)}) for shape in ((2, 1), (1, 2))}
+    if init_distributed("cuda") != dev:
+        raise AssertionError("the NCCL rank is not on the smoke's card")
+    try:
+        mesh = make_mesh()
+        with torch.no_grad():
+            parallel_decode_gate(ckpt, dev, mesh, card)
+
+        # 8c's references: the 1-rank mesh against make_train_step, then its
+        # replay of the two-rank worlds' steps
+        print(f"[phase 8c: train steps at full width, B={PARALLEL_TRAIN_BATCH}, f32, "
+              "TF32 off, dropout off; a mesh of one rank against make_train_step]")
+        misses = []
+        model, opt, plain_step, vocab = trainer(ckpt, dev, dropout=False)
+        images, text = train_batch(PARALLEL_TRAIN_BATCH, vocab,
+                                   torch.Generator().manual_seed(SEED + 83), dev)
+        runs = []
+        for sharded in (False, True):
+            if sharded:
+                model, opt, _, _ = trainer(ckpt, dev, dropout=False)
+                plain_step = make_sharded_train_step(model, opt, vocab.pad_id, mesh,
+                                                     "EfficientSATRN")
+            lr = opt.lr()
+            m = plain_step(images, text, True)
+            m = m[0] if isinstance(m, tuple) else m
+            grads, state = step_record(model)
+            runs.append({"metrics": [(m["loss"].item(), m["grad_norm"].item())],
+                         "lrs": [lr], "grads": [grads],
+                         "states": {"first": state, "last": state}})
+            del model, opt, plain_step
+        gate_steps("1-rank mesh vs make_train_step, one step at lr 5e-4", *runs, misses)
+        del runs
+        replay = mesh_train(ckpt, dev, mesh, True)
+        gate_steps("(not gated: the rounding spread) the replay with nondeterministic "
+                   "cuDNN vs the replay", replay,
+                   mesh_train(ckpt, dev, mesh, True, deterministic=False), [])
+        torch.cuda.empty_cache()
+
+        with torch.no_grad():
+            model, fast, tables, _ = load_path_model(ckpt, dev, torch.bfloat16)
+            images = u8_images(torch.Generator().manual_seed(SEED + 80), PARALLEL_BATCH,
+                               256, 512, dev)
+            half = PARALLEL_BATCH // 2
+            rows = [decode_images(model, fast, images[i * half:(i + 1) * half], tables,
+                                  STEPS).cpu() for i in range(2)]
+            loaded = [load_path_model(c, dev, torch.bfloat16) for c in ckpts]
+            members = [(mm, f) for mm, f, _, _ in loaded]
+            feeds = ensemble_images(torch.Generator().manual_seed(SEED + 81),
+                                    ENSEMBLE_BATCH, ENSEMBLE_SIZES, dev)
+            eh = ENSEMBLE_BATCH // 2
+            ens_rows = [ensemble_decode(
+                members, [encode_images(mm, im[i * eh:(i + 1) * eh])
+                          for (mm, _), im in zip(members, feeds)],
+                max_steps=STEPS, tables=tables).cpu() for i in range(2)]
+            del model, fast, loaded, members
+            model, _, _, _ = load_path_model(ckpt, dev)
+            tp_images = u8_images(torch.Generator().manual_seed(SEED + 82),
+                                  PARALLEL_TP_BATCH, 256, 512, dev)
+            tp_want = make_greedy_fn(model, max_steps=STEPS, return_outputs=False)(
+                standardize(tp_images, out_dtype=model.dtype)).cpu()
+            del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = {shape: wait() for shape, wait in waits.items()}
+        waits = {}
+        print(f"  (the two-rank worlds' results after {time.perf_counter() - t0:.1f} s "
+              "more)")
+
+        dp, tp = ranks[(2, 1)], ranks[(1, 2)]
+        print(f"[phase 8b: two gloo ranks on the one card, a 2x1 mesh: EfficientSATRN "
+              f"greedy B={PARALLEL_BATCH} (2 x {half}) and the three-member ensemble "
+              f"B={ENSEMBLE_BATCH} (2 x {eh}), bf16, manager on]")
+        for r, res in enumerate(dp):
+            print(f"  rank {r} at {res['coords']}: decode launches "
+                  f"{json.dumps(res['decode_launches'])}; ensemble launches "
+                  f"{json.dumps(res['ensemble_launches'])}")
+            check_launches(res["decode_launches"], {"standardize": 1, "mbconv": 28,
+                                                    "decoder_layer": 3 * STEPS},
+                           at_least=())
+            for key, want in (("decode", torch.cat(rows)), ("ensemble", torch.cat(ens_rows))):
+                if not torch.equal(res[key], want):
+                    bad = [i for i in range(2) if not torch.equal(
+                        res[key].chunk(2)[i], want.chunk(2)[i])]
+                    raise AssertionError(f"rank {r}: {key} rows of shard(s) {bad} part "
+                                         "from a single process's decode of those rows")
+        print("  each shard bit-equal to a single-process decode of its rows; the "
+              "gathered rows in input order, on both ranks")
+
+        print("[phase 8c: two gloo ranks on the one card, a 2x1 and a 1x2 mesh, "
+              f"{PARALLEL_TRAIN_STEPS} steps each, against the 1-rank replay]")
+        for shape, res in ((("2x1", dp), ("1x2", tp))):
+            gate_steps(f"{shape} mesh vs the 1-rank replay", replay, res[0], misses)
+            if res[1]["metrics"] != res[0]["metrics"]:
+                misses.append(f"{shape}: the ranks' losses differ")
+        same = all(torch.equal(res["tp"], tp_want) for res in tp)
+        print(f"  the 1x2 mesh's tensor-parallel module-step decode (B={PARALLEL_TP_BATCH}, "
+              f"{STEPS} steps, f32): tokens equal the 1-rank decode's: {same}; the kernel "
+              f"path under tensor parallelism refused: {'tp_refusal' in tp[0]}")
+        if not same:
+            misses.append("the tensor-parallel decode's tokens part from the 1-rank decode")
+        if not all("tensor parallelism" in res.get("tp_refusal", "") for res in tp):
+            misses.append("a kernel path ran under tensor parallelism")
+        if misses:
+            raise AssertionError(f"phase 8c: {misses}")
+        t0 = time.perf_counter()
+        dryrun_multichip(2, device="cuda")
+        print(f"  (dryrun_multichip(2) on the card: {time.perf_counter() - t0:.1f} s)")
+
+        # 8d
+        system.print_device_status()
+        trace_dir = os.path.join(REPO, "build", "p4fr_tpu_torch", "smoke", "trace")
+        with torch.no_grad():
+            model, fast, tables, _ = load_path_model(ckpt, dev, torch.bfloat16)
+            images = u8_images(torch.Generator().manual_seed(SEED + 80), PARALLEL_BATCH,
+                               256, 512, dev)
+            decode_images(model, fast, images, tables, 4)
+            with system.profile_trace(trace_dir):
+                decode_images(model, fast, images, tables, STEPS)
+                torch.cuda.synchronize()
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            trace = f.read()
+        hits = trace.count("layer_step_kernel")
+        print(f"[phase 8d: profile_trace over one B={PARALLEL_BATCH} auto decode: "
+              f"{os.path.getsize(os.path.join(trace_dir, 'trace.json')) / 2 ** 20:.1f} MiB "
+              f"trace, kernel 3's symbol (layer_step_kernel) named {hits} times]")
+        if not hits:
+            raise AssertionError("the profile trace does not name kernel 3")
+    finally:
+        for wait in waits.values():  # the worlds not waited for: on an error only
+            with contextlib.suppress(Exception):
+                wait()
+        torch.distributed.destroy_process_group()
+    print(f"[phase 8: {time.perf_counter() - t_phase:.1f} s]")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -4239,6 +4741,8 @@ def main():
     grad_refusal_gate(dev)
     torch.cuda.empty_cache()
     start_and_restart_phase(ckpt, swin_ckpt, dev, card)
+    torch.cuda.empty_cache()
+    parallel_phase((ckpt, aster_ckpt, swin_ckpt), dev, card)
 
     bad = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "p4fr_tpu"))

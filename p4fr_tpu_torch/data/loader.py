@@ -13,6 +13,9 @@
   batch is padded up to full size, and ``batch["count"]`` says how many
   rows are real;
 - ``sort_key`` orders items (stable) so similar-length items share a batch;
+- with ``shard=(i, n)`` (eval) each batch loads only its i-th of n equal
+  slices of rows, padding included, while ``count`` and ``file_path``
+  still cover the whole batch: a data-parallel rank reads its own images;
 - a background thread keeps ``PREFETCH`` batches ready, so host image
   decode overlaps device compute.
 """
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -57,15 +60,20 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, *, max_label_len: int = 232,
                  sort_key=None, shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 0, image_keys: Sequence[str] = ("image",)):
+                 seed: int = 0, image_keys: Sequence[str] = ("image",),
+                 shard: Tuple[int, int] = (0, 1)):
         if sort_key is not None and shuffle:
             raise ValueError("sort_key and shuffle are mutually exclusive")
+        if batch_size % shard[1] or (shard[1] > 1 and (shuffle or drop_last)):
+            raise ValueError(f"shard {shard}: an eval batch of {batch_size} rows "
+                             "splits into equal slices")
         self.dataset = dataset
         self.batch_size = batch_size
         self.max_label_len = max_label_len
         self.sort_key = sort_key
         self.shuffle, self.drop_last = shuffle, drop_last
         self.image_keys = tuple(image_keys)
+        self.shard = shard
         self.rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -84,11 +92,14 @@ class DataLoader:
                 for s in range(0, len(idx), self.batch_size)][:len(self)]
 
     def _make_batch(self, chunk: np.ndarray) -> Dict:
-        items = [self.dataset[int(i)] for i in chunk]
-        count = len(items)
-        items = items + [items[-1]] * (self.batch_size - count)
+        count = len(chunk)
+        rows = np.concatenate([chunk, np.repeat(chunk[-1:], self.batch_size - count)])
+        index, n = self.shard
+        items = [self.dataset[int(i)] for i in np.split(rows, n)[index]]
         batch = collate(items, self.max_label_len, self.image_keys)
         batch["count"] = count
+        if n > 1 and "file_path" in batch:
+            batch["file_path"] = [self.dataset.data[int(i)]["file_path"] for i in rows]
         return batch
 
     def __iter__(self) -> Iterator[Dict]:

@@ -25,6 +25,11 @@ Two more steps of the JAX package, which no CLI flag reaches:
 ``ops.decoder_layer_v1`` per layer (kernel 8), and ``make_v3_step`` runs
 every layer in one launch of ``ops.decoder_stack_v3`` (kernel 7) over
 stacked caches.
+
+Under tensor parallelism (``parallel/sharding.py::make_tp_infer_fn``) a
+``FastDecoder`` holds this rank's slices of the fused weights and, in
+``shard``, its model axis; the plain step alone takes it (a decoder kernel
+reads a whole layer's weights), and every kernel path refuses it.
 """
 
 from __future__ import annotations
@@ -54,6 +59,19 @@ class FastDecoder(NamedTuple):
     b_gen: torch.Tensor
     head_num: int
     cache_outputs: bool
+    shard: Optional[object] = None  # the model axis (``mesh.Axis``) under tensor parallelism
+
+
+TP_PLAIN_ONLY = ("tensor parallelism runs the plain fast step and the module step "
+                 "only (--kernel jnp|generic): a decoder kernel reads a whole "
+                 "layer's weights, and its TPU counterpart cannot be partitioned "
+                 "over the model axis either")
+
+
+def refuse_sharded(fast: "FastDecoder", what: str) -> None:
+    """Raise where ``fast`` is a tensor-parallel slice and ``what`` a kernel path."""
+    if fast.shard is not None:
+        raise ValueError(f"{what}: {TP_PLAIN_ONLY}")
 
 
 def _kernel(linear) -> torch.Tensor:
@@ -143,11 +161,11 @@ def dequantize_cross_kv(cross_kv, dtype=None):
 
 def init_fast_cache(fast: FastDecoder, batch: int, max_len: int, *,
                     quant: bool = False):
-    """Zeroed flat [B, L, 2H] self cache per layer in the model's type; with
-    ``quant`` (kv_quant "int8_cache") a pair per layer: int8 codes
-    [B, L, 2H] and f32 scales [B, L, 2] (the k-scale and the v-scale of
-    each row and slot)."""
-    hidden = fast.w_gen.shape[0]
+    """Zeroed flat [B, L, 2H] self cache per layer in the model's type (2H:
+    this rank's heads' k|v under tensor parallelism); with ``quant``
+    (kv_quant "int8_cache") a pair per layer: int8 codes [B, L, 2H] and f32
+    scales [B, L, 2] (the k-scale and the v-scale of each row and slot)."""
+    hidden = fast.layers[0].w_qkv.shape[1] // 3
     dev = fast.w_gen.device
     if quant:
         return tuple(
@@ -171,6 +189,8 @@ def decode_buffers(fast: FastDecoder, src: torch.Tensor, steps: int, *,
     if kv_quant not in KV_QUANT:
         raise ValueError(f"unknown kv_quant {kv_quant!r}")
     src = src.to(fast.w_gen.dtype)
+    if kv_quant != "none":
+        refuse_sharded(fast, "kv_quant")
     if kv_quant == "none":
         return precompute_cross_kv(fast, src), init_fast_cache(fast, src.shape[0], steps)
     cross_kv = precompute_cross_kv_int8(fast, src)
@@ -183,12 +203,17 @@ def decode_buffers(fast: FastDecoder, src: torch.Tensor, steps: int, *,
 
 def _layer_by_layer(fast: FastDecoder, token: torch.Tensor, pos: int, cross_kv,
                     cache, step):
+    tp = {}
+    if fast.shard is not None:
+        if step is not layer_step_ref:
+            refuse_sharded(fast, step.__name__)
+        tp = dict(reduce=fast.shard.sum)
     x = fast.embed_scaled[token] + fast.pos_encoding[pos][None, :]
     for layer, kv_cache, ckv in zip(fast.layers, cache, cross_kv):
         # an int8 cross K|V comes as (codes, scales)
         kw = dict(src_scale=ckv[1]) if isinstance(ckv, tuple) else {}
         x, _ = step(x, pos, kv_cache, ckv[0] if kw else ckv, layer,
-                    head_num=fast.head_num, cache_outputs=fast.cache_outputs, **kw)
+                    head_num=fast.head_num, cache_outputs=fast.cache_outputs, **kw, **tp)
     return (x @ fast.w_gen + fast.b_gen).float()
 
 
@@ -219,6 +244,7 @@ def make_v3_step(fast: FastDecoder):
 
     The stacked weights are built once, here.
     """
+    refuse_sharded(fast, "make_v3_step")
     stacked = stack_fast_layers(fast.layers)
     hidden = fast.w_gen.shape[0]
 

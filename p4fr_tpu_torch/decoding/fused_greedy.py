@@ -23,6 +23,7 @@ from p4fr_tpu_torch.decoding.fast_step import (
     FastDecoder,
     build_fast_decoder,
     precompute_cross_kv,
+    refuse_sharded,
 )
 from p4fr_tpu_torch.ops.fused_decode import (
     build_fused_params,
@@ -59,6 +60,7 @@ def fused_greedy_decode(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
     if stop_override is not None and early_stop_eos is None:
         raise ValueError("stop_override requires early_stop_eos (the "
                          "fixed-length loop would ignore the stop steps)")
+    refuse_sharded(fast, "fused_greedy_decode")
     params = build_fused_params(
         fast, tables, max_steps=max_steps, vocab_size=vocab_size, sos_id=sos_id,
         eos_id=tables.eos_id if tables is not None else 0)

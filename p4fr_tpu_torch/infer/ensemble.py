@@ -26,7 +26,13 @@ that batch on the card to its own ``input_size``
 (``single.resize_feed``): one image decode and one host-to-device copy per
 image instead of one per member, so the members must agree on
 ``data.rgb``. ``output.csv`` as in the JAX package. ``max_cache`` is
-accepted and unused (every memory stays on the card).
+accepted and unused (every memory stays on the card). With
+``data_parallel`` each batch splits over the ranks of the process group
+(``single.default_mesh``): every rank reads only its rows of each batch
+(``single.loader_shard``), encodes them with every member
+and runs the joint decode on them, both through one
+``parallel/sharding.py::make_sharded_infer_fn``, so no collective runs but
+the final gather of the tokens; rank 0 writes ``output.csv``.
 """
 
 from __future__ import annotations
@@ -47,12 +53,11 @@ from p4fr_tpu_torch.infer.single import (
     PREPROCESS,
     build_eval_loader,
     build_fast,
+    default_mesh,
     encode_images,
+    loader_shard,
     resize_feed,
 )
-
-# option -> the ROADMAP item that ports it
-NOT_YET = {"data_parallel": "ROADMAP.md Queue 1 item 13: parallelism"}
 
 
 def _member_step(model, fast, memory: torch.Tensor, steps: int, kernel: str,
@@ -124,14 +129,14 @@ def run_ensemble(checkpoint_paths: Sequence[str], file_path: str, output_dir: st
     ``output.csv``. On the CUDA card in bf16 unless the caller passes
     ``device="cpu"`` (f32); raises if CUDA is asked for and absent.
     ``preprocess``: "device", "device_resize" or "host" (the module
-    docstring). ``data_parallel`` is refused with its ROADMAP item."""
+    docstring). ``data_parallel``: each batch splits over the ranks of the
+    process group (the module docstring); only rank 0 writes
+    ``output.csv``."""
     from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
     del max_cache
     if preprocess not in PREPROCESS:
         raise ValueError(f"preprocess {preprocess!r}")
-    if data_parallel:
-        raise NotImplementedError(f"--data_parallel: {NOT_YET['data_parallel']}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_ensemble: CUDA was asked for and no CUDA card is "
@@ -149,33 +154,45 @@ def run_ensemble(checkpoint_paths: Sequence[str], file_path: str, output_dir: st
     members = [(model, build_fast(model)) for model, _, _, _ in loaded]
     tables = dm.RuleTables.build(vocab, device) if decoding_manager else None
     loader_options = options_list[:1] if preprocess == "device_resize" else options_list
+    mesh = default_mesh(batch_size) if data_parallel else None
     loaders = [build_eval_loader(file_path, options, vocab, batch_size, max_sequence,
                                  host_normalize=preprocess == "host",
-                                 device_resize=preprocess == "device_resize")
+                                 device_resize=preprocess == "device_resize",
+                                 shard=loader_shard(mesh))
                for options in loader_options]
     num_steps = max_sequence + 1  # reference ensemble num_steps
 
+    def decode(images, orig_hw=None):
+        """``images``: the shared canvas (with ``orig_hw``), or each member's feed."""
+        if orig_hw is not None:
+            images = [resize_feed(model, options, images, orig_hw)
+                      for (model, _), options in zip(members, options_list)]
+        memories = [encode_images(model, feed) for (model, _), feed in zip(members, images)]
+        return ensemble_decode(
+            members, memories, max_steps=num_steps, tables=tables,
+            early_stop_eos=vocab.eos_id if early_stop else None, kernel=kernel)
+
+    if mesh is not None:
+        from p4fr_tpu_torch.parallel.sharding import make_sharded_infer_fn
+
+        decode = make_sharded_infer_fn(decode, mesh, local_rows=True)
     results: List[Tuple[str, str]] = []
     start = time.perf_counter()
     for batches in zip(*loaders):
         if preprocess == "device_resize":
-            canvas = torch.from_numpy(batches[0]["image"]).to(device)
-            orig_hw = torch.from_numpy(batches[0]["orig_hw"]).to(device)
-            feeds = [resize_feed(model, options, canvas, orig_hw)
-                     for (model, _), options in zip(members, options_list)]
+            feed = [torch.from_numpy(batches[0][key]).to(device)
+                    for key in ("image", "orig_hw")]
         else:
-            feeds = [torch.from_numpy(b["image"]).to(device) for b in batches]
-        memories = [encode_images(model, feed) for (model, _), feed in zip(members, feeds)]
-        tokens = ensemble_decode(
-            members, memories, max_steps=num_steps, tables=tables,
-            early_stop_eos=vocab.eos_id if early_stop else None,
-            kernel=kernel).cpu().numpy()
+            feed = [[torch.from_numpy(b["image"]).to(device) for b in batches]]
+        tokens = decode(*feed).cpu().numpy()
         count = batches[0]["count"]
         strs = id_to_string(tokens[:count], vocab.id_to_token, sos_id=vocab.sos_id,
                             eos_id=vocab.eos_id, pad_id=vocab.pad_id, do_eval=True)
         results.extend(zip(batches[0]["file_path"][:count], strs))
     elapsed = time.perf_counter() - start
 
+    if mesh is not None and mesh.rank:
+        return results  # rank 0 writes the file
     os.makedirs(output_dir, exist_ok=True)
     out_path = os.path.join(output_dir, "output.csv")
     with open(out_path, "w") as w:

@@ -17,7 +17,12 @@ Two halves:
   "device_resize" ships each raw u8 image on an edge-replicated canvas
   with its valid (h, w), and resizes and standardizes on the card
   (``ops/preprocess.py::resize_standardize``, plain torch, no kernel 1);
-  "host" ships the cv2-normalized f32 batch (no kernel 1).
+  "host" ships the cv2-normalized f32 batch (no kernel 1). With
+  ``data_parallel`` every rank of the process group (``default_mesh``)
+  reads only its rows of each batch (``loader_shard``), decodes them
+  through ``parallel/sharding.py::make_sharded_infer_fn`` -- the same
+  kernels, per rank -- and gets every row's tokens back; rank 0 alone
+  writes ``output.csv``.
 
 Decode length is ``max_sequence + 1`` steps, the reference's dummy-GT
 trick. Ensembles are ``infer/ensemble.py``.
@@ -190,11 +195,13 @@ def canvas_for(paths, round_to: int = 8) -> Tuple[int, int]:
 
 def build_eval_loader(file_path: str, options, vocab, batch_size: int,
                       max_sequence: int, *, sort_by_size: bool = False,
-                      host_normalize: bool = False, device_resize: bool = False):
+                      host_normalize: bool = False, device_resize: bool = False,
+                      shard=(0, 1)):
     """The JAX CLI's eval loader: u8 batches resized on the host (the
     default), cv2-normalized f32 with ``host_normalize``, or with
     ``device_resize`` the raw u8 images on one canvas (``canvas_for`` over
-    every listed image) and ``batch["orig_hw"]``."""
+    every listed image) and ``batch["orig_hw"]``. ``shard=(i, n)``: each
+    batch reads only its i-th of n slices of rows (``DataLoader``)."""
     from p4fr_tpu_torch.data.augment import get_valid_transforms
     from p4fr_tpu_torch.data.dataset import LoadEvalDataset
     from p4fr_tpu_torch.data.loader import DataLoader
@@ -212,7 +219,7 @@ def build_eval_loader(file_path: str, options, vocab, batch_size: int,
                               transform=transform, rgb=rgb)
     return DataLoader(
         dataset, batch_size, max_label_len=max_sequence + 2,
-        sort_key=dataset.size_proxy if sort_by_size else None,
+        sort_key=dataset.size_proxy if sort_by_size else None, shard=shard,
     )
 
 
@@ -222,7 +229,8 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
                   decoding_manager: bool = True, early_stop: bool = False,
                   plain: bool = False, kernel: str = "auto",
                   kv_quant: str = "none", beam_gather: str = "auto",
-                  preprocess: str = "device", device="cuda") -> List[Tuple[str, str]]:
+                  preprocess: str = "device", data_parallel: bool = False,
+                  device="cuda") -> List[Tuple[str, str]]:
     """Inference over an ``input.txt`` of image names; writes
     ``output.csv``. Runs on the CUDA card in bf16 unless the caller passes
     ``device="cpu"`` (f32); raises if CUDA is asked for and absent.
@@ -238,7 +246,10 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
     JAX package. ``beam_gather`` (beam): "auto" and "pallas" reorder the
     parent beams' caches through kernel 4, "jnp" through its plain version
     alone. ``preprocess``: the feed, "device", "device_resize" or "host"
-    (the module docstring). ``plain=True`` runs every kernel's plain
+    (the module docstring). ``data_parallel``: the batch splits over
+    the ranks of the process group, one device each (``default_mesh``;
+    without a process group, a mesh of this process alone); only rank 0
+    writes ``output.csv``. ``plain=True`` runs every kernel's plain
     version instead. ``early_stop``
     leaves the decode loop once every sequence (every beam) has finished;
     for greedy it also sorts the input by image aspect ratio so that
@@ -266,32 +277,40 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
     tables = (RuleTables.build(vocab, device)
               if decoding_manager and decode_type == "greedy" else None)
     sort_by_size = early_stop and decode_type == "greedy"
+    mesh = default_mesh(batch_size) if data_parallel else None
     loader = build_eval_loader(file_path, options, vocab, batch_size, max_sequence,
                                sort_by_size=sort_by_size,
                                host_normalize=preprocess == "host",
-                               device_resize=preprocess == "device_resize")
+                               device_resize=preprocess == "device_resize",
+                               shard=loader_shard(mesh))
     num_steps = max_sequence + 1  # reference: len(dummy encoded) - 1
 
+    def decode(images, orig_hw=None):
+        if preprocess == "device_resize":
+            images = resize_feed(model, options, images, orig_hw)
+        if decode_type == "greedy":
+            return decode_images(
+                model, fast, images, tables, num_steps,
+                early_stop_eos=vocab.eos_id if early_stop else None, plain=plain,
+                kernel=kernel, kv_quant=kv_quant)
+        return beam_decode_images(
+            model, fast, images, num_steps, beam_width=beam_width,
+            eos_id=vocab.eos_id, early_stop=early_stop,
+            plain=plain or kernel == "jnp",
+            kernel=beam_kernel(kernel), beam_gather=beam_gather)
+
+    if mesh is not None:
+        from p4fr_tpu_torch.parallel.sharding import make_sharded_infer_fn
+
+        decode = make_sharded_infer_fn(decode, mesh, local_rows=True)
     results: List[Tuple[str, str]] = []
     start = time.perf_counter()
     n_images = 0
     for batch in loader:
-        images = torch.from_numpy(batch["image"]).to(device)  # u8, or host f32
+        feed = [torch.from_numpy(batch["image"]).to(device)]  # u8, or host f32
         if preprocess == "device_resize":
-            images = resize_feed(model, options, images,
-                                 torch.from_numpy(batch["orig_hw"]).to(device))
-        if decode_type == "greedy":
-            tokens = decode_images(
-                model, fast, images, tables, num_steps,
-                early_stop_eos=vocab.eos_id if early_stop else None, plain=plain,
-                kernel=kernel, kv_quant=kv_quant)
-        else:
-            tokens = beam_decode_images(
-                model, fast, images, num_steps, beam_width=beam_width,
-                eos_id=vocab.eos_id, early_stop=early_stop,
-                plain=plain or kernel == "jnp",
-                kernel=beam_kernel(kernel), beam_gather=beam_gather)
-        tokens = tokens.cpu().numpy()
+            feed.append(torch.from_numpy(batch["orig_hw"]).to(device))
+        tokens = decode(*feed).cpu().numpy()
         count = batch["count"]
         strs = id_to_string(tokens[:count], vocab.id_to_token,
                             sos_id=vocab.sos_id, eos_id=vocab.eos_id,
@@ -307,12 +326,39 @@ def run_inference(checkpoint_path: str, file_path: str, output_dir: str, *,
                      enumerate(csv.reader(fd, delimiter="\t")) if r}
         results.sort(key=lambda pr: order.get(pr[0], len(order)))
 
+    if mesh is not None and mesh.rank:
+        return results  # rank 0 writes the file
     os.makedirs(output_dir, exist_ok=True)
     out_path = os.path.join(output_dir, "output.csv")
     with open(out_path, "w") as w:
         for path, predicted in results:
             w.write(path + "\t" + predicted + "\n")
+    ranks = f", {mesh.size} rank(s)" if mesh is not None else ""
     print(f"[+] wrote {len(results)} predictions -> {out_path} "
           f"({n_images / max(elapsed, 1e-9):.1f} img/s incl. host IO, "
-          f"{device.type})")
+          f"{device.type}{ranks})")
     return results
+
+
+def loader_shard(mesh) -> Tuple[int, int]:
+    """The eval loader's ``shard`` for this rank of ``mesh`` (None: the
+    whole batch): its index on the data axis, and the axis's size."""
+    if mesh is None:
+        return (0, 1)
+    axis = mesh.axis("data")
+    return (axis.index, axis.size)
+
+
+def default_mesh(batch_size: int):
+    """The CLIs' data-parallel mesh over every rank of the process group
+    (one device each; a process without a group is a mesh of one).
+    Validates batch divisibility up front, with the JAX CLI's message."""
+    from p4fr_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    if batch_size % n != 0:
+        raise ValueError(
+            f"--data_parallel: batch_size {batch_size} must be divisible "
+            f"by the {n} visible devices"
+        )
+    return make_mesh(n_data=n, n_model=1)

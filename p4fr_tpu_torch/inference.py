@@ -45,8 +45,20 @@ refuses it, as in the JAX package. ``--preprocess`` picks the feed, single
 and ensemble alike: ``device`` (host-resized u8, standardized on the card),
 ``device_resize`` (raw u8 on one canvas, resized and standardized on the
 card; in an ensemble one canvas for every member, which must agree on
-``data.rgb``) or ``host`` (cv2-normalized f32). Options the port does not run yet are
-rejected with the ROADMAP item that ports them; compatibility shims
+``data.rgb``) or ``host`` (cv2-normalized f32). ``--data_parallel true``
+splits each batch over the ranks of a process group, one device each,
+single and ensemble alike (``parallel/sharding.py::make_sharded_infer_fn``:
+every rank runs the same kernels on its rows, and gathers the tokens):
+
+    torchrun --nproc_per_node N -m p4fr_tpu_torch.inference \\
+        --data_parallel true --checkpoint model.pth --file_path input.txt
+
+runs one card per rank (NCCL, rank r on ``cuda:LOCAL_RANK``; more ranks
+than cards are refused), with ``--batch_size`` divisible by N; a plain
+``python -m`` run is a mesh of one rank, NCCL on the card or, with
+``--device cpu``, gloo on the host. Rank 0 writes ``output.csv``. Tensor
+parallelism (``make_tp_infer_fn``) is a library path, as in the JAX
+package: no CLI flag reaches it. Compatibility shims
 (``--tokens_path``, ``--max_cache``) are accepted and unused, as in the JAX
 CLI. A checkpoint is a reference-format ``.pth`` or the JAX package's
 native msgpack ``.ckpt`` (read by the port's own codec, without flax), of a
@@ -56,11 +68,6 @@ EfficientASTER.
 
 import argparse
 import sys
-
-# option -> (values the port supports, ROADMAP item that ports the rest)
-_NOT_YET = {
-    "data_parallel": ((False,), "Queue 1 item 13: parallelism"),
-}
 
 
 def str2bool(v):
@@ -121,11 +128,6 @@ def main(argv=None):
     if args.kv_quant != "none" and args.inference_type == "ensemble":
         parser.error("--kv_quant runs on the single model's fast step, not in "
                      "an ensemble")
-    for name, (supported, item) in _NOT_YET.items():
-        value = getattr(args, name)
-        if value not in supported:
-            parser.error(f"--{name} {value} is not ported to p4fr_tpu_torch "
-                         f"yet (ROADMAP.md {item})")
 
     import torch
 
@@ -133,6 +135,19 @@ def main(argv=None):
         parser.error("no CUDA card is visible; pass --device cpu to run on "
                      "the CPU")
 
+    device = args.device
+    if args.data_parallel:
+        from p4fr_tpu_torch.parallel.mesh import init_distributed
+
+        device = init_distributed(args.device)
+    try:
+        return _run(args, device)
+    finally:
+        if args.data_parallel:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, device):
     if args.inference_type == "ensemble":
         from p4fr_tpu_torch.infer.ensemble import run_ensemble
 
@@ -141,7 +156,8 @@ def main(argv=None):
             batch_size=args.batch_size, max_sequence=args.max_sequence,
             decoding_manager=args.decoding_manager, max_cache=args.max_cache,
             early_stop=args.early_stop, kernel=args.kernel,
-            preprocess=args.preprocess, device=args.device)
+            preprocess=args.preprocess, data_parallel=args.data_parallel,
+            device=device)
 
     from p4fr_tpu_torch.infer.single import run_inference
 
@@ -151,7 +167,7 @@ def main(argv=None):
         decode_type=args.decode_type, beam_width=args.beam_width,
         decoding_manager=args.decoding_manager, early_stop=args.early_stop,
         kernel=args.kernel, kv_quant=args.kv_quant, beam_gather=args.beam_gather,
-        preprocess=args.preprocess, device=args.device,
+        preprocess=args.preprocess, data_parallel=args.data_parallel, device=device,
     )
 
 

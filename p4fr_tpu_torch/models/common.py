@@ -50,7 +50,11 @@ class Feedforward(nn.Module):
     """Position-wise FF: Linear, ReLU, Dropout, Linear, ReLU, Dropout.
 
     ``naming``: "linear" (``linear0``, ``linear1``) or "sequential"
-    (the six as ``layers``)."""
+    (the six as ``layers``). Under tensor parallelism (``shard``, as in
+    ``ops.attention``) the first Linear computes this rank's columns and the
+    second sums the ranks' partial products before its bias and ReLU."""
+
+    shard = None  # this rank's model axis under tensor parallelism
 
     def __init__(self, filter_dim: int, hidden_dim: int, dropout: float = FF_DROPOUT,
                  naming: str = "linear"):
@@ -74,6 +78,12 @@ class Feedforward(nn.Module):
         return self.linear0, self.linear1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shard is not None:
+            first, second = self.linears
+            drop0, drop1 = ((self.layers[2], self.layers[5]) if hasattr(self, "layers")
+                            else (self.dropout0, self.dropout1))
+            x = drop0(torch.relu(self.shard.columns(first, x)))
+            return drop1(torch.relu(self.shard.rows(second, x)))
         if hasattr(self, "layers"):
             return self.layers(x)
         x = self.dropout0(torch.relu(self.linear0(x)))

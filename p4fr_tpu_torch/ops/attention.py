@@ -14,6 +14,12 @@ Written as plain matmuls and a softmax, not
 In train mode dropout (rate ``dropout``) falls on the attention
 probabilities and on the output, as in the JAX module; in eval mode both
 are the identity.
+
+Under tensor parallelism (``parallel/sharding.py::on_mesh`` sets
+``shard``, the rank's ``mesh.Axis`` over ``model``) the q/k/v projections
+compute this rank's heads alone (column-parallel) and the output projection
+sums the ranks' partial products before its bias (row-parallel); the
+temperature stays that of the full width.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.
 
 
 class MultiHeadAttention(nn.Module):
+    shard = None  # this rank's model axis under tensor parallelism
+
     def __init__(self, q_dim: int, k_dim: int, head_num: int,
                  dropout: float = 0.1):
         super().__init__()
@@ -51,16 +59,20 @@ class MultiHeadAttention(nn.Module):
 
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
-        return x.reshape(b, n, self.head_num, self.head_dim)
+        return x.reshape(b, n, -1, self.head_dim)
+
+    def _project(self, linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """``linear(x)`` split into heads (this rank's, under ``shard``)."""
+        return self._split_heads(linear(x) if self.shard is None
+                                 else self.shard.columns(linear, x))
 
     def project_q(self, q_in: torch.Tensor) -> torch.Tensor:
         """[B, Lq, q_dim] -> [B, Lq, h, dh]."""
-        return self._split_heads(self.q_linear(q_in))
+        return self._project(self.q_linear, q_in)
 
     def project_kv(self, kv_in: torch.Tensor):
         """[B, Lk, k_dim] -> ([B, Lk, h, dh], [B, Lk, h, dh])."""
-        return (self._split_heads(self.k_linear(kv_in)),
-                self._split_heads(self.v_linear(kv_in)))
+        return self._project(self.k_linear, kv_in), self._project(self.v_linear, kv_in)
 
     def attend(self, q, k, v, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """q [B,Lq,h,dh], k/v [B,Lk,h,dh], mask broadcastable to
@@ -68,14 +80,15 @@ class MultiHeadAttention(nn.Module):
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / self.temperature
         probs = self.attn_dropout(masked_softmax(scores, mask))
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        b, lq = out.shape[:2]
-        out = self.out_linear(out.reshape(b, lq, self.head_num * self.head_dim))
+        out = out.reshape(*out.shape[:2], -1)
+        out = (self.out_linear(out) if self.shard is None
+               else self.shard.rows(self.out_linear, out))
         return self.out_dropout(out)
 
     def forward(self, q_in, k_in, v_in, mask: Optional[torch.Tensor] = None):
         q = self.project_q(q_in)
-        k = self._split_heads(self.k_linear(k_in))
-        v = self._split_heads(self.v_linear(v_in))
+        k = self._project(self.k_linear, k_in)
+        v = self._project(self.v_linear, v_in)
         if mask is not None:
             if mask.dim() == 2:  # [Lq, Lk]
                 mask = mask[None, None]

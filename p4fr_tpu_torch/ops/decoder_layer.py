@@ -111,9 +111,15 @@ def dequantize_kv(codes: torch.Tensor, k_scale: torch.Tensor,
 
 def layer_step_ref(x: torch.Tensor, pos: int, cache, src_kv: torch.Tensor,
                    weights: LayerWeights, src_scale=None, *, head_num: int,
-                   cache_outputs: bool, kv_dtype=None):
+                   cache_outputs: bool, kv_dtype=None, reduce=None):
     """Plain twin: x [B, H], cache [B, L, 2H], src_kv [B, S, 2H]
     -> (out [B, H], cache updated in place).
+
+    ``reduce`` (tensor parallelism, ``parallel/sharding.py``): ``weights``
+    hold this rank's heads and FF columns (the q|k|v, cross-query, cross
+    k|v and first FF projections' columns, the rows of the three others),
+    ``cache`` and ``src_kv`` this rank's heads; ``reduce`` sums the three
+    row-parallel partial products over the model axis before their biases.
 
     ``kv_dtype`` rounds the current token's k|v through that type before
     the attention, as the kernel does when its cache is that type; with it,
@@ -127,8 +133,11 @@ def layer_step_ref(x: torch.Tensor, pos: int, cache, src_kv: torch.Tensor,
     w = weights
     batch, hidden = x.shape
     d = hidden // head_num
+    width = w.w_qkv.shape[1] // 3  # hidden, or this rank's heads' under reduce
+    heads = width // d
     temp = float(hidden) ** 0.5
-    q, k_cur, v_cur = (x @ w.w_qkv + w.b_qkv).split(hidden, dim=-1)
+    rows = reduce or (lambda t: t)
+    q, k_cur, v_cur = (x @ w.w_qkv + w.b_qkv).split(width, dim=-1)
     kv = torch.cat([k_cur, v_cur], dim=-1)
     if kv_dtype is not None:
         kv = kv.to(kv_dtype).to(kv.dtype)
@@ -142,30 +151,30 @@ def layer_step_ref(x: torch.Tensor, pos: int, cache, src_kv: torch.Tensor,
     if src_scale is not None:
         src_kv = dequantize_kv(src_kv, src_scale[:, 0], src_scale[:, 1]).to(x.dtype)
     max_len = kv_all.shape[1]
-    k_all = kv_all[..., :hidden].reshape(batch, max_len, head_num, d)
-    v_all = kv_all[..., hidden:].reshape(batch, max_len, head_num, d)
-    scores = torch.einsum("bhd,blhd->bhl", q.reshape(batch, head_num, d), k_all) / temp
+    k_all = kv_all[..., :width].reshape(batch, max_len, heads, d)
+    v_all = kv_all[..., width:].reshape(batch, max_len, heads, d)
+    scores = torch.einsum("bhd,blhd->bhl", q.reshape(batch, heads, d), k_all) / temp
     ban = torch.arange(max_len, device=x.device) > pos
     probs = torch.softmax(scores.masked_fill(ban, NEG_INF), dim=-1)
-    att = torch.einsum("bhl,blhd->bhd", probs, v_all).reshape(batch, hidden)
-    out = _ln(att @ w.w_out + w.b_out + x, w.ln1_scale, w.ln1_bias)
+    att = torch.einsum("bhl,blhd->bhd", probs, v_all).reshape(batch, width)
+    out = _ln(rows(att @ w.w_out) + w.b_out + x, w.ln1_scale, w.ln1_bias)
 
-    q2 = (out @ w.w_q2 + w.b_q2).reshape(batch, head_num, d)
-    ck = src_kv[..., :hidden].reshape(batch, -1, head_num, d)
-    cv = src_kv[..., hidden:].reshape(batch, -1, head_num, d)
+    q2 = (out @ w.w_q2 + w.b_q2).reshape(batch, heads, d)
+    ck = src_kv[..., :width].reshape(batch, -1, heads, d)
+    cv = src_kv[..., width:].reshape(batch, -1, heads, d)
     p2 = torch.softmax(torch.einsum("bhd,blhd->bhl", q2, ck) / temp, dim=-1)
-    att2 = torch.einsum("bhl,blhd->bhd", p2, cv).reshape(batch, hidden)
-    out = _ln(att2 @ w.w_out2 + w.b_out2 + out, w.ln2_scale, w.ln2_bias)
+    att2 = torch.einsum("bhl,blhd->bhd", p2, cv).reshape(batch, width)
+    out = _ln(rows(att2 @ w.w_out2) + w.b_out2 + out, w.ln2_scale, w.ln2_bias)
 
     ffo = torch.relu(out @ w.w_ff0 + w.b_ff0)
-    ffo = torch.relu(ffo @ w.w_ff1 + w.b_ff1)
+    ffo = torch.relu(rows(ffo @ w.w_ff1) + w.b_ff1)
     out = _ln(ffo + out, w.ln3_scale, w.ln3_bias)
     # reference parity: with cache_outputs the layer OUTPUT becomes future K/V
-    slot = out @ w.w_qkv[:, hidden:] + w.b_qkv[hidden:] if cache_outputs else None
+    slot = out @ w.w_qkv[:, width:] + w.b_qkv[width:] if cache_outputs else None
     if isinstance(cache, tuple):
         slot = kv if slot is None else slot
-        k8, sk = quantize_rows(slot[:, :hidden])
-        v8, sv = quantize_rows(slot[:, hidden:])
+        k8, sk = quantize_rows(slot[:, :width])
+        v8, sv = quantize_rows(slot[:, width:])
         codes[:, pos] = torch.cat([k8, v8], dim=-1)
         scales[:, pos] = torch.stack([sk, sv], dim=-1)
     elif slot is not None:

@@ -49,12 +49,18 @@ def autocast(device: torch.device, dtype: torch.dtype):
 
 
 def cross_entropy_ignore_pad(logits: torch.Tensor, targets: torch.Tensor,
-                             pad_id: int) -> torch.Tensor:
-    """Mean CE over non-pad targets. logits [B, L, V], targets [B, L]."""
+                             pad_id: int, data_axis=None) -> torch.Tensor:
+    """Mean CE over non-pad targets. logits [B, L, V], targets [B, L].
+    ``data_axis`` (a mesh's, ``parallel.mesh.Axis``): the mean over the
+    global batch, the numerator and the token count summed over the ranks
+    (each shard holds its own count of pad targets)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None])[..., 0]
     valid = (targets != pad_id).float()
-    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+    total, count = (nll * valid).sum(), valid.sum()
+    if data_axis is not None:
+        total, count = data_axis.sum(torch.stack([total, count])).unbind()
+    return total / count.clamp_min(1.0)
 
 
 def teacher_forced_logits(model, images: torch.Tensor, text_in: torch.Tensor

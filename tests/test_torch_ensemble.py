@@ -17,8 +17,8 @@ weights bridged with ``strict=True``, each encoding its own images. Held:
 - the CLI: ``python -m p4fr_tpu_torch.inference --inference_type ensemble
   --device cpu`` on the exported ``.pth`` files (SATRN at 64x128, ASTER at
   64x160: each member reads the images at its own size) writes the
-  ``output.csv`` of JAX's ``run_ensemble`` on the native checkpoints; the
-  options still to port (parallelism) are refused with their ROADMAP items.
+  ``output.csv`` of JAX's ``run_ensemble`` on the native checkpoints, and
+  ``--data_parallel true`` writes that of the run without it.
 """
 
 import os
@@ -144,20 +144,28 @@ def test_ensemble_cli_matches_jax(members, vocab, tmp_path):
     assert got == want
 
 
-def test_ensemble_refusals_name_their_roadmap_items(capsys):
-    """Parallelism alone is still refused (item 13); the preprocess options
-    (item 10) run (``test_torch_preprocess_options.py``)."""
+def test_ensemble_refusals_name_their_roadmap_items(slice_models, tmp_path):  # noqa: F811
+    """Nothing is left to refuse: ``--data_parallel true --device cpu`` runs
+    the ensemble (on the shared ``device_resize`` canvas) as a mesh of one
+    gloo rank and writes the ``output.csv`` of the run without it; an
+    unknown feed is still refused."""
     from p4fr_tpu_torch import inference
-    from p4fr_tpu_torch.infer import ensemble
+    from p4fr_tpu_torch.utils.checkpoint import save_checkpoint
 
-    assert set(inference._NOT_YET) == set(ensemble.NOT_YET) == {"data_parallel"}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        run_ensemble(["a.pth"], "in.txt", "out", data_parallel=True, device="cpu")
     with pytest.raises(ValueError, match="preprocess 'cv2'"):
         run_ensemble(["a.pth"], "in.txt", "out", preprocess="cv2", device="cpu")
-    with pytest.raises(SystemExit) as exc:
-        inference.main(["--inference_type", "ensemble", "--checkpoint", "a.pth",
-                        "b.pth", "--file_path", "in.txt", "--device", "cpu",
-                        "--preprocess", "device_resize", "--data_parallel", "true"])
-    assert exc.value.code != 0
-    assert "ROADMAP.md Queue 1 item 13" in capsys.readouterr().err
+    vocab, _, _, tmodel, _, _ = slice_models
+    pth = save_checkpoint(str(tmp_path / "m.pth"), tmodel, network="EfficientSATRN",
+                          configs=SATRN_CONFIGS, vocab=vocab)
+    make_synth_dataset(str(tmp_path), n=3, folds=1)
+    inp = tmp_path / "input.txt"
+    inp.write_text("".join(n + "\t\n" for n in sorted(os.listdir(tmp_path / "images"))))
+    outs = []
+    for flags in ([], ["--data_parallel", "true"]):
+        out = tmp_path / f"out{len(flags)}"
+        inference.main(["--inference_type", "ensemble", "--checkpoint", pth, pth,
+                        "--file_path", str(inp), "--output_dir", str(out),
+                        "--batch_size", "2", "--max_sequence", "4", "--device", "cpu",
+                        "--preprocess", "device_resize", *flags])
+        outs.append((out / "output.csv").read_text())
+    assert len(outs[0].splitlines()) == 3 and outs[1] == outs[0]

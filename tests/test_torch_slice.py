@@ -16,7 +16,8 @@ package at f32 on the CPU (the port's kernel wrappers take their twins):
   ``rules.json`` equal the JAX package's, and a copy of ``p4fr_tpu_torch/``
   and ``chip_smoke.py`` without ``p4fr_tpu/`` imports, saves and loads a
   checkpoint and decodes, with jax, flax and ``p4fr_tpu`` refused;
-- the entry points run on CUDA unless asked for the CPU.
+- the entry points run on CUDA unless asked for the CPU, and
+  ``--data_parallel true`` runs as a mesh of one rank.
 """
 
 import os
@@ -47,6 +48,16 @@ from p4fr_tpu_torch.utils.convert import export_state_dict, state_dict_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEIGHT, WIDTH, B, STEPS = 64, 128, 2, 12
+
+# One intra-op thread for torch in each test process and in the processes
+# the port's tests start: pytest-xdist's workers each import every test
+# module, so this holds for every worker. The port's tests run tiny shapes
+# that more threads do not speed up, and six workers' thread pools on one
+# host's cores slowed each other down several times over (six port test
+# files under -n 6 on an 8-core host: 129 s with torch's default threads, 75
+# s with one).
+os.environ["OMP_NUM_THREADS"] = "1"
+torch.set_num_threads(1)
 
 CONFIGS = {
     "network": "EfficientSATRN",
@@ -224,23 +235,42 @@ def test_cli_output_matches_jax(slice_models, tmp_path):
     assert got == want
 
 
-def test_cli_rejects_what_is_not_ported(tmp_path, capsys):
-    """Parallelism is still to port: the CLI refuses ``--data_parallel``
-    with the ROADMAP item (ensembles, refused here before, are ported)."""
+def test_cli_rejects_what_is_not_ported(slice_models, tmp_path, monkeypatch):
+    """Nothing is left to refuse: ``--data_parallel true --device cpu`` runs
+    as a mesh of one gloo rank and writes the ``output.csv`` of the run
+    without it, and the process group is gone after; a batch that does not
+    split over the ranks is refused with the JAX CLI's text (its 8 virtual
+    devices; the port's world of 8 ranks stood in for)."""
+    from p4fr_tpu.infer.single import default_mesh as jax_default_mesh
     from p4fr_tpu_torch import inference
+    from p4fr_tpu_torch.infer.single import default_mesh
 
-    with pytest.raises(SystemExit) as exc:
-        inference.main(["--data_parallel", "true", "--checkpoint", "x.pth",
-                        "--file_path", "in.txt", "--device", "cpu"])
-    assert exc.value.code != 0
-    assert "ROADMAP.md Queue 1 item 13: parallelism" in capsys.readouterr().err
+    inp, _, pth, n = native_and_pth(slice_models, tmp_path)
+    outs = []
+    for flags in ([], ["--data_parallel", "true"]):
+        out = tmp_path / f"out{len(flags)}"
+        inference.main(["--checkpoint", pth, "--file_path", str(inp), "--output_dir",
+                        str(out), "--batch_size", "4", "--max_sequence", "6",
+                        "--device", "cpu", *flags])
+        outs.append((out / "output.csv").read_text())
+    assert len(outs[0].splitlines()) == n and outs[1] == outs[0]
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError) as want:
+        jax_default_mesh(12)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 8)
+    with pytest.raises(ValueError) as got:
+        default_mesh(12)
+    assert str(got.value) == str(want.value)
 
 
 def test_entry_points_run_on_cuda_unless_asked(slice_models, tmp_path, monkeypatch):
-    """Without CUDA, ``run_inference`` and the CLI refuse unless told to use
-    the CPU; they never pick it themselves."""
+    """Without CUDA, ``run_inference``, the CLI and the mesh's dry run (its
+    function and its CLI) refuse unless told to use the CPU; they never pick
+    it themselves."""
     from p4fr_tpu_torch import inference
     from p4fr_tpu_torch.infer.single import run_inference
+    from p4fr_tpu_torch.parallel import dryrun
     from p4fr_tpu_torch.utils.checkpoint import save_checkpoint
 
     vocab, _, _, tmodel, _, _ = slice_models
@@ -251,6 +281,11 @@ def test_entry_points_run_on_cuda_unless_asked(slice_models, tmp_path, monkeypat
         run_inference(pth, str(tmp_path / "input.txt"), str(tmp_path / "out"))
     with pytest.raises(SystemExit) as exc:
         inference.main(["--checkpoint", pth, "--file_path", "input.txt"])
+    assert exc.value.code != 0
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.dryrun_multichip(2)
+    with pytest.raises(SystemExit) as exc:
+        dryrun.main(["2"])
     assert exc.value.code != 0
 
 
@@ -450,6 +485,18 @@ for network, family_configs, hw in (("SWIN", swin_configs, (32, 32)),
     loss, seq, logits = make_eval_step(model, vocab.pad_id)(images, text)
     assert seq.shape == (2, 5) and model.training
 
+# a mesh of one gloo rank: the single path's decode through the sharded wrapper
+from p4fr_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from p4fr_tpu_torch.parallel.sharding import make_sharded_infer_fn
+
+assert init_distributed("cpu") == torch.device("cpu")
+images = torch.randint(0, 256, (2, 64, 128, 3), dtype=torch.uint8)
+satrn_fast = build_fast(satrn)
+sharded = make_sharded_infer_fn(
+    lambda im: decode_images(satrn, satrn_fast, im, tables, 4), make_mesh())
+assert torch.equal(sharded(images), decode_images(satrn, satrn_fast, images, tables, 4))
+torch.distributed.destroy_process_group()
+
 # a native checkpoint the JAX package wrote, read by the port's own codec
 from p4fr_tpu_torch.utils.checkpoint import checkpoint_format, save_native_checkpoint
 
@@ -521,7 +568,9 @@ def test_port_imports_no_jax(slice_models, tmp_path):
     validation step and a ``.pth`` with the trainer's state, saved and
     loaded; a canvas feed resized on the device (``resize_feed``) decodes;
     the SwinTRN and the EfficientASTER each take a teacher-forced and an
-    AR-sampled step and a validation step; a native checkpoint that the JAX package wrote before the
+    AR-sampled step and a validation step; a mesh of one gloo rank decodes
+    2 images through ``make_sharded_infer_fn`` as the plain call does; a
+    native checkpoint that the JAX package wrote before the
     copy loads (msgpack refused too), decodes, and saves and loads back
     through the port's native writer; and a backbone grafts from a
     timm-keyed file, an AdamW step's optimizer state goes through a native

@@ -51,6 +51,7 @@ from p4fr_tpu_torch.utils.convert import export_state_dict, state_dict_from_jax
 from test_torch_slice import seeded_variables
 
 HEIGHT, WIDTH, B, L = 32, 64, 2, 8
+FULL_L = 232  # --max_label_len's default
 STAGES = [[1, 3, 1, 1, 24, 24, False, True], [1, 3, 2, 4, 24, 32, False, True],
           [2, 3, 2, 4, 32, 48, True, False]]
 CONFIGS = {
@@ -167,7 +168,28 @@ def test_teacher_forced_logits_and_batch_stats_match(setup):
 @pytest.mark.parametrize("teacher_forced", [True, False])
 def test_gradients_match(setup, teacher_forced):
     """The loss and every parameter's gradient of both branches."""
-    vocab, jmodel, variables, images, text = setup
+    check_gradients(setup, teacher_forced, setup[4])
+
+
+def test_ar_sampled_gradients_match_at_the_full_label_length(setup):
+    """The AR-sampled branch over the 231 steps of a label of
+    ``--max_label_len``'s default length, 232: row 0 fills every position
+    and row 1 most of them, so every cache slot and positional-encoding row
+    reaches the loss; the loss and every gradient as in
+    ``test_gradients_match``."""
+    vocab = setup[0]
+    rng = np.random.default_rng(3)
+    text = np.full((B, FULL_L), vocab.pad_id, np.int32)
+    text[:, 0] = vocab.sos_id
+    for b, n in enumerate((FULL_L - 2, 150)):
+        text[b, 1:1 + n] = rng.integers(3, len(vocab), n)
+        text[b, 1 + n] = vocab.eos_id
+    check_gradients(setup, False, text)
+
+
+def check_gradients(setup, teacher_forced, text):
+    vocab, jmodel, variables, images, _ = setup
+    L = text.shape[1]
     model = port_model(vocab, variables["params"], variables["batch_stats"]).train()
 
     images_j, text_j = jnp.asarray(images), jnp.asarray(text)
