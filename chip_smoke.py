@@ -89,7 +89,8 @@ with a non-zero exit and no result line:
    hidden 384, 2 decoder cells; B=32, 231 steps, manager on), f32, seeded
    random weights saved as a reference-format .pth and loaded back with
    strict=True: 1 launch of kernel 1, 14 of kernel 2's cluster form (stage
-   5) and 14 of its tiled form (stages 3-4), none of a decoder kernel (the
+   5) and 14 of its band form (stages 3-4: the map one row band at a time),
+   none of its tiled form, none of a decoder kernel (the
    attention-LSTM step is plain torch, as in the JAX package); DeepCNN's
    output (before the BiLSTM) meets the plain path's within
    TOL_ASTER_FEATURES_F32 of its largest value, the encoder
@@ -157,7 +158,8 @@ with a non-zero exit and no result line:
    3's int8 forms beside it, and greedy images/s with ``--kv_quant int8``
    and ``int8_cache`` in turns with the others; the int8 self cache's
    bytes against the bf16 cache's. Kernel 2 per EfficientASTER shape at
-   B=256 (the tiled form on stages 3-4, the cluster form on stage 5),
+   B=256 (the band form on stages 3-4 beside the tiled form, and the
+   cluster form on stage 5, each with its phase cycles),
    kernel 3 at SwinTRN beam's 96 rows and kernel 4 at [96, 231, 1024], each
    beside its bound; in turns with flagship greedy, images/s of
    EfficientASTER greedy and beam (B=256), the SATRN+ASTER ensemble (B=256)
@@ -198,7 +200,7 @@ with a non-zero exit and no result line:
 7c. Phase 7's gates and timing for EfficientASTER at full width
    (EfficientASTER.yaml, 256x1024, seeded weights from phase 3f's .pth,
    labels padded to 232, 231 AR steps): the card-vs-CPU f32 steps (B=2),
-   validation through kernel 2's two forms (14 + 14 launches, no decoder
+   validation through kernel 2's cluster and band forms (14 + 14 launches, no decoder
    kernel) against its plain version, the bitwise resume, the dual_opt
    update, bf16 timing at B=16 (the config's batch_size) and the falling
    loss.
@@ -256,6 +258,7 @@ with a non-zero exit and no result line:
 import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -378,16 +381,22 @@ MBCONV_SHAPES = [
     ("stage5_tail", 8, 16, 256, 256, 6, 14),
 ]
 # EfficientASTER's stride-1 MBConv shapes at 256x1024, with the path the plan
-# gives each: stages 3 and 4 hold an expanded map no cluster of 16 holds (2-3.9
-# MB an image in f32) and take the three-launch tiled kernels; stage 5 takes
-# the cluster path. Checked at a small batch, timed at B=256.
+# gives each: stages 3 and 4 hold an expanded map no cluster of 16 holds whole
+# (2-3.9 MB an image in f32, 64 columns) and take the band form, two bands
+# of 8 rows; stage 5 takes the cluster path. Checked at a small batch (the
+# band shapes also on the three-launch tiled form, called directly), timed
+# at B=256.
 MBCONV_ASTER = [
-    ("aster_stage3_tail", 16, 64, 128, 128, 4, 5, "tiled"),
-    ("aster_stage4_head", 16, 64, 128, 160, 6, 1, "tiled"),
-    ("aster_stage4_tail", 16, 64, 160, 160, 6, 8, "tiled"),
+    ("aster_stage3_tail", 16, 64, 128, 128, 4, 5, "band"),
+    ("aster_stage4_head", 16, 64, 128, 160, 6, 1, "band"),
+    ("aster_stage4_tail", 16, 64, 160, 160, 6, 8, "band"),
     ("aster_stage5_tail", 8, 32, 256, 256, 6, 14, "cluster"),
 ]
 MBCONV_TILED_BATCH = 8
+# a block whose channels are not multiples of 8 (f32): the plan's tiled
+# route, through fused_mbconv; its launches are the tiled form's in the
+# kernels line (no model the repo supports has such a block)
+MBCONV_RAGGED = ("ragged_12", 16, 64, 12, 12, 4)
 
 # f32 tolerances: max |kernel - twin| <= atol + rtol * max |twin|
 TOL_F32 = dict(atol=1e-4, rtol=1e-5)   # summation order only
@@ -668,8 +677,15 @@ def mbconv_report(dev):
     """Kernel 2's plan at each main-path shape (B=256) per type: the path,
     cluster size C and slice width, ring stages and shared memory, with
     launch A's resident clusters of C, registers and local memory a
-    thread; raises unless every shape takes the cluster path."""
-    from p4fr_tpu_torch.ops.mbconv import cluster_query, mbconv_plan
+    thread; raises unless every flagship shape takes the cluster path and
+    each of EfficientASTER's takes its path in ``MBCONV_ASTER`` (the band
+    form's plans also print their bands, chunks and f32 scratch)."""
+    from p4fr_tpu_torch.ops.mbconv import (
+        band_scratch_shape,
+        cluster_query,
+        mbconv_plan,
+        plan_query,
+    )
 
     print("[kernel 2: plan per shape (launch A: C CTAs an image), resident clusters, "
           "registers and local bytes a thread]")
@@ -687,31 +703,40 @@ def mbconv_report(dev):
                   f"clusters {q[0]}; {q[1]} registers, {q[2]} bytes of local memory a thread")
     for name, h, w, cin, cout, expand, _, path in MBCONV_ASTER:
         for dt in (torch.float32, torch.bfloat16):
-            p = mbconv_plan(E2E_TIME_BATCH, h, w, cin, cin * expand, cout, dt,
-                            se_dim=cin // 4)
-            print(f"  EfficientASTER {name} {h}x{w} {cin}->{cin * expand}->{cout} "
-                  f"{str(dt)[6:]}: the {p.path} path"
-                  + (f", C={p.cluster}, {p.smem} bytes of shared memory"
-                     if p.path == "cluster" else ""))
+            cmid, rd = cin * expand, cin // 4
+            p = mbconv_plan(E2E_TIME_BATCH, h, w, cin, cmid, cout, dt, se_dim=rd)
             if p.path != path:
                 raise AssertionError(f"kernel 2 at {name} takes the {p.path} path")
+            q = plan_query(h, w, cin, rd, p, dt == torch.bfloat16)
+            line = (f"  EfficientASTER {name} {h}x{w} {cin}->{cmid}->{cout} {str(dt)[6:]}: the "
+                    f"{p.path} path, C={p.cluster}, slices of {p.width} channels, {p.smem} "
+                    f"bytes of shared memory, {p.stages} x ring slots; resident clusters "
+                    f"{q[0]}; {q[1]} registers, {q[2]} bytes of local memory a thread")
+            if p.path == "band":
+                scratch = 4 * math.prod(band_scratch_shape(min(E2E_TIME_BATCH, q[0]), h, w,
+                                                           cmid, p.bands))
+                line += (f"; {p.bands} bands, chunks of {p.warp_rows} x {p.m_tiles} x 16 "
+                         f"pixels, scratch {scratch / 1e6:.2f} MB at B={E2E_TIME_BATCH}")
+            print(line)
 
 
-def check_mbconv(dev, dtype, errors, misses, seed, paths=("cluster", "tiled")):
+def check_mbconv(dev, dtype, errors, misses, seed, paths=("cluster", "band", "tiled")):
     """Kernel 2 vs its plain version (``mbconv_block_ref`` on the same
     operands, in f32) at the four stride-1 shapes of the flagship's encode,
     B=256, on the cluster path, and at EfficientASTER's four (B=8): stages 3
-    and 4 on the tiled path, stage 5 on the cluster path (the shapes of
-    ``paths`` alone); a per-image channel offset gives each image its own
-    SE gate. f32 within TOL_F32 (``errors`` keeps the tiled path's apart,
-    as ``mbconv_tiled``); bf16 by ``compare_bf16`` with
-    ``BF16_ATOL["mbconv"]``, on the cluster path launch A's gated operand
-    by ``gated_share`` within ``BF16_GATED_SHARE["mbconv"]``, and on the
-    tiled path the output by its share of elements that differ from the
-    twin's cast (``gated_share``) within ``BF16_OUT_SHARE["mbconv_tiled"]``.
-    bf16 returns the largest excess over the cast, the largest mean abs
-    error, the largest gated share and the tiled path's largest output
-    share."""
+    and 4 on the band form, stage 5 on the cluster path; stages 3 and 4
+    again on the three-launch tiled form (``mbconv_tiled`` called directly),
+    and, in f32, ``MBCONV_RAGGED`` on the plan's tiled route through
+    ``fused_mbconv`` (the forms in ``paths`` alone). A per-image channel
+    offset gives each image its own SE gate. f32 within TOL_F32 (``errors``
+    keeps each form apart: ``mbconv``, ``mbconv_band``, ``mbconv_tiled``);
+    bf16 by ``compare_bf16`` with ``BF16_ATOL["mbconv"]``, on the cluster
+    path and the band form launch A's gated operand by ``gated_share``
+    within ``BF16_GATED_SHARE["mbconv"]``, and on the tiled form the output
+    by its share of elements that differ from the twin's cast
+    (``gated_share``) within ``BF16_OUT_SHARE["mbconv_tiled"]``. bf16
+    returns the largest excess over the cast, the largest mean abs error,
+    the largest gated share and the tiled form's largest output share."""
     from p4fr_tpu_torch.ops.mbconv import (
         block_plan,
         expand_gate_ref,
@@ -719,14 +744,20 @@ def check_mbconv(dev, dtype, errors, misses, seed, paths=("cluster", "tiled")):
         fused_mbconv,
         mbconv_block_ref,
         mbconv_expand_gate,
+        mbconv_tiled,
     )
 
     gen = torch.Generator().manual_seed(seed + 30)
     worst = {"excess": 0.0, "mean": 0.0, "share": 0.0, "out_share": 0.0}
-    shapes = ([(*shape, "cluster", KERNEL_BATCH) for shape in MBCONV_SHAPES]
-              + [(*shape, MBCONV_TILED_BATCH) for shape in MBCONV_ASTER])
-    for name, h, w, cin, cout, expand, _, path, b in shapes:
-        if path not in paths:
+    # (name, H, W, Cin, Cout, expand, the plan's path, the form run, B)
+    shapes = ([(*shape[:6], "cluster", "cluster", KERNEL_BATCH) for shape in MBCONV_SHAPES]
+              + [(*shape[:6], shape[7], shape[7], MBCONV_TILED_BATCH) for shape in MBCONV_ASTER]
+              + [(*shape[:6], "band", "tiled", MBCONV_TILED_BATCH) for shape in MBCONV_ASTER
+                 if shape[7] == "band"])
+    if dtype == torch.float32:  # bf16 refuses channels that are not multiples of 8
+        shapes.append((*MBCONV_RAGGED, "tiled", "tiled", MBCONV_TILED_BATCH))
+    for name, h, w, cin, cout, expand, path, form, b in shapes:
+        if form not in paths:
             continue
         block = mbconv_block(cin, cout, expand, gen, dev)
         folded = fold_mbconv_params(block, dtype)
@@ -736,19 +767,21 @@ def check_mbconv(dev, dtype, errors, misses, seed, paths=("cluster", "tiled")):
         plan = block_plan(x, folded)
         if plan.path != path:
             raise AssertionError(f"mbconv {name}: the plan took the {plan.path} path")
-        got = fused_mbconv(x, folded, residual=res)
+        got = (mbconv_tiled(x, folded, res) if form != path
+               else fused_mbconv(x, folded, residual=res))
         torch.cuda.synchronize()
         want = mbconv_block_ref(x, folded, res, out_dtype=torch.float32)
-        tag = (f"mbconv {name} B={b} {h}x{w} {cin}->{cin * expand}->{cout} "
-               f"({plan.path}{f', C={plan.cluster}' if plan.cluster else ''})")
+        tag = (f"mbconv {name} B={b} {h}x{w} {cin}->{cin * expand}->{cout} ({form}"
+               + (f", C={plan.cluster}" if form != "tiled" else "")
+               + (f", {plan.bands} bands" if form == "band" else "") + ")")
         if dtype == torch.float32:
-            key = "mbconv_tiled" if path == "tiled" else "mbconv"
+            key = {"cluster": "mbconv", "band": "mbconv_band", "tiled": "mbconv_tiled"}[form]
             errors[key] = max(errors.get(key, 0.0), compare(tag, got, want, TOL_F32, misses))
         else:
             excess, mean = compare_bf16(tag, got, want, BF16_ATOL["mbconv"], misses)
             worst["excess"] = max(worst["excess"], excess)
             worst["mean"] = max(worst["mean"], mean)
-            if plan.path == "cluster":
+            if form != "tiled":
                 share = gated_share(mbconv_expand_gate(x, folded, plan),
                                     expand_gate_ref(x, folded))
                 limit = BF16_GATED_SHARE["mbconv"]
@@ -767,6 +800,30 @@ def check_mbconv(dev, dtype, errors, misses, seed, paths=("cluster", "tiled")):
                 worst["out_share"] = max(worst["out_share"], share)
         del x, got, want
     return worst
+
+
+def tiled_route_launches(dev):
+    """``MBCONV_RAGGED`` (channels not multiples of 8, f32, B=8) through
+    ``fused_mbconv``: the plan's tiled route, counters reset just before
+    and read just after; raises unless the tiled form launched once and
+    nothing else did. Returns the launch counts."""
+    from p4fr_tpu_torch.ops import _build
+    from p4fr_tpu_torch.ops.mbconv import fold_mbconv_params, fused_mbconv
+
+    name, h, w, cin, cout, expand = MBCONV_RAGGED
+    gen = torch.Generator().manual_seed(SEED + 31)
+    folded = fold_mbconv_params(mbconv_block(cin, cout, expand, gen, dev), torch.float32)
+    x = torch.randn(MBCONV_TILED_BATCH, h, w, cin, generator=gen).to(dev)
+    _build.reset_launches()
+    out = fused_mbconv(x, folded, residual=cin == cout)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[kernel 2's tiled route: {name} {h}x{w} {cin}->{cin * expand}->{cout}, f32, "
+          f"B={MBCONV_TILED_BATCH}] launches {json.dumps(launches)}")
+    check_launches(launches, {"mbconv_tiled": 1}, at_least=())
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("non-finite output on kernel 2's tiled route")
+    return launches
 
 
 def gated_share(got, want):
@@ -1947,8 +2004,9 @@ def u8_images(gen, b, h, w, dev):
 
 
 # the launches of one EfficientASTER encode: kernel 1, kernel 2 on stage 5's
-# 14 stride-1 blocks (cluster path) and on stages 3 and 4's 14 (tiled path)
-ASTER_ENCODE = {"standardize": 1, "mbconv": 14, "mbconv_tiled": 14}
+# 14 stride-1 blocks (cluster path) and on stages 3 and 4's 14 (band form);
+# none of its tiled form
+ASTER_ENCODE = {"standardize": 1, "mbconv": 14, "mbconv_band": 14}
 
 
 def memory_gate(label, mem_k, mem_p, want_shape, tol):
@@ -1963,8 +2021,9 @@ def memory_gate(label, mem_k, mem_p, want_shape, tol):
 
 def aster_path(ckpt, dev):
     """EfficientASTER greedy (the fused LSTM step) at B=32, f32, manager on:
-    launch counts (kernel 1 once, kernel 2's cluster and tiled forms 14
-    times each, no decoder kernel), the encoder memory against the plain
+    launch counts (kernel 1 once, kernel 2's cluster and band forms 14
+    times each, its tiled form never, no decoder kernel), the encoder
+    memory against the plain
     path's, then a replay gate."""
     from p4fr_tpu_torch.decoding.replay import replay_aster
     from p4fr_tpu_torch.infer.single import decode_images, encode_images
@@ -2185,7 +2244,7 @@ def ensemble_path(ckpts, dev):
     print(f"  launches {json.dumps(launches)}")
     check_launches(launches, {
         "standardize": 3, "mbconv": 28 + ASTER_ENCODE["mbconv"],
-        "mbconv_tiled": ASTER_ENCODE["mbconv_tiled"],
+        "mbconv_band": ASTER_ENCODE["mbconv_band"],
         "swin_attention": sum(st[1] for st in SWIN_STAGES),
         "decoder_layer": (CONFIGS["SATRN"]["decoder"]["layer_num"]
                           + SWIN_CONFIGS["SATRN"]["decoder"]["layer_num"]) * STEPS})
@@ -2769,8 +2828,10 @@ def swin_timing(ckpt, dev, card, times):
 
 def aster_timing(ckpts, dev, card, times):
     """bf16, printed only: kernel 2 per EfficientASTER shape at B=256 (the
-    tiled form on stages 3-4, the cluster form on stage 5, each beside its
-    plain version and its bound; the tiled form's sums into ``times``);
+    band form on stages 3-4 beside the tiled form, in turns, with launch A
+    and B and a traced pass's phase cycles; the cluster form on stage 5;
+    each beside its plain version and its bound; both forms' sums over the
+    14 blocks into ``times``);
     kernel 3 at SwinTRN beam's 96 rows (heads of 64) and kernel 4 at its
     [96, 231, 1024] cache, beside their bounds; then images/s, in turns:
     flagship greedy (B=256, the reference point), EfficientASTER greedy and
@@ -2786,40 +2847,78 @@ def aster_timing(ckpts, dev, card, times):
         fold_mbconv_params,
         fused_mbconv,
         mbconv_block_ref,
+        mbconv_expand_gate,
+        mbconv_project,
         mbconv_tiled,
+        read_trace,
     )
 
     bf = torch.bfloat16
     gen = torch.Generator().manual_seed(SEED + 26)
-    tot = dict(ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
+    tot = {form: dict(ms=0.0, plain_ms=0.0) for form in ("band", "tiled")}
+    b_bytes = b_ops = 0
     for name, h, w, cin, cout, expand, count, path in MBCONV_ASTER:
         block = mbconv_block(cin, cout, expand, gen, dev).to(bf)
         folded = fold_mbconv_params(block, bf)
         x = torch.randn(E2E_TIME_BATCH, h, w, cin, generator=gen).to(dev, bf)
         res = cin == cout
-        if block_plan(x, folded).path != path:
+        plan = block_plan(x, folded)
+        if plan.path != path:
             raise AssertionError(f"mbconv {name} does not take the {path} path")
-        run = mbconv_tiled if path == "tiled" else (
-            lambda x, f, r: fused_mbconv(x, f, residual=r))
-        k = cuda_ms(lambda: run(x, folded, res), iters=5)
-        p = cuda_ms(lambda: mbconv_block_ref(x, folded, res), iters=5)
         cmid = cin * expand
         nb = nbytes(x) * (cin + cout) // cin + nbytes(*folded.values())
         ops = 2 * x.shape[0] * h * w * (cin * cmid + 9 * cmid + cmid * cout)
         b, by = bound(nb, ops, BF16_TENSOR_OPS_PER_S)
-        print(f"  mbconv EfficientASTER {name} B={x.shape[0]} {h}x{w} {cin}->{cmid}->"
-              f"{cout}, {path} path: {k:.4f} ms (bound {b:.4f} ms by {by}, "
-              f"{100 * b / k:.1f}%); plain {p:.4f} ms; per block, x{count} an encode "
+        p = cuda_ms(lambda: mbconv_block_ref(x, folded, res), iters=5)
+        head = (f"  mbconv EfficientASTER {name} B={x.shape[0]} {h}x{w} {cin}->{cmid}->"
+                f"{cout}")
+        if path == "cluster":
+            k = cuda_ms(lambda: fused_mbconv(x, folded, residual=res), iters=5)
+            print(f"{head}, cluster path: {k:.4f} ms (bound {b:.4f} ms by {by}, "
+                  f"{100 * b / k:.1f}%); plain {p:.4f} ms; per block, x{count} an encode "
+                  f"({card})")
+            del x, block, folded
+            continue
+        # the band form and the tiled form in turns: band, tiled, tiled, band
+        g2 = mbconv_expand_gate(x, folded, plan)
+        runs = {"band": lambda: fused_mbconv(x, folded, residual=res),
+                "tiled": lambda: mbconv_tiled(x, folded, res)}
+        ms = {form: [] for form in runs}
+        for form in ("band", "tiled", "tiled", "band"):
+            ms[form].append(cuda_ms(runs[form], iters=5))
+        ka = cuda_ms(lambda: mbconv_expand_gate(x, folded, plan), iters=5)
+        kb = cuda_ms(lambda: mbconv_project(g2, x, folded, res), iters=5)
+        k, t = (sum(ms[form]) / 2 for form in ("band", "tiled"))
+        print(f"{head}, band form ({plan.bands} bands, C={plan.cluster}): {k:.4f} ms "
+              f"({ms['band'][0]:.4f}, {ms['band'][1]:.4f}; launch A {ka:.4f}, launch B "
+              f"{kb:.4f}; bound {b:.4f} ms by {by}, {100 * b / k:.1f}%) [the tiled form "
+              f"{t:.4f} ms ({ms['tiled'][0]:.4f}, {ms['tiled'][1]:.4f}), "
+              f"{100 * b / t:.1f}%]; plain {p:.4f} ms; per block, x{count} an encode "
               f"({card})")
-        if path == "tiled":
-            for key, val in (("ms", k), ("plain_ms", p), ("nbytes", nb), ("ops", ops)):
-                tot[key] += count * val
-        del x, block, folded
-    b, by = bound(tot.pop("nbytes"), tot.pop("ops"), BF16_TENSOR_OPS_PER_S)
-    times["mbconv_tiled"] = dict(**tot, library_ms=None, bound_ms=b, bound_by=by)
-    print(f"  mbconv_tiled, the 14 tiled blocks of one B={E2E_TIME_BATCH} EfficientASTER "
-          f"encode: {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound {b:.4f} ms "
-          f"by {by} ({card})")
+        mbconv_expand_gate(x, folded, plan, trace=True)
+        torch.cuda.synchronize()
+        tr = read_trace()
+        phases = [(tr[1:8, i + 1] - tr[1:8, i]).mean() for i in range(6)]
+        phases.append((tr[2:9, 0] - tr[1:8, 6]).mean())
+        print(f"  mbconv EfficientASTER {name} band form, CTA 0 cycles an image (images "
+              f"1-7): " + ", ".join(f"{lab} {v:.0f}" for lab, v in zip(
+                  ("band 0 expand", "band 0 depthwise", "last band expand (band 0 spilled "
+                   "in its first K loop)", "last band depthwise", "SE gate",
+                   "last band's gated write", "spilled bands read back and written"), phases))
+              + f"; total {(tr[2:9, 0] - tr[1:8, 0]).mean():.0f}")
+        for form, val in (("band", k), ("tiled", t)):
+            tot[form]["ms"] += count * val
+            tot[form]["plain_ms"] += count * p
+        b_bytes += count * nb
+        b_ops += count * ops
+        del x, block, folded, g2
+    b, by = bound(b_bytes, b_ops, BF16_TENSOR_OPS_PER_S)
+    for form in ("band", "tiled"):
+        times[f"mbconv_{form}"] = dict(**tot[form], library_ms=None, bound_ms=b, bound_by=by)
+    print(f"  mbconv_band, the 14 band-form blocks of one B={E2E_TIME_BATCH} EfficientASTER "
+          f"encode: {tot['band']['ms']:.4f} ms [the tiled form at the same blocks "
+          f"{tot['tiled']['ms']:.4f} ms], plain {tot['band']['plain_ms']:.4f} ms, bound "
+          f"{b:.4f} ms by {by} ({card})")
 
     # kernel 3 at 96 rows and kernel 4 at [96, 231, 1024]: each one's
     # operands fit in L2 (~58 and ~23 MB touched), so each is timed over
@@ -3187,7 +3286,7 @@ def preprocess_path(ckpts, dev, card):
     launches = dict(_build.LAUNCHES)
     print(f"  launches {json.dumps(launches)}")
     check_launches(launches, {
-        "mbconv": 28 + ASTER_ENCODE["mbconv"], "mbconv_tiled": ASTER_ENCODE["mbconv_tiled"],
+        "mbconv": 28 + ASTER_ENCODE["mbconv"], "mbconv_band": ASTER_ENCODE["mbconv_band"],
         "swin_attention": sum(st[1] for st in SWIN_STAGES),
         "decoder_layer": (CONFIGS["SATRN"]["decoder"]["layer_num"]
                           + SWIN_CONFIGS["SATRN"]["decoder"]["layer_num"]) * STEPS})
@@ -3758,7 +3857,7 @@ def train_phase(ckpt, dev, card, family=FLAGSHIP_TRAIN):
 # LSTM step is plain torch, as in the JAX package)
 ASTER_TRAIN = TrainFamily("EfficientASTER", "EfficientASTER", ASTER_CONFIGS,
                           {"mbconv": ASTER_ENCODE["mbconv"],
-                           "mbconv_tiled": ASTER_ENCODE["mbconv_tiled"]}, (16,))
+                           "mbconv_band": ASTER_ENCODE["mbconv_band"]}, (16,))
 # SwinTRN validation: 24 launches of kernel 5 and 4 x 231 of kernel 3; its
 # train mode runs kernel 5's plain twin under autograd, no kernel
 SWIN_TRAIN = TrainFamily("SwinTRN", "SWIN", SWIN_CONFIGS,
@@ -4711,7 +4810,8 @@ def main():
             name = f"decoder_layer_{form}"
             launches[name] = kv_quant_path(ckpt, dev, form)[name]
         aster_ckpt = build_aster_checkpoint()
-        launches["mbconv_tiled"] = aster_path(aster_ckpt, dev)["mbconv_tiled"]
+        launches["mbconv_band"] = aster_path(aster_ckpt, dev)["mbconv_band"]
+        launches["mbconv_tiled"] = tiled_route_launches(dev)["mbconv_tiled"]
         aster_beam_path(aster_ckpt, dev)
         swin_beam_path(swin_ckpt, dev)
         generic_path(ckpt, dev)
@@ -4753,6 +4853,8 @@ def main():
                         "p4fr_tpu/ops/pallas/preprocess.py:47"),
         "mbconv": ("p4fr_tpu_torch/csrc/mbconv.cu",
                    "p4fr_tpu/ops/pallas/mbconv.py:290"),
+        "mbconv_band": ("p4fr_tpu_torch/csrc/mbconv.cu",
+                        "p4fr_tpu/ops/pallas/mbconv.py:290"),
         "mbconv_tiled": ("p4fr_tpu_torch/csrc/mbconv_tiled.cu",
                          "p4fr_tpu/ops/pallas/mbconv.py:290"),
         "decoder_layer": ("p4fr_tpu_torch/csrc/decoder_layer.cu",
@@ -4776,8 +4878,9 @@ def main():
     # fused path's, which goes through kernel 6, the SwinTRN path's, which
     # goes through kernel 5, the v3 and v1 paths', which go through
     # kernels 7 and 8, the kv_quant paths', which go through kernel 3's
-    # int8 forms, and the EfficientASTER path's, which goes through kernel
-    # 2's tiled form
+    # int8 forms, the EfficientASTER path's, which goes through kernel 2's
+    # band form, and the tiled route's (a block whose channels are not
+    # multiples of 8), which goes through kernel 2's tiled form
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errors[name],

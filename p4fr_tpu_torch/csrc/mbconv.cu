@@ -31,6 +31,15 @@
 //     with release after the partials are read, wait with acquire before
 //     the next image's push) keeps a push from landing in a buffer a peer
 //     still reads.
+//   A, band form (expand_gate_band), for maps a cluster of 16 cannot hold
+//     whole (EfficientASTER's 16x64 stages 3-4: up to 3.9 MB an image): the
+//     same clusters and slices, the image's rows in bands (two of 8 rows at
+//     16), one band at a time through the map. A band's rows and one
+//     recomputed halo row at each inner edge are expanded in chunks of
+//     pixels (9 x 64 = 576 pixels a band at 16x64, 1.125x the useful
+//     expand); the depthwise runs in place over the band's rows; every band
+//     but the last leaves its f32 h2 in a per-cluster scratch that L2 serves
+//     back; after the SE exchange each band is gated and written once.
 //   B (project): [B*H*W, Cmid] @ pwl_w, one CTA tile of 256 rows (Couts up
 //     to 160) or 128 (up to 256) by the whole Cout, so the operand is read
 //     once; operands by cp.async in a 4-stage ring; bf16 on the tensor
@@ -43,9 +52,10 @@
 // reads each image's x once per rank), the SE's cluster barrier and the
 // gated write; launch B's operand and weight rows from L2 (each CTA reads
 // every weight row). chip_smoke.py prints each phase's cycles (`trace`).
-// Shapes whose map a cluster of 16 cannot hold go to the three-launch
-// kernels of mbconv_tiled.cu; ops/mbconv.py::mbconv_plan decides from the
-// shape alone.
+// The band form adds the halo rows' expand and the spilled bands' round
+// trip through L2. Channels that are not multiples of 8 go to the
+// three-launch kernels of mbconv_tiled.cu; ops/mbconv.py::mbconv_plan
+// decides from the shape alone.
 // Numerics follow the TPU kernel's contract: f32 accumulation, exact SiLU,
 // the pooled mean and SE hidden rounded to the activation type before
 // their products, h2 * g rounded once before the projection, the residual
@@ -63,7 +73,10 @@ namespace {
 // Phase timeline of CTA 0 when a launch is traced (clock64 at each phase's
 // end): launch A rows 0-14, one a processed image (0: the image's start,
 // 1: the expand's K loop done, 2: h1 in the map, 3: the depthwise done, 4:
-// the gate known; the next row's 0 ends the gated write), launch B row 15
+// the gate known; the next row's 0 ends the gated write; the band form: 1
+// band 0's expand done, 2 its depthwise done, 3 the last band's expand
+// done, 4 its depthwise done, 5 the gate known, 6 the last band written;
+// the next row's 0 ends the spilled bands' writes), launch B row 15
 // (start, K loop done, epilogue done). p4fr_mbconv_trace copies it out.
 __device__ unsigned long long g_trace[16][8];
 
@@ -98,6 +111,11 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+// the L2 a hint to fetch `bytes` (a multiple of 16) from global memory at p
+// (16-byte aligned), issued by one thread
+__device__ __forceinline__ void prefetch_l2(const void* p, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" :: "l"(p), "r"(bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -233,6 +251,65 @@ __host__ __device__ inline ALayout a_layout(bool is_bf16, int H, int W, int Cin,
   return L;
 }
 
+// The band form's rows: band k of `bands` outputs rows [r0, r1) and expands
+// rows [e0, e1), its rows and one halo row at each inner edge
+struct BandRows {
+  int r0, r1, e0, e1;
+};
+__host__ __device__ inline BandRows band_rows(int H, int bands, int k) {
+  const int r0 = H * k / bands, r1 = H * (k + 1) / bands;
+  return {r0, r1, r0 > 0 ? r0 - 1 : 0, r1 < H ? r1 + 1 : H};
+}
+// the band form's n-tiles a warp, with wm of the 16 warps along the pixels
+__host__ __device__ inline int band_npw(int ncmax, int wm) {
+  const int npw = cdiv(ncmax / 8, NWARP / wm);
+  return npw <= 2 ? 2 : npw;
+}
+constexpr int SMEM_CAP = 232448;  // an H100 CTA's opt-in shared memory
+
+// The band form's shared memory, in bytes from the start: the f32 map of
+// the tallest band with its halo rows [rows x W][ldm] (also the room of a
+// spilled band read back, [band_px][ldr]), the slice's pw_w, pooled mean /
+// gate, SE hidden, the exchange and the per-channel constants as in
+// a_layout (the SE weights stay in global memory), then the x ring of ns
+// slots of [P][LDX] (P = wm x mpw x 16 pixels, a chunk), as many as
+// SMEM_CAP holds up to RMAX. The map's rows are an odd number of float2
+// apart, so that the depthwise's 16 lanes of a channel (columns g + 16 k)
+// hit 16 different bank pairs; a band read back has rows of whole 16-byte
+// units, for 16-byte copies. ops/mbconv.py::launch_a_layout mirrors it.
+struct BLayout {
+  int ldm, ldr, ldw, xstage, ns, pw, vec, hid, xbuf, cst, ring, bytes;
+};
+__host__ __device__ inline BLayout b_layout(bool is_bf16, int H, int W, int Cin, int ncmax,
+                                            int C, int rd, int wm, int mpw, int bands) {
+  BLayout L{};
+  const int es = is_bf16 ? 2 : 4, kc = is_bf16 ? 32 : 8, ldx = is_bf16 ? 40 : 12;
+  const int np = (NWARP / wm) * band_npw(ncmax, wm) * 8;  // padded slice width
+  int rows = 0;  // the tallest band with its halo rows
+  for (int k = 0; k < bands; ++k) {
+    const BandRows r = band_rows(H, bands, k);
+    rows = r.e1 - r.e0 > rows ? r.e1 - r.e0 : rows;
+  }
+  L.ldm = ncmax + 2;
+  L.ldr = ncmax + 4;
+  L.ldw = is_bf16 ? np + ((np / 8) % 2 == 0 ? 8 : 16) : np;
+  L.xstage = align_up(wm * mpw * 16 * ldx * es, 128);
+  const int map = rows * W * L.ldm, back = cdiv(H, bands) * W * L.ldr;
+  L.pw = align_up((map > back ? map : back) * 4, 128);
+  L.vec = L.pw + align_up(align_up(Cin, kc) * L.ldw * es, 128);
+  L.hid = L.vec + align_up(ncmax * 4, 16);
+  L.xbuf = L.hid + align_up(rd * 4, 16);
+  L.cst = L.xbuf + align_up(C * rd * 4, 16);
+  L.ring = align_up(L.cst + align_up((14 * ncmax + rd) * 4, 16), 128);
+  const int room = L.ring < SMEM_CAP ? (SMEM_CAP - L.ring) / L.xstage : 0;
+  L.ns = room < RMAX ? room : RMAX;
+  L.bytes = L.ring + L.ns * L.xstage;
+  return L;
+}
+__host__ __device__ inline bool band_layout_ok(const BLayout& L) {
+  return L.ns >= 2 && L.bytes <= SMEM_CAP;
+}
+
 template <typename T>
 struct AArgs {
   const T* x;
@@ -253,11 +330,12 @@ struct AArgs {
 // warp (wmi, wni) owns m-tiles wmi + wm i (i < MPW) and n-tiles wni + wn j
 // (j < NPW); thread (g, q) = (lane / 4, lane % 4) holds, per tile, rows g
 // and g + 8, columns 2q and 2q + 1 (mma.sync's accumulator layout). ws:
-// the slice's pw_w at the chunk's first row.
-template <int MPW, int NPW>
+// the slice's pw_w at the chunk's first row. LIM (the band form): m-tiles
+// from mt on hold no pixel and are skipped.
+template <int MPW, int NPW, bool LIM = false>
 __device__ __forceinline__ void expand_chunk(float (&acc)[MPW][NPW][4], const bf16* xs,
                                              const bf16* ws, int ldw, int wmi, int wni,
-                                             int wm, int wn, int lane) {
+                                             int wm, int wn, int lane, int mt = 0) {
   constexpr int LDX = ACfg<bf16>::LDX;
 #pragma unroll
   for (int kk = 0; kk < ACfg<bf16>::KC; kk += 16) {
@@ -267,6 +345,7 @@ __device__ __forceinline__ void expand_chunk(float (&acc)[MPW][NPW][4], const bf
       ldsm_x2_trans(bfr[j], ws + (kk + (lane & 15)) * ldw + (wni + wn * j) * 8);
 #pragma unroll
     for (int i = 0; i < MPW; ++i) {
+      if (LIM && wmi + wm * i >= mt) continue;
       unsigned afr[4];
       ldsm_x4(afr, xs + ((wmi + wm * i) * 16 + (lane & 15)) * LDX + kk + (lane >> 4) * 8);
 #pragma unroll
@@ -275,10 +354,10 @@ __device__ __forceinline__ void expand_chunk(float (&acc)[MPW][NPW][4], const bf
   }
 }
 
-template <int MPW, int NPW>
+template <int MPW, int NPW, bool LIM = false>
 __device__ __forceinline__ void expand_chunk(float (&acc)[MPW][NPW][4], const float* xs,
                                              const float* ws, int ldw, int wmi, int wni,
-                                             int wm, int wn, int lane) {
+                                             int wm, int wn, int lane, int mt = 0) {
   constexpr int LDX = ACfg<float>::LDX;
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll 2
@@ -286,6 +365,7 @@ __device__ __forceinline__ void expand_chunk(float (&acc)[MPW][NPW][4], const fl
     float av[MPW][2], bv[NPW][2];
 #pragma unroll
     for (int i = 0; i < MPW; ++i) {
+      if (LIM && wmi + wm * i >= mt) continue;
       av[i][0] = xs[((wmi + wm * i) * 16 + g) * LDX + k];
       av[i][1] = xs[((wmi + wm * i) * 16 + g + 8) * LDX + k];
     }
@@ -297,7 +377,8 @@ __device__ __forceinline__ void expand_chunk(float (&acc)[MPW][NPW][4], const fl
       bv[j][1] = b2.y;
     }
 #pragma unroll
-    for (int i = 0; i < MPW; ++i)
+    for (int i = 0; i < MPW; ++i) {
+      if (LIM && wmi + wm * i >= mt) continue;
 #pragma unroll
       for (int j = 0; j < NPW; ++j) {
         acc[i][j][0] = fmaf(av[i][0], bv[j][0], acc[i][j][0]);
@@ -305,6 +386,7 @@ __device__ __forceinline__ void expand_chunk(float (&acc)[MPW][NPW][4], const fl
         acc[i][j][2] = fmaf(av[i][1], bv[j][0], acc[i][j][2]);
         acc[i][j][3] = fmaf(av[i][1], bv[j][1], acc[i][j][3]);
       }
+    }
   }
 }
 
@@ -370,11 +452,17 @@ __device__ __forceinline__ float dw_out(float* map, int ldm, int W, int y, int c
 // with a __syncwarp between, and its read overlaps the step's arithmetic.
 // The four rows' roles rotate over four steps. The channel's sum over its
 // lanes, in a fixed order, is pooled into vec[c] (rounded to T).
-template <typename T, int LPC>
+// BAND: the map holds H rows of a band with its halo rows, the output rows
+// are [ys, ye), a row past them (the halo) is read and kept; the band's
+// channel sums go into vec[c] (first band) or onto it, and the last band
+// turns vec[c] into the image's pooled mean (hw pixels), rounded to T.
+template <typename T, int LPC, bool BAND = false>
 __device__ void depthwise(float* map, float* vec, const float* cst, int ldm, int ncmax,
-                          int nc, int W, int H, int warp, int lane) {
+                          int nc, int W, int H, int warp, int lane, int ys = 0, int ye = 0,
+                          int hw = 0, bool first = true, bool last = true) {
   constexpr int CPW = 32 / LPC;
   const int cl = lane / LPC, g = lane & (LPC - 1), gb = lane - g;
+  const int y0 = BAND ? ys : 0, y1 = BAND ? ye : H;
   for (int cw = warp * CPW; cw < nc; cw += NWARP * CPW) {
     const int c = cw + cl;  // nc is a multiple of 8: the warp's channels all valid
     float kw[9];
@@ -386,30 +474,125 @@ __device__ void depthwise(float* map, float* vec, const float* cst, int ldm, int
     for (int k = 0; k < DW_CMAX; ++k)
 #pragma unroll
       for (int d = 0; d < 3; ++d) ra[k][d] = 0.f;
-    dw_row<LPC>(map, ldm, W, H, 0, c, g, gb, rb);
-    dw_row<LPC>(map, ldm, W, H, 1, c, g, gb, rc);
+    if (BAND && y0 > 0) dw_row<LPC>(map, ldm, W, H, y0 - 1, c, g, gb, ra);  // the upper halo
+    dw_row<LPC>(map, ldm, W, H, y0, c, g, gb, rb);
+    dw_row<LPC>(map, ldm, W, H, y0 + 1, c, g, gb, rc);
     float sum = 0.f;
-    for (int y = 0; y < H; y += 4) {
+    for (int y = y0; y < y1; y += 4) {
       dw_row<LPC>(map, ldm, W, H, y + 2, c, g, gb, rd);
       __syncwarp();
       sum += dw_out<LPC>(map, ldm, W, y, c, g, kw, s2, b2, ra, rb, rc);
-      if (y + 1 >= H) break;
+      if (y + 1 >= y1) break;
       dw_row<LPC>(map, ldm, W, H, y + 3, c, g, gb, ra);
       __syncwarp();
       sum += dw_out<LPC>(map, ldm, W, y + 1, c, g, kw, s2, b2, rb, rc, rd);
-      if (y + 2 >= H) break;
+      if (y + 2 >= y1) break;
       dw_row<LPC>(map, ldm, W, H, y + 4, c, g, gb, rb);
       __syncwarp();
       sum += dw_out<LPC>(map, ldm, W, y + 2, c, g, kw, s2, b2, rc, rd, ra);
-      if (y + 3 >= H) break;
+      if (y + 3 >= y1) break;
       dw_row<LPC>(map, ldm, W, H, y + 5, c, g, gb, rc);
       __syncwarp();
       sum += dw_out<LPC>(map, ldm, W, y + 3, c, g, kw, s2, b2, rd, ra, rb);
     }
 #pragma unroll
     for (int o = LPC / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (g == 0) vec[c] = round_t<T>(sum / static_cast<float>(W * H));
+    if constexpr (BAND) {
+      if (g == 0) {
+        const float band_sums = first ? sum : vec[c] + sum;
+        vec[c] = last ? round_t<T>(band_sums / static_cast<float>(hw)) : band_sums;
+      }
+    } else {
+      if (g == 0) vec[c] = round_t<T>(sum / static_cast<float>(W * H));
+    }
   }
+}
+
+// Once a CTA of the band form: its slice's pw_w rows (zero past Cin) by
+// cp.async, its per-channel constants [14][ncmax] and se_rb (the SE weights
+// are read from global memory, to leave the room to the x ring)
+template <typename T>
+__device__ __forceinline__ void load_slice(const AArgs<T>& a, T* pws, float* cst, int ldw,
+                                           int c0, int nc, int nk, int tid) {
+  constexpr int KC = ACfg<T>::KC, EPV = 16 / sizeof(T);
+  const int per = nc / EPV;
+  for (int i = tid; i < nk * KC * per; i += NT) {
+    const int r = i / per, pc = i % per;
+    const bool ok = r < a.Cin;
+    cp_async16(pws + r * ldw + pc * EPV,
+               ok ? a.pw_w + static_cast<long long>(r) * a.Cmid + c0 + pc * EPV : a.pw_w, ok);
+  }
+  cp_async_commit();
+  for (int c = tid; c < nc; c += NT) {
+    cst[c] = a.pw_s[c0 + c];
+    cst[a.ncmax + c] = a.pw_b[c0 + c];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) cst[(2 + k) * a.ncmax + c] = a.dw_w[k * a.Cmid + c0 + c];
+    cst[11 * a.ncmax + c] = a.dw_s[c0 + c];
+    cst[12 * a.ncmax + c] = a.dw_b[c0 + c];
+    cst[13 * a.ncmax + c] = a.rd > 0 ? a.se_eb[c0 + c] : 0.f;
+  }
+  for (int j = tid; j < a.rd; j += NT) cst[14 * a.ncmax + j] = a.se_rb[j];
+  cp_async_wait(0);
+}
+
+// The SE gate of an image: vec holds the rank's pooled means (rounded) and
+// gets its channels' gates. The reduce FC's partials over this rank's
+// channels are stored into every rank's exchange (xbuf, over DSMEM); the C
+// partials summed in rank order, SiLU (rounded); the expand FC and sigmoid
+// for own channels. rw_at(j, c) / ew_at(j, c): the slice's SE weights.
+template <typename T, typename RW, typename EW>
+__device__ __forceinline__ void se_gate(float* vec, float* hid, float* xbuf, const float* cst,
+                                        RW rw_at, EW ew_at, int rd, int nc, int ncmax, int C,
+                                        int rank, bool exchange, int tid, int warp, int lane) {
+  // peers done reading the last image's partials (at the first image:
+  // every CTA running)
+  if (exchange) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  {
+    cg::cluster_group cl = cg::this_cluster();
+    for (int j = warp; j < rd; j += NWARP) {
+      float s = 0.f;
+#pragma unroll 4
+      for (int c = lane; c < nc; c += 32) s = fmaf(vec[c], rw_at(j, c), s);
+      s = warp_sum(s);
+      if (lane < C) {
+        float* dst = xbuf + rank * rd + j;
+        if (exchange)
+          *cl.map_shared_rank(dst, lane) = s;
+        else
+          *dst = s;
+      }
+    }
+  }
+  if (exchange) {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  } else {
+    __syncthreads();
+  }
+  for (int j = tid; j < rd; j += NT) {
+    float s = 0.f;
+    for (int r = 0; r < C; ++r) s += xbuf[r * rd + j];
+    hid[j] = round_t<T>(silu(s + cst[14 * ncmax + j]));
+  }
+  __syncthreads();
+  // this CTA is done with the exchange buffer
+  if (exchange) asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  // the expand FC: JQ adjacent lanes (a power of two up to 8) share a
+  // channel, lane jq summing units j = jq mod JQ; the JQ partials meet by
+  // shuffles in a fixed order
+  int JQ = 8;
+  while (JQ > 1 && JQ * nc > NT) JQ >>= 1;
+  {
+    const int c = tid / JQ, jq = tid % JQ;
+    float s = 0.f;
+    if (c < nc)
+#pragma unroll 8
+      for (int j = jq; j < rd; j += JQ) s = fmaf(hid[j], ew_at(j, c), s);
+    for (int o = JQ / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (c < nc && jq == 0) vec[c] = sigmoid(s + cst[13 * ncmax + c]);
+  }
+  __syncthreads();
 }
 
 // Launch A: expand, depthwise and gate. gridDim.x = groups * C, clusters of
@@ -651,6 +834,248 @@ __global__ void __launch_bounds__(NT, 1) expand_gate(const AArgs<T> a) {
   cp_async_wait(0);
 }
 
+template <typename T>
+struct BandArgs {
+  AArgs<T> a;      // a.L unused
+  float* scratch;  // [groups][bands - 1][band_px][Cmid] f32: the spilled bands' h2
+  int mpw, bands, band_px;  // m-tiles a warp, bands, pixels of the tallest band
+  BLayout L;
+};
+
+// Launch A's band form: launch A for maps that no cluster holds whole. The
+// same clusters, persistent over the batch, rank r the same channel slice;
+// per image, band k of `bands` at a time through the map: the 1x1 expand
+// of its rows and halo rows in chunks of P pixels (the chunk's tiles in
+// registers; the x stream runs on through chunks, bands and images in one
+// ring of its own), BN + SiLU into the map, the depthwise in place, its
+// channel sums onto the pooled means (band 0 first). Every band but the
+// last leaves its h2 rows, f32, in this cluster's scratch (each rank its
+// channels; ~2 MB a band at 16x64x960, so the read back comes from L2),
+// stored in pieces during the next band's first K loop, which writes the
+// map only after it. Then the SE gate (se_gate), and round(h2 * gate)
+// written for the last band from the map, and for each spilled band after
+// cp.async brings it back into the map: its wait and a barrier come before
+// any thread reads it. What bounds it (chip_smoke.py's phase cycles): the
+// expand's ring steps, about half an image's time (a barrier a step, and
+// the x stream from L2: each rank reads each band's x rows, halo rows
+// included; one thread asks L2 for the next band's rows a band ahead), the
+// depthwise's issue (a quarter), the SE's cluster barrier and the spilled
+// bands' round trip through L2.
+template <typename T, int MPW, int NPW>
+__global__ void __launch_bounds__(NT, 1) expand_gate_band(const BandArgs<T> p) {
+  constexpr int KC = ACfg<T>::KC, LDX = ACfg<T>::LDX, EPV = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const AArgs<T>& a = p.a;
+  const BLayout& L = p.L;
+  float* map = reinterpret_cast<float*>(smem);
+  T* pws = reinterpret_cast<T*>(smem + L.pw);
+  float* vec = reinterpret_cast<float*>(smem + L.vec);
+  float* hid = reinterpret_cast<float*>(smem + L.hid);
+  float* xbuf = reinterpret_cast<float*>(smem + L.xbuf);
+  float* cst = reinterpret_cast<float*>(smem + L.cst);
+
+  const int C = a.C, H = a.H, W = a.W, bands = p.bands, ns = L.ns;
+  const int rank = static_cast<int>(blockIdx.x) % C;
+  const int group = static_cast<int>(blockIdx.x) / C, groups = gridDim.x / C;
+  const int G8 = a.Cmid / 8;
+  const int c0 = 8 * (G8 * rank / C), nc = 8 * (G8 * (rank + 1) / C) - c0;
+  const bool exchange = C > 1 && a.rd > 0;
+  auto rw_at = [&](int j, int c) {
+    return to_f(__ldg(a.se_rw + static_cast<long long>(c0 + c) * a.rd + j));
+  };
+  auto ew_at = [&](int j, int c) {
+    return to_f(__ldg(a.se_ew + static_cast<long long>(j) * a.Cmid + c0 + c));
+  };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = a.wm, wn = NWARP / wm, wmi = warp % wm, wni = warp / wm;
+  const int P = wm * MPW * 16;  // pixels of a chunk
+  const int nk = (a.Cin + KC - 1) / KC;
+  const int n4 = nc / 4, n8 = nc / 8, ppp = NT / n8;
+
+  load_slice(a, pws, cst, L.ldw, c0, nc, nk, tid);
+  if (exchange) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // the x stream: step (image b, band, chunk, kc) is K chunk kc of the
+  // chunk's pixels; the producer issues step t + ns - 1 while step t runs
+  constexpr int PPX = KC / EPV;
+  auto chunks = [&](int k) {
+    const BandRows r = band_rows(H, bands, k);
+    return cdiv((r.e1 - r.e0) * W, P);
+  };
+  int pb = group, pband = 0, pchunk = 0, pkc = 0;
+  BandRows pr = band_rows(H, bands, 0);  // the producer's band, its chunks
+  int pnch = chunks(0);
+  auto produce = [&](int s) {
+    if (pb < a.B) {
+      const int p0 = pr.e0 * W + pchunk * P, np = min(P, pr.e1 * W - p0);
+      T* xs = reinterpret_cast<T*>(smem + L.ring + s * L.xstage);
+      const int k = pkc * KC + (tid % PPX) * EPV;
+      const bool kin = k < a.Cin;
+      const T* src = a.x + (static_cast<long long>(pb) * H * W + p0) * a.Cin + k;
+      for (int px = tid / PPX; px < P; px += NT / PPX) {
+        const bool ok = kin && px < np;
+        cp_async16(xs + px * LDX + (tid % PPX) * EPV,
+                   ok ? src + static_cast<long long>(px) * a.Cin : a.x, ok);
+      }
+      if (++pkc == nk) {
+        pkc = 0;
+        if (++pchunk == pnch) {
+          pchunk = 0;
+          if (++pband == bands) pband = 0, pb += groups;
+          pr = band_rows(H, bands, pband);
+          pnch = chunks(pband);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < ns - 1; ++s) produce(s);
+  int cur = 0, nxt = ns - 1;  // ring slots of steps t and t + ns - 1
+
+  const bool tl = a.trace && blockIdx.x == 0 && tid == 0;
+  int img = 0;
+#define TL(ph) if (tl && img < 15) g_trace[img][ph] = clock64();
+  for (int b = group; b < a.B; b += groups, ++img) {
+    TL(0)
+    const int ldm = opaque(L.ldm);
+    float* spill = p.scratch + static_cast<long long>(group) * (bands - 1) * p.band_px * a.Cmid;
+    for (int k = 0; k < bands; ++k) {
+      const BandRows r = band_rows(H, bands, k);
+      const int npx = (r.e1 - r.e0) * W, nch = cdiv(npx, P);
+      // the next band's x rows (the next image's first, after the last) into
+      // L2, a band ahead of the ring, by one thread of the cluster
+      if (rank == 0 && tid == 0) {
+        const int nb = k + 1 < bands ? b : b + groups;
+        const BandRows rn = band_rows(H, bands, k + 1 < bands ? k + 1 : 0);
+        if (nb < a.B)
+          prefetch_l2(a.x + (static_cast<long long>(nb) * H * W + rn.e0 * W) * a.Cin,
+                      (rn.e1 - rn.e0) * W * a.Cin * sizeof(T));
+      }
+      // band k - 1's h2 rows, to be spilled over chunk 0's K loop: items of
+      // 4 channels of a pixel, [i0, i1) in step kc
+      const BandRows rs = band_rows(H, bands, k > 0 ? k - 1 : 0);
+      const int ns_items = k > 0 ? (rs.r1 - rs.r0) * W * n4 : 0;
+      const float* from = map + (rs.r0 - rs.e0) * W * ldm;
+      float* to = spill + static_cast<long long>(k > 0 ? k - 1 : 0) * p.band_px * a.Cmid + c0;
+      // ---- 1x1 expand of the band's rows and halo rows, a chunk at a time
+      for (int ch = 0; ch < nch; ++ch) {
+        const int mt = cdiv(min(P, npx - ch * P), 16);  // m-tiles holding pixels
+        float acc[MPW][NPW][4];
+#pragma unroll
+        for (int i = 0; i < MPW; ++i)
+#pragma unroll
+          for (int j = 0; j < NPW; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+        for (int kc = 0; kc < nk; ++kc) {
+          cp_async_wait(ns - 2);
+          __syncthreads();  // step t landed; every thread is done with t - 1's slot
+          produce(nxt);
+          if (ch == 0)  // ---- spill a piece of band k - 1 to the scratch
+            for (int i = ns_items * kc / nk + tid; i < ns_items * (kc + 1) / nk; i += NT) {
+              const int px = i / n4, e = (i % n4) * 4;
+              const float2 lo = *reinterpret_cast<const float2*>(from + px * ldm + e);
+              const float2 hi = *reinterpret_cast<const float2*>(from + px * ldm + e + 2);
+              *reinterpret_cast<float4*>(to + static_cast<long long>(px) * a.Cmid + e) =
+                  make_float4(lo.x, lo.y, hi.x, hi.y);
+            }
+          expand_chunk<MPW, NPW, true>(
+              acc, reinterpret_cast<const T*>(smem + L.ring + cur * L.xstage),
+              pws + kc * KC * L.ldw, L.ldw, wmi, wni, wm, wn, lane, mt);
+          cur = cur + 1 == ns ? 0 : cur + 1;
+          nxt = nxt + 1 == ns ? 0 : nxt + 1;
+        }
+        if (ch == 0 && ns_items) __syncthreads();  // the spill's reads of the map done
+        // BN + SiLU into the chunk's map rows (nobody reads them before the
+        // band's barrier; pixels past the band and columns past nc dropped)
+        const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+        for (int j = 0; j < NPW; ++j) {
+          const int col = (wni + wn * j) * 8 + 2 * q;
+          if (col >= nc) continue;
+          const float sa = cst[col], sb = cst[col + 1];
+          const float ba = cst[a.ncmax + col], bb = cst[a.ncmax + col + 1];
+#pragma unroll
+          for (int i = 0; i < MPW; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int px = ch * P + (wmi + wm * i) * 16 + g + 8 * h;
+              if (px < npx)
+                *reinterpret_cast<float2*>(map + px * ldm + col) =
+                    make_float2(silu(fmaf(acc[i][j][2 * h], sa, ba)),
+                                silu(fmaf(acc[i][j][2 * h + 1], sb, bb)));
+            }
+        }
+      }
+      if (k == 0) TL(1)
+      if (k + 1 == bands) TL(3)
+      __syncthreads();  // the band's h1 complete
+      // ---- 3x3 depthwise in place over the band's rows
+      const int ys = r.r0 - r.e0, ye = r.r1 - r.e0;
+      if (W <= 8 * DW_CMAX)
+        depthwise<T, 8, true>(map, vec, cst, ldm, a.ncmax, nc, W, r.e1 - r.e0, warp, lane, ys,
+                              ye, H * W, k == 0, k + 1 == bands);
+      else
+        depthwise<T, 16, true>(map, vec, cst, ldm, a.ncmax, nc, W, r.e1 - r.e0, warp, lane,
+                               ys, ye, H * W, k == 0, k + 1 == bands);
+      __syncthreads();  // the band's h2 and channel sums complete
+      if (k == 0) TL(2)
+    }
+    TL(4)
+
+    // ---- SE gate
+    if (a.rd > 0) se_gate<T>(vec, hid, xbuf, cst, rw_at, ew_at, a.rd, nc, a.ncmax, C, rank,
+                             exchange, tid, warp, lane);
+    TL(5)
+
+    // ---- out: round(h2 * gate) in T, band by band: the last from the map,
+    // then each spilled band brought back into the map ([band_px][ldr]);
+    // thread t channels 8 (t % n8) .. + 7 of the band's pixels t / n8 + ppp i
+    for (int kk = 0; kk < bands; ++kk) {
+      const int k = kk == 0 ? bands - 1 : kk - 1;
+      const BandRows r = band_rows(H, bands, k);
+      const int npx = (r.r1 - r.r0) * W;
+      if (kk > 0) {
+        __syncthreads();  // the last band's reads of the map done
+        const float* src = spill + static_cast<long long>(k) * p.band_px * a.Cmid + c0;
+        for (int i = tid; i < npx * n4; i += NT) {
+          const int px = i / n4, e = (i % n4) * 4;
+          cp_async16(map + px * L.ldr + e, src + static_cast<long long>(px) * a.Cmid + e, true);
+        }
+        cp_async_commit();
+        cp_async_wait(0);
+        __syncthreads();  // the band back in the map, for every thread
+      }
+      const float* h2 = kk > 0 ? map : map + (r.r0 - r.e0) * W * ldm;
+      const int ld = kk > 0 ? L.ldr : ldm;
+      if (tid < ppp * n8) {
+        const int c = (tid % n8) * 8;
+        float gk[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) gk[e] = a.rd > 0 ? vec[c + e] : 1.f;
+        T* out = a.g2 + (static_cast<long long>(b) * H * W + r.r0 * W) * a.Cmid + c0 + c;
+        for (int px = tid / n8; px < npx; px += ppp) {
+          const float2* m = reinterpret_cast<const float2*>(h2 + px * ld + c);
+          float v[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = m[e];
+            v[2 * e] = f.x * gk[2 * e];
+            v[2 * e + 1] = f.y * gk[2 * e + 1];
+          }
+          store8(out + static_cast<long long>(px) * a.Cmid, v);
+        }
+      }
+      if (kk == 0) TL(6)
+    }
+  }
+  if (tl && img < 15) g_trace[img][0] = clock64();
+#undef TL
+  if (exchange) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  cp_async_wait(0);
+}
+
 // ---- launch B: the projection
 template <typename T> struct BCfg;  // K chunk (64 bytes a row) and padded A row
 template <> struct BCfg<bf16> { static constexpr int BK = 32, LDA = 40; };
@@ -872,7 +1297,8 @@ bool a_valid(bool is_bf16, int H, int W, int Cin, int Cmid, int C, int ncmax, in
       Cmid / 8 < C || ncmax > NT || wm < 1 || NWARP % wm || W > 8 * DW_CMAX)
     return false;
   const ATile t = a_tile(H * W, ncmax, wm);
-  return t.mpw <= 4 && t.npw <= 4 && a_layout(is_bf16, H, W, Cin, ncmax, C, rd, wm).ns >= 2;
+  return (t.mpw == 2 || t.mpw == 4) && t.npw <= 4 &&
+         a_layout(is_bf16, H, W, Cin, ncmax, C, rd, wm).ns >= 2;
 }
 
 // f(the launch A instance of a type and tiling, MPW 2 or 4 and NPW 2 to 4,
@@ -887,6 +1313,32 @@ int with_instance(const ATile& t, F f) {
     case 4 * 8 + 2: return f(KernelC<expand_gate<T, 4, 2>>{});
     case 4 * 8 + 3: return f(KernelC<expand_gate<T, 4, 3>>{});
     case 4 * 8 + 4: return f(KernelC<expand_gate<T, 4, 4>>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// what the band form takes, as ops/mbconv.py::mbconv_plan checks it
+bool band_valid(bool is_bf16, int H, int W, int Cin, int Cmid, int C, int ncmax, int wm,
+                int mpw, int bands, int rd) {
+  if (Cin % 8 || Cmid % 8 || C < 1 || C > 16 || ncmax != 8 * ((Cmid / 8 + C - 1) / C) ||
+      Cmid / 8 < C || ncmax > NT || wm < 1 || NWARP % wm || W > 16 * DW_CMAX || bands < 2 ||
+      bands > H)
+    return false;
+  return band_layout_ok(b_layout(is_bf16, H, W, Cin, ncmax, C, rd, wm, mpw, bands)) &&
+         mpw >= 2 && mpw <= 4 && (band_npw(ncmax, wm) == 2 || band_npw(ncmax, wm) == 3);
+}
+
+// f(the band form's instance of a type and tiling, MPW 2 to 4 and NPW 2 or
+// 3, as a std::integral_constant)
+template <typename T, typename F>
+int with_band_instance(int mpw, int npw, F f) {
+  switch (mpw * 8 + npw) {
+    case 2 * 8 + 2: return f(KernelC<expand_gate_band<T, 2, 2>>{});
+    case 2 * 8 + 3: return f(KernelC<expand_gate_band<T, 2, 3>>{});
+    case 3 * 8 + 2: return f(KernelC<expand_gate_band<T, 3, 2>>{});
+    case 3 * 8 + 3: return f(KernelC<expand_gate_band<T, 3, 3>>{});
+    case 4 * 8 + 2: return f(KernelC<expand_gate_band<T, 4, 2>>{});
+    case 4 * 8 + 3: return f(KernelC<expand_gate_band<T, 4, 3>>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -938,6 +1390,61 @@ extern "C" int p4fr_mbconv_expand_gate(
   return with_instance<float>(t, [&](auto k) {
     return launch_cluster<decltype(k)::value>(groups, C, NT, smem, s, args);
   });
+}
+
+// the band form's bytes of dynamic shared memory a CTA (0: no ring of two
+// slots fits)
+extern "C" int p4fr_mbconv_band_smem(int H, int W, int Cin, int ncmax, int C, int rd, int wm,
+                                     int mpw, int bands, int is_bf16) {
+  const BLayout L = b_layout(is_bf16, H, W, Cin, ncmax, C, rd, wm, mpw, bands);
+  return band_layout_ok(L) ? L.bytes : 0;
+}
+
+// the band form's instance for the type and tiling: its clusters of C
+// resident at once with that shared memory, registers and local-memory bytes
+// a thread
+extern "C" int p4fr_mbconv_band_query(int H, int W, int Cin, int ncmax, int C, int rd, int wm,
+                                      int mpw, int bands, int is_bf16, int* clusters,
+                                      int* regs, int* local) {
+  const size_t smem = b_layout(is_bf16, H, W, Cin, ncmax, C, rd, wm, mpw, bands).bytes;
+  auto q = [&](auto k) {
+    return query_cluster<decltype(k)::value>(C, NT, smem, clusters, regs, local);
+  };
+  const int npw = band_npw(ncmax, wm);
+  return is_bf16 ? with_band_instance<bf16>(mpw, npw, q)
+                 : with_band_instance<float>(mpw, npw, q);
+}
+
+// launch A's band form: groups clusters of C CTAs; g2 [B, H, W, Cmid] in the
+// type; scratch f32, groups x (bands - 1) x ceil(H / bands) x W x Cmid
+extern "C" int p4fr_mbconv_band_expand_gate(
+    const void* x, const void* pw_w, const void* pw_s, const void* pw_b, const void* dw_w,
+    const void* dw_s, const void* dw_b, const void* se_rw, const void* se_rb,
+    const void* se_ew, const void* se_eb, void* g2, void* scratch, int B, int H, int W,
+    int Cin, int Cmid, int rd, int C, int ncmax, int wm, int mpw, int bands, int groups,
+    int is_bf16, int trace, void* stream) {
+  if (!se_rw) rd = 0;
+  if (!band_valid(is_bf16, H, W, Cin, Cmid, C, ncmax, wm, mpw, bands, rd) || groups < 1 ||
+      !scratch)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BLayout L = b_layout(is_bf16, H, W, Cin, ncmax, C, rd, wm, mpw, bands);
+  const int npw = band_npw(ncmax, wm), band_px = cdiv(H, bands) * W;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto args) {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(args.a.x)>>;
+    return with_band_instance<T>(mpw, npw, [&](auto k) {
+      return launch_cluster<decltype(k)::value>(groups, C, NT, L.bytes, s, args);
+    });
+  };
+  if (is_bf16)
+    return launch(BandArgs<bf16>{
+        a_args<bf16>(x, pw_w, pw_s, pw_b, dw_w, dw_s, dw_b, se_rw, se_rb, se_ew, se_eb, g2, B,
+                     H, W, Cin, Cmid, rd, C, ncmax, wm, trace),
+        static_cast<float*>(scratch), mpw, bands, band_px, L});
+  return launch(BandArgs<float>{
+      a_args<float>(x, pw_w, pw_s, pw_b, dw_w, dw_s, dw_b, se_rw, se_rb, se_ew, se_eb, g2, B,
+                    H, W, Cin, Cmid, rd, C, ncmax, wm, trace),
+      static_cast<float*>(scratch), mpw, bands, band_px, L});
 }
 
 // launch B: out [M, N] = a [M, K] @ w [K, N] * s3 + b3 (+ res), K and N

@@ -35,7 +35,8 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
-LAUNCHES = {"standardize": 0, "mbconv": 0, "mbconv_tiled": 0, "decoder_layer": 0,
+LAUNCHES = {"standardize": 0, "mbconv": 0, "mbconv_band": 0, "mbconv_tiled": 0,
+            "decoder_layer": 0,
             "beam_gather": 0,
             "fused_greedy_step": 0, "swin_attention": 0, "decoder_layer_v1": 0,
             "decoder_stack_v3": 0, "decoder_layer_int8": 0,
@@ -65,6 +66,17 @@ _SIGNATURES = {
     # (H, W, Cin, width, C, rd, warp rows, bf16, clusters i32 out, regs i32
     #  out, local bytes i32 out): launch A's resident clusters of C
     "p4fr_mbconv_cluster_query": [I] * 8 + [P] * 3,
+    # launch A's band form: (x, pw_w, pw_s, pw_b, dw_w, dw_s, dw_b,
+    #  se_rw|null, se_rb, se_ew, se_eb, g2, scratch f32, B, H, W, Cin, Cmid,
+    #  rd, C, width, warp rows, m-tiles, bands, clusters, bf16, trace, stream)
+    "p4fr_mbconv_band_expand_gate": [P] * 13 + [I] * 14 + [P],
+    # (H, W, Cin, width, C, rd, warp rows, m-tiles, bands, bf16) -> the band
+    # form's shared memory bytes (0: it does not fit; not a CUDA error code)
+    "p4fr_mbconv_band_smem": [I] * 10,
+    # (H, W, Cin, width, C, rd, warp rows, m-tiles, bands, bf16, clusters
+    #  i32 out, regs i32 out, local bytes i32 out): the band form's resident
+    #  clusters of C
+    "p4fr_mbconv_band_query": [I] * 10 + [P] * 3,
     # (host u64 [16, 8] out): the traced launches' phase timeline
     "p4fr_mbconv_trace": [P],
     # the tiled form (csrc/mbconv_tiled.cu): (x, pw_w, pw_s, pw_b, dw_w,

@@ -5,10 +5,11 @@ Port of ``p4fr_tpu/ops/pallas/mbconv.py``. ``fold_mbconv_params`` turns an
 reshaped/transposed to [in, out]), each BatchNorm as a per-channel f32
 (scale, bias) applied to its product's OUTPUT. ``fused_mbconv_chain``
 applies a run of blocks to an NHWC activation; on a CUDA tensor each block
-is the two launches of ``csrc/mbconv.cu`` (or, for a shape whose expanded
-map a cluster cannot hold, the three of ``csrc/mbconv_tiled.cu``:
-``mbconv_plan`` decides from the shape alone), on a CPU tensor it is the
-plain twin ``mbconv_block_ref`` (the composed convs).
+is the two launches of ``csrc/mbconv.cu`` (launch A whole-image, or, for a
+shape whose expanded map no cluster holds whole, its band form; for
+channels that are not multiples of 8, the three launches of
+``csrc/mbconv_tiled.cu``: ``mbconv_plan`` decides from the shape alone), on
+a CPU tensor it is the plain twin ``mbconv_block_ref`` (the composed convs).
 
 Numeric contract (the TPU kernel's, ``_apply_block``): f32 accumulation;
 exact SiLU; the SE pooled mean and SE hidden rounded to the activation
@@ -136,6 +137,10 @@ def _check(x: torch.Tensor, folded: Dict[str, torch.Tensor], residual: bool):
 NT = 512          # threads a CTA (csrc/mbconv.cu)
 MAX_TILES = 4     # launch A: m-tiles and n-tiles a warp (64 accumulators)
 MAX_WIDTH = 32    # launch A's depthwise: 8 lanes a channel, 4 columns each
+MAX_BAND_WIDTH = 64  # the band form's depthwise: 16 lanes a channel, 4 columns each
+# the band form's instances: (m-tiles, n-tiles) a warp (csrc/mbconv.cu::
+# with_band_instance)
+BAND_TILES = ((2, 2), (2, 3), (3, 2), (3, 3), (4, 2), (4, 3))
 RING_MAX = 6      # launch A's x ring slots at most
 MAX_CLUSTER = 16  # the card's non-portable cluster limit
 SMEM_LIMIT = 232448  # an H100 CTA's opt-in shared memory, bytes
@@ -145,9 +150,12 @@ class MbconvPlan(NamedTuple):
     """How ``fused_mbconv`` runs a block. ``path`` "cluster": launch A as
     clusters of ``cluster`` CTAs, rank r owning mid channels ``slices[r]``
     (start, width), widest ``width``; ``warp_rows`` of launch A's 16 warps
-    split the pixels; ``stages`` x ring slots; ``smem`` bytes a CTA; then
-    launch B. "tiled": the three launches of ``csrc/mbconv_tiled.cu``
-    (the other fields 0 or empty)."""
+    split the pixels; ``stages`` x ring slots; ``smem`` bytes a CTA; the
+    whole image at once (``bands`` 1); then launch B. "band": launch A's
+    band form, the same fields, the image's rows in ``bands`` bands, the
+    expand in chunks of ``warp_rows`` x ``m_tiles`` x 16 pixels; then
+    launch B. "tiled": the three launches of ``csrc/mbconv_tiled.cu`` (the
+    other fields 0 or empty)."""
     path: str
     cluster: int = 0
     slices: Tuple[Tuple[int, int], ...] = ()
@@ -155,6 +163,8 @@ class MbconvPlan(NamedTuple):
     warp_rows: int = 0
     stages: int = 0
     smem: int = 0
+    bands: int = 0
+    m_tiles: int = 0
 
 
 def _align(n: int, a: int) -> int:
@@ -170,37 +180,106 @@ def launch_a_tiles(pixels: int, width: int, warp_rows: int) -> Tuple[int, int]:
     return (2 if mpw <= 2 else mpw), max(2, npw)
 
 
+def band_rows(h: int, bands: int, k: int) -> Tuple[int, int, int, int]:
+    """(r0, r1, e0, e1): band k of ``bands`` outputs rows [r0, r1) and
+    expands rows [e0, e1), its rows and one halo row at each inner edge
+    (``csrc/mbconv.cu::band_rows``)."""
+    r0, r1 = h * k // bands, h * (k + 1) // bands
+    return r0, r1, max(r0 - 1, 0), min(r1 + 1, h)
+
+
+def band_n_tiles(width: int, warp_rows: int) -> int:
+    """The band form's n-tiles (8 channels) a warp, at least 2."""
+    return max(2, -(-(width // 8) // (16 // warp_rows)))
+
+
 def launch_a_layout(h: int, w: int, cin: int, width: int, cluster: int, se_dim: int,
-                    warp_rows: int, bf16: bool) -> Tuple[int, int]:
-    """(bytes of shared memory a CTA, x ring slots) of launch A
-    (``csrc/mbconv.cu::a_layout``): the f32 map, whose room holds ring slots
-    1 .. stages - 1 while the expand runs, ring slot 0, the slice's pw_w,
-    pooled/gate, SE hidden, the exchange, the slice's
-    per-channel constants, and (bf16) its SE weights."""
+                    warp_rows: int, bf16: bool, bands: int = 1,
+                    m_tiles: int = 0) -> Tuple[int, int]:
+    """(bytes of shared memory a CTA, x ring slots) of launch A. Whole
+    image (``bands`` 1, ``csrc/mbconv.cu::a_layout``): the f32 map, whose
+    room holds ring slots 1 .. stages - 1 while the expand runs, ring slot
+    0, the slice's pw_w, pooled/gate, SE hidden, the exchange, the slice's
+    per-channel constants, and (bf16) its SE weights. Band form
+    (``b_layout``): the map of the tallest band with its halo rows (rows an
+    odd number of float2 apart; also the room of a spilled band read back,
+    rows of whole 16-byte units), the same buffers but the SE weights, then
+    a ring of its own, as many slots of ``warp_rows`` x ``m_tiles`` x 16
+    pixels as fit ``SMEM_LIMIT``, up to ``RING_MAX``."""
     es, kc, ldx = (2, 32, 40) if bf16 else (4, 8, 12)
-    mpw, npw = launch_a_tiles(h * w, width, warp_rows)
+    if bands > 1:
+        mpw, npw = m_tiles, band_n_tiles(width, warp_rows)
+        rows = max(e1 - e0 for _, _, e0, e1 in (band_rows(h, bands, k) for k in range(bands)))
+        room = 4 * max(rows * w * (width + 2), -(-h // bands) * w * (width + 4))
+    else:
+        mpw, npw = launch_a_tiles(h * w, width, warp_rows)
+        room = 4 * h * w * (width + 4)
     np_ = (16 // warp_rows) * npw * 8
-    s = h * w
-    ldm = width + 4
     ldw = np_ + (8 if (np_ // 8) % 2 == 0 else 16) if bf16 else np_
     xstage = _align(warp_rows * mpw * 16 * ldx * es, 128)
-    room = _align(s * ldm * 4, 128)
-    stages = 1 + min(RING_MAX - 1, room // xstage)
-    n = room + xstage + _align(_align(cin, kc) * ldw * es, 128) + _align(width * 4, 16) + _align(se_dim * 4, 16) + _align(cluster * se_dim * 4, 16)
+    room = _align(room, 128)
+    n = room + _align(_align(cin, kc) * ldw * es, 128) + _align(width * 4, 16) + _align(se_dim * 4, 16) + _align(cluster * se_dim * 4, 16)
     n += _align((14 * width + se_dim) * 4, 16)
-    return n + (2 * _align(se_dim * width * es, 16) if bf16 else 0), stages
+    if bands > 1:
+        ring = _align(n, 128)
+        stages = min(RING_MAX, max(0, SMEM_LIMIT - ring) // xstage)
+        return ring + stages * xstage, stages
+    n += 2 * _align(se_dim * width * es, 16) if bf16 else 0
+    return n + xstage, 1 + min(RING_MAX - 1, room // xstage)
+
+
+def band_chunks(h: int, w: int, bands: int, warp_rows: int, m_tiles: int):
+    """The band form's expand chunks, in order: (band, first pixel of the
+    band's expand rows, pixels, m-tiles holding pixels)."""
+    chunk = warp_rows * m_tiles * 16
+    out = []
+    for k in range(bands):
+        _, _, e0, e1 = band_rows(h, bands, k)
+        px = (e1 - e0) * w
+        out += [(k, start, min(chunk, px - start), -(-min(chunk, px - start) // 16))
+                for start in range(0, px, chunk)]
+    return out
+
+
+def band_scratch_shape(groups: int, h: int, w: int, cmid: int, bands: int):
+    """The band form's f32 scratch: per persistent cluster, every band but
+    the last, a map of the tallest band's rows."""
+    return (groups, bands - 1, -(-h // bands) * w, cmid)
 
 
 def _warp_rows(pixels: int, width: int) -> int:
     """Launch A's warps along the pixels (the rest split the channels): of
-    the tilings with at most 4 x 4 tiles a warp, the one that computes the
+    the tilings of an instance (2 or 4 m-tiles and at most 4 n-tiles a
+    warp, ``csrc/mbconv.cu::with_instance``), the one that computes the
     fewest padded tiles, then reads the fewest operand bytes; 0 if none."""
     fits = []
     for wm in (1, 2, 4, 8, 16):
         mpw, npw = launch_a_tiles(pixels, width, wm)
-        if mpw <= MAX_TILES and npw <= MAX_TILES:
+        if mpw in (2, 4) and npw <= MAX_TILES:
             fits.append((wm * mpw * (16 // wm) * npw, 512 * mpw + 256 * npw, wm))
     return min(fits)[2] if fits else 0
+
+
+def _band_tiling(h: int, w: int, cin: int, width: int, cluster: int, se_dim: int,
+                 bf16: bool, bands: int):
+    """The band form's (warp_rows, m_tiles, smem, stages): of the instances'
+    tilings whose layout fits ``SMEM_LIMIT`` with a ring of at least 2
+    slots, the one with the fewest pixel chunks (each a pass of ring steps
+    over Cin, and a step costs more than its tiles on the card), then the
+    fewest tiles in its slowest warp (m-tiles past a chunk's pixels are
+    skipped), then the most ring slots; None if none fits."""
+    fits = []
+    for wm in (1, 2, 4, 8, 16):
+        npw = band_n_tiles(width, wm)
+        for mpw in sorted({m for m, n in BAND_TILES if n == npw}):
+            smem, stages = launch_a_layout(h, w, cin, width, cluster, se_dim, wm, bf16,
+                                           bands, mpw)
+            if stages < 2 or smem > SMEM_LIMIT:
+                continue
+            chunks = band_chunks(h, w, bands, wm, mpw)
+            units = sum(-(-mt // wm) * npw for *_, mt in chunks)
+            fits.append(((len(chunks), units, -stages, wm, mpw), (wm, mpw, smem, stages)))
+    return min(fits)[1] if fits else None
 
 
 def mbconv_plan(batch: int, h: int, w: int, cin: int, cmid: int, cout: int, dtype,
@@ -208,46 +287,74 @@ def mbconv_plan(batch: int, h: int, w: int, cin: int, cmid: int, cout: int, dtyp
     """Launch A's cluster size and slices, or the tiled path, from the
     block's shape alone (``se_dim``: the SE hidden width, 0 without SE).
 
-    The cluster path needs Cin, Cmid and Cout multiples of 8; it takes the
-    smallest C (a power of two up to 16, at most Cmid / 8) whose widest
-    slice of whole 8-channel groups lets the image's expand tiles sit in
-    the warps' registers (the depthwise takes images up to ``MAX_WIDTH``
-    wide), and whose shared memory (the image's f32 map, which also holds
-    the x ring while the expand runs, one ring slot more, the slice's
-    pw_w and SE weights, the SE buffers) fits ``SMEM_LIMIT`` with a ring of
-    at least 2 slots. Any other shape takes the tiled path."""
+    The cluster paths need Cin, Cmid and Cout multiples of 8. The whole
+    image's takes the smallest C (a power of two up to 16, at most Cmid /
+    8) whose widest slice of whole 8-channel groups lets the image's
+    expand tiles sit in the warps' registers (the depthwise takes images up
+    to ``MAX_WIDTH`` wide), and whose shared memory (the image's f32 map,
+    which also holds the x ring while the expand runs, one ring slot more,
+    the slice's pw_w and SE weights, the SE buffers) fits ``SMEM_LIMIT``
+    with a ring of at least 2 slots. Otherwise the band form takes the
+    fewest bands, then the smallest C, whose tallest band's map with its
+    halo rows, a ring of at least 2 slots, the slice's pw_w and the SE
+    buffers fit (images up to ``MAX_BAND_WIDTH`` wide; ``_band_tiling``).
+    Any other shape takes the tiled path."""
     if batch < 1 or min(h, w) < 1:
         raise ValueError(f"mbconv_plan: empty shape {(batch, h, w)}")
     bf16 = dtype == torch.bfloat16
-    if not (cin % 8 or cmid % 8 or cout % 8):
-        groups = cmid // 8
-        c = 1
-        while c <= min(MAX_CLUSTER, groups):
-            width = 8 * -(-groups // c)
-            wm = _warp_rows(h * w, width)
-            smem, stages = launch_a_layout(h, w, cin, width, c, se_dim, wm or 1, bf16)
-            if wm and w <= MAX_WIDTH and stages >= 2 and smem <= SMEM_LIMIT:
-                slices = tuple((8 * (groups * r // c),
-                                8 * (groups * (r + 1) // c - groups * r // c))
-                               for r in range(c))
-                return MbconvPlan("cluster", c, slices, width, wm, stages, smem)
-            c *= 2
+    if cin % 8 or cmid % 8 or cout % 8:
+        return MbconvPlan("tiled")
+    groups = cmid // 8
+
+    def slices(c):
+        return tuple((8 * (groups * r // c), 8 * (groups * (r + 1) // c - groups * r // c))
+                     for r in range(c))
+
+    clusters = [c for c in (1, 2, 4, 8, 16) if c <= min(MAX_CLUSTER, groups)]
+    for c in clusters:
+        width = 8 * -(-groups // c)
+        wm = _warp_rows(h * w, width)
+        smem, stages = launch_a_layout(h, w, cin, width, c, se_dim, wm or 1, bf16)
+        if wm and w <= MAX_WIDTH and stages >= 2 and smem <= SMEM_LIMIT:
+            return MbconvPlan("cluster", c, slices(c), width, wm, stages, smem, 1)
+    if w <= MAX_BAND_WIDTH:
+        for bands in range(2, h + 1):
+            for c in clusters:
+                width = 8 * -(-groups // c)
+                tiling = _band_tiling(h, w, cin, width, c, se_dim, bf16, bands) if (
+                    width <= NT) else None
+                if tiling:
+                    wm, mpw, smem, stages = tiling
+                    return MbconvPlan("band", c, slices(c), width, wm, stages, smem, bands, mpw)
     return MbconvPlan("tiled")
 
 
 @functools.lru_cache(maxsize=None)
 def cluster_query(h: int, w: int, cin: int, width: int, cluster: int, se_dim: int,
-                  warp_rows: int, bf16: bool, index: int = 0):
+                  warp_rows: int, bf16: bool, index: int = 0, bands: int = 1,
+                  m_tiles: int = 0):
     """(clusters resident at once, registers, local-memory bytes a thread)
-    of launch A's instance at that plan on card ``index``; asked once per
-    argument set."""
+    of launch A's instance at that plan (the band form's where ``bands`` >
+    1) on card ``index``; asked once per argument set."""
     out = [ctypes.c_int(0) for _ in range(3)]
+    lib = _build.library()
     with torch.cuda.device(index):
-        code = _build.library().p4fr_mbconv_cluster_query(
-            h, w, cin, width, cluster, se_dim, warp_rows, int(bf16),
-            *map(ctypes.byref, out))
+        if bands > 1:
+            code = lib.p4fr_mbconv_band_query(h, w, cin, width, cluster, se_dim, warp_rows,
+                                              m_tiles, bands, int(bf16),
+                                              *map(ctypes.byref, out))
+        else:
+            code = lib.p4fr_mbconv_cluster_query(h, w, cin, width, cluster, se_dim, warp_rows,
+                                                 int(bf16), *map(ctypes.byref, out))
     _build.check(code, "mbconv cluster query")
     return tuple(v.value for v in out)
+
+
+def plan_query(h: int, w: int, cin: int, se_dim: int, plan: MbconvPlan, bf16: bool,
+               index: int = 0):
+    """``cluster_query`` of a cluster or band plan."""
+    return cluster_query(h, w, cin, plan.width, plan.cluster, se_dim, plan.warp_rows, bf16,
+                         index, plan.bands, plan.m_tiles)
 
 
 def _se_dim(folded) -> int:
@@ -263,28 +370,39 @@ def block_plan(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> MbconvPlan:
 
 def mbconv_expand_gate(x: torch.Tensor, folded: Dict[str, torch.Tensor],
                        plan: MbconvPlan, trace: bool = False) -> torch.Tensor:
-    """Launch A of a cluster plan on checked CUDA operands: round(h2 *
-    gate), [B, H, W, Cmid] in x's type. Persistent: min(B, resident
-    clusters) clusters walk the batch. ``trace``: CTA 0 records its phase
-    timeline (``read_trace``)."""
+    """Launch A of a cluster or band plan on checked CUDA operands:
+    round(h2 * gate), [B, H, W, Cmid] in x's type. Persistent: min(B,
+    resident clusters) clusters walk the batch; the band form's f32
+    scratch (``band_scratch_shape``) comes from ``torch.empty``.
+    ``trace``: CTA 0 records its phase timeline (``read_trace``)."""
     b, h, w, cin = x.shape
     cmid = folded["pw_w"].shape[1]
     bf16 = x.dtype == torch.bfloat16
     se = "se_rw" in folded
     rd = _se_dim(folded)
-    resident = cluster_query(h, w, cin, plan.width, plan.cluster, rd, plan.warp_rows, bf16,
-                             x.device.index or 0)[0]
+    resident = plan_query(h, w, cin, rd, plan, bf16, x.device.index or 0)[0]
     if resident < 1:
         raise RuntimeError(f"mbconv: no cluster of {plan.cluster} CTAs with "
                            f"{plan.smem} bytes of shared memory fits the card")
+    groups = min(b, resident)
     g2 = torch.empty((b, h, w, cmid), dtype=x.dtype, device=x.device)
     ptr = lambda k: folded[k].data_ptr() if se else None  # noqa: E731
-    _build.check(_build.library().p4fr_mbconv_expand_gate(
-        x.data_ptr(), folded["pw_w"].data_ptr(), folded["pw_s"].data_ptr(),
-        folded["pw_b"].data_ptr(), folded["dw_w"].data_ptr(), folded["dw_s"].data_ptr(),
-        folded["dw_b"].data_ptr(), ptr("se_rw"), ptr("se_rb"), ptr("se_ew"), ptr("se_eb"),
-        g2.data_ptr(), b, h, w, cin, cmid, rd, plan.cluster, plan.width, plan.warp_rows,
-        min(b, resident), int(bf16), int(trace), _build.stream_ptr(x.device),
+    operands = (x.data_ptr(), folded["pw_w"].data_ptr(), folded["pw_s"].data_ptr(),
+                folded["pw_b"].data_ptr(), folded["dw_w"].data_ptr(),
+                folded["dw_s"].data_ptr(), folded["dw_b"].data_ptr(), ptr("se_rw"),
+                ptr("se_rb"), ptr("se_ew"), ptr("se_eb"), g2.data_ptr())
+    lib, stream = _build.library(), _build.stream_ptr(x.device)
+    if plan.path == "band":
+        scratch = torch.empty(band_scratch_shape(groups, h, w, cmid, plan.bands),
+                              dtype=torch.float32, device=x.device)
+        _build.check(lib.p4fr_mbconv_band_expand_gate(
+            *operands, scratch.data_ptr(), b, h, w, cin, cmid, rd, plan.cluster, plan.width,
+            plan.warp_rows, plan.m_tiles, plan.bands, groups, int(bf16), int(trace), stream,
+        ), "mbconv band expand_gate")
+        return g2
+    _build.check(lib.p4fr_mbconv_expand_gate(
+        *operands, b, h, w, cin, cmid, rd, plan.cluster, plan.width, plan.warp_rows, groups,
+        int(bf16), int(trace), stream,
     ), "mbconv expand_gate")
     return g2
 
@@ -311,7 +429,10 @@ def read_trace():
     synchronize): CTA 0's cycle counts, a [16, 8] int64 array. Launch A:
     row i is its i-th image (0 start, 1 expand's K loop done, 2 h1 in the
     map, 3 depthwise done, 4 gate known; row i + 1's 0 ends the gated
-    write); launch B: row 15 (start, K loop done, epilogue done)."""
+    write; the band form: 1 band 0's expand done, 2 its depthwise done, 3
+    the last band's expand done, 4 its depthwise done, 5 gate known, 6 the
+    last band written, row i + 1's 0 the spilled bands written); launch B:
+    row 15 (start, K loop done, epilogue done)."""
     import numpy as np
 
     buf = np.zeros((16, 8), dtype=np.uint64)
@@ -376,12 +497,17 @@ def fused_mbconv(x: torch.Tensor, folded: Dict[str, torch.Tensor], *,
     once, with the BN fold, the residual in f32 and one cast. What bounds
     it: launch A's per-image phases (the depthwise's issue, the x stream
     from L2, the SE's cluster barrier, the gated write), then launch B's
-    weight rows from L2. ``mbconv_plan`` picks C from the shape alone; a
-    shape whose map no cluster of 16 can hold takes the three launches of
-    ``csrc/mbconv_tiled.cu`` (h2 through device memory in f32), counted as
-    ``mbconv_tiled``. One launch count per block; a build or launch failure
-    raises. CPU tensor: ``mbconv_block_ref``. With grad mode on, an input
-    that requires grad raises (``_build.refuse_grad``).
+    weight rows from L2. ``mbconv_plan`` picks C from the shape alone. A
+    shape whose map no cluster of 16 holds whole (EfficientASTER's 16x64
+    stages) takes launch A's band form: the cluster holds the map one band
+    of rows at a time, with a recomputed halo row at each inner edge, and
+    every band but the last waits in an f32 scratch in L2 for the gate;
+    counted as ``mbconv_band``. Channels that are not multiples of 8 take
+    the three launches of ``csrc/mbconv_tiled.cu`` (h2 through device
+    memory in f32), counted as ``mbconv_tiled``. One launch count per
+    block; a build or launch failure raises. CPU tensor:
+    ``mbconv_block_ref``. With grad mode on, an input that requires grad
+    raises (``_build.refuse_grad``).
     """
     if x.device.type == "cpu":
         return mbconv_block_ref(x, folded, residual)
@@ -398,7 +524,7 @@ def fused_mbconv(x: torch.Tensor, folded: Dict[str, torch.Tensor], *,
         raise ValueError("fused_mbconv: the cluster kernels move 16-byte vectors: x must "
                          "be 16-byte aligned")
     out = mbconv_project(mbconv_expand_gate(x, folded, plan), x, folded, residual)
-    _build.LAUNCHES["mbconv"] += 1
+    _build.LAUNCHES["mbconv_band" if plan.path == "band" else "mbconv"] += 1
     return out
 
 

@@ -57,8 +57,8 @@ from p4fr_tpu_torch.ops.mbconv import (
     mbconv_block_ref,
     mbconv_expand_gate,
     mbconv_plan,
+    plan_query,
 )
-from p4fr_tpu_torch.ops.mbconv import cluster_query as cluster_query_mbconv
 from p4fr_tpu_torch.ops.preprocess import standardize, standardize_ref
 from p4fr_tpu_torch.ops.swin_attention import (
     fused_window_attention,
@@ -198,22 +198,33 @@ def test_standardize_kernel(cuda):
 
 
 # kernel 2's cases: (B, H, W, Cin, Cout, expand, SE ratio). The plan
-# (mbconv_plan) gives them every cluster size and the tiled path: 11x19
-# leaves partial tiles and slices; the flagship's widths at B just past a
-# multiple of the card's resident clusters leave the last clusters an image
-# short; SE off and no residual (Cin != Cout) each appear.
+# (mbconv_plan) gives them every cluster size, the band form and the tiled
+# path: 11x19 leaves partial tiles and slices; the flagship's widths at B
+# just past a multiple of the card's resident clusters leave the last
+# clusters an image short; SE off and no residual (Cin != Cout) each appear;
+# a 12x32 map has 24 m-tiles, whose unpadded tiling (3 a warp) has no
+# launch-A instance. The band cases run at EfficientASTER's 16x64 maps (two bands of 8 rows)
+# and at 13 rows (bands of 6 and 7), SE on and off, with and without the
+# residual, at B just past the resident clusters of 16 (and of 2, at B=70).
 MBCONV_CASES = {
     "c1": (3, 11, 19, 24, 40, 4, 0.25),
     "c1_no_se": (3, 11, 19, 32, 32, 4, 0.0),
     "c2": (3, 11, 19, 40, 40, 4, 0.25),
     "c4": (3, 11, 19, 80, 80, 4, 0.25),
+    "cluster_24_m_tiles": (3, 12, 32, 32, 32, 4, 0.25),
     "c8_stage3": (17, 16, 32, 128, 128, 4, 0.25),
     "c16_stage4_head": (3, 16, 32, 128, 160, 6, 0.25),
     "c16_stage4_tail": (9, 16, 32, 160, 160, 6, 0.25),
     "c16_stage5": (9, 8, 16, 256, 256, 6, 0.25),
-    "tiled_aster_stage4": (2, 16, 64, 160, 160, 6, 0.25),
+    "band_aster_stage3": (17, 16, 64, 128, 128, 4, 0.25),
+    "band_aster_stage4_head": (3, 16, 64, 128, 160, 6, 0.25),
+    "band_aster_stage4_tail": (9, 16, 64, 160, 160, 6, 0.25),
+    "band_13_rows": (9, 13, 64, 160, 160, 6, 0.25),
+    "band_narrow_no_se": (70, 16, 64, 16, 16, 6, 0.0),
+    "band_narrow_13_rows_no_residual": (3, 13, 64, 16, 24, 6, 0.25),
     "tiled_not_multiple_of_8": (2, 11, 19, 12, 12, 4, 0.25),
 }
+MBCONV_KEYS = {"cluster": "mbconv", "band": "mbconv_band", "tiled": "mbconv_tiled"}
 
 
 def mbconv_case(name, device, seed=0):
@@ -244,9 +255,10 @@ def mbconv_case_plan(name, dtype):
 def test_mbconv_kernel(cuda, dtype, case):
     """Kernel 2 against its twin on the path its plan picks (counted under
     that path's key): f32 within 1e-4, bf16 by the bf16 rule, and on the
-    cluster path launch A's bf16 operand against the twin's round(h2 *
-    gate): the median over the images of the share of elements that differ
-    within 1e-3 (chip_smoke.py's ``BF16_GATED_SHARE``)."""
+    cluster path and the band form launch A's bf16 operand against the
+    twin's round(h2 * gate): the median over the images of the share of
+    elements that differ within 1e-3 (chip_smoke.py's
+    ``BF16_GATED_SHARE``)."""
     block, x, res = mbconv_case(case, cuda)
     folded = fold_mbconv_params(block, dtype)
     x = x.to(dtype)
@@ -258,27 +270,31 @@ def test_mbconv_kernel(cuda, dtype, case):
     before = dict(_build.LAUNCHES)
     got = fused_mbconv(x, folded, residual=res)
     torch.cuda.synchronize()
-    key = "mbconv" if plan.path == "cluster" else "mbconv_tiled"
     assert {k: _build.LAUNCHES[k] - before[k] for k in before if
-            _build.LAUNCHES[k] != before[k]} == {key: 1}
+            _build.LAUNCHES[k] != before[k]} == {MBCONV_KEYS[plan.path]: 1}
     want = mbconv_block_ref(x, folded, res, out_dtype=torch.float32)
     if dtype == torch.float32:
         assert torch.allclose(got, want, rtol=1e-4, atol=1e-4), (got - want).abs().max()
     else:
         assert_bf16_close(got, want, "mbconv")
-    if dtype == torch.bfloat16 and plan.path == "cluster":
+    if dtype == torch.bfloat16 and plan.path in ("cluster", "band"):
         differ = mbconv_expand_gate(x, folded, plan) != expand_gate_ref(x, folded)
         share = differ.flatten(1).float().mean(1).median().item()
         assert share <= 1e-3, share
 
 
 def test_mbconv_cases_reach_every_size():
-    """The cases above take every cluster size, 1 to 16, and the tiled
-    path, in each type."""
+    """The cases above take every cluster size, 1 to 16, the band form
+    (with bands of unequal rows, and without SE) and the tiled path, in
+    each type."""
     for dtype in (torch.float32, torch.bfloat16):
-        plans = [mbconv_case_plan(case, dtype) for case in MBCONV_CASES]
-        assert {p.cluster for p in plans if p.path == "cluster"} == {1, 2, 4, 8, 16}
-        assert any(p.path == "tiled" for p in plans)
+        plans = {case: mbconv_case_plan(case, dtype) for case in MBCONV_CASES}
+        assert {p.cluster for p in plans.values() if p.path == "cluster"} == {1, 2, 4, 8, 16}
+        band = [case for case, p in plans.items() if p.path == "band"]
+        assert {case for case in MBCONV_CASES if case.startswith("band")} == set(band)
+        assert any(MBCONV_CASES[case][1] % plans[case].bands for case in band)
+        assert any(MBCONV_CASES[case][6] == 0 for case in band)
+        assert any(p.path == "tiled" for p in plans.values())
 
 
 @pytest.mark.cuda
@@ -291,16 +307,22 @@ def test_mbconv_plan_matches_the_kernel(cuda, dtype):
     shapes = [(h, w, cin, cin * e, cout, max(1, int(cin * se)) if se > 0 else 0)
               for _, h, w, cin, cout, e, se in MBCONV_CASES.values()]
     shapes += [(16, 32, 128, 512, 128, 32), (16, 32, 128, 768, 160, 32),
-               (16, 32, 160, 960, 160, 40), (8, 16, 256, 1536, 256, 64)]
+               (16, 32, 160, 960, 160, 40), (8, 16, 256, 1536, 256, 64),
+               (16, 64, 128, 512, 128, 32), (16, 64, 128, 768, 160, 32),
+               (16, 64, 160, 960, 160, 40)]
     bf16 = dtype == torch.bfloat16
     for h, w, cin, cmid, cout, rd in shapes:
         plan = mbconv_plan(1, h, w, cin, cmid, cout, dtype, se_dim=rd)
-        if plan.path != "cluster":
+        if plan.path == "tiled":
             continue
-        assert lib.p4fr_mbconv_cluster_smem(h, w, cin, plan.width, plan.cluster, rd,
-                                            plan.warp_rows, int(bf16)) == plan.smem
-        assert cluster_query_mbconv(h, w, cin, plan.width, plan.cluster, rd, plan.warp_rows,
-                                    bf16)[0] >= 1
+        if plan.path == "band":
+            assert lib.p4fr_mbconv_band_smem(h, w, cin, plan.width, plan.cluster, rd,
+                                             plan.warp_rows, plan.m_tiles, plan.bands,
+                                             int(bf16)) == plan.smem
+        else:
+            assert lib.p4fr_mbconv_cluster_smem(h, w, cin, plan.width, plan.cluster, rd,
+                                                plan.warp_rows, int(bf16)) == plan.smem
+        assert plan_query(h, w, cin, rd, plan, bf16)[0] >= 1
 
 
 def check_decoder_layer_kernel(cuda, dtype, cache_outputs, hidden, heads):

@@ -19,6 +19,7 @@ from p4fr_tpu.ops.pallas import mbconv as jax_mbconv
 from p4fr_tpu_torch.models.efficientnetv2 import EfficientNetV2Blocks, MBConv
 from p4fr_tpu_torch.ops import _build
 from p4fr_tpu_torch.ops.mbconv import (
+    block_plan,
     fold_mbconv_params,
     fused_mbconv,
     fused_mbconv_chain,
@@ -105,6 +106,36 @@ def test_block_matches_jax_chain_and_composed(monkeypatch, in_chs, out_chs,
     with torch.no_grad():
         mod = block(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     np.testing.assert_allclose(mod.numpy(), composed, **TOL)
+
+
+def test_block_at_aster_width_matches_jax_chain_and_composed(monkeypatch):
+    """A 16x64 map, the width of EfficientASTER's stage-3 and stage-4 maps,
+    which the band form exists for (two bands of 8 rows on the card), at
+    narrow channels: 16 -> 96 -> 16 with SE and the residual. The port's
+    twin meets JAX's Pallas chain (interpret mode) and its composed flax
+    block, and the plan gives the shape the band form."""
+    rng = np.random.default_rng(64)
+    x = rng.normal(size=(2, 16, 64, 16)).astype(np.float32)
+    m = JaxMBConv(out_chs=16, expand_ratio=6, se_ratio=0.25, dtype=jnp.float32)
+    variables = _init(m, jnp.asarray(x), rng)
+    monkeypatch.setenv("P4FR_FUSED_MBCONV", "0")
+    composed = np.asarray(m.apply(variables, jnp.asarray(x), False))
+    chain = np.asarray(jax_mbconv.fused_mbconv_chain(
+        jnp.asarray(x),
+        [jax_mbconv.fold_mbconv_params(variables["params"],
+                                       variables["batch_stats"], jnp.float32)],
+        [True], 16, 64, interpret=True,
+    ))
+    block = load_flax_mbconv(MBConv(16, 16, 3, 1, 6, 0.25), variables["params"],
+                             variables["batch_stats"])
+    folded = fold_mbconv_params(block, torch.float32)
+    xt = torch.from_numpy(x)
+    assert block_plan(xt, folded).path == "band"
+    before = dict(_build.LAUNCHES)
+    got = fused_mbconv(xt, folded, residual=True).numpy()
+    assert _build.LAUNCHES == before  # CPU: the twin, no launch
+    np.testing.assert_allclose(got, chain, **TOL)
+    np.testing.assert_allclose(got, composed, **TOL)
 
 
 def _load_flax_blocks(blocks, params, stats):

@@ -4,7 +4,7 @@ and (kernel 6) where the sound kernel's error comes from.
 
     python3 tolerance_study.py [--kernel fused_greedy_step|swin_attention|
         decoder_layer|decoder_layer_v1|decoder_stack_v3|decoder_layer_int8|mbconv|
-        mbconv_tiled] [--shape satrn|swin|lite] [--seeds 0 1 2 3 4] [--faults]
+        mbconv_band|mbconv_tiled] [--shape satrn|swin|lite] [--seeds 0 1 2 3 4] [--faults]
 
 Needs one CUDA card; the kernels build from the checkout on first use.
 ``--shape swin`` runs kernel 6's part 1 (and the faults' copies) at
@@ -47,24 +47,35 @@ a code's x / scale from its tie, and each dtype's missed checks;
 part 3 plants the int8 faults (``roundf`` for ``rintf``, the k-scale not
 applied, the v-scale applied before the mass, the current slot read back
 quantized), in ``csrc/decoder_cluster.cuh``, the body kernel 3 runs. With
-``--kernel mbconv`` (kernel 2) part 1 runs ``chip_smoke.check_mbconv`` (the
-flagship's four stride-1 shapes at B=256 on the cluster path, and
-EfficientASTER's stage 4 on the tiled path) and prints per seed the bf16
-check's largest excess over the cast, its largest mean abs error, the
-largest median share of launch A's gated elements that differ from the
-twin's, and each dtype's missed checks; part 3 plants h2 rounded before the gate, the last
-rank's SE partial dropped from the exchange, the depthwise reading a row
-back after it was overwritten, the pooled mean left unrounded and the
-residual added after the cast, in ``csrc/mbconv.cu``. With ``--kernel
-mbconv_tiled`` (kernel 2's three-launch tiled form) part 1 runs
-``chip_smoke.check_mbconv`` at EfficientASTER's three tiled shapes (B=8) and
-prints per seed the f32 check's largest error, the bf16 check's largest
-excess over the cast, mean abs error and output share (``BF16_OUT_SHARE``),
-each dtype's missed checks, and phase 3f's gate: DeepCNN's f32 features at
-full width through the kernels against the plain blocks; part 3 plants h2
-rounded before the gate, the pooled mean left unrounded, the last tile's SE
-partial dropped, the depthwise reading a wrong halo row and the residual
-added after the cast, in ``csrc/mbconv_tiled.cu``. cuDNN's TF32 is off, as
+``--kernel mbconv`` (kernel 2's cluster form) part 1 runs
+``chip_smoke.check_mbconv`` on the cluster path (the flagship's four
+stride-1 shapes at B=256 and EfficientASTER's stage 5) and prints per seed
+the bf16 check's largest excess over the cast, its largest mean abs error,
+the largest median share of launch A's gated elements that differ from the
+twin's, and each dtype's missed checks; part 3 plants h2 rounded before the
+gate, the last rank's SE partial dropped from the exchange, the depthwise
+reading a row back after it was overwritten, the pooled mean left
+unrounded and the residual added after the cast, in ``csrc/mbconv.cu``.
+With ``--kernel mbconv_band`` (its band form) or ``mbconv_tiled`` (its
+three-launch tiled form) part 1 runs ``chip_smoke.check_mbconv`` with that
+form at EfficientASTER's three band shapes (B=8; the tiled form also on a
+block whose channels are not multiples of 8, f32) and prints per seed the
+f32 check's largest error, the bf16 check's largest excess over the cast,
+mean abs error and share (the band form's gated operand,
+``BF16_GATED_SHARE``; the tiled form's output, ``BF16_OUT_SHARE``), each
+dtype's missed checks, and phase 3f's gate: DeepCNN's f32 features at full
+width through the kernels against the plain blocks. Part 3 plants, in
+``csrc/mbconv.cu``'s band form: an inner halo row left at zero, band 0's
+channel sums dropped from the pooled mean, a spilled band read back without
+its wait and barrier, and h2 rounded to the activation type when spilled;
+in ``csrc/mbconv_tiled.cu``: h2 rounded before the gate, the pooled mean
+left unrounded, the last tile's SE partial dropped, the depthwise reading a
+wrong halo row and the residual added after the cast. The band form's part 1
+also prints launch A's bf16 time at B=256 per shape and its phase cycles
+(``TIME``), for the sound kernel and for each of its ``PROBES`` (the L2
+prefetch left out, each rank's K order rotated, the spill left out, the
+depthwise's SiLU left out, the x stream or the expand's products left
+out). cuDNN's TF32 is off, as
 in the smoke.
 
 1. ``chip_smoke.check_fused_step`` (B=256, full width, pos 0/1/115/230,
@@ -274,8 +285,31 @@ FAULTS = {
         "residual_after_cast": ("mbconv.cu", "for (int e = 0; e < 8; ++e) v[e] += rv[e];",
                                 "for (int e = 0; e < 8; ++e) v[e] = round_t<T>(v[e]) + rv[e];"),
     },
-    # kernel 2's three-launch tiled form (csrc/mbconv_tiled.cu), which
+    # kernel 2's band form (csrc/mbconv.cu::expand_gate_band), which
     # EfficientASTER's stage-3 and stage-4 blocks run
+    "mbconv_band": {
+        # the upper halo row of every band after the first left at zero
+        "halo_row_zero": (
+            "mbconv.cu",
+            "    if (BAND && y0 > 0) dw_row<LPC>(map, ldm, W, H, y0 - 1, c, g, gb, ra);",
+            "    if (false) dw_row<LPC>(map, ldm, W, H, y0 - 1, c, g, gb, ra);"),
+        # band 0's channel sums left out of the pooled mean
+        "band0_sums_dropped": ("mbconv.cu",
+                               "const float band_sums = first ? sum : vec[c] + sum;",
+                               "const float band_sums = first ? 0.f : vec[c] + sum;"),
+        # the spilled band read back into the map without the wait for its
+        # copies or the barrier after it
+        "read_back_unfenced": ("mbconv.cu",
+                               "        cp_async_wait(0);\n"
+                               "        __syncthreads();  // the band back in the map, for every thread\n",
+                               ""),
+        # h2 rounded to the activation type when it is spilled
+        "spill_rounded": ("mbconv.cu", "make_float4(lo.x, lo.y, hi.x, hi.y);",
+                          "make_float4(round_t<T>(lo.x), round_t<T>(lo.y), round_t<T>(hi.x),\n"
+                          "                          round_t<T>(hi.y));"),
+    },
+    # kernel 2's three-launch tiled form (csrc/mbconv_tiled.cu), the route of
+    # blocks whose channels are not multiples of 8
     "mbconv_tiled": {
         # h2 rounded to the activation type before the gate multiplies it
         "h2_rounded_before_gate": (
@@ -319,6 +353,34 @@ FAULTS = {
 # planted like the faults, but read for their time: what a part of the
 # kernel costs (kernel: {name: (file in csrc/, text, replacement, ...)})
 PROBES = {
+    # kernel 2's band form: what each part of launch A costs (the TIME line)
+    "mbconv_band": {
+        # no L2 prefetch of the next band's x rows
+        "no_l2_prefetch": ("mbconv.cu", "      if (rank == 0 && tid == 0) {",
+                           "      if (false) {"),
+        # each rank's K chunks in a rotated order (the ranks' reads apart)
+        "k_order_rotated": (
+            "mbconv.cu", "const int k = pkc * KC + (tid % PPX) * EPV;",
+            "const int k = ((pkc + rank) % nk) * KC + (tid % PPX) * EPV;",
+            "pws + kc * KC * L.ldw, L.ldw, wmi, wni, wm, wn, lane, mt);",
+            "pws + ((kc + rank) % nk) * KC * L.ldw, L.ldw, wmi, wni, wm, wn, lane, mt);"),
+        # band 0's spill never stored (wrong output): the spill's cost
+        "no_spill": ("mbconv.cu",
+                     "for (int i = ns_items * kc / nk + tid; i < ns_items * (kc + 1) / nk; i += NT) {",
+                     "for (int i = 0; i < 0; i += NT) {"),
+        # the depthwise's SiLU left out (wrong output): the SFU's share
+        "depthwise_no_silu": ("mbconv.cu",
+                              "      const float v = silu(fmaf(t0 + t1 + t2, s2, b2));",
+                              "      const float v = fmaf(t0 + t1 + t2, s2, b2);"),
+        # the x stream never loaded (wrong output): the ring's barriers,
+        # the products and the epilogue alone
+        "expand_no_loads": ("mbconv.cu",
+                            "        cp_async16(xs + px * LDX + (tid % PPX) * EPV,",
+                            "        if (false) cp_async16(xs + px * LDX + (tid % PPX) * EPV,"),
+        # the expand's products left out (wrong output)
+        "expand_no_mma": ("mbconv.cu", "          expand_chunk<MPW, NPW, true>(",
+                          "          if (false) expand_chunk<MPW, NPW, true>("),
+    },
     "swin_attention": {
         # bias and mask never read (wrong output): the time of everything else
         "no_tables": (
@@ -418,14 +480,15 @@ def int8_readings(dev, seeds, shape):
 
 
 def mbconv_readings(dev, seeds):
-    """Kernel 2: per seed the bf16 check's largest excess over the cast,
-    largest mean abs error and largest gated share (launch A's operand
-    against the twin's) over the shapes, and each dtype's missed checks."""
+    """Kernel 2's cluster form: per seed the bf16 check's largest excess
+    over the cast, largest mean abs error and largest gated share (launch
+    A's operand against the twin's) over its shapes, and each dtype's missed
+    checks."""
     for seed in seeds:
         missed, r = {}, {}
         for dt in (torch.float32, torch.bfloat16):
             misses = []
-            r = cs.check_mbconv(dev, dt, {}, misses, seed)
+            r = cs.check_mbconv(dev, dt, {}, misses, seed, paths=("cluster",))
             missed[dt] = len(misses)
         print(f"READING seed {seed}: bf16 beyond the cast {r['excess']:.3e}; mean abs "
               f"{r['mean']:.3e}; gated share {r['share']:.3e}; missed "
@@ -434,21 +497,53 @@ def mbconv_readings(dev, seeds):
               flush=True)
 
 
-def tiled_readings(dev, seeds):
-    """Kernel 2's tiled form: per seed the f32 check's largest error and the
-    bf16 check's largest excess over the cast, mean abs error and output
-    share at EfficientASTER's three tiled shapes (B=8), and each dtype's
-    missed checks; then phase 3f's gate: DeepCNN's f32 features at full
-    width (B=32, 256x1024) through the kernels against the plain blocks,
+def band_launch_a_time(dev):
+    """Launch A of kernel 2's band form, bf16, at EfficientASTER's band shapes
+    (B=256, ``chip_smoke.cuda_ms``), with a traced pass's CTA 0 cycles an
+    image at the last of them, stage 4 tail (images 1-7): the TIME line."""
+    from p4fr_tpu_torch.ops.mbconv import (
+        block_plan,
+        fold_mbconv_params,
+        mbconv_expand_gate,
+        read_trace,
+    )
+
+    bf, gen, out = torch.bfloat16, torch.Generator().manual_seed(cs.SEED + 26), []
+    shapes = [shape for shape in cs.MBCONV_ASTER if shape[7] == "band"]
+    for name, h, w, cin, cout, expand, _, _ in shapes:
+        folded = fold_mbconv_params(cs.mbconv_block(cin, cout, expand, gen, dev).to(bf), bf)
+        x = torch.randn(cs.E2E_TIME_BATCH, h, w, cin, generator=gen).to(dev, bf)
+        plan = block_plan(x, folded)
+        out.append(f"{name} {cs.cuda_ms(lambda: mbconv_expand_gate(x, folded, plan), iters=5):.4f}")
+    mbconv_expand_gate(x, folded, plan, trace=True)
+    torch.cuda.synchronize()
+    tr = read_trace()
+    cycles = [int((tr[1:8, i + 1] - tr[1:8, i]).mean()) for i in range(6)]
+    cycles.append(int((tr[2:9, 0] - tr[1:8, 6]).mean()))
+    return (f"launch A ms at B={cs.E2E_TIME_BATCH}: " + ", ".join(out)
+            + f"; {name} CTA 0 cycles an image (band 0 expand, depthwise, band 1 "
+            f"expand, depthwise, SE, band 1 written, band 0 back and written): {cycles}")
+
+
+def aster_form_readings(dev, seeds, form):
+    """Kernel 2's band or tiled form: per seed the f32 check's largest error
+    and the bf16 check's largest excess over the cast, mean abs error and
+    share (the band form's gated operand; the tiled form's output,
+    ``BF16_OUT_SHARE``) at EfficientASTER's three band shapes (B=8; the
+    tiled form also on ``MBCONV_RAGGED`` in f32), and each dtype's missed
+    checks; then phase 3f's gate: DeepCNN's f32 features at full width
+    (B=32, 256x1024) through the kernels against the plain blocks,
     relative to their largest value."""
     from p4fr_tpu_torch.infer.single import encode_images
 
     model, _, _, _ = cs.load_path_model(cs.build_aster_checkpoint(), dev)
+    share = "share" if form == "band" else "out_share"
+    n = sum(path == "band" for *_, path in cs.MBCONV_ASTER)
     for seed in seeds:
         missed, r, errors = {}, {}, {}
         for dt in (torch.float32, torch.bfloat16):
             misses = []
-            r = cs.check_mbconv(dev, dt, errors, misses, seed, paths=("tiled",))
+            r = cs.check_mbconv(dev, dt, errors, misses, seed, paths=(form,))
             missed[dt] = len(misses)
         images = cs.u8_images(torch.Generator().manual_seed(seed + 22), cs.E2E_CHECK_BATCH,
                               cs.ASTER_H, cs.ASTER_W, dev)
@@ -459,12 +554,14 @@ def tiled_readings(dev, seeds):
         hook.remove()
         feat_k, feat_p = features
         rel = ((feat_k - feat_p).abs().max() / feat_p.abs().max()).item()
-        n = sum(path == "tiled" for *_, path in cs.MBCONV_ASTER)
-        print(f"READING seed {seed}: f32 max abs {errors['mbconv_tiled']:.3e}; bf16 beyond "
-              f"the cast {r['excess']:.3e}; mean abs {r['mean']:.3e}; out share "
-              f"{r['out_share']:.3e}; missed {missed[torch.bfloat16]} bf16 and "
-              f"{missed[torch.float32]} f32 of {n} checks each; DeepCNN f32 features "
-              f"relative {rel:.3e} (gate {cs.TOL_ASTER_FEATURES_F32:.0e})", flush=True)
+        print(f"READING seed {seed}: f32 max abs {errors[f'mbconv_{form}']:.3e}; bf16 beyond "
+              f"the cast {r['excess']:.3e}; mean abs {r['mean']:.3e}; {share.replace('_', ' ')} "
+              f"{r[share]:.3e}; missed {missed[torch.bfloat16]} bf16 and "
+              f"{missed[torch.float32]} f32 of {n} checks each (the tiled form: {n + 1} in f32); "
+              f"DeepCNN f32 features relative {rel:.3e} (gate {cs.TOL_ASTER_FEATURES_F32:.0e})",
+              flush=True)
+    if form == "band":
+        print(f"TIME kernel 2's band form, bf16, {band_launch_a_time(dev)}", flush=True)
 
 
 def readings(dev, seeds, shape):
@@ -645,8 +742,8 @@ def main(argv=None):
             swin_readings(dev, args.seeds)
         elif args.kernel == "mbconv":
             mbconv_readings(dev, args.seeds)
-        elif args.kernel == "mbconv_tiled":
-            tiled_readings(dev, args.seeds)
+        elif args.kernel in ("mbconv_band", "mbconv_tiled"):
+            aster_form_readings(dev, args.seeds, args.kernel[len("mbconv_"):])
         elif args.kernel in LAYER_CHECKS:
             layer_readings(dev, args.seeds, args.kernel, SHAPES[args.shape])
         elif args.kernel == "decoder_layer_int8":
