@@ -53,6 +53,7 @@ from p4fr_tpu_torch.decoding.fast_step import (
     precompute_cross_kv,
 )
 from p4fr_tpu_torch.ops.beam_gather import beam_parent_gather, beam_parent_gather_ref
+from p4fr_tpu_torch.utils import tracing
 
 NEG_INF = -1e9
 
@@ -231,13 +232,15 @@ def beam_search(decoder, src: torch.Tensor, *, max_steps: int,
         raise ValueError("stop_override requires early_stop=True (the "
                          "fixed-length loop would ignore the stop steps)")
     batch, width, dev = src.shape[0], beam_width, src.device
-    stepper = beam_stepper(decoder, src, width, max_steps, plain, plain_gather)
-    token = torch.full((batch * width,), sos_id, dtype=torch.int64, device=dev)
-    state = init_beam_state(batch, width, dev)
-    tokens = torch.full((max_steps, batch, width), pad_id, dtype=torch.int64,
-                        device=dev)
-    parents = torch.arange(width, device=dev).expand(max_steps, batch, width).clone()
-    for t in range(max_steps):
+    with tracing.span("decode.prepare"):
+        stepper = beam_stepper(decoder, src, width, max_steps, plain, plain_gather)
+        token = torch.full((batch * width,), sos_id, dtype=torch.int64, device=dev)
+        state = init_beam_state(batch, width, dev)
+        tokens = torch.full((max_steps, batch, width), pad_id, dtype=torch.int64,
+                            device=dev)
+        parents = torch.arange(width, device=dev).expand(max_steps, batch, width).clone()
+    steps = max_steps
+    for t in tracing.steps(max_steps):
         logp = step_logp(stepper, token, t)
         scores, parent, new = pick(candidates(state, logp, pad_id), width,
                                    logp.shape[-1])
@@ -249,8 +252,10 @@ def beam_search(decoder, src: torch.Tensor, *, max_steps: int,
             if stop_override is not None:
                 state = state._replace(
                     finished=state.finished | (t >= stop_override)[:, None])
-            if bool(state.finished.all()):
+            if tracing.stop_check(state.finished):
+                steps = t + 1
                 break
+    tracing.count("steps", steps)
     return BeamTrace(tokens, parents, state)
 
 

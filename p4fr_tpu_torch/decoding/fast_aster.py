@@ -24,6 +24,7 @@ import torch
 
 from p4fr_tpu_torch.decoding import manager as dm
 from p4fr_tpu_torch.decoding.greedy import greedy_loop
+from p4fr_tpu_torch.utils import tracing
 
 
 class FastAsterCell(NamedTuple):
@@ -116,6 +117,8 @@ def fast_aster_greedy(fast: FastAster, src: torch.Tensor, *, max_steps: int,
                       stop_override: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy decode of encoder memory ``src`` [B, L, C] over the fused step
     -> [B, max_steps] int64 tokens (``greedy.greedy_loop``'s options)."""
-    return greedy_loop(aster_step(fast, src), src.shape[0], max_steps=max_steps,
+    with tracing.span("decode.prepare"):
+        step = aster_step(fast, src)
+    return greedy_loop(step, src.shape[0], max_steps=max_steps,
                        sos_id=sos_id, device=src.device, tables=tables,
                        early_stop_eos=early_stop_eos, stop_override=stop_override)

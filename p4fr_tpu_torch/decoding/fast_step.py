@@ -49,6 +49,7 @@ from p4fr_tpu_torch.ops.decoder_layer import (  # noqa: F401  (quantize_rows)
 )
 from p4fr_tpu_torch.ops.decoder_layer_v1 import decoder_layer_step_v1
 from p4fr_tpu_torch.ops.decoder_stack_v3 import decoder_stack_step_v3, stack_fast_layers
+from p4fr_tpu_torch.utils import tracing
 
 
 class FastDecoder(NamedTuple):
@@ -287,8 +288,9 @@ def greedy_decode(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
     """
     if use_v1 and (plain or use_jnp):
         raise ValueError("use_v1 picks a kernel; plain and use_jnp run none")
-    cross_kv, cache = decode_buffers(fast, src, max_steps, kv_quant=kv_quant,
-                                     dequantize=use_v1 or use_jnp)
+    with tracing.span("decode.prepare"):
+        cross_kv, cache = decode_buffers(fast, src, max_steps, kv_quant=kv_quant,
+                                         dequantize=use_v1 or use_jnp)
 
     def step(token, t):
         if use_v1:

@@ -30,6 +30,7 @@ from p4fr_tpu_torch.ops.fused_decode import (
     fused_greedy_step,
     fused_greedy_step_ref,
 )
+from p4fr_tpu_torch.utils import tracing
 
 
 def fused_buffers(fast: FastDecoder, src: torch.Tensor, sos_id: int, steps: int):
@@ -61,31 +62,36 @@ def fused_greedy_decode(fast: FastDecoder, src: torch.Tensor, *, max_steps: int,
         raise ValueError("stop_override requires early_stop_eos (the "
                          "fixed-length loop would ignore the stop steps)")
     refuse_sharded(fast, "fused_greedy_decode")
-    params = build_fused_params(
-        fast, tables, max_steps=max_steps, vocab_size=vocab_size, sos_id=sos_id,
-        eos_id=tables.eos_id if tables is not None else 0)
     step = fused_greedy_step_ref if plain else fused_greedy_step
     use_manager = tables is not None
-    cross, caches, token, mstate = fused_buffers(fast, src, sos_id, max_steps)
+    with tracing.span("decode.prepare"):
+        params = build_fused_params(
+            fast, tables, max_steps=max_steps, vocab_size=vocab_size, sos_id=sos_id,
+            eos_id=tables.eos_id if tables is not None else 0)
+        cross, caches, token, mstate = fused_buffers(fast, src, sos_id, max_steps)
     if early_stop_eos is None:
         out = []
-        for t in range(max_steps):
+        for t in tracing.steps(max_steps):
             token, caches, mstate, _ = step(token, t, caches, cross, mstate,
                                             params, use_manager=use_manager)
             out.append(token)
+        tracing.count("steps", max_steps)
         return torch.stack(out, dim=1).long()
     out = torch.full((src.shape[0], max_steps), early_stop_eos, dtype=torch.int64,
                      device=src.device)
     done = torch.zeros(src.shape[0], dtype=torch.bool, device=src.device)
-    for t in range(max_steps):
+    steps = max_steps
+    for t in tracing.steps(max_steps):
         token, caches, mstate, _ = step(token, t, caches, cross, mstate, params,
                                         use_manager=use_manager)
         out[:, t] = torch.where(done, early_stop_eos, token.long())
         done = done | (token == early_stop_eos)
         if stop_override is not None:
             done = done | (t >= stop_override)
-        if bool(done.all()):
+        if tracing.stop_check(done):
+            steps = t + 1
             break
+    tracing.count("steps", steps)
     return out
 
 

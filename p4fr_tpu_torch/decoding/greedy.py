@@ -3,8 +3,8 @@
 ``greedy_loop`` is the loop every greedy path of the port runs: a step
 function ``step(token, t) -> [B, V]`` scores, then the DecodingManager's
 ``sift`` (or argmax without rule tables) picks, with an optional early
-stop once every row has emitted ``<EOS>`` (one host sync a step, for
-``done.all()``). ``module_step`` is a model's own step
+stop once every row has emitted ``<EOS>`` (one host sync a step,
+``utils/tracing.py::stop_check``). ``module_step`` is a model's own step
 (``model.decode_step`` over ``model.precompute_src`` and
 ``model.init_decode_cache``), the step beam search and the ensemble take
 under ``generic``; ``make_greedy_fn`` drives ``greedy_loop`` over it: the
@@ -19,6 +19,7 @@ from typing import Callable, Optional
 import torch
 
 from p4fr_tpu_torch.decoding import manager as dm
+from p4fr_tpu_torch.utils import tracing
 
 
 def greedy_loop(step: Callable[[torch.Tensor, int], torch.Tensor], batch: int, *,
@@ -46,7 +47,8 @@ def greedy_loop(step: Callable[[torch.Tensor, int], torch.Tensor], batch: int, *
     fill = early_stop_eos if early_stop_eos is not None else 0
     out = torch.full((batch, max_steps), fill, dtype=torch.int64, device=device)
     done = torch.zeros(batch, dtype=torch.bool, device=device)
-    for t in range(max_steps):
+    steps = max_steps
+    for t in tracing.steps(max_steps):
         scores = step(token, t)
         if tables is not None:
             target, scores, mstate = dm.sift(mstate, scores, tables)
@@ -61,9 +63,11 @@ def greedy_loop(step: Callable[[torch.Tensor, int], torch.Tensor], batch: int, *
             done = done | (target == early_stop_eos)
             if stop_override is not None:
                 done = done | (t >= stop_override)
-            if bool(done.all()):
+            if tracing.stop_check(done):
+                steps = t + 1
                 break
         token = target
+    tracing.count("steps", steps)
     return out
 
 
@@ -100,7 +104,9 @@ def make_greedy_fn(model, *, max_steps: int,
         src = inputs if from_memory else model.encode(inputs, plain=plain)
         batch = src.shape[0]
         outputs = [] if return_outputs else None
-        tokens = greedy_loop(module_step(model, src, batch, max_steps), batch,
+        with tracing.span("decode.prepare"):
+            step = module_step(model, src, batch, max_steps)
+        tokens = greedy_loop(step, batch,
                              max_steps=max_steps, sos_id=model.sos_id,
                              device=src.device, tables=tables,
                              early_stop_eos=early_stop_eos,

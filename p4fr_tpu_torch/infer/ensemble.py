@@ -58,6 +58,7 @@ from p4fr_tpu_torch.infer.single import (
     loader_shard,
     resize_feed,
 )
+from p4fr_tpu_torch.utils import tracing
 
 
 def _member_step(model, fast, memory: torch.Tensor, steps: int, kernel: str,
@@ -111,7 +112,8 @@ def ensemble_decode(members: Sequence[Tuple], memories: Sequence[torch.Tensor], 
     """Joint greedy decode of the members -> [B, max_steps] int64 tokens
     (``greedy.greedy_loop`` over ``ensemble_step``): the counterpart of
     JAX's ``make_ensemble_decode_fn``, the weights being the modules' own."""
-    step = ensemble_step(members, memories, max_steps, kernel=kernel)
+    with tracing.span("decode.prepare"):
+        step = ensemble_step(members, memories, max_steps, kernel=kernel)
     mem = memories[0]
     return greedy_loop(step, mem.shape[0], max_steps=max_steps,
                        sos_id=members[0][0].sos_id, device=mem.device, tables=tables,
@@ -162,15 +164,18 @@ def run_ensemble(checkpoint_paths: Sequence[str], file_path: str, output_dir: st
                for options in loader_options]
     num_steps = max_sequence + 1  # reference ensemble num_steps
 
+    @tracing.entry("run_ensemble")
     def decode(images, orig_hw=None):
-        """``images``: the shared canvas (with ``orig_hw``), or each member's feed."""
+        """``images``: the shared canvas (with ``orig_hw``), or each member's
+        feed. Each call opens one record of ``utils/tracing.py``."""
         if orig_hw is not None:
             images = [resize_feed(model, options, images, orig_hw)
                       for (model, _), options in zip(members, options_list)]
         memories = [encode_images(model, feed) for (model, _), feed in zip(members, images)]
-        return ensemble_decode(
-            members, memories, max_steps=num_steps, tables=tables,
-            early_stop_eos=vocab.eos_id if early_stop else None, kernel=kernel)
+        with tracing.span("decode"):
+            return ensemble_decode(
+                members, memories, max_steps=num_steps, tables=tables,
+                early_stop_eos=vocab.eos_id if early_stop else None, kernel=kernel)
 
     if mesh is not None:
         from p4fr_tpu_torch.parallel.sharding import make_sharded_infer_fn

@@ -56,6 +56,7 @@ from p4fr_tpu_torch.decoding.greedy import make_greedy_fn
 from p4fr_tpu_torch.decoding.fused_greedy import fused_greedy_decode
 from p4fr_tpu_torch.decoding.manager import RuleTables
 from p4fr_tpu_torch.ops.preprocess import resize_standardize, standardize, standardize_ref
+from p4fr_tpu_torch.utils import tracing
 from p4fr_tpu_torch.utils.checkpoint import load_model_from_checkpoint
 
 
@@ -77,10 +78,13 @@ def encode_images(model, images: torch.Tensor, *, plain: bool = False
     """[B, H, W, C] -> encoder memory [B, S, C] in the model's dtype. A u8
     feed is standardized first (kernel 1 on the card); a floating feed is
     taken as standardized already (the host-normalized feed, or
-    ``resize_standardize``'s output) and only cast to the model's type."""
-    if images.dtype == torch.uint8:
-        images = (standardize_ref if plain else standardize)(images, out_dtype=model.dtype)
-    return model.encode(images.to(model.dtype), plain=plain)
+    ``resize_standardize``'s output) and only cast to the model's type.
+    The span ``encode`` (``utils/tracing.py``)."""
+    with tracing.span("encode"):
+        if images.dtype == torch.uint8:
+            with tracing.span("encode.standardize"):
+                images = (standardize_ref if plain else standardize)(images, out_dtype=model.dtype)
+        return model.encode(images.to(model.dtype), plain=plain)
 
 
 def input_hw(options) -> Tuple[int, int]:
@@ -96,6 +100,7 @@ def resize_feed(model, options, canvas: torch.Tensor, orig_hw: torch.Tensor
 
 
 @torch.no_grad()
+@tracing.entry("decode_images")
 def decode_images(model, fast, images: torch.Tensor,
                   tables: Optional[RuleTables], steps: int, *,
                   early_stop_eos: Optional[int] = None,
@@ -118,7 +123,8 @@ def decode_images(model, fast, images: torch.Tensor,
     it. ``kv_quant`` ("int8", "int8_cache"; not with "fused" or ASTER) as
     ``greedy_decode`` takes it. With ``plain=True``
     every kernel's plain twin (and the composed MBConv modules) runs
-    instead, on whatever device the tensors are on.
+    instead, on whatever device the tensors are on. Each call opens one
+    record of ``utils/tracing.py``.
     """
     if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r}")
@@ -128,18 +134,19 @@ def decode_images(model, fast, images: torch.Tensor,
     src = encode_images(model, images, plain=plain)
     loop = dict(max_steps=steps, sos_id=model.sos_id, tables=tables,
                 early_stop_eos=early_stop_eos, stop_override=stop_override)
-    if isinstance(fast, FastAster):
-        if kernel == "generic":
-            return make_greedy_fn(model, max_steps=steps, tables=tables,
-                                  from_memory=True, return_outputs=False,
-                                  early_stop_eos=early_stop_eos
-                                  )(src, stop_override=stop_override)
-        return fast_aster_greedy(fast, src, **loop)
-    kw = dict(loop, plain=plain)
-    if kernel == "fused":
-        return fused_greedy_decode(fast, src, vocab_size=model.num_classes, **kw)
-    return greedy_decode(fast, src, use_jnp=kernel in ("jnp", "generic"),
-                         kv_quant=kv_quant, **kw)
+    with tracing.span("decode"):
+        if isinstance(fast, FastAster):
+            if kernel == "generic":
+                return make_greedy_fn(model, max_steps=steps, tables=tables,
+                                      from_memory=True, return_outputs=False,
+                                      early_stop_eos=early_stop_eos
+                                      )(src, stop_override=stop_override)
+            return fast_aster_greedy(fast, src, **loop)
+        kw = dict(loop, plain=plain)
+        if kernel == "fused":
+            return fused_greedy_decode(fast, src, vocab_size=model.num_classes, **kw)
+        return greedy_decode(fast, src, use_jnp=kernel in ("jnp", "generic"),
+                             kv_quant=kv_quant, **kw)
 
 
 def beam_kernel(kernel: str) -> str:
@@ -150,6 +157,7 @@ def beam_kernel(kernel: str) -> str:
 
 
 @torch.no_grad()
+@tracing.entry("beam_decode_images")
 def beam_decode_images(model, fast, images: torch.Tensor, steps: int, *,
                        beam_width: int, eos_id: int, early_stop: bool = False,
                        stop_override: Optional[torch.Tensor] = None,
@@ -162,18 +170,20 @@ def beam_decode_images(model, fast, images: torch.Tensor, steps: int, *,
     ``fast`` (``build_fast(model)``) or, with ``kernel="generic"``, the
     model's module step. ``beam_gather``: "auto" or "pallas" reorder the
     parent beams' caches through kernel 4, "jnp" through its plain version
-    (every other kernel unchanged)."""
+    (every other kernel unchanged). Each call opens one record of
+    ``utils/tracing.py``."""
     if beam_gather not in BEAM_GATHERS:
         raise ValueError(f"beam_gather {beam_gather!r}")
-    trace = beam_search(
-        model if kernel == "generic" else fast,
-        encode_images(model, images, plain=plain), max_steps=steps,
-        beam_width=beam_width, sos_id=model.sos_id, eos_id=eos_id,
-        pad_id=model.pad_id, early_stop=early_stop,
-        stop_override=stop_override, plain=plain,
-        plain_gather=beam_gather == "jnp",
-    )
-    return best_tokens(trace)
+    src = encode_images(model, images, plain=plain)
+    with tracing.span("decode"):
+        trace = beam_search(
+            model if kernel == "generic" else fast, src, max_steps=steps,
+            beam_width=beam_width, sos_id=model.sos_id, eos_id=eos_id,
+            pad_id=model.pad_id, early_stop=early_stop,
+            stop_override=stop_override, plain=plain,
+            plain_gather=beam_gather == "jnp",
+        )
+        return best_tokens(trace)
 
 
 def canvas_for(paths, round_to: int = 8) -> Tuple[int, int]:

@@ -49,6 +49,7 @@ from torch import nn
 from p4fr_tpu_torch.models.batchnorm import BatchNorm2d
 from p4fr_tpu_torch.models.efficientnetv2 import BN_EPS, V2_S_STAGES, EfficientNetV2Blocks
 from p4fr_tpu_torch.ops.lstm import BiLSTM, TorchLSTMCell
+from p4fr_tpu_torch.utils import tracing
 
 TAIL_BN_EPS = 1e-5  # the reference's plain nn.BatchNorm2d (EfficientASTER.py:68)
 TAIL_CHANNELS = 384
@@ -119,8 +120,10 @@ class ASTEREncoder(nn.Module):
         self.proj = nn.Linear(2 * hidden_dim, hidden_dim)
 
     def forward(self, images: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        x = self.cnn(images.permute(0, 3, 1, 2).contiguous(), plain)
-        return self.proj(self.blstm(x))
+        with tracing.span("encode.backbone"):
+            x = self.cnn(images.permute(0, 3, 1, 2).contiguous(), plain)
+        with tracing.span("encode.layers"):
+            return self.proj(self.blstm(x))
 
 
 class AttentionCell(nn.Module):

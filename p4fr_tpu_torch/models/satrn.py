@@ -41,6 +41,7 @@ from p4fr_tpu_torch.models.common import DecodeContract, TransformerDecoder
 from p4fr_tpu_torch.models.efficientnetv2 import EfficientNetV2Backbone
 from p4fr_tpu_torch.ops.attention import MultiHeadAttention
 from p4fr_tpu_torch.ops.posenc import sinusoid_concat
+from p4fr_tpu_torch.utils import tracing
 
 ENC_BN_EPS = 1e-5
 LN_EPS = 1e-5
@@ -163,10 +164,12 @@ class SATRNEncoder(nn.Module):
 
     def forward(self, images: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """images [B, H, W, C] standardized -> [B, HW, C]."""
-        x = self.shallow_cnn(images.permute(0, 3, 1, 2).contiguous(), plain)
-        x = self.positional_encoding(x.permute(0, 2, 3, 1))
-        for layer in self.attention_layers:
-            x = layer(x)
+        with tracing.span("encode.backbone"):
+            x = self.shallow_cnn(images.permute(0, 3, 1, 2).contiguous(), plain)
+        with tracing.span("encode.layers"):
+            x = self.positional_encoding(x.permute(0, 2, 3, 1))
+            for layer in self.attention_layers:
+                x = layer(x)
         b, h, w, c = x.shape
         return x.reshape(b, h * w, c)
 

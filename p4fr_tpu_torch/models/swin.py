@@ -47,6 +47,7 @@ from p4fr_tpu_torch.ops.swin_attention import (
     fused_window_attention,
     fused_window_attention_ref,
 )
+from p4fr_tpu_torch.utils import tracing
 
 LN_EPS = 1e-5
 SHIFT_MASK_FILL = -100.0
@@ -286,12 +287,14 @@ class SwinEncoder(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, images: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        x = self.patch_embed(images)
-        if self.absolute_pos_embed is not None:
-            x = x + self.absolute_pos_embed
-        for stage in self.layers:
-            x = stage(x, plain)
-        return self.norm(x)
+        with tracing.span("encode.backbone"):
+            x = self.patch_embed(images)
+            if self.absolute_pos_embed is not None:
+                x = x + self.absolute_pos_embed
+            for stage in self.layers:
+                x = stage(x, plain)
+        with tracing.span("encode.layers"):
+            return self.norm(x)
 
 
 class SwinTRN(DecodeContract, nn.Module):

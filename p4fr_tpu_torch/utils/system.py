@@ -3,16 +3,15 @@
 The reference's GPU and RAM status prints (reference: utils/utils.py:98-130)
 on the port's devices, and a ``torch.profiler`` trace context for
 performance work that writes a Chrome trace (the JAX package's writes an
-xprof trace).
+xprof trace), which holds the program's spans (``utils/tracing.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from datetime import datetime
-from typing import Dict, Iterator, Optional
+from typing import Iterator
 
 import torch
 
@@ -76,28 +75,3 @@ def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
-
-class StepTimer:
-    """Rolling step-time / throughput counter for training loops."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self.times = []
-        self.last: Optional[float] = None
-
-    def tick(self) -> None:
-        now = time.perf_counter()
-        if self.last is not None:
-            self.times.append(now - self.last)
-            if len(self.times) > self.window:
-                self.times.pop(0)
-        self.last = now
-
-    def stats(self, items_per_step: int = 1) -> Dict[str, float]:
-        if not self.times:
-            return {"step_ms": 0.0, "items_per_sec": 0.0}
-        mean = sum(self.times) / len(self.times)
-        return {
-            "step_ms": mean * 1000.0,
-            "items_per_sec": items_per_step / mean if mean else 0.0,
-        }

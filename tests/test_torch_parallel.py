@@ -33,8 +33,7 @@ package's ``parallel/``, on the CPU.
     equal JAX's ``make_tp_infer_fn``; a kernel path under tensor
     parallelism raises;
 - NCCL with more ranks on a host than cards raises;
-- ``utils/system.py``: ``StepTimer``, a CPU ``profile_trace`` file, the
-  prints.
+- ``utils/system.py``: a CPU ``profile_trace`` file, the prints.
 """
 
 import json
@@ -265,13 +264,6 @@ def test_nccl_refuses_more_ranks_than_cards(monkeypatch):
 
 
 def test_system_utils(tmp_path, capsys):
-    timer = system.StepTimer(window=2)
-    assert timer.stats() == {"step_ms": 0.0, "items_per_sec": 0.0}
-    for _ in range(4):
-        timer.tick()
-    assert len(timer.times) == 2
-    stats = timer.stats(items_per_step=8)
-    assert stats["step_ms"] > 0 and stats["items_per_sec"] > 0
     with system.profile_trace(str(tmp_path / "trace")) as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
     assert any("mm" in e.key for e in prof.key_averages())
